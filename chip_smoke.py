@@ -6,30 +6,44 @@
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero:
 
-1. build   -- compile kernel K1 (csrc/fused_v2.cu) with nvcc from the
-              sources in this checkout; print the card's name and power
-              limit.
-2. kernel  -- K1 against its plain-PyTorch twin on the card at the
-              flagship tile (B=131072 rows x C=1024 slots x 2 nich
-              columns, state built from the flagship data): equal draws in
-              'argmax', 'argmax_fast', 'gumbel_host' and 'cdf_host' (near
-              ties counted and bounded), stat sums within tolerance,
-              slot-frequency z-tests against the softmax of
-              mixture.score_batch for the in-kernel-RNG modes, bitwise
-              repeatability, a ragged C=1000 x B=3000 case, and median
-              kernel and twin milliseconds per mode.
-3. main    -- the port's run_gibbs(use_pallas=True, sampling='gumbel') in
-              the flagship runner configuration (1,048,576 rows x 1024
-              slots x 2 nich, Pitman-Yor, tiles of 131072 rows, warm start
-              from the generating labels); K1's launch count must equal
-              tiles x sweeps.  Then one run_sweeps_pallas_fused call and
-              one plain sweep_blocked sweep at the same size, a
-              small-input check of the kernel path against the CPU twin
-              path, and a profile of one fused sweep.
-4. kernels -- one line listing each ported kernel.
+1. build      -- compile the kernels K1 (csrc/fused_v2.cu) and K2
+                 (csrc/fused_v3.cu) with nvcc from the sources in this
+                 checkout, both compilers started together; print the
+                 card's name and power limit.
+2. kernel     -- K1 against its plain-PyTorch twin on the card at the
+                 flagship tile (B=131072 rows x C=1024 slots x 2 nich
+                 columns, state built from the flagship data): equal draws
+                 in 'argmax', 'argmax_fast', 'gumbel_host' and 'cdf_host'
+                 (near ties counted and bounded), stat sums within
+                 tolerance, slot-frequency z-tests against the softmax of
+                 mixture.score_batch for the in-kernel-RNG modes, bitwise
+                 repeatability, a ragged C=1000 x B=3000 case, and median
+                 kernel and twin milliseconds per mode.
+3. kernel_k2  -- the same for K2 at one tile of B=65536 x C=1024 in two
+                 layouts, niw2mix (niw d=2 + nich + bb) and bbddgp
+                 (bb + dd + gp, no nich block), with the count tables
+                 exactly equal; the ragged case is niw d=3 + nich + bb.
+4. small_reference, small_reference_mixed -- the kernel path on the card
+                 against the twin path on the CPU, draw for draw in a
+                 3-sweep 'argmax' run of a small problem.
+5. main       -- run_gibbs(use_pallas=True, sampling='gumbel') in the
+                 flagship runner configuration (1,048,576 rows x 1024
+                 slots x 2 nich, Pitman-Yor, tiles of 131072 rows, warm
+                 start from the generating labels); K1's launch count must
+                 equal tiles x sweeps.  Then one run_sweeps_pallas_fused
+                 call and one plain sweep_blocked sweep at the same size,
+                 and a profile of one fused sweep.
+6. main_mixed -- the same runner on niw2mix at 1,048,576 rows x 1024
+                 slots, tiles of 65536 rows; K2's launch count must equal
+                 tiles x sweeps.  Then one plain sweep and the profile of
+                 one fused sweep.
+7. kernels    -- one line listing each ported kernel with its launches on
+                 its main path, its time, its twin's time and its bound.
 
-The last line is {"ok": true, "device": {...}}.  There is no CPU path: the
-script fails when torch.cuda.is_available() is false.
+The entry points are called without a device, so they run on the package's
+default device, the card.  The last line is {"ok": true, "device": {...}}.
+There is no CPU path: the script fails when torch.cuda.is_available() is
+false.
 """
 
 import json
@@ -45,9 +59,12 @@ ROWS = 1048576
 SLOTS = 1024
 FEATURES = 2
 BLOCK = 131072
+# the mixed path's tile (profile_mixed.py)
+BLOCK_MIXED = 65536
+TRUE_CLUSTERS = SLOTS // 8 * 7
 SHARED = {'mu': 0., 'kappa': 0.1, 'sigmasq': 0.01, 'nu': 1.}
 PY = {'alpha': 1.0, 'd': 0.1}
-STEPS = 4
+STEPS = 2
 SWEEPS_PER_STEP = 10
 # stat sums: f32 sums of up to a few hundred rows per slot, summed in
 # another order than the twin's matmul
@@ -55,6 +72,10 @@ SUM_RTOL, SUM_ATOL = 1e-5, 1e-3
 # a mismatched draw must be a near-tie: score gap at f32 rounding level
 TIE_GAP = 1e-4
 Z_MAX = 5.0
+# NVIDIA H100 SXM data sheet: device memory rate and f32 rate outside the
+# tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
 
 
 def emit(obj):
@@ -89,187 +110,366 @@ def flagship_data():
     """bench_runner.py's data: 7C/8 true clusters, 0.1 noise, seed 0."""
     import numpy as np
     rng = np.random.RandomState(0)
-    n_true = SLOTS // 8 * 7
-    labels = rng.randint(0, n_true, ROWS)
-    centers = rng.randn(n_true, FEATURES).astype(np.float32)
+    labels = rng.randint(0, TRUE_CLUSTERS, ROWS)
+    centers = rng.randn(TRUE_CLUSTERS, FEATURES).astype(np.float32)
     X = centers[labels] + 0.1 * rng.randn(ROWS, FEATURES).astype(np.float32)
     return X.astype(np.float32), labels.astype(np.int32)
 
 
+def bound_ms(tensors, flops_per_cell, B, C):
+    """The least time the card could take for one launch: the larger of
+    the bytes it must move (every input read once, every output written
+    once) over the memory rate, and its f32 operations over the f32 rate.
+    Operations are those of the kernel's inner loop per (row, slot) cell,
+    each log or exp counted as one operation and the integer work of
+    Philox not at all: a lower bound."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors
+                 if t is not None)
+    by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    by_ops = 1e3 * float(B) * C * flops_per_cell / PEAK_F32_PER_S
+    if by_ops >= by_bytes:
+        return by_ops, 'operations'
+    return by_bytes, 'bytes'
+
+
+def gumbel_flops_per_cell(col_groups, quad_groups, n_tab):
+    """f32 operations per cell in 'gumbel' mode, from the inner loops of
+    csrc/fused_v2.cu and csrc/fused_v3.cu."""
+    ops = 0
+    for nc in col_groups:
+        # per column sub, mul, mul, add; the product chain; per chunk of 4
+        # columns log, mul, add
+        chunks = (nc + 3) // 4
+        ops += 4 * nc + (nc - chunks) + 3 * chunks
+    for nc, d in quad_groups:
+        tri = d * (d + 1) // 2
+        chunks = (nc + 3) // 4
+        # per column d subs, 2 muls per term, tri - 1 adds, 1 + q
+        ops += nc * (d + 2 * tri + (tri - 1) + 1) + (nc - chunks) + 3 * chunks
+    ops += n_tab
+    # the draw: m * 2^-24, log, negate, max, log, subtract, compare
+    return ops + 7
+
+
 def phase_build(fk):
     t0 = time.time()
-    info = fk.build()
-    regs = sorted({line.split('Used ')[1].split(',')[0]
-                   for line in info['report'].splitlines()
-                   if 'Used ' in line})
-    emit({'phase': 'build', 'seconds': round(time.time() - t0, 3),
-          'nvcc_seconds': round(info['seconds'], 3), 'registers': regs,
-          'library': os.path.relpath(info['path'], HERE)})
+    infos = fk.build_all()
+    out = {'phase': 'build', 'seconds': round(time.time() - t0, 3)}
+    for name, info in infos.items():
+        regs = sorted({int(line.split('Used ')[1].split(' ')[0])
+                       for line in info['report'].splitlines()
+                       if 'Used ' in line})
+        spills = sorted({int(line.split(' bytes spill stores')[0].split()[-1])
+                         for line in info['report'].splitlines()
+                         if 'spill stores' in line})
+        out[name] = {'nvcc_seconds': round(info['seconds'], 3),
+                     'registers': regs, 'spill_store_bytes': spills,
+                     'library': os.path.relpath(info['path'], HERE)}
+    emit(out)
 
 
-def kernel_inputs(port, values, labels, C, dev):
-    """(state, cl_scores, coeffs) of a nich mixture built from data."""
+class Case:
+    """One kernel at one set of inputs: how to launch it, its twin, the
+    twin's [B, C] scores, and the twin's stat sums of given draws."""
+
+    def __init__(self, name, B, C, launch, plain, scores, sums_of, exact):
+        self.name, self.B, self.C = name, B, C
+        self.launch, self.plain = launch, plain
+        self.scores, self.sums_of = scores, sums_of
+        # indices (into the outputs after the draws) that must be exactly
+        # equal: integer count tables
+        self.exact = exact
+
+
+def k1_case(port, values, cl_scores, coeffs):
     import torch
-    mx, cl, nich, fk = port['mx'], port['cl'], port['nich'], port['fk']
-    spec = mx.make_spec([(nich, values.shape[1])], capacity=C)
-    shareds = (nich.shared_from_dict(SHARED, device=dev),)
-    py = cl.PitmanYor.from_dict(PY, device=dev)
-    state = mx.state_from_assignments(spec, py, shareds, (values,),
-                                      torch.as_tensor(labels, device=dev))
+    fk, base = port['fk'], port['base']
+    groups = (values.shape[1],)
+    C = cl_scores.shape[0]
+
+    def launch(mode, noise, seed):
+        return fk.fused_score_sample_stats(seed, values, cl_scores, coeffs,
+                                           groups, sampling=mode, noise=noise)
+
+    def plain(mode, noise, seed):
+        return fk.fused_score_sample_stats_plain(
+            seed, values, cl_scores, coeffs, groups, sampling=mode,
+            noise=noise)
+
+    def scores():
+        return fk._score_nich_product(values, coeffs, cl_scores, groups,
+                                      torch.log)
+
+    def sums_of(draws):
+        stats = torch.cat([torch.ones_like(values), values, values * values],
+                          1)
+        return (base.segment_sum(stats, draws, C),)
+    return Case('K1', values.shape[0], C, launch, plain, scores, sums_of, ())
+
+
+def mixed_inputs(port, kind, B, C, n_clusters, seed=0):
+    """A mixed problem on the card (default device) and K2's inputs for
+    its first B rows against the state of all its rows."""
+    import torch
+    mx, cl, gibbs, testing = (port['mx'], port['cl'], port['gibbs'],
+                              port['testing'])
+    problem = testing.mixed_problem(B, C, seed=seed, kind=kind,
+                                    n_clusters=n_clusters)
+    spec, py, shareds = testing.build_problem(
+        problem, port['models'], mx.make_spec, cl.PitmanYor.from_dict)
+    dev = py.alpha.device
+    values = tuple(torch.from_numpy(v).to(dev) for v in problem['values'])
+    state = mx.state_from_assignments(
+        spec, py, shareds, values, torch.from_numpy(problem['labels']).to(dev))
+    lay = gibbs._mixed_static_layout(spec, values)
+    coeffs, qcoeffs, tables = gibbs._build_fused_inputs(spec, lay, shareds,
+                                                        state)
     cl_scores = cl.score_value(py, state.counts, state.alive,
                                state.sample_size)
-    coeffs = fk.nich_coeffs_v2(shareds[0], state.groups[0]).contiguous()
-    return spec, shareds, py, state, cl_scores, coeffs
+    col_groups = tuple(spec.blocks[i].cols for i in lay.nich_blocks)
+    return dict(spec=spec, py=py, shareds=shareds, state=state, values=values,
+                lay=lay, coeffs=coeffs, qcoeffs=qcoeffs, tables=tables,
+                cl_scores=cl_scores, col_groups=col_groups)
 
 
-def compare_mode(port, mode, values, cl_scores, coeffs, noise, seed=7):
-    """K1 against the twin on the same inputs: draw mismatches (must be
-    near-ties) and the stat-sum error against the twin's contraction of
-    the kernel's own draws."""
+def k2_case(port, m):
     import torch
-    fk, base, testing = port['fk'], port['base'], port['testing']
-    C = cl_scores.shape[0]
-    a_k, s_k = fk.fused_score_sample_stats(
-        seed, values, cl_scores, coeffs, (values.shape[1],), sampling=mode,
-        noise=noise)
+    fk = port['fk']
+    lay = m['lay']
+    C = m['cl_scores'].shape[0]
+    B = lay.table_idx.shape[0] if lay.table_idx is not None \
+        else lay.quad_vals.shape[0]
+    args = (lay.nich_vals, lay.table_idx, m['cl_scores'], m['coeffs'],
+            m['tables'], m['col_groups'])
+    kwargs = dict(qvalues=lay.quad_vals, qcoeffs=m['qcoeffs'],
+                  quad_groups=lay.quad_groups, table_vs=lay.table_vs)
+
+    def launch(mode, noise, seed):
+        return fk.fused_mixed_score_sample_stats(seed, *args, sampling=mode,
+                                                 noise=noise, **kwargs)
+
+    def plain(mode, noise, seed):
+        return fk.fused_mixed_score_sample_stats_plain(
+            seed, *args, sampling=mode, noise=noise, **kwargs)
+
+    def scores():
+        return fk._score_mixed(B, lay.nich_vals, lay.table_idx,
+                               m['cl_scores'], m['coeffs'], m['tables'],
+                               m['col_groups'], lay.quad_vals, m['qcoeffs'],
+                               lay.quad_groups, lay.table_vs, torch.log)
+
+    def sums_of(draws):
+        return fk._mixed_stat_sums(draws, C, lay.nich_vals, lay.table_idx,
+                                   m['col_groups'], lay.quad_vals,
+                                   lay.quad_groups, lay.table_vs)
+    return Case('K2', B, C, launch, plain, scores, sums_of, (1,))
+
+
+def host_noise(port, B, C, seed):
+    import torch
+    dev = port['config'].default_device()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {'gumbel_host': port['random'].gumbel_noise(gen, (B, C), dev),
+            'cdf_host': torch.rand((B, 1), generator=gen, device=dev)}
+
+
+def compare_mode(port, case, mode, noise, seed=7):
+    """A kernel against its twin on the same inputs: draw mismatches (must
+    be near-ties) and the stat sums against the twin's contraction of the
+    kernel's own draws."""
+    import torch
+    out_k = case.launch(mode, noise, seed)
     torch.cuda.synchronize()
-    a_t, s_t = fk.fused_score_sample_stats_plain(
-        seed, values, cl_scores, coeffs, (values.shape[1],), sampling=mode,
-        noise=noise)
-    scores = fk._score_nich_product(values, coeffs, cl_scores,
-                                    (values.shape[1],), torch.log)
+    a_t = case.plain(mode, noise, seed)[0]
+    scores = case.scores()
     if mode.startswith('gumbel_host'):
         scores = scores + noise
-    n_bad, gap = testing.mismatches(scores, a_k, a_t)
+    n_bad, gap = port['testing'].mismatches(scores, out_k[0], a_t)
     del scores
-    stats = torch.cat([torch.ones_like(values), values, values * values], 1)
-    ref = base.segment_sum(stats, a_k, C)
-    err = float((s_k - ref).abs().max())
-    sums_ok = bool(torch.allclose(s_k, ref, rtol=SUM_RTOL, atol=SUM_ATOL))
-    counts_ok = bool(torch.equal(torch.round(s_k[:, 0]),
-                                 torch.round(ref[:, 0])))
+    err = 0.0
+    sums_ok = True
+    for i, (got, ref) in enumerate(zip(out_k[1:], case.sums_of(out_k[0]))):
+        if got.shape != ref.shape:
+            raise AssertionError('%s %s: output %d has shape %s, twin %s'
+                                 % (case.name, mode, i, tuple(got.shape),
+                                    tuple(ref.shape)))
+        if got.numel() == 0:
+            continue
+        err = max(err, float((got - ref).abs().max()))
+        if i in case.exact:
+            sums_ok = sums_ok and bool(torch.equal(got, ref))
+        else:
+            sums_ok = sums_ok and bool(torch.allclose(
+                got, ref, rtol=SUM_RTOL, atol=SUM_ATOL))
     if mode.startswith('cdf'):
         # a cdf draw has no score gap: bound the count instead
-        tie_ok = n_bad <= values.shape[0] // 10000
+        tie_ok = n_bad <= case.B // 10000
     else:
         tie_ok = gap <= TIE_GAP
-    if not (tie_ok and sums_ok and counts_ok):
-        raise AssertionError('K1 %s disagrees with its twin: %d draws differ '
-                             '(gap %g), sums err %g, counts equal %s'
-                             % (mode, n_bad, gap, err, counts_ok))
+    if not (tie_ok and sums_ok):
+        raise AssertionError('%s %s disagrees with its twin: %d draws differ '
+                             '(gap %g), sums err %g, sums ok %s'
+                             % (case.name, mode, n_bad, gap, err, sums_ok))
     return {'mismatched_draws': n_bad, 'max_tie_gap': gap,
             'sums_max_abs_err': err}
 
 
-def phase_kernel(port, X, labels, dev):
+def check_case(port, case, ref_scores, noise):
+    """The checks one kernel is held to at one set of inputs.  Returns
+    (per-mode results, largest stat-sum error, timings)."""
     import torch
-    fk, mx, testing = port['fk'], port['mx'], port['testing']
-    B = BLOCK
-    values = torch.as_tensor(X[:B], device=dev).contiguous()
-    spec, shareds, py, state, cl_scores, coeffs = kernel_inputs(
-        port, torch.as_tensor(X, device=dev), labels, SLOTS, dev)
-    gen = torch.Generator(device=dev).manual_seed(11)
-    gumbel = port['random'].gumbel_noise(gen, (B, SLOTS), dev)
-    uniform = torch.rand((B, 1), generator=gen, device=dev)
-    noise = {'gumbel_host': gumbel, 'cdf_host': uniform}
-    result = {'phase': 'kernel', 'B': B, 'C': SLOTS, 'cols': FEATURES,
-              'modes': {}}
+    testing = port['testing']
+    modes = {}
     max_err = 0.0
     for mode in ('argmax', 'argmax_fast', 'gumbel_host', 'cdf_host'):
-        r = compare_mode(port, mode, values, cl_scores, coeffs,
-                         noise.get(mode))
+        r = compare_mode(port, case, mode, noise.get(mode))
         max_err = max(max_err, r['sums_max_abs_err'])
-        result['modes'][mode] = r
+        modes[mode] = r
 
     # in-kernel RNG: slot frequencies against the softmax of score_batch
-    ref_scores = mx.score_batch(spec, py, shareds, state, (values,))
     for mode in ('gumbel', 'cdf', 'gumbel_fast'):
-        a, _ = fk.fused_score_sample_stats(
-            12345, values, cl_scores, coeffs, (FEATURES,), sampling=mode)
+        a = case.launch(mode, None, 12345)[0]
         z = testing.softmax_ztest(a, ref_scores)
         if not z < Z_MAX:
-            raise AssertionError('K1 %s draws fail the z-test: max |z| %g'
-                                 % (mode, z))
-        result['modes'].setdefault(mode, {})['max_abs_z'] = z
-    del ref_scores
+            raise AssertionError('%s %s draws fail the z-test: max |z| %g'
+                                 % (case.name, mode, z))
+        modes.setdefault(mode, {})['max_abs_z'] = z
 
     # two identical launches are bitwise equal
     for mode in ('gumbel', 'cdf', 'argmax'):
-        a1, s1 = fk.fused_score_sample_stats(
-            99, values, cl_scores, coeffs, (FEATURES,), sampling=mode)
-        a2, s2 = fk.fused_score_sample_stats(
-            99, values, cl_scores, coeffs, (FEATURES,), sampling=mode)
-        if not (torch.equal(a1, a2) and torch.equal(s1, s2)):
-            raise AssertionError('K1 %s is not bitwise repeatable' % mode)
-    result['bitwise_repeatable'] = True
-
-    # ragged slots and rows
-    Br, Cr = 3000, 1000
-    ragged_vals = values[:Br].contiguous()
-    _, _, _, _, cl_r, co_r = kernel_inputs(
-        port, ragged_vals, labels[:Br] % 900, Cr, dev)
-    gen_r = torch.Generator(device=dev).manual_seed(5)
-    noise_r = {'gumbel_host': port['random'].gumbel_noise(
-        gen_r, (Br, Cr), dev),
-        'cdf_host': torch.rand((Br, 1), generator=gen_r, device=dev)}
-    result['ragged'] = {}
-    for mode in ('argmax', 'gumbel_host', 'cdf_host'):
-        r = compare_mode(port, mode, ragged_vals, cl_r, co_r,
-                         noise_r.get(mode))
-        max_err = max(max_err, r['sums_max_abs_err'])
-        result['ragged'][mode] = r
+        one = case.launch(mode, None, 99)
+        two = case.launch(mode, None, 99)
+        if not all(torch.equal(x, y) for x, y in zip(one, two)):
+            raise AssertionError('%s %s is not bitwise repeatable'
+                                 % (case.name, mode))
 
     # median milliseconds, kernel against twin, per mode
     timing = {}
     for mode in ('gumbel', 'gumbel_fast', 'cdf', 'argmax', 'gumbel_host',
                  'cdf_host'):
         nz = noise.get(mode)
+        case.launch(mode, nz, 3)
+        case.plain(mode, nz, 3)
+        timing[mode] = {
+            'ms': cuda_ms(lambda: case.launch(mode, nz, 3), 7),
+            'plain_ms': cuda_ms(lambda: case.plain(mode, nz, 3), 3)}
+    return modes, max_err, timing
 
-        def kernel():
-            fk.fused_score_sample_stats(3, values, cl_scores, coeffs,
-                                        (FEATURES,), sampling=mode, noise=nz)
 
-        def twin():
-            fk.fused_score_sample_stats_plain(3, values, cl_scores, coeffs,
-                                              (FEATURES,), sampling=mode,
-                                              noise=nz)
-        kernel()
-        twin()
-        timing[mode] = {'ms': cuda_ms(kernel, 7), 'plain_ms': cuda_ms(twin, 3)}
-    result['timing'] = timing
+def check_ragged(port, case, noise):
+    out = {}
+    max_err = 0.0
+    for mode in ('argmax', 'gumbel_host', 'cdf_host'):
+        r = compare_mode(port, case, mode, noise.get(mode))
+        max_err = max(max_err, r['sums_max_abs_err'])
+        out[mode] = r
+    return out, max_err
+
+
+def nich_inputs(port, values, labels, C):
+    """(spec, shareds, py, state, cl_scores, coeffs) of a nich mixture
+    built from data, on the default device."""
+    import torch
+    mx, cl, nich, fk = port['mx'], port['cl'], port['nich'], port['fk']
+    spec = mx.make_spec([(nich, values.shape[1])], capacity=C)
+    shareds = (nich.shared_from_dict(SHARED),)
+    py = cl.PitmanYor.from_dict(PY)
+    state = mx.state_from_assignments(
+        spec, py, shareds, (values,),
+        torch.as_tensor(labels, device=values.device))
+    cl_scores = cl.score_value(py, state.counts, state.alive,
+                               state.sample_size)
+    coeffs = fk.nich_coeffs_v2(shareds[0], state.groups[0]).contiguous()
+    return spec, shareds, py, state, cl_scores, coeffs
+
+
+def phase_kernel(port, X, labels):
+    import torch
+    mx = port['mx']
+    dev = port['config'].default_device()
+    B = BLOCK
+    all_values = torch.as_tensor(X, device=dev)
+    values = all_values[:B].contiguous()
+    spec, shareds, py, state, cl_scores, coeffs = nich_inputs(
+        port, all_values, labels, SLOTS)
+    case = k1_case(port, values, cl_scores, coeffs)
+    ref_scores = mx.score_batch(spec, py, shareds, state, (values,))
+    modes, max_err, timing = check_case(port, case, ref_scores,
+                                        host_noise(port, B, SLOTS, 11))
+    del ref_scores
+
+    # ragged slots and rows
+    Br, Cr = 3000, 1000
+    ragged_vals = values[:Br].contiguous()
+    _, _, _, _, cl_r, co_r = nich_inputs(port, ragged_vals,
+                                         labels[:Br] % 900, Cr)
+    ragged, err_r = check_ragged(port, k1_case(port, ragged_vals, cl_r, co_r),
+                                 host_noise(port, Br, Cr, 5))
+    max_err = max(max_err, err_r)
+    bound, bound_by = bound_ms(
+        (values, cl_scores, coeffs, torch.empty(B, dtype=torch.int32),
+         torch.empty(SLOTS, 3 * FEATURES)),
+        gumbel_flops_per_cell((FEATURES,), (), 0), B, SLOTS)
+    emit({'phase': 'kernel', 'B': B, 'C': SLOTS, 'cols': FEATURES,
+          'modes': modes, 'bitwise_repeatable': True, 'ragged': ragged,
+          'timing': timing, 'bound_ms': bound, 'bound_by': bound_by})
+    return {'max_abs_err': max_err, 'ms': timing['gumbel']['ms'],
+            'plain_ms': timing['gumbel']['plain_ms'], 'bound_ms': bound,
+            'bound_by': bound_by}
+
+
+def phase_kernel_k2(port):
+    import torch
+    mx = port['mx']
+    B, C = BLOCK_MIXED, SLOTS
+    result = {'phase': 'kernel_k2', 'B': B, 'C': C, 'layouts': {}}
+    summary = None
+    max_err = 0.0
+    for kind in ('niw2mix', 'bbddgp'):
+        m = mixed_inputs(port, kind, B, C, TRUE_CLUSTERS)
+        case = k2_case(port, m)
+        ref_scores = mx.score_batch(m['spec'], m['py'], m['shareds'],
+                                    m['state'], m['values'])
+        modes, err, timing = check_case(port, case, ref_scores,
+                                        host_noise(port, B, C, 13))
+        del ref_scores
+        max_err = max(max_err, err)
+        lay = m['lay']
+        qdim = port['fk'].quad_stat_dim(lay.quad_groups)
+        bound, bound_by = bound_ms(
+            (lay.nich_vals, lay.quad_vals, lay.table_idx, m['cl_scores'],
+             m['coeffs'], m['qcoeffs'], m['tables'],
+             torch.empty(B, dtype=torch.int32),
+             torch.empty(C, 3 * sum(m['col_groups']) + qdim
+                         + sum(lay.table_vs))),
+            gumbel_flops_per_cell(m['col_groups'], lay.quad_groups,
+                                  len(lay.table_vs)), B, C)
+        result['layouts'][kind] = {
+            'modes': modes, 'timing': timing, 'bitwise_repeatable': True,
+            'table_vs': list(lay.table_vs), 'bound_ms': bound,
+            'bound_by': bound_by}
+        if kind == 'niw2mix':
+            summary = {'ms': timing['gumbel']['ms'],
+                       'plain_ms': timing['gumbel']['plain_ms'],
+                       'bound_ms': bound, 'bound_by': bound_by}
+        del m, case
+
+    # ragged slots and rows, niw d=3 + nich + bb
+    Br, Cr = 3000, 1000
+    m = mixed_inputs(port, 'niw3_nich_bb', Br, Cr, 40, seed=4)
+    result['ragged'], err = check_ragged(port, k2_case(port, m),
+                                         host_noise(port, Br, Cr, 5))
+    summary['max_abs_err'] = max(max_err, err)
     emit(result)
-    return max_err, timing
+    return summary
 
 
-def phase_main(port, X, labels, dev):
+def check_run(port, spec, py, shareds, values, state, assignments, log):
+    """What comes out of a run is right: shapes, ranges, counts and a
+    fresh score."""
     import numpy as np
     import torch
-    fk, mx, gibbs, runner = port['fk'], port['mx'], port['gibbs'], \
-        port['runner']
-    spec = mx.make_spec([(port['nich'], FEATURES)], capacity=SLOTS)
-    shareds = (port['nich'].shared_from_dict(SHARED, device=dev),)
-    py = port['cl'].PitmanYor.from_dict(PY, device=dev)
-    values = (torch.as_tensor(X, device=dev),)
-    init = torch.as_tensor(labels, device=dev)
-    tiles = ROWS // BLOCK
-    passes = STEPS * SWEEPS_PER_STEP
-
-    fk.fused_score_sample_stats.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.time()
-    state, assignments, log = runner.run_gibbs(
-        spec, py, shareds, values, torch.Generator().manual_seed(0), passes,
-        block=BLOCK, use_pallas=True, sampling='gumbel',
-        initial_assignments=init, grow_headroom=0.0,
-        sweeps_per_step=SWEEPS_PER_STEP)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = fk.fused_score_sample_stats.launches
-    if launches != tiles * passes:
-        raise AssertionError('K1 launched %d times, expected tiles x sweeps '
-                             '= %d' % (launches, tiles * passes))
-
-    # what comes out is right: shapes, ranges, counts and a fresh score
+    mx = port['mx']
     a = assignments.cpu().numpy()
     counts = state.counts.cpu().numpy()
     score = log.rows[-1]['score_data']
@@ -281,25 +481,92 @@ def phase_main(port, X, labels, dev):
         'counts': bool((np.bincount(a, minlength=SLOTS) == counts).all()),
         'finite': bool(np.isfinite(score)),
         'fresh_score': abs(score - fresh) <= 1e-4 * abs(fresh),
-        'capacity': spec.capacity == SLOTS,
+        'capacity': state.counts.shape[0] == SLOTS,
+        'on_the_card': assignments.device.type == 'cuda',
     }
     if not all(checks.values()):
         raise AssertionError('main path output is wrong: %s (score %r, '
                              'fresh %r)' % (checks, score, fresh))
+    return checks, score
+
+
+def run_main(port, wrapper, spec, py, shareds, values_np, labels, block):
+    """run_gibbs on numpy rows and labels with no device named, with the
+    launch count of `wrapper` set to 0 just before and read just after."""
+    import torch
+    tiles = ROWS // block
+    passes = STEPS * SWEEPS_PER_STEP
+    torch.cuda.synchronize()
+    wrapper.launches = 0
+    t0 = time.time()
+    state, assignments, log = port['runner'].run_gibbs(
+        spec, py, shareds, values_np, torch.Generator().manual_seed(0),
+        passes, block=block, use_pallas=True, sampling='gumbel',
+        initial_assignments=labels, grow_headroom=0.0,
+        sweeps_per_step=SWEEPS_PER_STEP)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = wrapper.launches
+    if launches != tiles * passes:
+        raise AssertionError('%d kernel launches, expected tiles x sweeps '
+                             '= %d' % (launches, tiles * passes))
     steps = [r['seconds'] for r in log.rows]
     # steady steps: the first step also builds the stat cache
     steady = steps[1:] if len(steps) > 1 else steps
     ms_sweep = 1e3 * sum(steady) / (SWEEPS_PER_STEP * len(steady))
+    return state, assignments, log, {
+        'rows': ROWS, 'slots': SLOTS, 'block': block, 'sampling': 'gumbel',
+        'sweeps': passes, 'sweeps_per_step': SWEEPS_PER_STEP,
+        'step_seconds': steps, 'wall_seconds': round(wall, 3),
+        'ms_per_sweep': ms_sweep, 'launches': launches,
+        'nonempty_groups': log.rows[-1]['nonempty_groups']}
+
+
+def profile_sweep(sweep, kernel_prefix):
+    """Device time of one fused sweep by kernel name, and the device's
+    share of the sweep's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        sweep()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t0)
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, 'self_device_time_total',
+                         getattr(e, 'self_cuda_time_total', 0))
+        if dev_us > 0:
+            rows.append((dev_us, e.key))
+    rows.sort(reverse=True)
+    total_ms = sum(us for us, _ in rows) / 1e3
+    if not rows:
+        return {'device_ms': 'not measured', 'wall_ms': wall_ms}
+    kernel_ms = sum(us for us, k in rows if kernel_prefix in k) / 1e3
+    return {'wall_ms': wall_ms, 'device_ms': total_ms,
+            'kernel_device_ms': kernel_ms,
+            'device_busy_share': total_ms / wall_ms,
+            'top': [[k[:60], us / 1e3] for us, k in rows[:8]]}
+
+
+def phase_main(port, X, labels):
+    import torch
+    fk, mx, gibbs = port['fk'], port['mx'], port['gibbs']
+    spec = mx.make_spec([(port['nich'], FEATURES)], capacity=SLOTS)
+    shareds = (port['nich'].shared_from_dict(SHARED),)
+    py = port['cl'].PitmanYor.from_dict(PY)
+    state, assignments, log, main = run_main(
+        port, fk.fused_score_sample_stats, spec, py, shareds, (X,), labels,
+        BLOCK)
+    values = (torch.as_tensor(X, device=assignments.device),)
+    checks, score = check_run(port, spec, py, shareds, values, state,
+                              assignments, log)
     cells = float(ROWS) * SLOTS * FEATURES
-    main = {'phase': 'main', 'rows': ROWS, 'slots': SLOTS,
-            'features': FEATURES, 'block': BLOCK, 'sampling': 'gumbel',
-            'sweeps': passes, 'sweeps_per_step': SWEEPS_PER_STEP,
-            'step_seconds': steps, 'wall_seconds': round(wall, 3),
-            'ms_per_sweep': ms_sweep,
-            'cells_per_sec': cells / (ms_sweep / 1e3),
-            'score_data': score, 'nonempty_groups':
-                log.rows[-1]['nonempty_groups'],
-            'k1_launches': launches, 'checks': checks}
+    main.update(phase='main', features=FEATURES, score_data=score,
+                cells_per_sec=cells / (main['ms_per_sweep'] / 1e3),
+                checks=checks)
     emit(main)
 
     # run_sweeps_pallas_fused, and the plain sweep at the same size
@@ -321,72 +588,131 @@ def phase_main(port, X, labels, dev):
     plain_ms = cuda_ms(plain, 3)
 
     # where a fused sweep's time goes, by the profiler's device times
-    breakdown = profile_sweep(gibbs, spec, py, shareds, state, values,
-                              assignments, cache)
+    breakdown = profile_sweep(
+        lambda: gibbs.sweep_blocked_pallas_fused(
+            spec, py, shareds, state, values, assignments, BLOCK, 2048, gen,
+            cache, sampling='gumbel'), 'fused_v2')
     emit({'phase': 'paths', 'run_sweeps_pallas_fused_ms_per_sweep': fused_ms,
           'plain_sweep_blocked_ms_per_sweep': plain_ms,
           'fused_cells_per_sec': cells / (fused_ms / 1e3),
           'plain_cells_per_sec': cells / (plain_ms / 1e3),
           'fused_sweep_profile': breakdown})
-    return ms_sweep, launches
+    return main['launches']
 
 
-def profile_sweep(gibbs, spec, py, shareds, state, values, assignments,
-                  cache):
-    """Device time of one fused sweep by kernel name, and the device's
-    share of the sweep's wall time."""
+def phase_main_mixed(port):
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    gen = torch.Generator().manual_seed(2)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        gibbs.sweep_blocked_pallas_fused(
-            spec, py, shareds, state, values, assignments, BLOCK, 2048, gen,
-            cache, sampling='gumbel')
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.time() - t0)
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, 'self_device_time_total',
-                         getattr(e, 'self_cuda_time_total', 0))
-        if dev_us > 0:
-            rows.append((dev_us, e.key))
-    rows.sort(reverse=True)
-    total_ms = sum(us for us, _ in rows) / 1e3
-    if not rows:
-        return {'device_ms': 'not measured', 'wall_ms': wall_ms}
-    k1_ms = sum(us for us, k in rows if 'fused_v2' in k) / 1e3
-    return {'wall_ms': wall_ms, 'device_ms': total_ms, 'k1_device_ms': k1_ms,
-            'device_busy_share': total_ms / wall_ms,
-            'top': [[k[:60], us / 1e3] for us, k in rows[:8]]}
+    fk, mx, gibbs, testing = (port['fk'], port['mx'], port['gibbs'],
+                              port['testing'])
+    problem = testing.mixed_problem(ROWS, SLOTS, seed=0, kind='niw2mix',
+                                    n_clusters=TRUE_CLUSTERS)
+    spec, py, shareds = testing.build_problem(
+        problem, port['models'], mx.make_spec, port['cl'].PitmanYor.from_dict)
+    state, assignments, log, main = run_main(
+        port, fk.fused_mixed_score_sample_stats, spec, py, shareds,
+        problem['values'], problem['labels'], BLOCK_MIXED)
+    values = tuple(torch.as_tensor(v, device=assignments.device)
+                   for v in problem['values'])
+    checks, score = check_run(port, spec, py, shareds, values, state,
+                              assignments, log)
+    feat_cells = float(ROWS) * SLOTS * len(spec.blocks)
+    main.update(phase='main_mixed', layout='niw2mix', score_data=score,
+                cells_per_sec=feat_cells / (main['ms_per_sweep'] / 1e3),
+                checks=checks)
+    emit(main)
+
+    cache = gibbs.build_stat_cache(spec, shareds, values, BLOCK_MIXED,
+                                   assignments)
+    gen = torch.Generator().manual_seed(1)
+
+    def fused():
+        return gibbs.sweep_blocked_pallas_fused_mixed(
+            spec, py, shareds, state, values, assignments, BLOCK_MIXED, 2048,
+            gen, cache, sampling='gumbel')
+    fused()
+    fused_ms = cuda_ms(fused, 3)
+
+    def plain():
+        return gibbs.sweep_blocked(spec, py, shareds, state, values,
+                                   assignments, BLOCK_MIXED, generator=gen)
+    plain()
+    plain_ms = cuda_ms(plain, 2)
+    emit({'phase': 'paths_mixed',
+          'fused_mixed_ms_per_sweep': fused_ms,
+          'plain_sweep_blocked_ms_per_sweep': plain_ms,
+          'per_tile_host_ms': tile_bookkeeping_ms(port, spec, py, shareds,
+                                                  state, values, cache),
+          'fused_sweep_profile': profile_sweep(fused, 'fused_v3')})
+    return main['launches']
 
 
-def phase_small_reference(port):
+def tile_bookkeeping_ms(port, spec, py, shareds, state, values, cache):
+    """Host wall milliseconds (ending in a synchronize, median of 5) of the
+    [C]-sized work the fused sweep does around each K2 launch."""
+    import torch
+    fk, mx, gibbs, cl = port['fk'], port['mx'], port['gibbs'], port['cl']
+    lay = gibbs._mixed_static_layout(spec, values)
+    tiles = mx.sums_to_tiles(spec, shareds, tuple(s[0] for s in cache[1]))
+
+    def wall_ms(fn):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.time() - t0))
+        return sorted(times)[2]
+    return {
+        'cl_score_value': wall_ms(lambda: cl.score_value(
+            py, state.counts, state.alive, state.sample_size)),
+        'niw_coeffs_v4': wall_ms(lambda: fk.niw_coeffs_v4(
+            shareds[0], state.groups[0])),
+        'nich_coeffs_v2': wall_ms(lambda: fk.nich_coeffs_v2(
+            shareds[1], state.groups[1])),
+        'build_fused_inputs': wall_ms(lambda: gibbs._build_fused_inputs(
+            spec, lay, shareds, state)),
+        'sums_to_tiles': wall_ms(lambda: mx.sums_to_tiles(
+            spec, shareds, tuple(s[0] for s in cache[1]))),
+        'apply_stat_tiles_remove': wall_ms(lambda: mx.apply_stat_tiles(
+            spec, shareds, state, cache[0][0], tiles, -1, BLOCK_MIXED)),
+        'apply_stat_tiles_add': wall_ms(lambda: mx.apply_stat_tiles(
+            spec, shareds, state, cache[0][0], tiles, +1, BLOCK_MIXED)),
+        'layout_per_call': wall_ms(lambda: gibbs._mixed_static_layout(
+            spec, values)),
+    }
+
+
+def small_run(port, spec_of, values_np, labels, device):
+    """3 'argmax' sweeps of a small problem on `device` (None: the
+    default, the card)."""
+    import torch
+    kwargs = {} if device is None else {'device': device}
+    spec, py, shareds = spec_of(kwargs)
+    state, a, log = port['runner'].run_gibbs(
+        spec, py, shareds, values_np, torch.Generator().manual_seed(0), 3,
+        block=1024, use_pallas=True, sampling='argmax',
+        initial_assignments=labels, **kwargs)
+    return a, log.rows[-1]['score_data']
+
+
+def phase_small_reference(port, phase, spec_of, values_np, labels, wrapper):
     """The kernel path on the card against the twin path on the CPU, on a
     small well-separated input under 'argmax': equal draws expected."""
     import torch
-    mx, runner, testing = port['mx'], port['runner'], port['testing']
-    X, labels = testing.nich_problem(4096, seed=3)
-    out = {}
-    for dev in ('cuda', 'cpu'):
-        spec = mx.make_spec([(port['nich'], 2)], capacity=128)
-        shareds = (port['nich'].shared_from_dict(testing.NICH_SHARED,
-                                                 device=dev),)
-        py = port['cl'].PitmanYor.from_dict(testing.PY, device=dev)
-        state, a, log = runner.run_gibbs(
-            spec, py, shareds, (torch.as_tensor(X, device=dev),),
-            torch.Generator().manual_seed(0), 3, block=1024,
-            use_pallas=True, sampling='argmax',
-            initial_assignments=torch.as_tensor(labels))
-        out[dev] = (a.cpu(), log.rows[-1]['score_data'])
-    equal = bool(torch.equal(out['cuda'][0], out['cpu'][0]))
-    rel = abs(out['cuda'][1] - out['cpu'][1]) / abs(out['cpu'][1])
-    emit({'phase': 'small_reference', 'argmax_draws_equal': equal,
+    before = wrapper.launches
+    a_card, s_card = small_run(port, spec_of, values_np, labels, None)
+    if a_card.device.type != 'cuda' or wrapper.launches != before + 12:
+        raise AssertionError('%s did not run on the card through its kernel'
+                             % phase)
+    a_cpu, s_cpu = small_run(port, spec_of, values_np, labels, 'cpu')
+    equal = bool(torch.equal(a_card.cpu(), a_cpu))
+    rel = abs(s_card - s_cpu) / abs(s_cpu)
+    emit({'phase': phase, 'argmax_draws_equal': equal,
           'score_rel_diff': rel})
     if not (equal and rel < 1e-4):
-        raise AssertionError('kernel path disagrees with the CPU twin path')
+        raise AssertionError('%s: kernel path disagrees with the CPU twin '
+                             'path' % phase)
 
 
 def main():
@@ -396,31 +722,61 @@ def main():
               'GPU', file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from distributions_tpu_torch import clustering, mixture, random, testing
+    from distributions_tpu_torch import (clustering, config, mixture, random,
+                                         testing)
     from distributions_tpu_torch.inference import runner
-    from distributions_tpu_torch.models import base, nich
+    from distributions_tpu_torch.models import MODULES, base, nich
     from distributions_tpu_torch.ops import fused_kernels, gibbs
-    port = {'cl': clustering, 'mx': mixture, 'random': random,
-            'testing': testing, 'runner': runner, 'base': base,
-            'nich': nich, 'fk': fused_kernels, 'gibbs': gibbs}
+    port = {'cl': clustering, 'config': config, 'mx': mixture,
+            'random': random, 'testing': testing, 'runner': runner,
+            'base': base, 'nich': nich, 'models': MODULES,
+            'fk': fused_kernels, 'gibbs': gibbs}
+    fk = fused_kernels
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError('TF32 matmuls must stay off on this path')
-    dev = torch.device('cuda', 0)
     card = smi()
     emit({'phase': 'device', 'nvidia_smi': card,
+          'default_device': str(config.default_device()),
           'torch': torch.__version__, 'cuda': torch.version.cuda})
-    phase_build(fused_kernels)
+    phase_build(fk)
     X, labels = flagship_data()
-    max_err, timing = phase_kernel(port, X, labels, dev)
-    phase_small_reference(port)
-    ms_sweep, launches = phase_main(port, X, labels, dev)
-    emit({'kernels': [{
-        'name': 'fused_v2 (K1)', 'route': 'cuda',
-        'source': 'distributions_tpu_torch/csrc/fused_v2.cu',
-        'replaces': 'distributions_tpu/ops/pallas_kernels.py:535',
-        'launches': launches, 'max_abs_err': max_err,
-        'ms': timing['gumbel']['ms'],
-        'plain_ms': timing['gumbel']['plain_ms']}]})
+    k1 = phase_kernel(port, X, labels)
+    k2 = phase_kernel_k2(port)
+
+    Xs, ls = testing.nich_problem(4096, seed=3)
+
+    def nich_spec(kwargs):
+        return (mixture.make_spec([(nich, 2)], capacity=128),
+                clustering.PitmanYor.from_dict(testing.PY, **kwargs),
+                (nich.shared_from_dict(testing.NICH_SHARED, **kwargs),))
+    phase_small_reference(port, 'small_reference', nich_spec, (Xs,), ls,
+                          fk.fused_score_sample_stats)
+    small = testing.mixed_problem(4096, 128, seed=3, kind='niw3_nich_bb')
+    phase_small_reference(
+        port, 'small_reference_mixed',
+        lambda kwargs: testing.build_problem(
+            small, MODULES, mixture.make_spec, clustering.PitmanYor.from_dict,
+            **kwargs),
+        small['values'], small['labels'], fk.fused_mixed_score_sample_stats)
+
+    k1['launches'] = phase_main(port, X, labels)
+    del X
+    k2['launches'] = phase_main_mixed(port)
+    kernels = []
+    for name, source, replaces, k in (
+            ('fused_v2 (K1)', 'fused_v2.cu', 535, k1),
+            ('fused_v3 (K2)', 'fused_v3.cu', 749, k2)):
+        kernels.append({
+            'name': name, 'route': 'cuda',
+            'source': 'distributions_tpu_torch/csrc/' + source,
+            'replaces': 'distributions_tpu/ops/pallas_kernels.py:%d'
+                        % replaces,
+            'launches': k['launches'], 'max_abs_err': k['max_abs_err'],
+            'ms': k['ms'], 'plain_ms': k['plain_ms'],
+            'bound_ms': k['bound_ms'], 'bound_by': k['bound_by'],
+            # no single PyTorch call computes score + draw + sums
+            'library_ms': None})
+    emit({'kernels': kernels})
     print('nvidia-smi: %s' % card, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),

@@ -10,6 +10,7 @@ from typing import NamedTuple
 
 import torch
 
+from distributions_tpu_torch.config import resolve_device
 from distributions_tpu_torch.special import gammaln
 
 
@@ -20,6 +21,7 @@ class PitmanYor(NamedTuple):
 
     @classmethod
     def from_dict(cls, raw, device=None):
+        device = resolve_device(device)
         return cls(
             alpha=torch.tensor(float(raw['alpha']), dtype=torch.float32,
                                device=device),
@@ -37,7 +39,8 @@ class LowEntropy(NamedTuple):
     @classmethod
     def from_dict(cls, raw, device=None):
         return cls(dataset_size=torch.tensor(
-            int(raw['dataset_size']), dtype=torch.int32, device=device))
+            int(raw['dataset_size']), dtype=torch.int32,
+            device=resolve_device(device)))
 
     def to_dict(self):
         return {'dataset_size': int(self.dataset_size)}

@@ -2,16 +2,20 @@
 
 The functions here take the JAX package's objects with numpy leaves (for
 example `jax.tree_util.tree_map(np.asarray, state)`), and return the
-port's objects with tensors on a given device.  Model modules are matched
-by their `NAME` ('NormalInverseChiSq' -> models.nich).  `to_numpy` is the
-inverse direction: it turns every tensor of a port object into a numpy
-array and keeps the containers.  Nothing here imports JAX.
+port's objects with tensors on a given device (`config.default_device()`
+when none is named).  Leaves keep their dtypes: dpd's int32 slots, bool
+masks and niw's [d, d] psi go across as they are.  Model modules are
+matched by their `NAME` ('NormalInverseChiSq' -> models.nich).
+`to_numpy` is the inverse direction: it turns every tensor of a port
+object into a numpy array and keeps the containers.  Nothing here
+imports JAX.
 """
 
 import numpy as np
 import torch
 
 from distributions_tpu_torch import clustering, mixture as mx
+from distributions_tpu_torch.config import resolve_device
 from distributions_tpu_torch.models import MODULES
 
 _BY_NAME = {m.NAME: m for m in MODULES.values()}
@@ -19,17 +23,13 @@ _BY_NAME = {m.NAME: m for m in MODULES.values()}
 
 def tensor(a, device=None):
     """A numpy-like leaf as a tensor of the same dtype on `device`."""
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(
+        resolve_device(device))
 
 
 def module(ref_module):
     """The port's model module for a module with the same NAME."""
-    try:
-        return _BY_NAME[ref_module.NAME]
-    except KeyError:
-        raise NotImplementedError(
-            'model %r is not ported yet (ROADMAP Queue 1 item 8)'
-            % (ref_module.NAME,)) from None
+    return _BY_NAME[ref_module.NAME]
 
 
 def spec(ref_spec):

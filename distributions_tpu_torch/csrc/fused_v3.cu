@@ -1,0 +1,481 @@
+// Fused mixed score + sample + stat-sum kernel for NVIDIA Hopper (sm_90a).
+//
+// Replaces distributions_tpu/ops/pallas_kernels.py::_fused_v3_kernel
+// (wrapper fused_mixed_score_sample_stats, with _score_quad_blocks and
+// _quad_stat_features).  For one tile of B rows against C mixture slots it
+// computes
+//
+//   scores[r, k] = cl[k] + sum of the nich and niw blocks' bases[k]
+//     + per nich block  lc[k] * log(prod over <= 4 columns of
+//                                   (1 + prec_j[k] (v_rj - mean_j[k])^2))
+//     + per niw block   lc[k] * log(prod over <= 4 columns of (1 + q)),
+//           q = sum_{a<=b} lam'_ab[k] (v_a - mu_a[k]) (v_b - mu_b[k])
+//           (centred differences; off-diagonal lam' pre-doubled)
+//     + per table column  tables[off_j + idx_rj, k]
+//
+// draws one slot per row, and emits per drawn slot the nich [1 | v | v^2]
+// sums, the niw [1 | v | v_a v_b (a <= b)] sums and the packed table of
+// value counts [C, Vtot].
+//
+// What bounds it on the H100: operations, not bytes.  Per (row, slot) cell
+// it does one log per nich or niw block and the draw's transcendentals
+// (two logs and a quarter Philox block in 'gumbel', one exp per pass in
+// 'cdf'), while device memory sees each row's values and draw once and
+// the [C]-sized coefficient rows once per block of rows.  So, as in the
+// nich-only kernel, one thread owns one row and walks all slots in order
+// with every per-cell quantity in registers; the per-slot coefficient
+// rows are staged through shared memory in chunks of C and read as
+// warp-wide broadcasts; nothing of size [B, C] reaches device memory.
+//
+// Design points of its own:
+//   - The layout (how many nich blocks and columns, niw blocks as
+//     (columns, d), table offsets) is a small struct passed by value; the
+//     kernel is instantiated only over MODE x FAST, like the nich-only one.
+//     The quadratic form is a function template over d (1..MAX_D) picked
+//     by a warp-uniform switch, so the centred differences stay in
+//     registers.
+//   - Score tables are read from device memory through the read-only cache
+//     (__ldg), not staged in shared memory: a thread walks its own table
+//     row in slot order, so consecutive slots hit the same cache line, and
+//     rows of a warp that hold different values cannot collide on a shared
+//     memory bank.  The table of a tile is [Vtot, C] f32, small enough to
+//     stay in L1/L2.
+//   - Count tables are integers: the stat kernel adds them with atomicAdd
+//     on int32 (exact in any order, so still bitwise repeatable) and the
+//     reduce kernel converts them to f32.  The float sums use per-block
+//     partials in row order and a fixed-order reduce, no float atomics.
+//   - An index outside its column's support would read the next column's
+//     rows: the caller checks supports on the host (ops/gibbs.py
+//     _mixed_static_layout); building with -DFUSED_V3_DEBUG also traps in
+//     the kernel.
+//
+// Semantics held against the plain-PyTorch twin
+// (fused_mixed_score_sample_stats_plain in ops/fused_kernels.py): every
+// float operation is an explicitly rounded __f*_rn op in the twin's order
+// (constants, nich blocks, niw blocks, table columns), and the draws are
+// Draw<MODE, FAST> of fused_common.cuh.
+//
+// Bound through ctypes: fused_v3_launch() is a plain C entry point that
+// launches on the caller's stream, allocates nothing, and returns
+// cudaGetLastError().
+
+#include <string.h>
+
+#include "fused_common.cuh"
+
+#define MAX_GROUPS 8        // nich blocks, and niw blocks
+#define MAX_COLS 32         // nich columns in all
+#define MAX_QVALS 16        // niw value columns in all (sum of cols * d)
+#define MAX_D 4             // niw dimension
+#define MAX_TABLE_COLS 16
+#define SCORE_THREADS 128
+#define STAT_THREADS 256
+#define SMEM_FLOATS (48 * 1024 / 4)
+
+struct Layout {
+  int n_nich;
+  int nich_cols[MAX_GROUPS];
+  int n_quad;
+  int quad_cols[MAX_GROUPS];
+  int quad_d[MAX_GROUPS];
+  int n_tab;
+  int tab_off[MAX_TABLE_COLS];
+  int ncols;   // nich columns in all
+  int qvals;   // niw value columns in all
+  int W;       // staged coefficient rows per slot
+  int vtot;    // packed table rows
+};
+
+// (v - mu)^T Lam (v - mu) of one niw column for one (row, slot) cell:
+// q = sum_{a<=b} lam'_ab (v_a - mu_a)(v_b - mu_b), terms added in row-major
+// upper-triangle order.  v: the row's D values, SCORE_THREADS apart; co:
+// the slot's D mean rows then D(D+1)/2 precision rows, CK apart.  D is a
+// template parameter so that the differences stay in registers.
+template <int D>
+__device__ __forceinline__ float quad_form(const float* __restrict__ v,
+                                           const float* __restrict__ co,
+                                           int CK) {
+  float t[D];
+#pragma unroll
+  for (int a = 0; a < D; ++a)
+    t[a] = __fsub_rn(v[a * SCORE_THREADS], co[(size_t)a * CK]);
+  const float* lam = co + (size_t)D * CK;
+  float q = F(0.0);
+  int r = 0;
+#pragma unroll
+  for (int a = 0; a < D; ++a) {
+#pragma unroll
+    for (int b = a; b < D; ++b) {
+      const float term = __fmul_rn(lam[(size_t)r * CK], __fmul_rn(t[a], t[b]));
+      q = (r == 0) ? term : __fadd_rn(q, term);
+      ++r;
+    }
+  }
+  return q;
+}
+
+// -- kernel 1: score + sample ----------------------------------------------
+//
+// One thread per row.  Shared memory: the coefficient chunk [W][CK] (row 0
+// = cl + sum of bases; per nich block lc, then prec, mean per column; per
+// niw block lc, then per column d mean rows and d(d+1)/2 precision rows),
+// followed by the block's nich values [ncols][SCORE_THREADS], niw values
+// [qvals][SCORE_THREADS] and packed table rows [n_tab][SCORE_THREADS].
+
+template <int MODE, bool FAST>
+__global__ void __launch_bounds__(SCORE_THREADS)
+fused_v3_score_sample(const float* __restrict__ values,
+                      const float* __restrict__ qvalues,
+                      const int* __restrict__ table_idx,
+                      const float* __restrict__ cl,
+                      const float* __restrict__ coeffs,
+                      const float* __restrict__ qcoeffs,
+                      const float* __restrict__ tables,
+                      const float* __restrict__ noise,
+                      int* __restrict__ out, int B, int C, Layout L, int CK,
+                      unsigned long long seed) {
+  extern __shared__ float smem[];
+  float* sco = smem;
+  float* sval = smem + (size_t)L.W * CK;
+  float* sq = sval + L.ncols * SCORE_THREADS;
+  int* srow = (int*)(sq + L.qvals * SCORE_THREADS);
+  const int tid = threadIdx.x;
+  const int row = blockIdx.x * SCORE_THREADS + tid;
+  const bool active = row < B;
+  if (active) {
+    for (int c = 0; c < L.ncols; ++c)
+      sval[c * SCORE_THREADS + tid] = values[(size_t)row * L.ncols + c];
+    for (int c = 0; c < L.qvals; ++c)
+      sq[c * SCORE_THREADS + tid] = qvalues[(size_t)row * L.qvals + c];
+    for (int j = 0; j < L.n_tab; ++j) {
+      const int v = L.tab_off[j] + table_idx[(size_t)row * L.n_tab + j];
+#ifdef FUSED_V3_DEBUG
+      if (v < 0 || v >= L.vtot) __trap();
+#endif
+      srow[j * SCORE_THREADS + tid] = v;
+    }
+  }
+  Draw<MODE, FAST> dr;
+  dr.init(row, active, seed, noise);
+
+  for (int pass = 0; pass < Draw<MODE, FAST>::kPasses; ++pass) {
+    dr.begin_pass(pass);
+    for (int c0 = 0; c0 < C; c0 += CK) {
+      const int n = min(CK, C - c0);
+      __syncthreads();
+      for (int i = tid; i < n; i += SCORE_THREADS) {
+        const int k = c0 + i;
+        float cst = cl[k];
+        int w = 1, r = 0;
+        for (int g = 0; g < L.n_nich; ++g) {
+          const int rows = 2 * L.nich_cols[g];
+          cst = __fadd_rn(cst, coeffs[(size_t)r * C + k]);
+          for (int x = 0; x <= rows; ++x)
+            sco[(size_t)(w + x) * CK + i] = coeffs[(size_t)(r + 1 + x) * C + k];
+          w += 1 + rows;
+          r += 2 + rows;
+        }
+        r = 0;
+        for (int g = 0; g < L.n_quad; ++g) {
+          const int d = L.quad_d[g];
+          const int rows = L.quad_cols[g] * (d + d * (d + 1) / 2);
+          cst = __fadd_rn(cst, qcoeffs[(size_t)r * C + k]);
+          for (int x = 0; x <= rows; ++x)
+            sco[(size_t)(w + x) * CK + i] =
+                qcoeffs[(size_t)(r + 1 + x) * C + k];
+          w += 1 + rows;
+          r += 2 + rows;
+        }
+        sco[i] = cst;
+      }
+      __syncthreads();
+      if (!active) continue;
+      for (int kk = 0; kk < n; ++kk) {
+        const int k = c0 + kk;
+        float s = sco[kk];
+        int w = 1, cidx = 0;
+        for (int g = 0; g < L.n_nich; ++g) {
+          const float lc = sco[(size_t)w * CK + kk];
+          ++w;
+          const int nc = L.nich_cols[g];
+          for (int j0 = 0; j0 < nc; j0 += 4) {
+            const int j1 = min(j0 + 4, nc);
+            float prod = F(1.0);
+            for (int j = j0; j < j1; ++j) {
+              const float prec = sco[(size_t)w * CK + kk];
+              const float mean = sco[(size_t)(w + 1) * CK + kk];
+              w += 2;
+              const float t = __fsub_rn(
+                  sval[(cidx + j) * SCORE_THREADS + tid], mean);
+              const float f =
+                  __fadd_rn(F(1.0), __fmul_rn(prec, __fmul_rn(t, t)));
+              prod = (j == j0) ? f : __fmul_rn(prod, f);
+            }
+            s = __fadd_rn(s, __fmul_rn(lc, log_<FAST>(prod)));
+          }
+          cidx += nc;
+        }
+        int qidx = 0;
+        for (int g = 0; g < L.n_quad; ++g) {
+          const float lc = sco[(size_t)w * CK + kk];
+          ++w;
+          const int nc = L.quad_cols[g];
+          const int d = L.quad_d[g];
+          for (int j0 = 0; j0 < nc; j0 += 4) {
+            const int j1 = min(j0 + 4, nc);
+            float prod = F(1.0);
+            for (int j = j0; j < j1; ++j) {
+              const float* v = sq + qidx * SCORE_THREADS + tid;
+              const float* co = sco + (size_t)w * CK + kk;
+              float q;
+              switch (d) {
+                case 1: q = quad_form<1>(v, co, CK); break;
+                case 2: q = quad_form<2>(v, co, CK); break;
+                case 3: q = quad_form<3>(v, co, CK); break;
+                default: q = quad_form<4>(v, co, CK); break;
+              }
+              w += d + d * (d + 1) / 2;
+              qidx += d;
+              const float f = __fadd_rn(F(1.0), q);
+              prod = (j == j0) ? f : __fmul_rn(prod, f);
+            }
+            s = __fadd_rn(s, __fmul_rn(lc, log_<FAST>(prod)));
+          }
+        }
+        for (int j = 0; j < L.n_tab; ++j)
+          s = __fadd_rn(
+              s, __ldg(tables + (size_t)srow[j * SCORE_THREADS + tid] * C + k));
+        dr.visit(pass, row, k, C, s, noise);
+      }
+    }
+  }
+  if (active) out[row] = dr.result();
+}
+
+// -- kernel 2: count tables and per-block stat partials ---------------------
+//
+// Block b takes rows [b * stat_rows, (b + 1) * stat_rows).  It adds each
+// row's packed table rows into tcounts_i[slot, Vtot] with integer atomics,
+// and sums the float features [nich 1 | v | v^2 ; per niw column 1 | v |
+// v_a v_b] into partials[b, C, S]: each slot of a chunk has one owning
+// thread (kk % STAT_THREADS), which adds the block's rows in row order, so
+// the sums are deterministic with no float atomics.
+
+__global__ void __launch_bounds__(STAT_THREADS)
+fused_v3_stat_partials(const float* __restrict__ values,
+                       const float* __restrict__ qvalues,
+                       const int* __restrict__ table_idx,
+                       const int* __restrict__ assign,
+                       float* __restrict__ partials,
+                       int* __restrict__ tcounts_i, int B, int C, Layout L,
+                       int S, int stat_rows, int CKS) {
+  extern __shared__ float smem[];
+  float* acc = smem;                                  // [CKS][S]
+  int* sassign = (int*)(smem + (size_t)CKS * S);      // [stat_rows]
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * stat_rows;
+  const int r1 = min(B, r0 + stat_rows);
+  for (int r = r0 + tid; r < r1; r += STAT_THREADS) {
+    const int a = assign[r];
+    sassign[r - r0] = a;
+    if (a < 0 || a >= C) continue;
+    for (int j = 0; j < L.n_tab; ++j)
+      atomicAdd(tcounts_i + (size_t)a * L.vtot + L.tab_off[j] +
+                    table_idx[(size_t)r * L.n_tab + j], 1);
+  }
+  if (S == 0) return;
+  const int S1 = 3 * L.ncols;
+  for (int c0 = 0; c0 < C; c0 += CKS) {
+    const int n = min(CKS, C - c0);
+    __syncthreads();
+    for (int i = tid; i < n * S; i += STAT_THREADS) acc[i] = F(0.0);
+    __syncthreads();
+    for (int r = r0; r < r1; ++r) {
+      const int kk = sassign[r - r0] - c0;
+      if (kk < 0 || kk >= n || (kk % STAT_THREADS) != tid) continue;
+      float* a = acc + (size_t)kk * S;
+      for (int c = 0; c < L.ncols; ++c) {
+        const float v = values[(size_t)r * L.ncols + c];
+        a[c] = __fadd_rn(a[c], F(1.0));
+        a[L.ncols + c] = __fadd_rn(a[L.ncols + c], v);
+        a[2 * L.ncols + c] = __fadd_rn(a[2 * L.ncols + c], __fmul_rn(v, v));
+      }
+      float* q = a + S1;
+      const float* qv = qvalues + (size_t)r * L.qvals;
+      for (int g = 0; g < L.n_quad; ++g) {
+        const int d = L.quad_d[g];
+        for (int j = 0; j < L.quad_cols[g]; ++j) {
+          q[0] = __fadd_rn(q[0], F(1.0));
+          for (int x = 0; x < d; ++x) q[1 + x] = __fadd_rn(q[1 + x], qv[x]);
+          int o = 1 + d;
+          for (int x = 0; x < d; ++x)
+            for (int y = x; y < d; ++y) {
+              q[o] = __fadd_rn(q[o], __fmul_rn(qv[x], qv[y]));
+              ++o;
+            }
+          q += o;
+          qv += d;
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < n * S; i += STAT_THREADS)
+      partials[((size_t)blockIdx.x * C + c0) * S + i] = acc[i];
+  }
+}
+
+// -- kernel 3: fixed-order reduce of the partials, counts to f32 ------------
+
+__global__ void fused_v3_stat_reduce(const float* __restrict__ partials,
+                                     const int* __restrict__ tcounts_i,
+                                     float* __restrict__ sums,
+                                     float* __restrict__ qsums,
+                                     float* __restrict__ tcounts, int nblocks,
+                                     int C, int S, int S1, int vtot) {
+  const int n = C * S;
+  const int step = gridDim.x * blockDim.x;
+  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
+  for (int i = i0; i < n; i += step) {
+    float s = partials[i];
+    for (int b = 1; b < nblocks; ++b)
+      s = __fadd_rn(s, partials[(size_t)b * n + i]);
+    const int c = i / S, x = i % S;
+    if (x < S1)
+      sums[(size_t)c * S1 + x] = s;
+    else
+      qsums[(size_t)c * (S - S1) + (x - S1)] = s;
+  }
+  const int m = C * vtot;
+  for (int i = i0; i < m; i += step) tcounts[i] = (float)tcounts_i[i];
+}
+
+static inline int imin(int a, int b) { return a < b ? a : b; }
+static inline int imax_(int a, int b) { return a > b ? a : b; }
+
+template <int MODE>
+static void launch_score(bool fast, dim3 grid, size_t smem, cudaStream_t st,
+                         const float* values, const float* qvalues,
+                         const int* table_idx, const float* cl,
+                         const float* coeffs, const float* qcoeffs,
+                         const float* tables, const float* noise, int* out,
+                         int B, int C, const Layout& L, int CK,
+                         unsigned long long seed) {
+  if (fast)
+    fused_v3_score_sample<MODE, true><<<grid, SCORE_THREADS, smem, st>>>(
+        values, qvalues, table_idx, cl, coeffs, qcoeffs, tables, noise, out,
+        B, C, L, CK, seed);
+  else
+    fused_v3_score_sample<MODE, false><<<grid, SCORE_THREADS, smem, st>>>(
+        values, qvalues, table_idx, cl, coeffs, qcoeffs, tables, noise, out,
+        B, C, L, CK, seed);
+}
+
+extern "C" const char* fused_v3_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+// nich_cols[n_nich], quad_cols[n_quad], quad_d[n_quad], table_vs[n_tab]
+// describe the layout; values / qvalues / table_idx and their coefficient
+// arrays may be null when their count is 0.  partials is scratch of
+// [ceil(B / stat_rows), C, S] floats and tcounts_i of [C, Vtot] ints.
+extern "C" int fused_v3_launch(
+    const float* values, const float* qvalues, const int* table_idx,
+    const float* cl, const float* coeffs, const float* qcoeffs,
+    const float* tables, const float* noise, int* out, float* partials,
+    float* sums, float* qsums, int* tcounts_i, float* tcounts, int B, int C,
+    int n_nich, const int* nich_cols, int n_quad, const int* quad_cols,
+    const int* quad_d, int n_tab, const int* table_vs, int mode, int fast,
+    unsigned long long seed, int stat_rows, void* stream) {
+  if (B < 1 || C < 1 || n_nich < 0 || n_nich > MAX_GROUPS || n_quad < 0 ||
+      n_quad > MAX_GROUPS || n_tab < 0 || n_tab > MAX_TABLE_COLS ||
+      stat_rows < 1 || mode < MODE_ARGMAX || mode > MODE_CDF_HOST)
+    return (int)cudaErrorInvalidValue;
+  Layout L;
+  memset(&L, 0, sizeof(L));
+  L.n_nich = n_nich;
+  L.n_quad = n_quad;
+  L.n_tab = n_tab;
+  L.W = 1;
+  int qdim = 0;
+  for (int g = 0; g < n_nich; ++g) {
+    if (nich_cols[g] < 1) return (int)cudaErrorInvalidValue;
+    L.nich_cols[g] = nich_cols[g];
+    L.ncols += nich_cols[g];
+    L.W += 1 + 2 * nich_cols[g];
+  }
+  for (int g = 0; g < n_quad; ++g) {
+    const int nc = quad_cols[g], d = quad_d[g];
+    if (nc < 1 || d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
+    L.quad_cols[g] = nc;
+    L.quad_d[g] = d;
+    L.qvals += nc * d;
+    L.W += 1 + nc * (d + d * (d + 1) / 2);
+    qdim += nc * (1 + d + d * (d + 1) / 2);
+  }
+  for (int j = 0; j < n_tab; ++j) {
+    if (table_vs[j] < 1) return (int)cudaErrorInvalidValue;
+    L.tab_off[j] = L.vtot;
+    L.vtot += table_vs[j];
+  }
+  if (L.ncols > MAX_COLS || L.qvals > MAX_QVALS)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+
+  const int per_thread = L.ncols + L.qvals + L.n_tab;
+  const int CK = imin(C, (SMEM_FLOATS - SCORE_THREADS * per_thread) / L.W);
+  if (CK < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem1 =
+      ((size_t)L.W * CK + (size_t)SCORE_THREADS * per_thread) * sizeof(float);
+  const dim3 grid1((B + SCORE_THREADS - 1) / SCORE_THREADS);
+  switch (mode) {
+    case MODE_ARGMAX:
+      launch_score<MODE_ARGMAX>(fast, grid1, smem1, st, values, qvalues,
+                                table_idx, cl, coeffs, qcoeffs, tables, noise,
+                                out, B, C, L, CK, seed);
+      break;
+    case MODE_GUMBEL:
+      launch_score<MODE_GUMBEL>(fast, grid1, smem1, st, values, qvalues,
+                                table_idx, cl, coeffs, qcoeffs, tables, noise,
+                                out, B, C, L, CK, seed);
+      break;
+    case MODE_GUMBEL_HOST:
+      launch_score<MODE_GUMBEL_HOST>(fast, grid1, smem1, st, values, qvalues,
+                                     table_idx, cl, coeffs, qcoeffs, tables,
+                                     noise, out, B, C, L, CK, seed);
+      break;
+    case MODE_CDF:
+      launch_score<MODE_CDF>(fast, grid1, smem1, st, values, qvalues,
+                             table_idx, cl, coeffs, qcoeffs, tables, noise,
+                             out, B, C, L, CK, seed);
+      break;
+    default:
+      launch_score<MODE_CDF_HOST>(fast, grid1, smem1, st, values, qvalues,
+                                  table_idx, cl, coeffs, qcoeffs, tables,
+                                  noise, out, B, C, L, CK, seed);
+      break;
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  if (n_tab > 0) {
+    err = cudaMemsetAsync(tcounts_i, 0, (size_t)C * L.vtot * sizeof(int), st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int S1 = 3 * L.ncols;
+  const int S = S1 + qdim;
+  const int CKS = S > 0 ? imin(C, (SMEM_FLOATS - stat_rows) / S) : 0;
+  if (S > 0 && CKS < 1) return (int)cudaErrorInvalidValue;
+  const int nblocks = (B + stat_rows - 1) / stat_rows;
+  const size_t smem2 = ((size_t)CKS * S + stat_rows) * sizeof(float);
+  fused_v3_stat_partials<<<nblocks, STAT_THREADS, smem2, st>>>(
+      values, qvalues, table_idx, out, partials, tcounts_i, B, C, L, S,
+      stat_rows, CKS);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int n = imax_(C * S, C * L.vtot);
+  const int grid3 = imin((n + 255) / 256, 1024);
+  fused_v3_stat_reduce<<<grid3, 256, 0, st>>>(partials, tcounts_i, sums, qsums,
+                                              tcounts, nblocks, C, S, S1,
+                                              L.vtot);
+  return (int)cudaGetLastError();
+}

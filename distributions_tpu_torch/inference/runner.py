@@ -11,9 +11,10 @@ checkpointing (`checkpoint_path`, ROADMAP Queue 1 item 10), row sharding
 
 import time
 
+import numpy as np
 import torch
 
-from distributions_tpu_torch import debug, diagnostics
+from distributions_tpu_torch import clustering, config, debug, diagnostics
 from distributions_tpu_torch import mixture as mx
 from distributions_tpu_torch.ops import fused_kernels as fk
 from distributions_tpu_torch.ops import gibbs
@@ -25,6 +26,62 @@ def _not_ported(option, item):
         % (option, item))
 
 
+def _leaves(obj):
+    """Every tensor and numpy array in nested tuples, lists and dicts."""
+    if isinstance(obj, (torch.Tensor, np.ndarray)):
+        yield obj
+    elif isinstance(obj, dict):
+        for x in obj.values():
+            yield from _leaves(x)
+    elif isinstance(obj, (tuple, list)):
+        for x in obj:
+            yield from _leaves(x)
+
+
+def _place(spec, cl_model, shareds, values, initial_assignments, device):
+    """Put the run's inputs on one device.  Tensors stay where they are,
+    and they must all share one device, which must be `device` when one is
+    named; numpy arrays, lists and dicts go to that device
+    (`config.default_device()` when nothing names one)."""
+    found = []
+    for t in _leaves((cl_model, shareds, values, initial_assignments)):
+        if isinstance(t, torch.Tensor) and not any(
+                config.same_device(t.device, d) for d in found):
+            found.append(t.device)
+    if device is not None:
+        device = torch.device(device)
+        found = [d for d in found if not config.same_device(d, device)]
+        if found:
+            raise ValueError('run_gibbs(device=%s) was given tensors on %s'
+                             % (device, found[0]))
+    elif len(found) > 1:
+        raise ValueError('run_gibbs was given tensors on several devices: '
+                         '%s' % ', '.join(str(d) for d in found))
+    elif found:
+        device = found[0]
+    else:
+        device = config.default_device()
+
+    def tensor(x):
+        return x if isinstance(x, torch.Tensor) else torch.as_tensor(
+            np.asarray(x)).to(device)
+
+    if isinstance(cl_model, dict):
+        cls = (clustering.LowEntropy if 'dataset_size' in cl_model
+               else clustering.PitmanYor)
+        cl_model = cls.from_dict(cl_model, device=device)
+    else:
+        cl_model = type(cl_model)(*(tensor(x) for x in cl_model))
+    shareds = tuple(
+        b.module.shared_from_dict(sh, device=device) if isinstance(sh, dict)
+        else type(sh)(*(tensor(x) for x in sh))
+        for b, sh in zip(spec.blocks, shareds))
+    values = tuple(tensor(v) for v in values)
+    if initial_assignments is not None:
+        initial_assignments = tensor(initial_assignments)
+    return device, cl_model, shareds, values, initial_assignments
+
+
 def run_gibbs(spec, cl_model, shareds, values, generator, passes,
               block=4096, checkpoint_path=None, checkpoint_every=10,
               resume=True, init='prior', use_pallas=False,
@@ -32,7 +89,7 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
               block_rows=2048, hyper_grids=None, cl_grid=None,
               hyper_every=10, hyper_sample=True,
               checkpoint_format='npz', hyper_slice=None, cl_slice=False,
-              sweeps_per_step=1, initial_assignments=None):
+              sweeps_per_step=1, initial_assignments=None, device=None):
     """Run `passes` blocked collapsed-Gibbs sweeps.
 
     generator: the `torch.Generator` all randomness comes from (the JAX
@@ -40,12 +97,21 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
     or pass `initial_assignments` ([R] int) to warm-start; it overrides
     `init`.
 
-    use_pallas=True runs each step through the fused kernel K1
-    (`gibbs.sweep_blocked_pallas_fused_mixed`) when the spec is nich-only
-    and R is a multiple of `block`; otherwise the plain
-    `gibbs.sweep_blocked`.  sweeps_per_step: whole sweeps per step;
-    validation, logging and the capacity-growth check happen at step
-    boundaries, with one logger row per step.  Capacity doubles when
+    device: where the chain runs.  `values`, `initial_assignments`, the
+    shareds and the clustering model may be tensors, numpy arrays, lists
+    or (shareds, clustering model) dicts: what is not a tensor goes to
+    `device`, which defaults to the device of the tensors given and, with
+    none given, to `config.default_device()` (the card).  Tensors on
+    another device than the rest raise ValueError.
+
+    use_pallas=True runs each step through a fused kernel
+    (`gibbs.sweep_blocked_pallas_fused_mixed`: K2, or K1 for a nich-only
+    spec) when every block is nich, niw or a discrete model with score
+    tables (`fused_kernels.supports_mixed_pallas`) and R is a multiple of
+    `block`; otherwise the plain `gibbs.sweep_blocked`.
+    sweeps_per_step: whole sweeps per step; validation, logging and the
+    capacity-growth check happen at step boundaries, with one logger row
+    per step.  Capacity doubles when
     fewer than `grow_headroom * capacity` slots are free, and the fused
     stat cache is then rebuilt.
 
@@ -62,12 +128,12 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
     if sweeps_per_step < 1:
         raise ValueError('sweeps_per_step must be >= 1')
     logger = log or diagnostics.SweepLogger()
-    dev = torch.as_tensor(values[0]).device
+    dev, cl_model, shareds, values, initial_assignments = _place(
+        spec, cl_model, shareds, values, initial_assignments, device)
     R = int(values[0].shape[0])
 
     if initial_assignments is not None:
-        assignments = torch.as_tensor(initial_assignments).to(
-            device=dev, dtype=torch.int32)
+        assignments = initial_assignments.to(torch.int32)
     elif init.startswith('random'):
         k0 = int(init.split(':')[1]) if ':' in init else 64
         assignments = torch.randint(
@@ -90,9 +156,8 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
         # the fused gate keeps what the algorithm needs; the JAX runner's
         # TPU-only conditions (capacity % 128, block % 512, the VMEM cap of
         # auto_block_rows) do not apply to the CUDA kernel
-        if use_pallas and not fk.supports_pallas(spec):
-            raise NotImplementedError(gibbs._K2_NOT_PORTED)
-        fused_ok = use_pallas and R % block == 0
+        fused_ok = (use_pallas and fk.supports_mixed_pallas(spec)
+                    and R % block == 0)
         k = min(sweeps_per_step, passes - sweep)
 
         step_score = None

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from distributions_tpu_torch import clustering as _clustering
+from distributions_tpu_torch.config import default_device
 from distributions_tpu_torch.models import base
 
 
@@ -55,7 +56,7 @@ def init(spec, shareds, counts=None):
     """A mixture state with empty feature groups; `counts` (optional
     [<=C] int) seeds the initial group sizes."""
     C = spec.capacity
-    dev = shareds[0].mu.device if shareds else torch.device('cpu')
+    dev = shareds[0][0].device if shareds else default_device()
     counts_arr = torch.zeros(C, dtype=torch.int32, device=dev)
     if counts is not None:
         counts = torch.as_tensor(counts, device=dev).to(torch.int32)
@@ -78,7 +79,8 @@ def _recompute_alive(counts, empties):
 
 
 def _block_score_batch(block, shared, group, values):
-    """Score [B, cols] values against all C slots -> [B, C]."""
+    """Score [B, cols] values ([B, cols, d] for niw) against all C slots
+    -> [B, C]."""
     total = None
     for j in range(block.cols):
         g = _map_group(lambda a: a[:, j], group)
@@ -107,6 +109,32 @@ def score_batch(spec, cl_model, shareds, state, values):
         scores = scores + torch.where(state.alive[None, :], block_scores,
                                       zero)
     return scores
+
+
+def _zero_emptied(group, counts):
+    """Re-zero the slots that emptied (cancels float drift)."""
+    empty_now = counts == 0
+    return _map_group(
+        lambda m: torch.where(
+            empty_now.reshape((-1,) + (1,) * (m.dim() - 1)),
+            torch.zeros_like(m), m), group)
+
+
+def remove_tile(spec, cl_model, shareds, state, values, assignments):
+    """Remove a whole tile of rows by segment-summed unmerge."""
+    C = spec.capacity
+    counts = state.counts - _clustering.count_assignments(assignments, C)
+    groups = tuple(
+        _zero_emptied(block.module.unmerge(
+            shared, group, block.module.from_values_grouped(
+                shared, torch.as_tensor(v), assignments, C)), counts)
+        for block, shared, group, v in zip(
+            spec.blocks, shareds, state.groups, values))
+    n = torch.as_tensor(assignments).shape[0]
+    return MixtureState(counts=counts,
+                        alive=_recompute_alive(counts, spec.empties),
+                        sample_size=state.sample_size - n,
+                        groups=groups)
 
 
 def add_tile(spec, cl_model, shareds, state, values, assignments):
@@ -184,16 +212,13 @@ def apply_stat_tiles(spec, shareds, state, counts_delta, tiles, sign, nrows):
     groups = []
     for block, shared, group, tile in zip(
             spec.blocks, shareds, state.groups, tiles):
-        tile_group = block.module.tile_to_group(shared, tile)
+        to_group = getattr(block.module, 'tile_to_group', None)
+        tile_group = tile if to_group is None else to_group(shared, tile)
         if sign > 0:
             merged = block.module.merge(shared, group, tile_group)
         else:
-            merged = block.module.unmerge(shared, group, tile_group)
-            empty_now = counts == 0
-            merged = _map_group(
-                lambda m: torch.where(
-                    empty_now.reshape((-1,) + (1,) * (m.dim() - 1)),
-                    torch.zeros_like(m), m), merged)
+            merged = _zero_emptied(
+                block.module.unmerge(shared, group, tile_group), counts)
         groups.append(merged)
     return MixtureState(counts=counts,
                         alive=_recompute_alive(counts, spec.empties),

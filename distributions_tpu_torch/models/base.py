@@ -5,6 +5,12 @@ follows)."""
 import torch
 
 
+def scalar(x, dtype, device):
+    """A Python number as a 0-dim tensor of `dtype` on `device`."""
+    x = float(x) if dtype.is_floating_point else int(x)
+    return torch.tensor(x, dtype=dtype, device=device)
+
+
 def exact_onehot_matmul(onehot_t, flat):
     """onehot_t [K, B] (exact 0/1) @ flat [B, S] -> [K, S] in float32.
 

@@ -1,0 +1,121 @@
+"""Dirichlet-Discrete conjugate model (distributions_tpu.models.dd):
+Value=int in [0, dim), Shared={alphas[dim]}, Group={counts[..., dim]}."""
+
+from typing import NamedTuple
+
+import torch
+
+from distributions_tpu_torch.config import resolve_device
+from distributions_tpu_torch.models import base
+from distributions_tpu_torch.special import lgamma_ratio
+
+NAME = 'DirichletDiscrete'
+EXAMPLES = [
+    {
+        'shared': {'alphas': [0.5] * 4},
+        'values': [0, 1, 0, 2, 0, 1, 0],
+    },
+    {
+        'shared': {'alphas': [1.0, 4.0]},
+        'values': [0, 1, 1, 1, 1, 0, 1],
+    },
+    {
+        'shared': {'alphas': [2.0 / n for n in range(1, 21)]},
+        'values': list(range(20)),
+    },
+]
+Value = int
+
+
+class Shared(NamedTuple):
+    alphas: torch.Tensor  # [dim] float32
+
+
+class Group(NamedTuple):
+    counts: torch.Tensor  # [..., dim] int32
+
+
+def dim(shared):
+    return shared.alphas.shape[-1]
+
+
+def shared_from_dict(raw, device=None):
+    return Shared(alphas=torch.tensor([float(a) for a in raw['alphas']],
+                                      dtype=torch.float32,
+                                      device=resolve_device(device)))
+
+
+def shared_to_dict(shared):
+    return {'alphas': [float(a) for a in shared.alphas]}
+
+
+def group_init(shared, shape=()):
+    return Group(counts=torch.zeros(tuple(shape) + (dim(shared),),
+                                    dtype=torch.int32,
+                                    device=shared.alphas.device))
+
+
+def _as_index(values, device):
+    return torch.as_tensor(values, device=device).to(torch.int64)
+
+
+def merge(shared, destin, source):
+    return Group(counts=destin.counts + source.counts)
+
+
+def unmerge(shared, destin, source):
+    return Group(counts=destin.counts - source.counts)
+
+
+def score_value(shared, group, value):
+    """A [..., dim]-batched group against an integer value broadcastable
+    to the batch."""
+    counts = group.counts.to(torch.float32)
+    value = _as_index(value, counts.device)
+    idx = value.expand(counts.shape[:-1])[..., None]
+    numer = counts.gather(-1, idx)[..., 0] + shared.alphas[value]
+    denom = counts.sum(-1) + shared.alphas.sum()
+    return torch.log(numer / denom)
+
+
+def score_value_batch(shared, group, values):
+    """[K, dim] group x [B] values -> [B, K]."""
+    counts = group.counts.to(torch.float32)                        # [K, D]
+    denom = torch.log(counts.sum(-1) + shared.alphas.sum())        # [K]
+    post = counts + shared.alphas[None, :]                         # [K, D]
+    values = _as_index(values, counts.device)
+    return torch.log(post[:, values].t()) - denom[None, :]
+
+
+def score_data(shared, group):
+    """Marginal likelihood; the rising-factorial terms go through
+    special.lgamma_ratio (the naive lgamma difference cancels in f32 once
+    alpha >> count)."""
+    a = shared.alphas
+    m = group.counts.to(torch.float32)
+    return (lgamma_ratio(a, m).sum(-1)
+            - lgamma_ratio(a.sum(), m.sum(-1)))
+
+
+def _onehot(shared, values):
+    v = _as_index(values, shared.alphas.device)
+    d = torch.arange(dim(shared), device=v.device)
+    return d == v[..., None]
+
+
+def from_values_grouped(shared, values, assignments, num_groups):
+    return Group(counts=base.segment_sum(
+        _onehot(shared, values).to(torch.int32), assignments, num_groups))
+
+
+def row_stat_dim(shared):
+    return dim(shared)
+
+
+def row_stat_columns(shared, values):
+    """[..., dim] one-hot of each value."""
+    return _onehot(shared, values).to(torch.float32)
+
+
+def row_stats_to_tile(shared, sums):
+    return Group(counts=torch.round(sums).to(torch.int32))

@@ -11,6 +11,7 @@ from typing import NamedTuple
 
 import torch
 
+from distributions_tpu_torch.config import resolve_device
 from distributions_tpu_torch.special import gammaln, lgamma_nu
 from distributions_tpu_torch.models import base
 
@@ -47,9 +48,10 @@ class TileStats(NamedTuple):
 
 
 def shared_from_dict(raw, device=None):
+    device = resolve_device(device)
+
     def f(k):
-        return torch.tensor(float(raw[k]), dtype=torch.float32,
-                            device=device)
+        return base.scalar(raw[k], torch.float32, device)
     return Shared(mu=f('mu'), kappa=f('kappa'), sigmasq=f('sigmasq'),
                   nu=f('nu'))
 

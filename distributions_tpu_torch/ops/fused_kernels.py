@@ -1,12 +1,15 @@
-"""The fused nich score + sample + stat-sum kernel (K1) and its plain
-PyTorch twin.  Counterpart of distributions_tpu/ops/pallas_kernels.py
-(`fused_score_sample_stats`, `_fused_v2_kernel`, `nich_coeffs_v2`,
-`split_stat_sums`, `fast_log`/`fast_exp`, and the nich-only branch of
-`fused_mixed_score_sample_stats`).
+"""The fused score + sample + stat-sum kernels and their plain PyTorch
+twins.  Counterpart of distributions_tpu/ops/pallas_kernels.py:
 
-`fused_score_sample_stats` takes the twin for CPU tensors.  For CUDA
-tensors it launches the hand-written Hopper kernel in
-`csrc/fused_v2.cu` (built with nvcc into build/torch_kernels/ at first
+- K1, `fused_score_sample_stats` (`_fused_v2_kernel`): nich columns only,
+  with `nich_coeffs_v2`, `split_stat_sums`, `fast_log`/`fast_exp`;
+- K2, `fused_mixed_score_sample_stats` (`_fused_v3_kernel`): nich columns,
+  niw columns (`niw_coeffs_v4`, `quad_sums_to_raw`) and table columns of
+  the discrete models.  A nich-only call falls through to K1.
+
+Each wrapper takes its twin (`*_plain`) for CPU tensors.  For CUDA tensors
+it launches the hand-written Hopper kernel in `csrc/fused_v2.cu` or
+`csrc/fused_v3.cu` (built with nvcc into build/torch_kernels/ at first
 use, bound with ctypes) or raises; there is no fallback.  Its `launches`
 attribute counts the kernel launches.
 """
@@ -22,16 +25,22 @@ import time
 import torch
 
 from distributions_tpu_torch.models import base, nich as nich_mod
+from distributions_tpu_torch.models import niw as niw_mod
 from distributions_tpu_torch.random import device_generator
 from distributions_tpu_torch.special import lgamma_nu
 
 DEFAULT_BLOCK_ROWS = 256
 
-# sampling mode -> the kernel's MODE_* enum (csrc/fused_v2.cu)
+# sampling mode -> the kernels' MODE_* enum (csrc/fused_common.cuh)
 SAMPLING_MODES = {'argmax': 0, 'gumbel': 1, 'gumbel_host': 2, 'cdf': 3,
                   'cdf_host': 4}
-MAX_GROUPS = 8
-MAX_COLS = 32
+# caps of the kernels' run-time layouts (csrc/fused_v2.cu, csrc/fused_v3.cu)
+MAX_GROUPS = 8          # nich blocks, and niw blocks
+MAX_COLS = 32           # nich columns in all
+MAX_QVALS = 16          # niw value columns in all (sum of cols * d)
+MAX_D = 4               # niw dimension
+MAX_TABLE_COLS = 16
+MAX_VTOT = 4096         # packed table rows
 # rows per block of the kernel's stat partial sums
 STAT_ROWS = 1024
 
@@ -92,6 +101,15 @@ def supports_pallas(spec):
     return all(b.module is nich_mod for b in spec.blocks)
 
 
+def supports_mixed_pallas(spec):
+    """nich blocks (product form) + niw blocks (quadratic form) + any
+    discrete model with score_value_batch (score tables): the specs K2
+    serves."""
+    return all(b.module is nich_mod or b.module is niw_mod
+               or hasattr(b.module, 'score_value_batch')
+               for b in spec.blocks)
+
+
 def nich_coeffs_v2(shared, group):
     """Product-form coefficient rows for one nich block: [2 + 2*cols, C] =
     [sum of per-column score constants; log_coeff; then per column prec;
@@ -135,18 +153,131 @@ def split_stat_sums(spec, sums):
     return counts, tuple(out)
 
 
-# -- the plain twin ---------------------------------------------------------
+def quad_stat_dim(quad_groups):
+    return sum(ncols * (1 + d + d * (d + 1) // 2)
+               for ncols, d in quad_groups)
 
-def _score_nich_product(values, coeffs, cl_scores, col_groups, log_):
-    """[B, C] product-form scores, in the kernel's operation order: the
-    per-slot constants (cl + each block's base) first, then per block and
-    per chunk of <= 4 columns lc * log(prod of (1 + prec (v - mean)^2))."""
+
+def _inv_logdet_spd_small(m):
+    """(inverse, logdet) of batched SPD [..., d, d] matrices: closed-form
+    adjugate for d <= 3, `torch.linalg` beyond.  The closed forms can
+    round a near-singular determinant to <= 0; it is clamped to the
+    dtype's tiny so that log and divide stay finite."""
+    d = m.shape[-1]
+    tiny = torch.finfo(m.dtype).tiny
+    if d == 1:
+        det = torch.clamp(m[..., 0, 0], min=tiny)
+        inv = (1.0 / det)[..., None, None]
+    elif d == 2:
+        a, b = m[..., 0, 0], m[..., 0, 1]
+        c, e = m[..., 1, 0], m[..., 1, 1]
+        det = torch.clamp(a * e - b * c, min=tiny)
+        inv = torch.stack(
+            [torch.stack([e, -b], -1), torch.stack([-c, a], -1)], -2) \
+            / det[..., None, None]
+    elif d == 3:
+        a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+        e, f, g = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+        h, i, j = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+        A = f * j - g * i
+        B = -(e * j - g * h)
+        Cc = e * i - f * h
+        det = torch.clamp(a * A + b * B + c * Cc, min=tiny)
+        adj = torch.stack([
+            torch.stack([A, -(b * j - c * i), b * g - c * f], -1),
+            torch.stack([B, a * j - c * h, -(a * g - c * e)], -1),
+            torch.stack([Cc, -(a * i - b * h), a * f - b * e], -1)], -2)
+        inv = adj / det[..., None, None]
+    else:
+        # inv_ex: a singular matrix gives non-finite entries, it does not
+        # raise, as in the JAX package
+        return torch.linalg.inv_ex(m).inverse, torch.linalg.slogdet(m)[1]
+    return inv, torch.log(det)
+
+
+def niw_coeffs_v4(shared, group):
+    """Quadratic-form coefficient rows for one niw block:
+    [2 + cols*(d + d(d+1)/2), C] = [base; lc; then per column d mean rows
+    and d(d+1)/2 upper-triangle precision rows with the off-diagonals
+    pre-doubled].
+
+    The predictive (niw.score_value) is a multivariate student-t with
+    dof = nu_n - d + 1 and scale Sigma = psi_n (kappa_n+1)/(kappa_n dof),
+    so with Lam = Sigma^-1/dof = psi_n^-1 kappa_n/(kappa_n+1):
+
+        score = const + lc * log(1 + (v-mu_n)^T Lam (v-mu_n))
+        lc    = -(dof+d)/2
+        const = sum_i lgamma_nu(dof+i) - (d/2) log(dof*pi)
+                - (1/2) logdet Sigma
+
+    lc is column-independent within a block (nu_n = nu0 + count), which
+    lets the kernel chain a block's columns into one log."""
+    post = niw_mod.plus_group(shared, group)     # mu [C, cols, d], ...
+    d = post.mu.shape[-1]
+    dof = post.nu - d + 1.0                      # [C, cols]
+    kap = post.kappa                             # [C, cols]
+    psi_inv, logdet_psi = _inv_logdet_spd_small(post.psi)
+    lam = psi_inv * (kap / (kap + 1.0))[..., None, None]
+    logdet_sigma = logdet_psi + d * torch.log((kap + 1.0) / (kap * dof))
+    lg = sum(lgamma_nu(dof + i) for i in range(d))
+    const = lg - 0.5 * (d * torch.log(dof * torch.pi) + logdet_sigma)
+    rows = [const.sum(1),                        # base [C]
+            -0.5 * (dof[:, 0] + d)]              # lc   [C]
+    for j in range(post.mu.shape[1]):
+        for a in range(d):
+            rows.append(post.mu[:, j, a])
+        for a in range(d):
+            for b in range(a, d):
+                rows.append((1.0 if a == b else 2.0) * lam[:, j, a, b])
+    return torch.stack(rows, dim=0)
+
+
+def quad_sums_to_raw(qsums, quad_groups):
+    """Kernel quad sums [C, quad_stat_dim] -> per-block raw sums
+    [C, cols, 1+d+d*d] in niw.row_stat_columns order ([1 | v | full
+    outer]), mirroring the upper-triangle cross products."""
+    out = []
+    o = 0
+    for ncols, d in quad_groups:
+        S = 1 + d + d * (d + 1) // 2
+        cols_raw = []
+        for _ in range(ncols):
+            blk = qsums[:, o:o + S]
+            o += S
+            tri = blk[:, 1 + d:]
+            full = [None] * (d * d)
+            t = 0
+            for a in range(d):
+                for b in range(a, d):
+                    full[a * d + b] = tri[:, t]
+                    full[b * d + a] = tri[:, t]
+                    t += 1
+            cols_raw.append(torch.cat(
+                [blk[:, :1 + d], torch.stack(full, dim=1)], dim=1))
+        out.append(torch.stack(cols_raw, dim=1))           # [C, cols, S']
+    return tuple(out)
+
+
+# -- the plain twins --------------------------------------------------------
+
+def _const_row(cl_scores, coeffs, col_groups, qcoeffs=None, quad_groups=()):
+    """cl + each nich block's base + each niw block's base, in that
+    order: the per-slot constants, summed once per slot."""
     const_row = cl_scores
     r = 0
     for ncols in col_groups:
         const_row = const_row + coeffs[r]
         r += 2 + 2 * ncols
-    scores = const_row[None, :].expand(values.shape[0], -1)
+    r = 0
+    for ncols, d in quad_groups:
+        const_row = const_row + qcoeffs[r]
+        r += 2 + ncols * (d + d * (d + 1) // 2)
+    return const_row
+
+
+def _add_nich_terms(scores, values, coeffs, col_groups, log_):
+    """scores + per block and per chunk of <= 4 columns
+    lc * log(prod of (1 + prec (v - mean)^2))."""
     r = 0
     c0 = 0
     for ncols in col_groups:
@@ -163,6 +294,66 @@ def _score_nich_product(values, coeffs, cl_scores, col_groups, log_):
                 prod = f if prod is None else prod * f
             scores = scores + lc * log_(prod)
         c0 += ncols
+    return scores
+
+
+def _add_quad_terms(scores, qvalues, qcoeffs, quad_groups, log_):
+    """scores + per niw block and per chunk of <= 4 columns
+    lc * log(prod of (1 + q)), q = sum_{a<=b} lam'_ab (v_a - mu_a)(v_b -
+    mu_b) from centred differences (the expanded form cancels when
+    |mu| >> |v - mu|)."""
+    r = 0
+    c0 = 0
+    for ncols, d in quad_groups:
+        lc = qcoeffs[r + 1][None, :]
+        r += 2
+        for j0 in range(0, ncols, 4):
+            prod = None
+            for j in range(j0, min(j0 + 4, ncols)):
+                t = [qvalues[:, c0 + a][:, None] - qcoeffs[r + a][None, :]
+                     for a in range(d)]
+                r += d
+                q = None
+                for a in range(d):
+                    for b in range(a, d):
+                        term = qcoeffs[r][None, :] * (t[a] * t[b])
+                        r += 1
+                        q = term if q is None else q + term
+                c0 += d
+                f = 1.0 + q
+                prod = f if prod is None else prod * f
+            scores = scores + lc * log_(prod)
+    return scores
+
+
+def _score_nich_product(values, coeffs, cl_scores, col_groups, log_):
+    """[B, C] product-form nich scores in K1's operation order: the
+    per-slot constants first, then the blocks' log terms."""
+    const_row = _const_row(cl_scores, coeffs, col_groups)
+    scores = const_row[None, :].expand(values.shape[0], -1)
+    return _add_nich_terms(scores, values, coeffs, col_groups, log_)
+
+
+def _table_offsets(table_vs):
+    offs = []
+    o = 0
+    for v in table_vs:
+        offs.append(o)
+        o += int(v)
+    return offs
+
+
+def _score_mixed(B, values, table_idx, cl_scores, coeffs, tables, col_groups,
+                 qvalues, qcoeffs, quad_groups, table_vs, log_):
+    """[B, C] scores in K2's operation order: constants, nich blocks, niw
+    blocks, then one gathered table row per table column."""
+    const_row = _const_row(cl_scores, coeffs, col_groups, qcoeffs,
+                           quad_groups)
+    scores = const_row[None, :].expand(B, -1)
+    scores = _add_nich_terms(scores, values, coeffs, col_groups, log_)
+    scores = _add_quad_terms(scores, qvalues, qcoeffs, quad_groups, log_)
+    for j, off in enumerate(_table_offsets(table_vs)):
+        scores = scores + tables[table_idx[:, j].long() + off]
     return scores
 
 
@@ -184,21 +375,14 @@ def _cdf_draw(scores, u, exp_):
     return idx
 
 
-def fused_score_sample_stats_plain(seed, values, cl_scores, coeffs,
-                                   col_groups, block_rows=DEFAULT_BLOCK_ROWS,
-                                   sampling='cdf', noise=None):
-    """The plain PyTorch version of K1, on any device.  'gumbel' and 'cdf'
+def _draw(scores, mode, fast, seed, noise):
+    """One slot per row of [B, C] scores -> [B] int32.  'gumbel' and 'cdf'
     draw their noise from a generator seeded with `seed` and then apply
-    the '_host' formulas; the stat sums are an exact f32 one-hot
-    contraction.  Returns (assignments [B] int32, sums [C, 3*cols])."""
-    mode, fast = _parse_sampling(sampling)
+    the '_host' formulas."""
     log_ = fast_log if fast else torch.log
     exp_ = fast_exp if fast else torch.exp
-    B = values.shape[0]
-    C = cl_scores.shape[0]
-    dev = values.device
-    scores = _score_nich_product(values, coeffs, cl_scores, col_groups,
-                                 log_)
+    B, C = scores.shape
+    dev = scores.device
     if mode == 'argmax':
         idx = torch.argmax(scores, dim=1)
     elif mode in ('gumbel', 'gumbel_host'):
@@ -223,76 +407,196 @@ def fused_score_sample_stats_plain(seed, values, cl_scores, coeffs,
         else:
             u = noise
         idx = _cdf_draw(scores, u, exp_)
+    return idx.to(torch.int32)
+
+
+def fused_score_sample_stats_plain(seed, values, cl_scores, coeffs,
+                                   col_groups, block_rows=DEFAULT_BLOCK_ROWS,
+                                   sampling='cdf', noise=None):
+    """The plain PyTorch version of K1, on any device; the stat sums are
+    an exact f32 one-hot contraction.  Returns (assignments [B] int32,
+    sums [C, 3*cols])."""
+    mode, fast = _parse_sampling(sampling)
+    scores = _score_nich_product(values, coeffs, cl_scores, col_groups,
+                                 fast_log if fast else torch.log)
+    idx = _draw(scores, mode, fast, seed, noise)
     del scores
-    idx = idx.to(torch.int32)
     stats = torch.cat([torch.ones_like(values), values, values * values],
                       dim=1)
-    return idx, base.segment_sum(stats, idx, C)
+    return idx, base.segment_sum(stats, idx, cl_scores.shape[0])
 
 
-# -- the Hopper kernel ------------------------------------------------------
+def _quad_stat_features(qvalues, quad_groups):
+    """[B, quad_stat_dim] per-column stat features [1 | v | v_a v_b
+    (a <= b)]."""
+    feats = []
+    c0 = 0
+    for ncols, d in quad_groups:
+        for _ in range(ncols):
+            v = qvalues[:, c0:c0 + d]
+            feats.append(torch.ones_like(v[:, :1]))
+            feats.append(v)
+            for a in range(d):
+                for b in range(a, d):
+                    feats.append((v[:, a] * v[:, b])[:, None])
+            c0 += d
+    return torch.cat(feats, dim=1)
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), 'csrc', 'fused_v2.cu')
+
+def fused_mixed_score_sample_stats_plain(
+        seed, values, table_idx, cl_scores, coeffs, tables, col_groups,
+        block_rows=DEFAULT_BLOCK_ROWS, sampling='cdf', qvalues=None,
+        qcoeffs=None, quad_groups=(), noise=None, table_vs=()):
+    """The plain PyTorch version of K2, on any device: scores by
+    broadcasting and `tables[off_j + idx_j]` indexing, K1's draws, and
+    the sums as exact f32 one-hot contractions of the stat features.
+    Same arguments and results as `fused_mixed_score_sample_stats`."""
+    mode, fast = _parse_sampling(sampling)
+    C = cl_scores.shape[0]
+    B = _mixed_rows(values, qvalues, table_idx)
+    scores = _score_mixed(B, values, table_idx, cl_scores, coeffs, tables,
+                          col_groups, qvalues, qcoeffs, quad_groups, table_vs,
+                          fast_log if fast else torch.log)
+    idx = _draw(scores, mode, fast, seed, noise)
+    del scores
+    return (idx,) + _mixed_stat_sums(idx, C, values, table_idx, col_groups,
+                                     qvalues, quad_groups, table_vs)
+
+
+def _mixed_stat_sums(idx, C, values, table_idx, col_groups, qvalues,
+                     quad_groups, table_vs):
+    """(nich sums [C, 3*ncols], count tables [C, Vtot], quad sums
+    [C, quad_stat_dim]) of the draws `idx`: exact f32 one-hot contractions
+    of the stat features; a family that is absent gives [C, 0]."""
+    dev = idx.device
+    B = idx.shape[0]
+    empty = torch.zeros((C, 0), dtype=torch.float32, device=dev)
+    sums = qsums = tcounts = empty
+    if col_groups:
+        stats = torch.cat([torch.ones_like(values), values, values * values],
+                          dim=1)
+        sums = base.segment_sum(stats, idx, C)
+    if quad_groups:
+        qsums = base.segment_sum(_quad_stat_features(qvalues, quad_groups),
+                                 idx, C)
+    if table_vs:
+        onehot = torch.zeros((B, sum(table_vs)), dtype=torch.float32,
+                             device=dev)
+        rows = torch.arange(B, device=dev)
+        for j, off in enumerate(_table_offsets(table_vs)):
+            onehot[rows, table_idx[:, j].long() + off] = 1.0
+        tcounts = base.segment_sum(onehot, idx, C)
+    return sums, tcounts, qsums
+
+
+def _mixed_rows(values, qvalues, table_idx):
+    for t in (values, qvalues, table_idx):
+        if t is not None:
+            return t.shape[0]
+    raise ValueError('no nich, niw or table columns given')
+
+
+# -- the Hopper kernels -----------------------------------------------------
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), 'csrc')
+# device code that every kernel source includes
+_COMMON = 'fused_common.cuh'
+KERNELS = ('fused_v2', 'fused_v3')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), 'build', 'torch_kernels')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
-_LIBRARY = {}
+_LIBRARIES = {}
 
 
 def _nvcc():
     path = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
     if not os.path.exists(path):
-        raise RuntimeError('nvcc not found: building the fused_v2 kernel '
+        raise RuntimeError('nvcc not found: building the fused kernels '
                            'needs the CUDA toolkit')
     return path
 
 
-def build():
-    """Compile csrc/fused_v2.cu with nvcc into BUILD_DIR (once per source
-    content) and load it.  Returns a dict with the ctypes library, the
-    build seconds (0 when it was already built) and the compiler's
-    register/shared-memory report."""
-    if 'lib' in _LIBRARY:
-        return _LIBRARY
-    with open(_SRC, 'rb') as f:
-        src = f.read()
-    digest = hashlib.sha1(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
-    so = os.path.join(BUILD_DIR, 'fused_v2_%s.so' % digest[:12])
+def _bind(name, lib):
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    ip = ctypes.POINTER(i)
+    if name == 'fused_v2':
+        lib.fused_v2_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, ip, i,
+                                        i, ctypes.c_uint64, i, p]
+    else:
+        lib.fused_v3_launch.argtypes = [p] * 14 + [
+            i, i, i, ip, i, ip, ip, i, ip, i, i, ctypes.c_uint64, i, p]
+    getattr(lib, name + '_launch').restype = i
+    getattr(lib, name + '_error_string').argtypes = [i]
+    getattr(lib, name + '_error_string').restype = ctypes.c_char_p
+
+
+def _start_build(name):
+    """Start nvcc on csrc/<name>.cu unless its library exists already (one
+    library per content of the source, the shared header and the flags).
+    Returns what `_finish_build` needs."""
+    src = os.path.join(_CSRC, name + '.cu')
+    h = hashlib.sha1(' '.join(NVCC_FLAGS).encode())
+    for path in (src, os.path.join(_CSRC, _COMMON)):
+        with open(path, 'rb') as f:
+            h.update(f.read())
+    so = os.path.join(BUILD_DIR, '%s_%s.so' % (name, h.hexdigest()[:12]))
+    if os.path.exists(so):
+        return name, so, None, None, None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, '-o', tmp, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return name, so, tmp, proc, time.time()
+
+
+def _finish_build(name, so, tmp, proc, t0):
     log_path = so + '.log'
     seconds = 0.0
-    if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-        os.close(fd)
-        t0 = time.time()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, _SRC],
-                              capture_output=True, text=True)
+    if proc is not None:
+        output, _ = proc.communicate()
         seconds = time.time() - t0
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError('nvcc failed on %s:\n%s%s'
-                               % (_SRC, proc.stdout, proc.stderr))
+            raise RuntimeError('nvcc failed on csrc/%s.cu:\n%s'
+                               % (name, output))
         with open(log_path, 'w') as f:
-            f.write(proc.stdout + proc.stderr)
+            f.write(output)
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
-    p = ctypes.c_void_p
-    i = ctypes.c_int
-    lib.fused_v2_launch.argtypes = [p, p, p, p, p, p, p, i, i, i,
-                                    ctypes.POINTER(i), i, i,
-                                    ctypes.c_uint64, i, p]
-    lib.fused_v2_launch.restype = i
-    lib.fused_v2_error_string.argtypes = [i]
-    lib.fused_v2_error_string.restype = ctypes.c_char_p
+    _bind(name, lib)
     report = ''
     if os.path.exists(log_path):
         with open(log_path) as f:
             report = f.read()
-    _LIBRARY.update(lib=lib, seconds=seconds, report=report, path=so)
-    return _LIBRARY
+    _LIBRARIES[name] = dict(lib=lib, seconds=seconds, report=report, path=so)
+    return _LIBRARIES[name]
+
+
+def build(name):
+    """Compile csrc/<name>.cu ('fused_v2' or 'fused_v3') with nvcc into
+    BUILD_DIR, once per content of the source and the shared header, and
+    load it.  Returns a dict with the ctypes library, the build seconds
+    (0 when it was already built) and the compiler's register and
+    shared-memory report."""
+    if name not in _LIBRARIES:
+        _finish_build(*_start_build(name))
+    return _LIBRARIES[name]
+
+
+def build_all():
+    """Build every kernel, with all the compilers started together.
+    Returns {name: build(name)}."""
+    started = [_start_build(name) for name in KERNELS
+               if name not in _LIBRARIES]
+    for job in started:
+        _finish_build(*job)
+    return {name: _LIBRARIES[name] for name in KERNELS}
 
 
 def _check(name, t, device, shape, dtype=torch.float32):
@@ -311,16 +615,53 @@ def _check(name, t, device, shape, dtype=torch.float32):
         raise ValueError('%s must be contiguous' % name)
 
 
+def _check_noise(mode, sampling, noise, dev, B, C):
+    if mode == 'gumbel_host':
+        _check('noise', noise, dev, (B, C))
+    elif mode == 'cdf_host':
+        _check('noise', noise, dev, (B, 1))
+    elif noise is not None:
+        raise ValueError('sampling %r takes no noise' % (sampling,))
+
+
+def _check_seed(seed):
+    seed = int(seed)
+    if not 0 <= seed < 1 << 64:
+        raise ValueError('seed must be in [0, 2**64)')
+    return seed
+
+
+def _check_col_groups(col_groups, lowest):
+    col_groups = tuple(int(c) for c in col_groups)
+    if not lowest <= len(col_groups) <= MAX_GROUPS or (
+            col_groups and min(col_groups) < 1):
+        raise ValueError('col_groups %r: %d..%d groups of >= 1 column'
+                         % (col_groups, lowest, MAX_GROUPS))
+    if sum(col_groups) > MAX_COLS:
+        raise ValueError('at most %d nich columns, got %d'
+                         % (MAX_COLS, sum(col_groups)))
+    return col_groups
+
+
+def _int_array(xs):
+    return (ctypes.c_int * max(len(xs), 1))(*xs)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(name, lib, err):
+    if err != 0:
+        msg = getattr(lib, name + '_error_string')(err).decode()
+        raise RuntimeError('%s kernel launch failed: %s (%d)'
+                           % (name, msg, err))
+
+
 def _launch(seed, values, cl_scores, coeffs, col_groups, sampling, noise):
     mode, fast = _parse_sampling(sampling)
-    col_groups = tuple(int(c) for c in col_groups)
-    if not 1 <= len(col_groups) <= MAX_GROUPS or min(col_groups) < 1:
-        raise ValueError('col_groups %r: 1..%d groups of >= 1 column'
-                         % (col_groups, MAX_GROUPS))
+    col_groups = _check_col_groups(col_groups, 1)
     total_cols = sum(col_groups)
-    if total_cols > MAX_COLS:
-        raise ValueError('at most %d nich columns, got %d'
-                         % (MAX_COLS, total_cols))
     dev = values.device
     if values.dim() != 2 or values.shape[0] < 1:
         raise ValueError('values must be [B >= 1, cols], got %s'
@@ -332,34 +673,23 @@ def _launch(seed, values, cl_scores, coeffs, col_groups, sampling, noise):
     _check('values', values, dev, (B, total_cols))
     _check('cl_scores', cl_scores, dev, (C,))
     _check('coeffs', coeffs, dev, (sum(2 + 2 * c for c in col_groups), C))
-    if mode == 'gumbel_host':
-        _check('noise', noise, dev, (B, C))
-    elif mode == 'cdf_host':
-        _check('noise', noise, dev, (B, 1))
-    elif noise is not None:
-        raise ValueError('sampling %r takes no noise' % (sampling,))
-    seed = int(seed)
-    if not 0 <= seed < 1 << 64:
-        raise ValueError('seed must be in [0, 2**64)')
+    _check_noise(mode, sampling, noise, dev, B, C)
+    seed = _check_seed(seed)
 
-    lib = build()['lib']
+    lib = build('fused_v2')['lib']
     out = torch.empty(B, dtype=torch.int32, device=dev)
     nblocks = (B + STAT_ROWS - 1) // STAT_ROWS
     partials = torch.empty((nblocks, C, 3 * total_cols), dtype=torch.float32,
                            device=dev)
     sums = torch.empty((C, 3 * total_cols), dtype=torch.float32, device=dev)
-    groups = (ctypes.c_int * len(col_groups))(*col_groups)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_v2_launch(
             values.data_ptr(), cl_scores.data_ptr(), coeffs.data_ptr(),
-            noise.data_ptr() if noise is not None else None,
-            out.data_ptr(), partials.data_ptr(), sums.data_ptr(), B, C,
-            len(col_groups), groups, SAMPLING_MODES[mode], int(fast), seed,
-            STAT_ROWS, stream)
-    if err != 0:
-        raise RuntimeError('fused_v2 kernel launch failed: %s (%d)'
-                           % (lib.fused_v2_error_string(err).decode(), err))
+            _ptr(noise), out.data_ptr(), partials.data_ptr(),
+            sums.data_ptr(), B, C, len(col_groups), _int_array(col_groups),
+            SAMPLING_MODES[mode], int(fast), seed, STAT_ROWS, stream)
+    _raise_on('fused_v2', lib, err)
     fused_score_sample_stats.launches += 1
     return out, sums
 
@@ -397,6 +727,87 @@ def fused_score_sample_stats(seed, values, cl_scores, coeffs, col_groups,
 fused_score_sample_stats.launches = 0
 
 
+def _launch_mixed(seed, values, table_idx, cl_scores, coeffs, tables,
+                  col_groups, sampling, qvalues, qcoeffs, quad_groups, noise,
+                  table_vs):
+    mode, fast = _parse_sampling(sampling)
+    col_groups = _check_col_groups(col_groups, 0)
+    if len(quad_groups) > MAX_GROUPS or any(
+            nc < 1 or not 1 <= d <= MAX_D for nc, d in quad_groups):
+        raise ValueError('quad_groups %r: at most %d groups of (>= 1 '
+                         'columns, 1 <= d <= %d)'
+                         % (quad_groups, MAX_GROUPS, MAX_D))
+    qvals = sum(nc * d for nc, d in quad_groups)
+    if qvals > MAX_QVALS:
+        raise ValueError('at most %d niw value columns (sum of cols * d), '
+                         'got %d' % (MAX_QVALS, qvals))
+    if len(table_vs) > MAX_TABLE_COLS or any(v < 1 for v in table_vs):
+        raise ValueError('table_vs %r: at most %d table columns of >= 1 '
+                         'value' % (table_vs, MAX_TABLE_COLS))
+    vtot = sum(table_vs)
+    if vtot > MAX_VTOT:
+        raise ValueError('at most %d packed table rows, got %d'
+                         % (MAX_VTOT, vtot))
+    if cl_scores.dim() != 1 or cl_scores.shape[0] < 1:
+        raise ValueError('cl_scores must be [C >= 1]')
+    dev = cl_scores.device
+    C = cl_scores.shape[0]
+    B = _mixed_rows(values if col_groups else None,
+                    qvalues if quad_groups else None,
+                    table_idx if table_vs else None)
+    if B < 1:
+        raise ValueError('need at least one row')
+    ncols = sum(col_groups)
+    _check('cl_scores', cl_scores, dev, (C,))
+    if col_groups:
+        _check('values', values, dev, (B, ncols))
+        _check('coeffs', coeffs, dev,
+               (sum(2 + 2 * c for c in col_groups), C))
+    if quad_groups:
+        _check('qvalues', qvalues, dev, (B, qvals))
+        _check('qcoeffs', qcoeffs, dev,
+               (sum(2 + nc * (d + d * (d + 1) // 2)
+                    for nc, d in quad_groups), C))
+    if table_vs:
+        _check('table_idx', table_idx, dev, (B, len(table_vs)), torch.int32)
+        _check('tables', tables, dev, (vtot, C))
+    _check_noise(mode, sampling, noise, dev, B, C)
+    seed = _check_seed(seed)
+
+    lib = build('fused_v3')['lib']
+    qdim = quad_stat_dim(quad_groups)
+    S = 3 * ncols + qdim
+    nblocks = (B + STAT_ROWS - 1) // STAT_ROWS
+
+    def empty(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    out = empty(B, torch.int32)
+    partials = empty((nblocks, C, S))
+    sums = empty((C, 3 * ncols))
+    qsums = empty((C, qdim))
+    tcounts_i = empty((C, vtot), torch.int32)
+    tcounts = empty((C, vtot))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_v3_launch(
+            _ptr(values if col_groups else None),
+            _ptr(qvalues if quad_groups else None),
+            _ptr(table_idx if table_vs else None), cl_scores.data_ptr(),
+            _ptr(coeffs if col_groups else None),
+            _ptr(qcoeffs if quad_groups else None),
+            _ptr(tables if table_vs else None), _ptr(noise), out.data_ptr(),
+            partials.data_ptr(), sums.data_ptr(), qsums.data_ptr(),
+            tcounts_i.data_ptr(), tcounts.data_ptr(), B, C, len(col_groups),
+            _int_array(col_groups), len(quad_groups),
+            _int_array([nc for nc, _ in quad_groups]),
+            _int_array([d for _, d in quad_groups]), len(table_vs),
+            _int_array(table_vs), SAMPLING_MODES[mode], int(fast), seed,
+            STAT_ROWS, stream)
+    _raise_on('fused_v3', lib, err)
+    fused_mixed_score_sample_stats.launches += 1
+    return out, sums, tcounts, qsums
+
+
 def fused_mixed_score_sample_stats(seed, values, table_idx, cl_scores,
                                    coeffs, tables, col_groups,
                                    block_rows=DEFAULT_BLOCK_ROWS,
@@ -404,17 +815,52 @@ def fused_mixed_score_sample_stats(seed, values, table_idx, cl_scores,
                                    qvalues=None, qcoeffs=None,
                                    quad_groups=(), noise=None,
                                    table_vs=()):
-    """The nich-only branch of the JAX package's v3 entry point: falls
-    through to K1 and returns (assignments, nich sums, empty [C, 0] count
-    tables, empty [C, 0] quad sums).  Specs with table or niw columns need
-    K2 (`_fused_v3_kernel`), which is not ported yet."""
-    if tuple(table_vs) or tuple(quad_groups):
-        raise NotImplementedError(
-            'table and niw columns need kernel K2 (_fused_v3_kernel), not '
-            'ported yet (ROADMAP Queue 2 item 2)')
-    out, sums = fused_score_sample_stats(
-        seed, values, cl_scores, coeffs, col_groups, block_rows=block_rows,
-        interpret=interpret, sampling=sampling, noise=noise)
-    C = cl_scores.shape[0]
-    empty = torch.zeros((C, 0), dtype=torch.float32, device=sums.device)
-    return out, sums, empty, empty
+    """K2: fused score + sample + stats for mixed nich + discrete + niw
+    specs.
+
+    values: [B, ncols] f32 nich columns with coeffs / col_groups as in
+    `fused_score_sample_stats` (None and () for a spec without nich
+    blocks); table_idx: [B, table_cols] int32 support indices; tables:
+    PACKED [Vtot, C] f32 score tables, column j's [table_vs[j], C] table
+    at rows [off_j, off_j + table_vs[j]) with off = exclusive prefix sums
+    of table_vs and Vtot = sum(table_vs); qvalues: [B, sum(cols*d)] f32
+    niw columns; qcoeffs: rows in the niw_coeffs_v4 layout; quad_groups:
+    tuple of (ncols, d).  Table entries are floored at -1e30, so a -inf
+    entry stays unselectable and never makes a NaN.
+
+    Returns (assignments [B] int32, nich stat sums [C, 3*ncols] f32,
+    PACKED count tables [C, Vtot] f32 (slice per column at the same
+    offsets), quad sums [C, quad_stat_dim] f32 with per-column blocks
+    [1 | v | upper-triangle v v^T]); a family that is absent gives [C, 0].
+
+    A nich-only call falls through to K1.  Otherwise CPU tensors run the
+    plain twin, CUDA tensors launch the kernel or raise.  `block_rows` and
+    `interpret` are kept for parity with the JAX signature."""
+    col_groups = tuple(col_groups)
+    quad_groups = tuple((int(nc), int(d)) for nc, d in quad_groups)
+    table_vs = tuple(int(v) for v in table_vs)
+    if not table_vs and not quad_groups:
+        out, sums = fused_score_sample_stats(
+            seed, values, cl_scores, coeffs, col_groups,
+            block_rows=block_rows, interpret=interpret, sampling=sampling,
+            noise=noise)
+        C = cl_scores.shape[0]
+        empty = torch.zeros((C, 0), dtype=torch.float32, device=sums.device)
+        return out, sums, empty, empty
+    if table_vs:
+        tables = torch.clamp(tables, min=-1e30)
+    if cl_scores.device.type == 'cpu':
+        return fused_mixed_score_sample_stats_plain(
+            seed, values, table_idx, cl_scores, coeffs, tables, col_groups,
+            block_rows=block_rows, sampling=sampling, qvalues=qvalues,
+            qcoeffs=qcoeffs, quad_groups=quad_groups, noise=noise,
+            table_vs=table_vs)
+    if cl_scores.device.type != 'cuda':
+        raise ValueError('fused_mixed_score_sample_stats runs on CPU or '
+                         'CUDA tensors, got %s' % cl_scores.device)
+    return _launch_mixed(seed, values, table_idx, cl_scores, coeffs, tables,
+                         col_groups, sampling, qvalues, qcoeffs, quad_groups,
+                         noise, table_vs)
+
+
+fused_mixed_score_sample_stats.launches = 0

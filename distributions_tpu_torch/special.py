@@ -58,3 +58,40 @@ def lgamma_nu(nu):
     x = torch.clamp(0.5 * nu, min=1e-30)
     asym = 0.5 * torch.log(x) - 1.0 / (8.0 * x) + 1.0 / (192.0 * (x * x * x))
     return torch.where(nu < 64.0, direct, asym)
+
+
+def log_beta(x, y):
+    """log B(x, y).  The three-lgamma identity below max(x, y) = 64; above
+    it lgamma(b) - lgamma_diff(a, b), which keeps f32 accuracy where the
+    identity cancels."""
+    x = _f32(x)
+    y = _f32(y)
+    a = torch.maximum(x, y)
+    b = torch.minimum(x, y)
+    direct = torch.lgamma(x) + torch.lgamma(y) - torch.lgamma(x + y)
+    a_safe = torch.clamp(a, min=64.0)
+    safe = torch.lgamma(b) - lgamma_diff(a_safe, b)
+    return torch.where(a >= 64.0, safe, direct)
+
+
+def log_binom(n, k):
+    """log C(n, k) = -log(n + 1) - log B(k + 1, n - k + 1)."""
+    n = _f32(n)
+    k = _f32(k)
+    return -torch.log(n + 1.0) - log_beta(k + 1.0, n - k + 1.0)
+
+
+def log_factorial(n):
+    """log n! = lgamma(n + 1)."""
+    return torch.lgamma(_f32(n) + 1.0)
+
+
+def lmultigamma(d, a):
+    """Log multivariate gamma function of dimension `d` (a Python int) at
+    `a` (batched)."""
+    d = int(d)
+    a = _f32(a)[..., None]
+    j = torch.arange(1, d + 1, dtype=torch.float32, device=a.device)
+    log_pi = 1.1447298858494002
+    return (0.25 * d * (d - 1) * log_pi
+            + torch.lgamma(a + 0.5 * (1.0 - j)).sum(-1))

@@ -21,6 +21,115 @@ def nich_problem(R, cols=2, n_clusters=8, seed=0, spread=3.0, noise=0.3):
     return values, labels.astype(np.int32)
 
 
+NIW_SHARED = {'kappa': 1.0}   # mu = 0, psi = I, nu = d + 1 are added per d
+DPD_SHARED = {'gamma': 1.0, 'alpha': 1.0,
+              'betas': {0: 0.2, 1: 0.15, 2: 0.15, 3: 0.15, 4: 0.1, 5: 0.1}}
+
+# kind -> blocks as (model name, niw dimension or None); every block has
+# one column
+MIXED_KINDS = {
+    'nich_gp_bb': (('nich', None), ('gp', None), ('bb', None)),
+    'dd_bb': (('dd', None), ('bb', None)),
+    'niw2': (('niw', 2),),
+    'niw3_nich_bb': (('niw', 3), ('nich', None), ('bb', None)),
+    'niw4': (('niw', 4),),
+    'dpd_nich': (('dpd', None), ('nich', None)),
+    'bnb': (('bnb', None),),
+    # the two layouts timed at full width (data and hypers of the JAX
+    # package's profile_mixed.py)
+    'niw2mix': (('niw', 2), ('nich', None), ('bb', None)),
+    'bbddgp': (('bb', None), ('dd', None), ('gp', None)),
+}
+
+
+def _niw_shared(d):
+    return dict(NIW_SHARED, mu=np.zeros(d), psi=np.eye(d), nu=d + 1.0)
+
+
+def mixed_problem(R, C, seed=0, kind='nich_gp_bb', n_clusters=3):
+    """A mixed-model clustering problem made with numpy from `seed`, in a
+    form both packages can build from: a dict with
+
+      blocks    [(model name, cols, shared dict, shared_from_dict kwargs)]
+      values    per block [R, 1] (or [R, 1, d] for niw) numpy arrays
+      labels    [R] int32 generating labels in [0, n_clusters)
+      capacity  C
+
+    The small kinds are separated clusters (as tests/test_fused_mixed.py
+    builds them); 'niw2mix' and 'bbddgp' follow profile_mixed.py."""
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, n_clusters, R)
+    wide = kind in ('niw2mix', 'bbddgp')
+    blocks, values = [], []
+    for name, d in MIXED_KINDS[kind]:
+        kwargs = {}
+        if name == 'nich':
+            shared = dict(NICH_SHARED)
+            if wide:
+                v = rng.randn(R, 1)
+            else:
+                v = (4.0 * labels / max(n_clusters - 1, 1) - 2.0)[:, None] \
+                    + 0.4 * rng.randn(R, 1)
+            v = v.astype(np.float32)
+        elif name == 'niw':
+            shared = _niw_shared(d)
+            if wide:
+                centers = 3.0 * rng.randn(n_clusters, d)
+                v = centers[labels] + 0.3 * rng.randn(R, d)
+            else:
+                v = (3.0 * (labels - (n_clusters - 1) / 2.0))[:, None] \
+                    + 0.5 * rng.randn(R, d)
+            v = v[:, None, :].astype(np.float32)
+        elif name == 'bb':
+            shared = {'alpha': 0.5, 'beta': 0.5}
+            v = (rng.rand(R) < (0.4 if wide else 0.3))[:, None]
+        elif name == 'dd':
+            shared = {'alphas': [1.0, 0.5, 2.0, 1.5]}
+            if wide:
+                v = rng.randint(0, 4, (R, 1))
+            else:
+                v = np.where(labels % 3 == 0, rng.randint(0, 2, R),
+                             rng.randint(2, 4, R))[:, None]
+            v = v.astype(np.int32)
+        elif name == 'gp':
+            if wide:
+                shared = {'alpha': 2.0, 'inv_beta': 1.0}
+                v = rng.poisson(1.0 + (labels % 16))
+            else:
+                shared = {'alpha': 1.0, 'inv_beta': 0.5}
+                v = rng.poisson(np.where(labels % 3 == 0, 2., 9.))
+            v = v[:, None].astype(np.int32)
+        elif name == 'dpd':
+            shared = dict(DPD_SHARED)
+            kwargs = {'cap': 16}
+            v = np.where(labels % 3 == 0, rng.randint(0, 3, R),
+                         rng.randint(3, 6, R))[:, None].astype(np.int32)
+        elif name == 'bnb':
+            shared = {'alpha': 1.0, 'beta': 4.0, 'r': 2}
+            p = 0.2 + 0.6 * (labels % 8) / 8.0
+            v = rng.negative_binomial(2, 1.0 - p)[:, None].astype(np.int32)
+        else:
+            raise ValueError('unknown model %r' % (name,))
+        blocks.append((name, 1, shared, kwargs))
+        values.append(v)
+    return {'blocks': blocks, 'values': tuple(values),
+            'labels': labels.astype(np.int32), 'capacity': int(C)}
+
+
+def build_problem(problem, models, make_spec, cl_from_dict, **kwargs):
+    """(spec, clustering model, shareds) of a `mixed_problem` in one
+    package: `models` maps model names to its modules, `make_spec` and
+    `cl_from_dict` are its `mixture.make_spec` and
+    `clustering.PitmanYor.from_dict`; kwargs (such as device=) go to the
+    factories."""
+    spec = make_spec([(models[name], cols)
+                      for name, cols, _, _ in problem['blocks']],
+                     capacity=problem['capacity'])
+    shareds = tuple(models[name].shared_from_dict(raw, **kw, **kwargs)
+                    for name, _, raw, kw in problem['blocks'])
+    return spec, cl_from_dict(PY, **kwargs), shareds
+
+
 def mismatches(scores, got, want):
     """(number of rows whose draws differ, largest score gap between the
     two drawn slots over those rows).  A gap at f32 rounding level marks

@@ -5,9 +5,11 @@ import pytest
 import torch
 
 from distributions_tpu import clustering as jcl
+from distributions_tpu_torch import config
 from distributions_tpu_torch import clustering as tcl
 
 torch.set_num_threads(1)
+config.set_default_device('cpu')
 
 # rtol 1e-5: lgamma and log differ by ulps between torch and XLA
 RTOL, ATOL = 1e-5, 1e-5

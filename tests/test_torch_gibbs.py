@@ -17,10 +17,12 @@ import torch
 from distributions_tpu import clustering as jcl, mixture as jmx
 from distributions_tpu.models import nich as jnich
 from distributions_tpu.ops import gibbs as jg
+from distributions_tpu_torch import config
 from distributions_tpu_torch import convert, mixture as tmx, testing
 from distributions_tpu_torch.ops import gibbs as tg
 
 torch.set_num_threads(1)
+config.set_default_device('cpu')
 
 R, C, BLOCK = 2048, 128, 512
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-3

@@ -14,12 +14,14 @@ from jax.experimental import pallas as pl
 from distributions_tpu import clustering as jcl, mixture as jmx
 from distributions_tpu.models import nich as jnich
 from distributions_tpu.ops import pallas_kernels as pk
+from distributions_tpu_torch import config
 from distributions_tpu_torch import clustering as tcl, convert, testing
 from distributions_tpu_torch import mixture as tmx
 from distributions_tpu_torch.models import nich as tnich
 from distributions_tpu_torch.ops import fused_kernels as fk
 
 torch.set_num_threads(1)
+config.set_default_device('cpu')
 
 R, C = 2048, 128
 # stat sums: f32 sums of the same rows in another order (tests/
@@ -125,10 +127,16 @@ def test_mixed_entry_nich_only_branch(inputs):
         0, torch.from_numpy(p['values']), p['cl'], p['co'], (2,),
         sampling='argmax')
     assert torch.equal(out, ref) and torch.equal(sums, ref_sums)
-    with pytest.raises(NotImplementedError, match='K2'):
-        fk.fused_mixed_score_sample_stats(
-            0, torch.from_numpy(p['values']), None, p['cl'], p['co'], None,
-            (2,), sampling='argmax', table_vs=(2,))
+    # with a table column the call goes to K2 (its twin here): a table of
+    # zeros changes no draw, and the count table holds every row once
+    idx = torch.from_numpy((np.arange(R) % 2).astype(np.int32))[:, None]
+    out2, sums2, tcounts, qsums = fk.fused_mixed_score_sample_stats(
+        0, torch.from_numpy(p['values']), idx, p['cl'], p['co'],
+        torch.zeros((2, C)), (2,), sampling='argmax', table_vs=(2,))
+    assert torch.equal(out2, ref) and torch.equal(sums2, ref_sums)
+    assert tcounts.shape == (C, 2) and qsums.shape == (C, 0)
+    assert torch.equal(tcounts.sum(1), sums2[:, 0])
+    assert float(tcounts[:, 0].sum()) == R // 2
 
 
 def test_ragged_capacity_dead_padding(inputs):

@@ -1,5 +1,8 @@
 """The port's mixture machinery against distributions_tpu.mixture on a
-seeded nich problem."""
+seeded nich problem and on mixed-model problems of every ported model."""
+
+import functools
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -9,10 +12,11 @@ import torch
 
 from distributions_tpu import clustering as jcl, mixture as jmx
 from distributions_tpu.models import nich as jnich
-from distributions_tpu_torch import convert, mixture as tmx, testing
+from distributions_tpu_torch import config, convert, mixture as tmx, testing
 from distributions_tpu_torch.models import base as tbase
 
 torch.set_num_threads(1)
+config.set_default_device('cpu')
 
 R, C = 1024, 128
 # score tolerances: the same f32 formulas with log/lgamma differing by
@@ -156,3 +160,112 @@ def test_grow_capacity_and_needs_growth(problem):
                 == jmx.needs_growth(jspec2, jst2, headroom))
     with pytest.raises(ValueError):
         tmx.grow_capacity(p['spec'], p['st'], C // 2)
+
+
+# -- every model (values [R, cols] int / bool, and [R, cols, d] for niw) ----
+
+MIXED = ('nich_gp_bb', 'dd_bb', 'niw3_nich_bb', 'dpd_nich', 'bnb')
+
+
+@functools.lru_cache(maxsize=None)
+def _mixed(kind):
+    from distributions_tpu_torch.models import MODULES
+    jmodels = {name: importlib.import_module('distributions_tpu.models.'
+                                             + name) for name in MODULES}
+    p = testing.mixed_problem(256, 64, seed=3, kind=kind)
+    jspec, jpy, jsh = testing.build_problem(p, jmodels, jmx.make_spec,
+                                            jcl.PitmanYor.from_dict)
+    jv = tuple(jnp.asarray(v) for v in p['values'])
+    jst = jmx.state_from_assignments(jspec, jpy, jsh, jv,
+                                     jnp.asarray(p['labels']))
+    npy = functools.partial(jax.tree_util.tree_map, np.asarray)
+    return dict(p=p, jspec=jspec, jpy=jpy, jsh=jsh, jv=jv, jst=jst,
+                spec=convert.spec(jspec), py=convert.cl_model(npy(jpy)),
+                sh=convert.shareds(jspec, npy(jsh)),
+                tv=tuple(torch.from_numpy(v) for v in p['values']),
+                st=convert.state(jspec, npy(jst)))
+
+
+def _leaves_close(got, want, rtol=RTOL, atol=ATOL):
+    got = jax.tree_util.tree_leaves(tuple(convert.to_numpy(got)))
+    want = jax.tree_util.tree_leaves(tuple(want))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.dtype.kind in 'ib':
+            np.testing.assert_array_equal(g, w)
+        else:
+            np.testing.assert_allclose(g, w, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize('kind', MIXED)
+def test_mixed_state_from_assignments_and_scores(kind):
+    q = _mixed(kind)
+    st = tmx.state_from_assignments(q['spec'], q['py'], q['sh'], q['tv'],
+                                    torch.from_numpy(q['p']['labels']))
+    _leaves_close(st, q['jst'])
+    want = np.asarray(jmx.score_batch(q['jspec'], q['jpy'], q['jsh'],
+                                      q['jst'], q['jv']))
+    got = tmx.score_batch(q['spec'], q['py'], q['sh'], q['st'],
+                          q['tv']).numpy()
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    fin = np.isfinite(want)
+    # gp and bnb difference lgammas of magnitude ~1e3 (see
+    # tests/test_torch_fused_mixed.py on their tables)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=RTOL, atol=2e-3)
+    want = float(jmx.score_data(q['jspec'], q['jpy'], q['jsh'], q['jst']))
+    got = float(tmx.score_data(q['spec'], q['py'], q['sh'], q['st']))
+    assert abs(got - want) <= 1e-5 * abs(want), (got, want)
+
+
+@pytest.mark.parametrize('kind', MIXED)
+def test_mixed_remove_tile_add_tile(kind):
+    q = _mixed(kind)
+    rows = slice(64, 192)
+    a = q['p']['labels'][rows]
+    jtv = tuple(v[rows] for v in q['jv'])
+    ttv = tuple(v[rows] for v in q['tv'])
+    jrem = jmx.remove_tile(q['jspec'], q['jpy'], q['jsh'], q['jst'], jtv,
+                           jnp.asarray(a))
+    trem = tmx.remove_tile(q['spec'], q['py'], q['sh'], q['st'], ttv,
+                           torch.from_numpy(a))
+    _leaves_close(trem, jrem)
+    new = (a + 1) % 3
+    _leaves_close(
+        tmx.add_tile(q['spec'], q['py'], q['sh'], trem, ttv,
+                     torch.from_numpy(new)),
+        jmx.add_tile(q['jspec'], q['jpy'], q['jsh'], jrem, jtv,
+                     jnp.asarray(new)))
+
+
+@pytest.mark.parametrize('kind', MIXED)
+def test_mixed_row_stat_tiles_and_growth(kind):
+    """tile_sums_fast -> sums_to_tiles -> apply_stat_tiles on every
+    model's stat columns, and grow_capacity on every model's leaves."""
+    q = _mixed(kind)
+    a = q['p']['labels']
+    jrs = jmx.precompute_row_stats(q['jspec'], q['jsh'], q['jv'])
+    trs = tmx.precompute_row_stats(q['spec'], q['sh'], q['tv'])
+    jcd, jsums = jmx.tile_sums_fast(q['jspec'], q['jsh'], jrs,
+                                    jnp.asarray(a))
+    tcd, tsums = tmx.tile_sums_fast(q['spec'], q['sh'], trs,
+                                    torch.from_numpy(a))
+    np.testing.assert_array_equal(tcd.numpy(), np.asarray(jcd))
+    _leaves_close(tsums, jsums)
+    jtiles = jmx.sums_to_tiles(q['jspec'], q['jsh'], jsums)
+    ttiles = tmx.sums_to_tiles(q['spec'], q['sh'], tsums)
+    _leaves_close(
+        tmx.apply_stat_tiles(q['spec'], q['sh'], q['st'], tcd, ttiles, -1,
+                             len(a)),
+        jmx.apply_stat_tiles(q['jspec'], q['jsh'], q['jst'], jcd, jtiles, -1,
+                             len(a)))
+    jspec2, jst2 = jmx.grow_capacity(q['jspec'], q['jst'], 128)
+    spec2, st2 = tmx.grow_capacity(q['spec'], q['st'], 128)
+    assert spec2.capacity == jspec2.capacity
+    _leaves_close(st2, jst2)
+
+
+def test_init_without_shareds_uses_the_default_device():
+    spec = tmx.make_spec([], capacity=4)
+    assert tmx.init(spec, ()).counts.device.type == 'cpu'

@@ -9,11 +9,13 @@ import torch
 
 from distributions_tpu import clustering as jcl, mixture as jmx
 from distributions_tpu.models import nich as jnich
+from distributions_tpu_torch import config
 from distributions_tpu_torch import convert
 from distributions_tpu_torch import testing
 from distributions_tpu_torch.models import nich as tnich
 
 torch.set_num_threads(1)
+config.set_default_device('cpu')
 
 # rtol 1e-5 / atol 1e-5: the same f32 formulas, with lgamma, log and
 # log1p differing by ulps between torch and XLA

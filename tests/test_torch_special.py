@@ -5,9 +5,11 @@ import pytest
 import torch
 
 from distributions_tpu import special as jsp
+from distributions_tpu_torch import config
 from distributions_tpu_torch import special as tsp
 
 torch.set_num_threads(1)
+config.set_default_device('cpu')
 
 # rtol 1e-5: torch.lgamma and XLA's lgamma differ by a few ulps, and the
 # direct branches difference two such values.  atol 1e-6 covers values
@@ -63,3 +65,48 @@ def test_lgamma_ratio_both_branches(y):
     np.testing.assert_allclose(
         tsp.lgamma_ratio(torch.from_numpy(x), y).numpy(),
         np.asarray(jsp.lgamma_ratio(x, np.float32(y))), rtol=RTOL, atol=ATOL)
+
+
+# log_beta and its users: rtol 1e-5 in f32.  Below max(x, y) = 64 both
+# packages difference three lgammas of magnitude up to lgamma(128) ~ 490,
+# whose f32 ulp is 3e-5, and torch's and XLA's lgamma differ by an ulp: so
+# atol is two such ulps.  Above 64 the cancellation-safe branch keeps the
+# terms small.
+BETA_RTOL, BETA_ATOL = 1e-5, 6e-5
+
+
+@pytest.mark.parametrize('y', [0.3, 1.0, 7.5, 63.0, 64.0, 500.0])
+def test_log_beta_both_branches(y):
+    x = np.array([0.1, 0.5, 1, 2, 10, 50, 63.9, 64, 65, 100, 1e4, 1e6],
+                 np.float32)
+    yy = np.full_like(x, y)
+    np.testing.assert_allclose(
+        tsp.log_beta(torch.from_numpy(x), torch.from_numpy(yy)).numpy(),
+        np.asarray(jsp.log_beta(x, yy)), rtol=BETA_RTOL, atol=BETA_ATOL)
+
+
+def test_log_binom():
+    n = np.array([1, 5, 20, 100, 1000, 1e5, 1e6], np.float32)
+    for frac in (0.0, 0.25, 0.5, 1.0):
+        k = np.floor(n * frac).astype(np.float32)
+        got = tsp.log_binom(torch.from_numpy(n), torch.from_numpy(k)).numpy()
+        # a result of magnitude up to ~7e5: one f32 ulp of it is 0.06
+        np.testing.assert_allclose(got, np.asarray(jsp.log_binom(n, k)),
+                                   rtol=BETA_RTOL, atol=BETA_ATOL)
+
+
+def test_log_factorial():
+    n = np.array([0, 1, 2, 5, 20, 170, 1e4], np.float32)
+    np.testing.assert_allclose(
+        tsp.log_factorial(torch.from_numpy(n)).numpy(),
+        np.asarray(jsp.log_factorial(n)), rtol=BETA_RTOL, atol=BETA_ATOL)
+    assert tsp.log_factorial(torch.tensor([3], dtype=torch.int32)).dtype \
+        == torch.float32
+
+
+@pytest.mark.parametrize('d', [1, 2, 3, 4])
+def test_lmultigamma(d):
+    a = np.array([0.5 * d + 0.1, 0.5 * d + 1, 5, 50, 1e3], np.float32)
+    np.testing.assert_allclose(
+        tsp.lmultigamma(d, torch.from_numpy(a)).numpy(),
+        np.asarray(jsp.lmultigamma(d, a)), rtol=BETA_RTOL, atol=BETA_ATOL)
