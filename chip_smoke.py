@@ -6,10 +6,11 @@
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero:
 
-1. build      -- compile the kernels K1 (csrc/fused_v2.cu) and K2
-                 (csrc/fused_v3.cu) with nvcc from the sources in this
-                 checkout, both compilers started together; print the
-                 card's name and power limit.
+1. build      -- compile the kernels K1 (csrc/fused_v2.cu), K2
+                 (csrc/fused_v3.cu), K4 and K5 (csrc/score_sample_v1.cu)
+                 with nvcc from the sources in this checkout, the
+                 compilers started together; print the card's name and
+                 power limit.
 2. kernel     -- K1 against its plain-PyTorch twin on the card at the
                  flagship tile (B=131072 rows x C=1024 slots x 2 nich
                  columns, state built from the flagship data): equal draws
@@ -23,6 +24,13 @@ exits non-zero:
                  layouts, niw2mix (niw d=2 + nich + bb) and bbddgp
                  (bb + dd + gp, no nich block), with the count tables
                  exactly equal; the ragged case is niw d=3 + nich + bb.
+3b. kernel_k4, kernel_k5 -- the v1 score + sample kernels (no stat
+                 outputs) against their twins: K4 at B=131072 x C=1024 x 2
+                 nich, K5 at B=65536 x C=1024 on nich + bb + dd + gp and on
+                 bb + dd + gp without a nich column, each with a ragged
+                 C=1000 x B=3000 case: equal draws in 'argmax' and
+                 'gumbel_host', z-test in 'gumbel', bitwise repeatability,
+                 milliseconds of kernel and twin.
 4. small_reference, small_reference_mixed -- the kernel path on the card
                  against the twin path on the CPU, draw for draw in a
                  3-sweep 'argmax' run of a small problem.
@@ -37,6 +45,20 @@ exits non-zero:
                  slots, tiles of 65536 rows; K2's launch count must equal
                  tiles x sweeps.  Then one plain sweep and the profile of
                  one fused sweep.
+6b. paths_v1  -- gibbs.sweep_blocked_pallas (K4) on the flagship nich
+                 data and gibbs.sweep_blocked_pallas_mixed (K5, and its
+                 plain 'xla' backend) on nich + bb + dd + gp, both at
+                 1,048,576 rows x 1024 slots: launches = tiles x sweeps,
+                 counts equal to a bincount of the assignments, score_data
+                 equal to a fresh recompute, ms per sweep.
+6c. main_resume -- run_gibbs with checkpoint_path in a temporary
+                 directory: an uninterrupted run against an interrupted
+                 and resumed one, bitwise, on the fused path at full width
+                 and on the plain path at a smaller size; save and load
+                 seconds and the file's size.
+6d. init      -- run_gibbs with its default init='prior' at full width and
+                 with init='sequential' on a few hundred rows; ms per row
+                 of both.
 7. kernels    -- one line listing each ported kernel with its launches on
                  its main path, its time, its twin's time and its bound.
 
@@ -151,6 +173,13 @@ def gumbel_flops_per_cell(col_groups, quad_groups, n_tab):
     return ops + 7
 
 
+def v1_flops_per_cell(cols, n_tab):
+    """f32 operations per cell of csrc/score_sample_v1.cu in 'gumbel'
+    mode: per nich column sub, mul, mul, log1p, mul, add, add; one add per
+    table column; the draw's seven."""
+    return 7 * cols + n_tab + 7
+
+
 def phase_build(fk):
     t0 = time.time()
     infos = fk.build_all()
@@ -172,6 +201,15 @@ class Case:
     """One kernel at one set of inputs: how to launch it, its twin, the
     twin's [B, C] scores, and the twin's stat sums of given draws."""
 
+    # modes held to the twin draw for draw, modes with the RNG in the
+    # kernel (z-tests), modes checked for bitwise repeatability, modes timed
+    det_modes = ('argmax', 'argmax_fast', 'gumbel_host', 'cdf_host')
+    rng_modes = ('gumbel', 'cdf', 'gumbel_fast')
+    repeat_modes = ('gumbel', 'cdf', 'argmax')
+    time_modes = ('gumbel', 'gumbel_fast', 'cdf', 'argmax', 'gumbel_host',
+                  'cdf_host')
+    ragged_modes = ('argmax', 'gumbel_host', 'cdf_host')
+
     def __init__(self, name, B, C, launch, plain, scores, sums_of, exact):
         self.name, self.B, self.C = name, B, C
         self.launch, self.plain = launch, plain
@@ -179,6 +217,14 @@ class Case:
         # indices (into the outputs after the draws) that must be exactly
         # equal: integer count tables
         self.exact = exact
+
+
+class V1Case(Case):
+    """K4 or K5: draws only, 'gumbel' | 'argmax' | 'gumbel_host'."""
+    det_modes = ragged_modes = ('argmax', 'gumbel_host')
+    rng_modes = ('gumbel',)
+    repeat_modes = ('gumbel', 'argmax')
+    time_modes = ('gumbel', 'argmax', 'gumbel_host')
 
 
 def k1_case(port, values, cl_scores, coeffs):
@@ -321,13 +367,13 @@ def check_case(port, case, ref_scores, noise):
     testing = port['testing']
     modes = {}
     max_err = 0.0
-    for mode in ('argmax', 'argmax_fast', 'gumbel_host', 'cdf_host'):
+    for mode in case.det_modes:
         r = compare_mode(port, case, mode, noise.get(mode))
         max_err = max(max_err, r['sums_max_abs_err'])
         modes[mode] = r
 
     # in-kernel RNG: slot frequencies against the softmax of score_batch
-    for mode in ('gumbel', 'cdf', 'gumbel_fast'):
+    for mode in case.rng_modes:
         a = case.launch(mode, None, 12345)[0]
         z = testing.softmax_ztest(a, ref_scores)
         if not z < Z_MAX:
@@ -336,7 +382,7 @@ def check_case(port, case, ref_scores, noise):
         modes.setdefault(mode, {})['max_abs_z'] = z
 
     # two identical launches are bitwise equal
-    for mode in ('gumbel', 'cdf', 'argmax'):
+    for mode in case.repeat_modes:
         one = case.launch(mode, None, 99)
         two = case.launch(mode, None, 99)
         if not all(torch.equal(x, y) for x, y in zip(one, two)):
@@ -345,8 +391,7 @@ def check_case(port, case, ref_scores, noise):
 
     # median milliseconds, kernel against twin, per mode
     timing = {}
-    for mode in ('gumbel', 'gumbel_fast', 'cdf', 'argmax', 'gumbel_host',
-                 'cdf_host'):
+    for mode in case.time_modes:
         nz = noise.get(mode)
         case.launch(mode, nz, 3)
         case.plain(mode, nz, 3)
@@ -359,7 +404,7 @@ def check_case(port, case, ref_scores, noise):
 def check_ragged(port, case, noise):
     out = {}
     max_err = 0.0
-    for mode in ('argmax', 'gumbel_host', 'cdf_host'):
+    for mode in case.ragged_modes:
         r = compare_mode(port, case, mode, noise.get(mode))
         max_err = max(max_err, r['sums_max_abs_err'])
         out[mode] = r
@@ -460,6 +505,135 @@ def phase_kernel_k2(port):
     result['ragged'], err = check_ragged(port, k2_case(port, m),
                                          host_noise(port, Br, Cr, 5))
     summary['max_abs_err'] = max(max_err, err)
+    emit(result)
+    return summary
+
+
+def v1_case(port, name, nich_vals, idx, cl_scores, coeffs, tables):
+    """K4 (name 'K4': nich columns only, through nich_score_sample) or K5
+    (through mixed_score_sample) at one set of inputs.  The outputs are
+    1-tuples, so that the checks written for K1 and K2 apply."""
+    import torch
+    fk = port['fk']
+    B = (nich_vals if nich_vals is not None else idx).shape[0]
+    if tables is not None:
+        tables = torch.clamp(tables, min=-1e30)
+    if name == 'K4':
+        args = (nich_vals, cl_scores, coeffs)
+        wrapper, twin = fk.nich_score_sample, fk.nich_score_sample_plain
+    else:
+        args = (nich_vals, idx, cl_scores, coeffs, tables)
+        wrapper, twin = fk.mixed_score_sample, fk.mixed_score_sample_plain
+
+    def launch(mode, noise, seed):
+        return (wrapper(seed, *args, sampling=mode, noise=noise),)
+
+    def plain(mode, noise, seed):
+        return (twin(seed, *args, sampling=mode, noise=noise),)
+
+    def scores():
+        return fk._score_v1(B, nich_vals, idx, cl_scores, coeffs, tables)
+    return V1Case(name, B, cl_scores.shape[0], launch, plain, scores,
+                  lambda draws: (), ())
+
+
+def v1_mixed_inputs(port, m):
+    """K5's per-slot inputs (coeffs, tables) for the problem `mixed_inputs`
+    built."""
+    return port['gibbs']._build_v1_inputs(m['spec'], m['lay'], m['shareds'],
+                                          m['state'])
+
+
+def v1_bound(tensors, cols, n_tab, B, C):
+    import torch
+    return bound_ms(tuple(tensors) + (torch.empty(B, dtype=torch.int32),),
+                    v1_flops_per_cell(cols, n_tab), B, C)
+
+
+def phase_kernel_k4(port, X, labels):
+    import torch
+    mx, fk = port['mx'], port['fk']
+    dev = port['config'].default_device()
+    B = BLOCK
+    all_values = torch.as_tensor(X, device=dev)
+    values = all_values[:B].contiguous()
+    spec, shareds, py, state, cl_scores, _ = nich_inputs(
+        port, all_values, labels, SLOTS)
+    coeffs = fk.nich_coeffs(shareds[0], state.groups[0]).contiguous()
+    case = v1_case(port, 'K4', values, None, cl_scores, coeffs, None)
+    ref_scores = mx.score_batch(spec, py, shareds, state, (values,))
+    modes, _, timing = check_case(port, case, ref_scores,
+                                  host_noise(port, B, SLOTS, 11))
+    del ref_scores
+    Br, Cr = 3000, 1000
+    ragged_vals = values[:Br].contiguous()
+    _, sh_r, _, st_r, cl_r, _ = nich_inputs(port, ragged_vals,
+                                            labels[:Br] % 900, Cr)
+    co_r = fk.nich_coeffs(sh_r[0], st_r.groups[0]).contiguous()
+    ragged, _ = check_ragged(
+        port, v1_case(port, 'K4', ragged_vals, None, cl_r, co_r, None),
+        host_noise(port, Br, Cr, 5))
+    bound, bound_by = v1_bound((values, cl_scores, coeffs), FEATURES, 0, B,
+                               SLOTS)
+    emit({'phase': 'kernel_k4', 'B': B, 'C': SLOTS, 'cols': FEATURES,
+          'modes': modes, 'bitwise_repeatable': True, 'ragged': ragged,
+          'timing': timing, 'bound_ms': bound, 'bound_by': bound_by})
+    # draws only: the error against the twin is the count of draws that
+    # differ, 0 or the check above has raised
+    return {'max_abs_err': float(max(r['mismatched_draws']
+                                     for r in modes.values()
+                                     if 'mismatched_draws' in r)),
+            'ms': timing['gumbel']['ms'],
+            'plain_ms': timing['gumbel']['plain_ms'], 'bound_ms': bound,
+            'bound_by': bound_by}
+
+
+def phase_kernel_k5(port):
+    mx = port['mx']
+    B, C = BLOCK_MIXED, SLOTS
+    result = {'phase': 'kernel_k5', 'B': B, 'C': C, 'layouts': {}}
+    summary = None
+    worst = 0
+    for kind in ('nichbbddgp', 'bbddgp'):
+        m = mixed_inputs(port, kind, B, C, TRUE_CLUSTERS)
+        lay = m['lay']
+        coeffs, tables = v1_mixed_inputs(port, m)
+        case = v1_case(port, 'K5', lay.nich_vals, lay.table_idx,
+                       m['cl_scores'], coeffs, tables)
+        ref_scores = mx.score_batch(m['spec'], m['py'], m['shareds'],
+                                    m['state'], m['values'])
+        modes, _, timing = check_case(port, case, ref_scores,
+                                      host_noise(port, B, C, 13))
+        del ref_scores
+        worst = max([worst] + [r['mismatched_draws'] for r in modes.values()
+                               if 'mismatched_draws' in r])
+        cols = 0 if lay.nich_vals is None else lay.nich_vals.shape[1]
+        bound, bound_by = v1_bound(
+            (lay.nich_vals, lay.table_idx, m['cl_scores'], coeffs, tables),
+            cols, len(lay.table_vs), B, C)
+        result['layouts'][kind] = {
+            'modes': modes, 'timing': timing, 'bitwise_repeatable': True,
+            'tables': list(tables.shape), 'bound_ms': bound,
+            'bound_by': bound_by}
+        if kind == 'nichbbddgp':
+            summary = {'ms': timing['gumbel']['ms'],
+                       'plain_ms': timing['gumbel']['plain_ms'],
+                       'bound_ms': bound, 'bound_by': bound_by}
+        del m, case
+
+    # ragged slots and rows, on nich + gp + bb and on dd + bb
+    Br, Cr = 3000, 1000
+    result['ragged'] = {}
+    for kind in ('nich_gp_bb', 'dd_bb'):
+        m = mixed_inputs(port, kind, Br, Cr, 40, seed=4)
+        coeffs, tables = v1_mixed_inputs(port, m)
+        result['ragged'][kind], _ = check_ragged(
+            port, v1_case(port, 'K5', m['lay'].nich_vals, m['lay'].table_idx,
+                          m['cl_scores'], coeffs, tables),
+            host_noise(port, Br, Cr, 5))
+        worst = max([worst] + [r['mismatched_draws']
+                               for r in result['ragged'][kind].values()])
+    summary['max_abs_err'] = float(worst)
     emit(result)
     return summary
 
@@ -646,6 +820,255 @@ def phase_main_mixed(port):
     return main['launches']
 
 
+def check_sweep(port, spec, py, shareds, values, state, assignments):
+    """A sweep's outputs are consistent: counts equal a bincount of the
+    assignments, and the state's score_data equals that of a state built
+    afresh from them."""
+    import torch
+    mx = port['mx']
+    counts_ok = bool(torch.equal(
+        torch.bincount(assignments.long(), minlength=spec.capacity).to(
+            torch.int32), state.counts))
+    score = float(mx.score_data(spec, py, shareds, state))
+    fresh = float(mx.score_data(spec, py, shareds, mx.state_from_assignments(
+        spec, py, shareds, values, assignments)))
+    if not (counts_ok and abs(score - fresh) <= 1e-4 * abs(fresh)):
+        raise AssertionError('sweep output is inconsistent: counts ok %s, '
+                             'score %r, fresh %r' % (counts_ok, score, fresh))
+    return {'counts_equal_bincount': counts_ok, 'score_data': score,
+            'fresh_score_data': fresh}
+
+
+def timed_sweeps(sweep, state, assignments, n):
+    """n consecutive sweeps from (state, assignments); (state,
+    assignments, milliseconds per sweep by CUDA events)."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        state, assignments = sweep(state, assignments)
+    b.record()
+    torch.cuda.synchronize()
+    return state, assignments, a.elapsed_time(b) / n
+
+
+def phase_paths_v1(port, X, labels):
+    """The v1 sweeps at full width.  Returns the launches of K4 and K5 on
+    these paths."""
+    import torch
+    fk, mx, gibbs, testing = (port['fk'], port['mx'], port['gibbs'],
+                              port['testing'])
+    dev = port['config'].default_device()
+    n = 2
+    out = {'phase': 'paths_v1', 'rows': ROWS, 'slots': SLOTS, 'sweeps': n}
+
+    # nich2 through sweep_blocked_pallas (K4)
+    spec = mx.make_spec([(port['nich'], FEATURES)], capacity=SLOTS)
+    shareds = (port['nich'].shared_from_dict(SHARED),)
+    py = port['cl'].PitmanYor.from_dict(PY)
+    values = (torch.as_tensor(X, device=dev),)
+    a0 = torch.as_tensor(labels, device=dev)
+    st0 = mx.state_from_assignments(spec, py, shareds, values, a0)
+    gen = torch.Generator().manual_seed(2)
+
+    def k4_sweep(st, an):
+        return gibbs.sweep_blocked_pallas(spec, py, shareds, st, values, an,
+                                          BLOCK, generator=gen)
+    k4_sweep(st0, a0)                                   # warm up
+    torch.cuda.synchronize()
+    fk.nich_score_sample.launches = 0
+    st, an, ms = timed_sweeps(k4_sweep, st0, a0, n)
+    k4_launches = fk.nich_score_sample.launches
+    tiles = ROWS // BLOCK
+    if k4_launches != tiles * n:
+        raise AssertionError('K4: %d launches, expected tiles x sweeps = %d'
+                             % (k4_launches, tiles * n))
+    out['nich2'] = dict(check_sweep(port, spec, py, shareds, values, st, an),
+                        block=BLOCK, tiles=tiles, launches=k4_launches,
+                        sweep_blocked_pallas_ms_per_sweep=ms)
+    del values, st0, st, an
+
+    # nich + bb + dd + gp through sweep_blocked_pallas_mixed (K5, 'xla')
+    problem = testing.mixed_problem(ROWS, SLOTS, seed=0, kind='nichbbddgp',
+                                    n_clusters=TRUE_CLUSTERS)
+    spec, py, shareds = testing.build_problem(
+        problem, port['models'], mx.make_spec, port['cl'].PitmanYor.from_dict)
+    values = tuple(torch.as_tensor(v, device=dev) for v in problem['values'])
+    a0 = torch.as_tensor(problem['labels'], device=dev)
+    st0 = mx.state_from_assignments(spec, py, shareds, values, a0)
+    supports = gibbs._block_supports(spec, values)
+    tiles = ROWS // BLOCK_MIXED
+    mixed = {'block': BLOCK_MIXED, 'tiles': tiles}
+
+    def mixed_sweep(backend):
+        return lambda st, an: gibbs.sweep_blocked_pallas_mixed(
+            spec, py, shareds, st, values, an, BLOCK_MIXED, gen,
+            supports=supports, backend=backend)
+    for backend in ('pallas', 'xla'):
+        mixed_sweep(backend)(st0, a0)                   # warm up
+        torch.cuda.synchronize()
+        fk.mixed_score_sample.launches = 0
+        st, an, ms = timed_sweeps(mixed_sweep(backend), st0, a0, n)
+        launches = fk.mixed_score_sample.launches
+        want = tiles * n if backend == 'pallas' else 0
+        if launches != want:
+            raise AssertionError('K5, backend %s: %d launches, expected %d'
+                                 % (backend, launches, want))
+        mixed[backend] = dict(
+            check_sweep(port, spec, py, shareds, values, st, an),
+            launches=launches, ms_per_sweep=ms)
+        if backend == 'pallas':
+            k5_launches = launches
+
+    # the same problem on the fused path (K2) and the plain path
+    cache = gibbs.build_stat_cache(spec, shareds, values, BLOCK_MIXED, a0)
+
+    def fused():
+        return gibbs.sweep_blocked_pallas_fused_mixed(
+            spec, py, shareds, st0, values, a0, BLOCK_MIXED, 2048, gen, cache,
+            sampling='gumbel', supports=supports)
+    fused()
+    mixed['fused_mixed_ms_per_sweep'] = cuda_ms(fused, 2)
+
+    def plain():
+        return gibbs.sweep_blocked(spec, py, shareds, st0, values, a0,
+                                   BLOCK_MIXED, generator=gen)
+    plain()
+    mixed['plain_sweep_blocked_ms_per_sweep'] = cuda_ms(plain, 2)
+    out['nichbbddgp'] = mixed
+    emit(out)
+    return k4_launches, k5_launches
+
+
+def phase_main_resume(port, X, labels):
+    """Interrupted plus resumed against uninterrupted, through run_gibbs
+    with checkpoint_path: the fused path at full width, the plain path at
+    a quarter of the rows."""
+    import shutil
+    import tempfile
+    import torch
+    runner, mx, ckpt = port['runner'], port['mx'], port['checkpoint']
+    spec = mx.make_spec([(port['nich'], FEATURES)], capacity=SLOTS)
+    shareds = (port['nich'].shared_from_dict(SHARED),)
+    py = port['cl'].PitmanYor.from_dict(PY)
+    out = {'phase': 'main_resume'}
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_')
+    try:
+        for name, use_pallas, rows, block in (
+                ('fused', True, ROWS, BLOCK),
+                ('plain', False, ROWS // 4, BLOCK_MIXED)):
+            common = dict(block=block, use_pallas=use_pallas,
+                          sampling='gumbel', grow_headroom=0.0,
+                          checkpoint_every=2, sweeps_per_step=2,
+                          initial_assignments=labels[:rows])
+            vals = (X[:rows],)
+
+            def run(passes, path, seed, resume):
+                return runner.run_gibbs(
+                    spec, py, shareds, vals, torch.Generator().manual_seed(seed),
+                    passes, checkpoint_path=os.path.join(tmp, path),
+                    resume=resume, **common)
+            st_a, an_a, log_a = run(4, name + '_full.ckpt', 5, False)
+            run(2, name + '_crash.ckpt', 5, False)
+            st_b, an_b, log_b = run(4, name + '_crash.ckpt', 999, True)
+            checks = {
+                'assignments_equal': bool(torch.equal(an_a, an_b)),
+                'counts_equal': bool(torch.equal(st_a.counts, st_b.counts)),
+                'stats_equal': all(
+                    bool(torch.equal(x, y))
+                    for x, y in zip(st_a.groups[0], st_b.groups[0])),
+                'sweeps_continuous':
+                    [r['sweep'] for r in log_b.rows] == [1, 3]
+                    == [r['sweep'] for r in log_a.rows],
+                'score_equal': log_a.rows[-1]['score_data']
+                    == log_b.rows[-1]['score_data'],
+                'on_the_card': an_b.device.type == 'cuda',
+            }
+            if not all(checks.values()):
+                raise AssertionError('%s path: resume is not bitwise: %s'
+                                     % (name, checks))
+            out[name] = dict(checks, rows=rows, block=block)
+            if name == 'fused':
+                path = os.path.join(tmp, 'timed.ckpt')
+                gen = torch.Generator().manual_seed(1)
+                torch.cuda.synchronize()
+                t0 = time.time()
+                ckpt.save(path, st_a, assignments=an_a, generator=gen,
+                          sweep=4, logger_rows=log_a.rows, shareds=shareds,
+                          cl_model=py, spec=spec)
+                t1 = time.time()
+                loaded = ckpt.load_extended(path, spec, shareds)
+                torch.cuda.synchronize()
+                t2 = time.time()
+                if not torch.equal(loaded[1], an_a):
+                    raise AssertionError('checkpoint does not load back')
+                out['checkpoint'] = {'rows': rows, 'save_seconds': t1 - t0,
+                                     'load_seconds': t2 - t1,
+                                     'file_bytes': os.path.getsize(path)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(out)
+
+
+def phase_init(port, X):
+    """run_gibbs with its default init ('prior') at full width, and with
+    init='sequential' on a few hundred rows; ms per row of both."""
+    import torch
+    runner, mx, gibbs = port['runner'], port['mx'], port['gibbs']
+    dev = port['config'].default_device()
+    spec = mx.make_spec([(port['nich'], FEATURES)], capacity=SLOTS)
+    shareds = (port['nich'].shared_from_dict(SHARED),)
+    py = port['cl'].PitmanYor.from_dict(PY)
+    out = {'phase': 'init'}
+
+    t0 = time.time()
+    state, an, log = runner.run_gibbs(
+        spec, py, shareds, (X,), torch.Generator().manual_seed(0), 1,
+        block=BLOCK, use_pallas=True, sampling='gumbel')
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    values = (torch.as_tensor(X, device=dev),)
+    check_sweep(port, spec._replace(capacity=state.counts.shape[0]), py,
+                shareds, values, state, an)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    st_p, an_p = gibbs.prior_init(spec, py, shareds, mx.init(spec, shareds),
+                                  values, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    out['prior'] = {
+        'rows': ROWS, 'run_gibbs_one_sweep_wall_seconds': wall,
+        'prior_init_seconds': seconds, 'ms_per_row': 1e3 * seconds / ROWS,
+        'groups_after_init': int((st_p.counts > 0).sum()),
+        'groups_after_one_sweep': log.rows[-1]['nonempty_groups'],
+        'on_the_card': an.device.type == 'cuda'}
+    check_sweep(port, spec, py, shareds, values, st_p, an_p)
+
+    n = 512
+    small = (values[0][:n].contiguous(),)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    st_s, an_s = gibbs.sequential_init(
+        spec, py, shareds, mx.init(spec, shareds), small,
+        torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    check_sweep(port, spec, py, shareds, small, st_s, an_s)
+    state, an, log = runner.run_gibbs(
+        spec, py, shareds, (X[:256],), torch.Generator().manual_seed(0), 1,
+        block=64, use_pallas=True, sampling='gumbel', init='sequential')
+    check_sweep(port, spec, py, shareds, (values[0][:256].contiguous(),),
+                state, an)
+    out['sequential'] = {
+        'rows': n, 'sequential_init_seconds': seconds,
+        'ms_per_row': 1e3 * seconds / n,
+        'groups_after_init': int((st_s.counts > 0).sum()),
+        'run_gibbs_rows': 256,
+        'run_gibbs_groups': log.rows[-1]['nonempty_groups']}
+    emit(out)
+
+
 def tile_bookkeeping_ms(port, spec, py, shareds, state, values, cache):
     """Host wall milliseconds (ending in a synchronize, median of 5) of the
     [C]-sized work the fused sweep does around each K2 launch."""
@@ -725,12 +1148,13 @@ def main():
     from distributions_tpu_torch import (clustering, config, mixture, random,
                                          testing)
     from distributions_tpu_torch.inference import runner
+    from distributions_tpu_torch.io import checkpoint
     from distributions_tpu_torch.models import MODULES, base, nich
     from distributions_tpu_torch.ops import fused_kernels, gibbs
     port = {'cl': clustering, 'config': config, 'mx': mixture,
             'random': random, 'testing': testing, 'runner': runner,
             'base': base, 'nich': nich, 'models': MODULES,
-            'fk': fused_kernels, 'gibbs': gibbs}
+            'fk': fused_kernels, 'gibbs': gibbs, 'checkpoint': checkpoint}
     fk = fused_kernels
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError('TF32 matmuls must stay off on this path')
@@ -742,6 +1166,8 @@ def main():
     X, labels = flagship_data()
     k1 = phase_kernel(port, X, labels)
     k2 = phase_kernel_k2(port)
+    k4 = phase_kernel_k4(port, X, labels)
+    k5 = phase_kernel_k5(port)
 
     Xs, ls = testing.nich_problem(4096, seed=3)
 
@@ -760,12 +1186,17 @@ def main():
         small['values'], small['labels'], fk.fused_mixed_score_sample_stats)
 
     k1['launches'] = phase_main(port, X, labels)
+    k4['launches'], k5['launches'] = phase_paths_v1(port, X, labels)
+    phase_main_resume(port, X, labels)
+    phase_init(port, X)
     del X
     k2['launches'] = phase_main_mixed(port)
     kernels = []
     for name, source, replaces, k in (
             ('fused_v2 (K1)', 'fused_v2.cu', 535, k1),
-            ('fused_v3 (K2)', 'fused_v3.cu', 749, k2)):
+            ('fused_v3 (K2)', 'fused_v3.cu', 749, k2),
+            ('score_sample_v1_nich (K4)', 'score_sample_v1.cu', 137, k4),
+            ('score_sample_v1_mixed (K5)', 'score_sample_v1.cu', 247, k5)):
         kernels.append({
             'name': name, 'route': 'cuda',
             'source': 'distributions_tpu_torch/csrc/' + source,
@@ -774,7 +1205,7 @@ def main():
             'launches': k['launches'], 'max_abs_err': k['max_abs_err'],
             'ms': k['ms'], 'plain_ms': k['plain_ms'],
             'bound_ms': k['bound_ms'], 'bound_by': k['bound_by'],
-            # no single PyTorch call computes score + draw + sums
+            # no single PyTorch call computes score + draw (+ sums)
             'library_ms': None})
     emit({'kernels': kernels})
     print('nvidia-smi: %s' % card, flush=True)

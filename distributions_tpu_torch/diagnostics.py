@@ -64,7 +64,8 @@ def ess(chain):
 
 
 class SweepLogger(object):
-    """Minimal structured per-sweep logger: collects dict rows."""
+    """Minimal structured per-sweep logger: collects dict rows and dumps
+    them to a json-stream file (io.stream) for offline analysis."""
 
     def __init__(self):
         self.rows = []
@@ -74,3 +75,7 @@ class SweepLogger(object):
         row.update(fields)
         self.rows.append(row)
         return row
+
+    def save(self, filename):
+        from distributions_tpu_torch.io.stream import json_stream_dump
+        json_stream_dump(self.rows, filename)

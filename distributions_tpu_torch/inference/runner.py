@@ -1,14 +1,15 @@
 """Production Gibbs runner (distributions_tpu.inference.runner): runs
-blocked collapsed-Gibbs sweeps in steps, grows capacity between steps,
-validates invariants and logs one row per step.
+blocked collapsed-Gibbs sweeps in steps with periodic checkpoints and
+resume, grows capacity between steps, validates invariants and logs one
+row per step.
 
-Not ported yet, each raising NotImplementedError when set:
-checkpointing (`checkpoint_path`, ROADMAP Queue 1 item 10), row sharding
-(`mesh`, item 11), hyperparameter resampling (`hyper_grids`, `cl_grid`,
-`hyper_slice`, `cl_slice`, item 13), and the sequential inits
-`init='prior'` and `init='sequential'` (item 10).
+Not ported yet, each raising NotImplementedError when set: row sharding
+(`mesh`, ROADMAP Queue 1 item 11), hyperparameter resampling
+(`hyper_grids`, `cl_grid`, `hyper_slice`, `cl_slice`, item 13) and
+`checkpoint_format='orbax'` (item 16).
 """
 
+import os
 import time
 
 import numpy as np
@@ -16,6 +17,7 @@ import torch
 
 from distributions_tpu_torch import clustering, config, debug, diagnostics
 from distributions_tpu_torch import mixture as mx
+from distributions_tpu_torch.io import checkpoint
 from distributions_tpu_torch.ops import fused_kernels as fk
 from distributions_tpu_torch.ops import gibbs
 
@@ -90,12 +92,27 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
               hyper_every=10, hyper_sample=True,
               checkpoint_format='npz', hyper_slice=None, cl_slice=False,
               sweeps_per_step=1, initial_assignments=None, device=None):
-    """Run `passes` blocked collapsed-Gibbs sweeps.
+    """Run `passes` blocked collapsed-Gibbs sweeps with checkpoint and
+    resume.
 
     generator: the `torch.Generator` all randomness comes from (the JAX
-    runner's `key`).  init: 'random:K' (uniform over the first K slots),
-    or pass `initial_assignments` ([R] int) to warm-start; it overrides
-    `init`.
+    runner's `key`).  init: 'prior' (each row seated by the clustering
+    prior alone) | 'sequential' (each row from the running posterior
+    predictive: a loop of R single-row steps, for small R) | 'random:K'
+    (uniform over the first K slots); or pass `initial_assignments` ([R]
+    int) to warm-start, which overrides `init`.
+
+    checkpoint_path: a file (io.checkpoint: npz blobs in a protobuf
+    envelope) written every `checkpoint_every` sweeps and at the end;
+    `checkpoint_every=0` writes only the final one.  With `resume` and an
+    existing file the run continues from it: state, assignments, the
+    generator's state (set on `generator`, which must be of the device
+    type it was saved from), the sweep index, the logger rows, and the
+    saved shareds and clustering model.  Steps are clamped so that every
+    checkpoint boundary is a step edge, and the fused stat cache is
+    rebuilt from the assignments after every checkpoint, as a resumed run
+    must rebuild it: a run interrupted at a checkpoint and resumed with
+    the same settings equals the uninterrupted run bitwise.
 
     device: where the chain runs.  `values`, `initial_assignments`, the
     shareds and the clustering model may be tensors, numpy arrays, lists
@@ -116,8 +133,11 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
     stat cache is then rebuilt.
 
     Returns (state, assignments, logger)."""
-    if checkpoint_path is not None:
-        raise _not_ported('checkpoint_path', 10)
+    if checkpoint_format == 'orbax':
+        raise _not_ported("checkpoint_format='orbax'", 16)
+    if checkpoint_format != 'npz':
+        raise ValueError('unknown checkpoint_format %r'
+                         % (checkpoint_format,))
     if mesh is not None:
         raise _not_ported('mesh', 11)
     for name, opt in (('hyper_grids', hyper_grids), ('cl_grid', cl_grid),
@@ -132,21 +152,54 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
         spec, cl_model, shareds, values, initial_assignments, device)
     R = int(values[0].shape[0])
 
-    if initial_assignments is not None:
+    start_pass = 0
+    if resume and checkpoint_path and os.path.exists(checkpoint_path):
+        state, assignments, saved, start_pass, rows = \
+            checkpoint.load_extended(checkpoint_path, spec, shareds)
+        # a checkpoint written after capacity growth holds the grown state
+        spec = spec._replace(capacity=int(state.counts.shape[0]))
+        if saved is not None:
+            checkpoint.restore_generator(generator, saved)
+        if rows and not logger.rows:
+            logger.rows = rows
+        saved_shareds, saved_cl = checkpoint.load_hypers(
+            checkpoint_path, spec, device=dev)
+        if saved_shareds is not None:
+            shareds = saved_shareds
+        if saved_cl is not None:
+            cl_model = saved_cl
+    elif initial_assignments is not None:
         assignments = initial_assignments.to(torch.int32)
+        state = mx.state_from_assignments(spec, cl_model, shareds, values,
+                                          assignments)
+    elif init == 'prior':
+        state, assignments = gibbs.prior_init(
+            spec, cl_model, shareds, mx.init(spec, shareds), values,
+            generator)
     elif init.startswith('random'):
         k0 = int(init.split(':')[1]) if ':' in init else 64
         assignments = torch.randint(
             0, min(k0, spec.capacity), (R,), generator=generator,
             device=generator.device).to(device=dev, dtype=torch.int32)
+        state = mx.state_from_assignments(spec, cl_model, shareds, values,
+                                          assignments)
+    elif init == 'sequential':
+        state, assignments = gibbs.sequential_init(
+            spec, cl_model, shareds, mx.init(spec, shareds), values,
+            generator)
     else:
-        raise _not_ported("init=%r" % (init,), 10)
-    state = mx.state_from_assignments(spec, cl_model, shareds, values,
-                                      assignments)
+        raise ValueError("init must be 'prior', 'sequential' or 'random:K', "
+                         'got %r' % (init,))
+
+    def save(at_sweep):
+        checkpoint.save(checkpoint_path, state, assignments=assignments,
+                        generator=generator, sweep=at_sweep,
+                        logger_rows=logger.rows, shareds=shareds,
+                        cl_model=cl_model, spec=spec)
 
     cache = None
     counts_host = None
-    sweep = 0
+    sweep = start_pass
     while sweep < passes:
         if counts_host is None:
             counts_host = state.counts.cpu().numpy()
@@ -158,7 +211,10 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
         # auto_block_rows) do not apply to the CUDA kernel
         fused_ok = (use_pallas and fk.supports_mixed_pallas(spec)
                     and R % block == 0)
+        # every checkpoint boundary lands on a step edge
         k = min(sweeps_per_step, passes - sweep)
+        if checkpoint_path and checkpoint_every:
+            k = min(k, checkpoint_every - sweep % checkpoint_every)
 
         step_score = None
         t0 = time.time()
@@ -189,6 +245,15 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
         if sweeps_per_step > 1:
             stats['sweeps'] = k
         logger.log(sweep - 1, **stats)
+
+        if checkpoint_path and checkpoint_every \
+                and sweep % checkpoint_every == 0 and sweep < passes:
+            save(sweep)
+            # a run resumed from this file rebuilds the cache from the
+            # assignments; do the same, so that both continue alike
+            cache = None
+    if checkpoint_path:
+        save(passes)
     logger.final_shareds = shareds
     logger.final_cl_model = cl_model
     return state, assignments, logger

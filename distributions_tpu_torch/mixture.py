@@ -89,6 +89,90 @@ def _block_score_batch(block, shared, group, values):
     return total
 
 
+def _block_score_row(block, shared, group, values_row):
+    """Score one row's `cols` values against all C slots -> [C]: the
+    model's `score_value` broadcasts the [C, cols] group against the
+    [cols] values."""
+    return block.module.score_value(shared, group, values_row).sum(1)
+
+
+def _block_update_row(block, shared, group, k, values_row, sign):
+    """Add (sign=+1) or remove (sign=-1) one row's values to slot k."""
+    fn = block.module.add_value if sign > 0 else block.module.remove_value
+    sub = fn(shared, base.group_take(group, k), values_row)
+    return base.group_set(group, k, sub)
+
+
+def _zero_slot(block, shared, group, k, do_zero):
+    """Reset slot k's stats to zero where do_zero: a slot that died must
+    be bitwise empty for later reuse."""
+    sub = base.group_take(group, k)
+    sub = _map_group(lambda s: torch.where(do_zero, torch.zeros_like(s), s),
+                     sub)
+    return base.group_set(group, k, sub)
+
+
+# -- single-row ops ---------------------------------------------------------
+# These rebuild [C]-sized tensors per call: right for single rows and the
+# sequential initialization, far slower per row than the blocked sweeps.
+
+def score_value(spec, cl_model, shareds, state, values_row):
+    """scores [C] of one row: clustering seating scores plus the feature
+    predictive scores; dead slots score -inf."""
+    scores = _clustering.score_value(
+        cl_model, state.counts, state.alive, state.sample_size)
+    zero = torch.zeros((), dtype=torch.float32, device=scores.device)
+    for block, shared, group, v in zip(
+            spec.blocks, shareds, state.groups, values_row):
+        scores = scores + torch.where(
+            state.alive,
+            _block_score_row(block, shared, group, torch.as_tensor(v)), zero)
+    return scores
+
+
+def add_value(spec, cl_model, shareds, state, groupid, values_row):
+    """Assign a row to slot `groupid`; when it takes a reserved empty slot
+    the first dead slot comes alive in its place.  Returns (state,
+    was_empty)."""
+    groupid = torch.as_tensor(groupid, device=state.counts.device).long()
+    was_empty = state.counts[groupid] == 0
+    counts = state.counts.clone()
+    counts[groupid] += 1
+    # torch.argmin returns the first of several minima: the first dead slot
+    dead = torch.argmin(state.alive.to(torch.int8))
+    do_activate = was_empty & ~state.alive[dead]
+    alive = state.alive.clone()
+    alive[dead] = state.alive[dead] | do_activate
+    groups = tuple(
+        _block_update_row(block, shared, group, groupid, torch.as_tensor(v),
+                          +1)
+        for block, shared, group, v in zip(
+            spec.blocks, shareds, state.groups, values_row))
+    return MixtureState(counts=counts, alive=alive,
+                        sample_size=state.sample_size + 1,
+                        groups=groups), was_empty
+
+
+def remove_value(spec, cl_model, shareds, state, groupid, values_row):
+    """Unassign a row; a slot that empties dies (leaves the alive set, its
+    stats zeroed).  Returns (state, now_empty)."""
+    groupid = torch.as_tensor(groupid, device=state.counts.device).long()
+    counts = state.counts.clone()
+    counts[groupid] -= 1
+    now_empty = counts[groupid] == 0
+    alive = state.alive.clone()
+    alive[groupid] = state.alive[groupid] & ~now_empty
+    groups = []
+    for block, shared, group, v in zip(
+            spec.blocks, shareds, state.groups, values_row):
+        group = _block_update_row(block, shared, group, groupid,
+                                  torch.as_tensor(v), -1)
+        groups.append(_zero_slot(block, shared, group, groupid, now_empty))
+    return MixtureState(counts=counts, alive=alive,
+                        sample_size=state.sample_size - 1,
+                        groups=tuple(groups)), now_empty
+
+
 def score_data(spec, cl_model, shareds, state):
     """Joint log prob of the partition and all feature data."""
     total = _clustering.score_counts(cl_model, state.counts)

@@ -11,6 +11,21 @@ def scalar(x, dtype, device):
     return torch.tensor(x, dtype=dtype, device=device)
 
 
+def group_take(group, idx):
+    """The group at index `idx` of a [K]-batched Group."""
+    return type(group)(*(a[idx] for a in group))
+
+
+def group_set(group, idx, sub):
+    """A copy of `group` with one group's stats written into slot `idx`."""
+    out = []
+    for a, s in zip(group, sub):
+        a = a.clone()
+        a[idx] = torch.as_tensor(s, device=a.device).to(a.dtype)
+        out.append(a)
+    return type(group)(*out)
+
+
 def exact_onehot_matmul(onehot_t, flat):
     """onehot_t [K, B] (exact 0/1) @ flat [B, S] -> [K, S] in float32.
 

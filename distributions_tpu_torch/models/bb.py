@@ -55,6 +55,22 @@ def _as_bool(value, device):
     return torch.as_tensor(value, device=device).to(torch.bool)
 
 
+def add_value(shared, group, value):
+    return add_repeated_value(shared, group, value, 1)
+
+
+def add_repeated_value(shared, group, value, count):
+    value = _as_bool(value, group.heads.device)
+    count = torch.as_tensor(count, device=value.device).to(torch.int32)
+    zero = torch.zeros_like(count)
+    return Group(heads=group.heads + torch.where(value, count, zero),
+                 tails=group.tails + torch.where(value, zero, count))
+
+
+def remove_value(shared, group, value):
+    return add_repeated_value(shared, group, value, -1)
+
+
 def merge(shared, destin, source):
     return Group(heads=destin.heads + source.heads,
                  tails=destin.tails + source.tails)

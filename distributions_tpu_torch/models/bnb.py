@@ -55,6 +55,21 @@ def plus_group(shared, group):
                   beta=shared.beta + group.sum, r=shared.r)
 
 
+def add_value(shared, group, value):
+    return add_repeated_value(shared, group, value, 1)
+
+
+def add_repeated_value(shared, group, value, count):
+    dev = group.count.device
+    value = torch.as_tensor(value, device=dev).to(torch.int32)
+    count = torch.as_tensor(count, device=dev).to(torch.int32)
+    return Group(count=group.count + count, sum=group.sum + count * value)
+
+
+def remove_value(shared, group, value):
+    return add_repeated_value(shared, group, value, -1)
+
+
 def merge(shared, destin, source):
     return Group(count=destin.count + source.count,
                  sum=destin.sum + source.sum)

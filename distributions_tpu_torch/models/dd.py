@@ -59,6 +59,20 @@ def _as_index(values, device):
     return torch.as_tensor(values, device=device).to(torch.int64)
 
 
+def add_value(shared, group, value):
+    return add_repeated_value(shared, group, value, 1)
+
+
+def add_repeated_value(shared, group, value, count):
+    onehot = _onehot(shared, value).to(torch.int32)
+    count = torch.as_tensor(count, device=onehot.device).to(torch.int32)
+    return Group(counts=group.counts + count * onehot)
+
+
+def remove_value(shared, group, value):
+    return add_repeated_value(shared, group, value, -1)
+
+
 def merge(shared, destin, source):
     return Group(counts=destin.counts + source.counts)
 

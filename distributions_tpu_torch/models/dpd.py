@@ -155,6 +155,50 @@ def shared_realize(generator, shared):
     raise _samplers_not_ported('shared_realize')
 
 
+def shared_to_state_dict(shared):
+    """Serialization that keeps the slot order (the checkpoint's form):
+    group count tables are aligned with the slots, so the sorted and
+    compacted `shared_to_dict` form is not safe to restore against saved
+    groups; this one round-trips the dense table as it is."""
+    return {
+        'gamma': float(shared.gamma),
+        'alpha': float(shared.alpha),
+        'beta0': float(shared.beta0),
+        'slot_values': [int(v) for v in shared.values.cpu().numpy()],
+        'slot_betas': [float(b) for b in shared.betas.cpu().numpy()],
+        'slot_counts': [int(c) for c in shared.counts.cpu().numpy()],
+    }
+
+
+def shared_from_state_dict(raw, device=None):
+    device = resolve_device(device)
+
+    def arr(key, dtype):
+        return torch.from_numpy(np.asarray(raw[key], dtype)).to(device)
+    return Shared(gamma=base.scalar(raw['gamma'], torch.float32, device),
+                  alpha=base.scalar(raw['alpha'], torch.float32, device),
+                  beta0=base.scalar(raw['beta0'], torch.float32, device),
+                  values=arr('slot_values', np.int32),
+                  betas=arr('slot_betas', np.float32),
+                  counts=arr('slot_counts', np.int32))
+
+
+def add_value(shared, group, value):
+    return add_repeated_value(shared, group, value, 1)
+
+
+def add_repeated_value(shared, group, value, count):
+    """Unknown values and OTHER change the total and no count."""
+    onehot, slots = _onehot(shared, value)
+    count = torch.as_tensor(count, device=slots.device).to(torch.int32)
+    return Group(counts=group.counts + count * onehot.to(torch.int32),
+                 total=group.total + count)
+
+
+def remove_value(shared, group, value):
+    return add_repeated_value(shared, group, value, -1)
+
+
 def merge(shared, destin, source):
     return Group(counts=destin.counts + source.counts,
                  total=destin.total + source.total)

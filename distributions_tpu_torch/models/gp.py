@@ -57,6 +57,24 @@ def plus_group(shared, group):
                   inv_beta=shared.inv_beta + group.count)
 
 
+def add_value(shared, group, value):
+    return add_repeated_value(shared, group, value, 1)
+
+
+def add_repeated_value(shared, group, value, count):
+    dev = group.count.device
+    value = torch.as_tensor(value, device=dev).to(torch.int32)
+    count = torch.as_tensor(count, device=dev).to(torch.int32)
+    return Group(count=group.count + count,
+                 sum=group.sum + count * value,
+                 log_prod=group.log_prod + count.to(torch.float32)
+                 * log_factorial(value))
+
+
+def remove_value(shared, group, value):
+    return add_repeated_value(shared, group, value, -1)
+
+
 def merge(shared, destin, source):
     return Group(count=destin.count + source.count,
                  sum=destin.sum + source.sum,

@@ -83,6 +83,33 @@ def plus_group(shared, group):
     return Shared(mu=mu_n, kappa=kappa_n, sigmasq=sigmasq_n, nu=nu_n)
 
 
+def add_value(shared, group, value):
+    """Welford online update."""
+    value = torch.as_tensor(value, device=group.mean.device).to(
+        torch.float32)
+    count = group.count + 1
+    delta = value - group.mean
+    mean = group.mean + delta / count.to(torch.float32)
+    ctv = group.count_times_variance + delta * (value - mean)
+    return Group(count=count, mean=mean, count_times_variance=ctv)
+
+
+def remove_value(shared, group, value):
+    """Welford downdate, exact zeros once the group empties."""
+    value = torch.as_tensor(value, device=group.mean.device).to(
+        torch.float32)
+    total = group.mean * group.count.to(torch.float32)
+    delta = value - group.mean
+    count = group.count - 1
+    countf = count.to(torch.float32)
+    zero = torch.zeros((), dtype=torch.float32, device=countf.device)
+    mean = torch.where(count == 0, zero,
+                       (total - value) / torch.clamp(countf, min=1))
+    ctv = torch.where(count <= 1, zero,
+                      group.count_times_variance - delta * (value - mean))
+    return Group(count=count, mean=mean, count_times_variance=ctv)
+
+
 def merge(shared, destin, source):
     count = destin.count + source.count
     countf = torch.clamp(count.to(torch.float32), min=1)

@@ -124,6 +124,24 @@ def plus_group(shared, group):
     return Shared(mu=mu_n, kappa=kappa_n[..., 0], psi=psi_n, nu=nu_n)
 
 
+def add_value(shared, group, value):
+    return add_repeated_value(shared, group, value, 1)
+
+
+def add_repeated_value(shared, group, value, count):
+    dev = group.count.device
+    v = torch.as_tensor(value, device=dev).to(torch.float32)
+    c = torch.as_tensor(count, device=dev).to(torch.int32)
+    cf = c.to(torch.float32)
+    return Group(count=group.count + c,
+                 sum_x=group.sum_x + cf * v,
+                 sum_xxT=group.sum_xxT + cf * _outer(v, v))
+
+
+def remove_value(shared, group, value):
+    return add_repeated_value(shared, group, value, -1)
+
+
 def merge(shared, destin, source):
     return Group(count=destin.count + source.count,
                  sum_x=destin.sum_x + source.sum_x,

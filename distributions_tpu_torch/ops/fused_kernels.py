@@ -5,13 +5,17 @@ twins.  Counterpart of distributions_tpu/ops/pallas_kernels.py:
   with `nich_coeffs_v2`, `split_stat_sums`, `fast_log`/`fast_exp`;
 - K2, `fused_mixed_score_sample_stats` (`_fused_v3_kernel`): nich columns,
   niw columns (`niw_coeffs_v4`, `quad_sums_to_raw`) and table columns of
-  the discrete models.  A nich-only call falls through to K1.
+  the discrete models.  A nich-only call falls through to K1;
+- K4, `nich_score_sample` (`_score_sample_kernel`) and K5,
+  `mixed_score_sample` (`_mixed_kernel`): the v1 score + sample kernels
+  without stat outputs, with `nich_coeffs` (four rows per column, `log1p`
+  form) and, for K5, one [V, C] score table per discrete column.
 
 Each wrapper takes its twin (`*_plain`) for CPU tensors.  For CUDA tensors
-it launches the hand-written Hopper kernel in `csrc/fused_v2.cu` or
-`csrc/fused_v3.cu` (built with nvcc into build/torch_kernels/ at first
-use, bound with ctypes) or raises; there is no fallback.  Its `launches`
-attribute counts the kernel launches.
+it launches the hand-written Hopper kernel in `csrc/fused_v2.cu`,
+`csrc/fused_v3.cu` or `csrc/score_sample_v1.cu` (built with nvcc into
+build/torch_kernels/ at first use, bound with ctypes) or raises; there is
+no fallback.  Its `launches` attribute counts the kernel launches.
 """
 
 import ctypes
@@ -108,6 +112,21 @@ def supports_mixed_pallas(spec):
     return all(b.module is nich_mod or b.module is niw_mod
                or hasattr(b.module, 'score_value_batch')
                for b in spec.blocks)
+
+
+def nich_coeffs(shared, group):
+    """[4*cols, C] scorer rows from [C, cols] nich groups, per column
+    {score, log_coeff, precision, mean}: the inputs of K4 and K5, where
+    score(v, k) = score_k + log_coeff_k * log1p(prec_k (v - mean_k)^2)."""
+    post = nich_mod.plus_group(shared, group)            # leaves [C, cols]
+    lambda_ = ((1.0 + post.kappa) * post.sigmasq) / post.kappa
+    score = (lgamma_nu(post.nu)
+             - 0.5 * torch.log(post.nu * torch.pi * lambda_))
+    log_coeff = -0.5 * (post.nu + 1.0)
+    precision = 1.0 / (post.nu * lambda_)
+    stack = torch.stack([score, log_coeff, precision, post.mu],
+                        dim=-1)                           # [C, cols, 4]
+    return stack.permute(1, 2, 0).reshape(-1, stack.shape[0])
 
 
 def nich_coeffs_v2(shared, group):
@@ -496,17 +515,76 @@ def _mixed_rows(values, qvalues, table_idx):
     raise ValueError('no nich, niw or table columns given')
 
 
+# the draws of K4 and K5
+V1_SAMPLING = ('gumbel', 'argmax', 'gumbel_host')
+
+
+def _parse_v1_sampling(sampling):
+    if sampling not in V1_SAMPLING:
+        raise ValueError('sampling %r: the v1 score + sample kernels draw '
+                         "with 'gumbel', 'argmax' or 'gumbel_host'"
+                         % (sampling,))
+    return sampling
+
+
+def _score_v1(B, nich_values, table_indices, cl_scores, coeffs, tables):
+    """[B, C] scores in the operation order of K4 and K5: cl, then per
+    nich column (scores + score) + log_coeff * log1p((prec * t) * t), then
+    one gathered table row per table column."""
+    scores = cl_scores[None, :].expand(B, -1)
+    ncols = 0 if nich_values is None else nich_values.shape[1]
+    for j in range(ncols):
+        score, log_coeff, prec, mean = (coeffs[4 * j + i][None, :]
+                                        for i in range(4))
+        t = nich_values[:, j][:, None] - mean
+        scores = scores + score + log_coeff * torch.log1p(prec * t * t)
+    tcols = 0 if table_indices is None else table_indices.shape[1]
+    for j in range(tcols):
+        scores = scores + tables[j][table_indices[:, j].long()]
+    return scores
+
+
+def nich_score_sample_plain(seed, values, cl_scores, coeffs,
+                            block_rows=DEFAULT_BLOCK_ROWS, sampling='gumbel',
+                            noise=None):
+    """The plain PyTorch version of K4, on any device.  Returns
+    assignments [B] int32."""
+    mode = _parse_v1_sampling(sampling)
+    scores = _score_v1(values.shape[0], values, None, cl_scores, coeffs,
+                       None)
+    return _draw(scores, mode, False, seed, noise)
+
+
+def mixed_score_sample_plain(seed, nich_values, table_indices, cl_scores,
+                             coeffs, tables, block_rows=DEFAULT_BLOCK_ROWS,
+                             sampling='gumbel', noise=None):
+    """The plain PyTorch version of K5, on any device: nich terms by
+    broadcasting, table terms by `tables[j][idx_j]` indexing.  Same
+    arguments and result as `mixed_score_sample`."""
+    mode = _parse_v1_sampling(sampling)
+    B = _mixed_rows(nich_values, None, table_indices)
+    scores = _score_v1(B, nich_values, table_indices, cl_scores, coeffs,
+                       tables)
+    return _draw(scores, mode, False, seed, noise)
+
+
 # -- the Hopper kernels -----------------------------------------------------
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'csrc')
 # device code that every kernel source includes
 _COMMON = 'fused_common.cuh'
-KERNELS = ('fused_v2', 'fused_v3')
+KERNELS = ('fused_v2', 'fused_v3', 'score_sample_v1')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), 'build', 'torch_kernels')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+# library -> its C entry points that launch a kernel
+_LAUNCHERS = {'fused_v2': ('fused_v2_launch',),
+              'fused_v3': ('fused_v3_launch',),
+              'score_sample_v1': ('score_sample_v1_nich_launch',
+                                  'score_sample_v1_mixed_launch')}
 
 _LIBRARIES = {}
 
@@ -526,10 +604,16 @@ def _bind(name, lib):
     if name == 'fused_v2':
         lib.fused_v2_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, ip, i,
                                         i, ctypes.c_uint64, i, p]
-    else:
+    elif name == 'fused_v3':
         lib.fused_v3_launch.argtypes = [p] * 14 + [
             i, i, i, ip, i, ip, ip, i, ip, i, i, ctypes.c_uint64, i, p]
-    getattr(lib, name + '_launch').restype = i
+    else:
+        lib.score_sample_v1_nich_launch.argtypes = [p] * 5 + [
+            i, i, i, i, ctypes.c_uint64, p]
+        lib.score_sample_v1_mixed_launch.argtypes = [p] * 7 + [
+            i, i, i, i, i, i, ctypes.c_uint64, p]
+    for launch in _LAUNCHERS[name]:
+        getattr(lib, launch).restype = i
     getattr(lib, name + '_error_string').argtypes = [i]
     getattr(lib, name + '_error_string').restype = ctypes.c_char_p
 
@@ -579,7 +663,7 @@ def _finish_build(name, so, tmp, proc, t0):
 
 
 def build(name):
-    """Compile csrc/<name>.cu ('fused_v2' or 'fused_v3') with nvcc into
+    """Compile csrc/<name>.cu (a name in KERNELS) with nvcc into
     BUILD_DIR, once per content of the source and the shared header, and
     load it.  Returns a dict with the ctypes library, the build seconds
     (0 when it was already built) and the compiler's register and
@@ -864,3 +948,127 @@ def fused_mixed_score_sample_stats(seed, values, table_idx, cl_scores,
 
 
 fused_mixed_score_sample_stats.launches = 0
+
+
+def _launch_v1(seed, nich_values, table_indices, cl_scores, coeffs, tables,
+               sampling, noise, wrapper):
+    """Launch K4 (`wrapper` is nich_score_sample: nich columns only) or K5
+    (mixed_score_sample) and count the launch on `wrapper`."""
+    mode = _parse_v1_sampling(sampling)
+    if cl_scores.dim() != 1 or cl_scores.shape[0] < 1:
+        raise ValueError('cl_scores must be [C >= 1]')
+    dev = cl_scores.device
+    C = cl_scores.shape[0]
+    B = _mixed_rows(nich_values, None, table_indices)
+    if B < 1:
+        raise ValueError('need at least one row')
+    ncols = tcols = V = 0
+    _check('cl_scores', cl_scores, dev, (C,))
+    if nich_values is not None:
+        if nich_values.dim() != 2 or not 1 <= nich_values.shape[1] <= MAX_COLS:
+            raise ValueError('nich values must be [B, 1..%d columns], got %s'
+                             % (MAX_COLS, tuple(nich_values.shape)))
+        ncols = nich_values.shape[1]
+        _check('values', nich_values, dev, (B, ncols))
+        _check('coeffs', coeffs, dev, (4 * ncols, C))
+    if table_indices is not None:
+        if table_indices.dim() != 2 or not (
+                1 <= table_indices.shape[1] <= MAX_TABLE_COLS):
+            raise ValueError('table_indices must be [B, 1..%d columns], got '
+                             '%s' % (MAX_TABLE_COLS,
+                                     tuple(table_indices.shape)))
+        tcols = table_indices.shape[1]
+        if not isinstance(tables, torch.Tensor) or tables.dim() != 3 \
+                or tables.shape[1] < 1:
+            raise ValueError('tables must be [table_cols, V >= 1, C]')
+        V = tables.shape[1]
+        _check('table_indices', table_indices, dev, (B, tcols), torch.int32)
+        _check('tables', tables, dev, (tcols, V, C))
+    _check_noise(mode, sampling, noise, dev, B, C)
+    seed = _check_seed(seed)
+
+    lib = build('score_sample_v1')['lib']
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if wrapper is nich_score_sample:
+            err = lib.score_sample_v1_nich_launch(
+                nich_values.data_ptr(), cl_scores.data_ptr(),
+                coeffs.data_ptr(), _ptr(noise), out.data_ptr(), B, C, ncols,
+                SAMPLING_MODES[mode], seed, stream)
+        else:
+            err = lib.score_sample_v1_mixed_launch(
+                _ptr(nich_values), _ptr(table_indices), cl_scores.data_ptr(),
+                _ptr(coeffs if ncols else None),
+                _ptr(tables if tcols else None), _ptr(noise), out.data_ptr(),
+                B, C, ncols, tcols, V, SAMPLING_MODES[mode], seed, stream)
+    _raise_on('score_sample_v1', lib, err)
+    wrapper.launches += 1
+    return out
+
+
+def nich_score_sample(seed, values, cl_scores, coeffs,
+                      block_rows=DEFAULT_BLOCK_ROWS, interpret=False,
+                      sampling='gumbel', noise=None):
+    """K4: fused score + categorical draw for nich columns, no stat
+    outputs.
+
+    values: [B, cols] f32; cl_scores: [C] f32; coeffs: [4*cols, C] f32 in
+    the `nich_coeffs` layout.  seed: an int in [0, 2**64), the tile's seed
+    of 'gumbel'.  Returns assignments [B] int32.
+
+    sampling: 'gumbel' (Philox in the kernel) | 'argmax' | 'gumbel_host'
+    taking `noise` [B, C].  The JAX kernel only draws with its core's
+    generator; the other two modes exist so that the kernel can be held to
+    its twin draw for draw.
+
+    CPU tensors run the plain twin; CUDA tensors launch the kernel or
+    raise.  `block_rows` and `interpret` are kept for parity with the JAX
+    signature."""
+    if values.device.type == 'cpu':
+        return nich_score_sample_plain(seed, values, cl_scores, coeffs,
+                                       block_rows=block_rows,
+                                       sampling=sampling, noise=noise)
+    if values.device.type != 'cuda':
+        raise ValueError('nich_score_sample runs on CPU or CUDA tensors, '
+                         'got %s' % values.device)
+    return _launch_v1(seed, values, None, cl_scores, coeffs, None, sampling,
+                      noise, nich_score_sample)
+
+
+nich_score_sample.launches = 0
+
+
+def mixed_score_sample(seed, nich_values, table_indices, cl_scores, coeffs,
+                       tables, block_rows=DEFAULT_BLOCK_ROWS, interpret=False,
+                       sampling='gumbel', noise=None):
+    """K5: fused score + categorical draw over nich columns and discrete
+    table columns, no stat outputs.
+
+    nich_values: [B, nich_cols] f32 with coeffs [4*nich_cols, C] in the
+    `nich_coeffs` layout, or None and None for a spec without nich
+    columns; table_indices: [B, table_cols] int32 indices into each
+    column's support with tables [table_cols, V, C] f32 (V the largest
+    support; rows beyond a column's own support are never read), or None
+    and None for a spec without table columns.  The kernel gathers the f32
+    entry `tables[j, idx, k]`.  Table entries are floored at -1e30, so a
+    -inf entry stays unselectable and never makes a NaN.  Returns
+    assignments [B] int32.
+
+    sampling and the CPU / CUDA split are as in `nich_score_sample`."""
+    if nich_values is None and table_indices is None:
+        raise ValueError('no nich or table columns given')
+    if table_indices is not None:
+        tables = torch.clamp(tables, min=-1e30)
+    if cl_scores.device.type == 'cpu':
+        return mixed_score_sample_plain(
+            seed, nich_values, table_indices, cl_scores, coeffs, tables,
+            block_rows=block_rows, sampling=sampling, noise=noise)
+    if cl_scores.device.type != 'cuda':
+        raise ValueError('mixed_score_sample runs on CPU or CUDA tensors, '
+                         'got %s' % cl_scores.device)
+    return _launch_v1(seed, nich_values, table_indices, cl_scores, coeffs,
+                      tables, sampling, noise, mixed_score_sample)
+
+
+mixed_score_sample.launches = 0

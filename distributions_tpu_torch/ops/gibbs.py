@@ -12,6 +12,13 @@
   remove side is the cached add-side sums of the previous sweep
   (`build_stat_cache`).  In the port, "pallas" in these names means the
   hand-written fused kernels.
+- `sweep_blocked_pallas` (nich-only specs, kernel K4) and
+  `sweep_blocked_pallas_mixed` (nich and discrete blocks, kernel K5 or,
+  with backend='xla', plain PyTorch tables) are the v1 sweeps: the remove
+  and add sides are `tile_deltas_fast` of the row stats, and the kernel
+  only scores and draws.
+- `prior_init` and `sequential_init` assign the rows one after another,
+  from the clustering prior alone or from the running predictive.
 
 Randomness: every sweep draws one seed from the caller's
 `torch.Generator`, and each tile folds its index into it
@@ -20,6 +27,7 @@ Randomness: every sweep draws one seed from the caller's
 
 from collections import namedtuple
 
+import numpy as np
 import torch
 
 from distributions_tpu_torch import clustering as _cl, mixture as mx
@@ -79,6 +87,52 @@ def sweep_blocked(spec, cl_model, shareds, state, values, assignments, block,
                                 tuple(v[sl] for v in values))
         new_assign = sample_from_scores(gen, scores).to(torch.int32)
         del scores
+        cd, tiles = mx.tile_deltas_fast(spec, shareds, tile_stats,
+                                        new_assign)
+        state = mx.apply_stat_tiles(spec, shareds, state, cd, tiles, +1,
+                                    block)
+        out.append(new_assign)
+    return state, torch.cat(out)
+
+
+def sweep_blocked_pallas(spec, cl_model, shareds, state, values, assignments,
+                         block, block_rows=256, generator=None,
+                         sampling='gumbel'):
+    """Blocked collapsed-Gibbs sweep of a nich-only spec with the v1
+    score + sample kernel K4 (`fused_kernels.nich_score_sample`); in the
+    port "pallas" names the hand-written kernel.
+
+    Equal to `sweep_blocked` in distribution: the kernel draws with its
+    own Philox stream.  sampling: 'gumbel' | 'argmax' | 'gumbel_host'
+    (the tile's noise drawn outside the kernel).  Returns (state,
+    assignments)."""
+    if not fk.supports_pallas(spec):
+        raise ValueError('sweep_blocked_pallas takes nich-only specs; use '
+                         'sweep_blocked_pallas_mixed')
+    n_blocks = _n_tiles(assignments, block)
+    sweep_seed = draw_seed(generator)
+    values_cat = torch.cat([torch.as_tensor(v).to(torch.float32)
+                            for v in values], dim=1).contiguous()
+    row_stats = mx.precompute_row_stats(spec, shareds, values)
+    out = []
+    for t in range(n_blocks):
+        sl = slice(t * block, (t + 1) * block)
+        tile_stats = tuple(rs[sl] for rs in row_stats)
+        cd, tiles = mx.tile_deltas_fast(spec, shareds, tile_stats,
+                                        assignments[sl])
+        state = mx.apply_stat_tiles(spec, shareds, state, cd, tiles, -1,
+                                    block)
+        cl_scores = _cl.score_value(cl_model, state.counts, state.alive,
+                                    state.sample_size)
+        coeffs = torch.cat([fk.nich_coeffs(shared, group)
+                            for shared, group in zip(shareds, state.groups)],
+                           dim=0).contiguous()
+        seed = fold_seed(sweep_seed, t)
+        new_assign = fk.nich_score_sample(
+            seed, values_cat[sl], cl_scores, coeffs, block_rows=block_rows,
+            sampling=sampling,
+            noise=_tile_noise(sampling, seed, block, spec.capacity,
+                              cl_scores.device))
         cd, tiles = mx.tile_deltas_fast(spec, shareds, tile_stats,
                                         new_assign)
         state = mx.apply_stat_tiles(spec, shareds, state, cd, tiles, +1,
@@ -179,6 +233,119 @@ def _mixed_static_layout(spec, values, supports=None):
                         tuple(sups), table_vs)
 
 
+def _column_tables(spec, lay, shareds, state):
+    """One [V_j, C] score table per table column, in column order:
+    `score_value_batch` of the column's groups over its block's support."""
+    table_list = []
+    for i in lay.table_blocks:
+        blk = spec.blocks[i]
+        for j in range(blk.cols):
+            g = mx._map_group(lambda a: a[:, j], state.groups[i])
+            table_list.append(blk.module.score_value_batch(
+                shareds[i], g, lay.supports[i]))
+    return table_list
+
+
+def _build_v1_inputs(spec, lay, shareds, state):
+    """K5's per-slot inputs from the current groups: (coeffs, tables), the
+    `nich_coeffs` rows of the nich blocks and the table columns' score
+    tables stacked to [table_cols, largest V, C] (rows beyond a column's
+    own support are zero and never indexed); None for a kind of block the
+    spec lacks."""
+    coeffs = tables = None
+    if lay.nich_blocks:
+        coeffs = torch.cat([fk.nich_coeffs(shareds[i], state.groups[i])
+                            for i in lay.nich_blocks], dim=0).contiguous()
+    table_list = _column_tables(spec, lay, shareds, state)
+    if table_list:
+        vmax = max(lay.table_vs)
+        tables = torch.stack([
+            torch.nn.functional.pad(tb, (0, 0, 0, vmax - tb.shape[0]))
+            for tb in table_list]).contiguous()
+    return coeffs, tables
+
+
+def sweep_blocked_pallas_mixed(spec, cl_model, shareds, state, values,
+                               assignments, block, generator, supports=None,
+                               block_rows=256, backend='pallas',
+                               sampling='gumbel'):
+    """The v1 sweep for any mix of nich blocks and bounded-support discrete
+    blocks (bb/dd/dpd/gp/bnb).
+
+    Discrete blocks are scored through per-tile [V, C] tables (V = support
+    size) of `score_value_batch` over the support, which takes the lgamma
+    cost of a cell down by the factor B / V; each row's support index then
+    selects its table row.  `supports` (from `_block_supports`) must cover
+    every value in `values`.
+
+    backend='pallas' scores and draws in kernel K5
+    (`fused_kernels.mixed_score_sample`; sampling: 'gumbel' | 'argmax' |
+    'gumbel_host').  backend='xla' keeps its name from the JAX package and
+    is the plain PyTorch form: the same tables indexed by `tables[idx]`,
+    added block by block in the spec's order, and drawn with
+    `random.sample_from_scores` from one generator per sweep, so that it
+    equals `sweep_blocked` bitwise for a generator in the same state.
+
+    Returns (state, assignments)."""
+    if backend not in ('pallas', 'xla'):
+        raise ValueError("backend must be 'pallas' or 'xla', got %r"
+                         % (backend,))
+    if any(b.module is niw_mod for b in spec.blocks):
+        raise ValueError('sweep_blocked_pallas_mixed takes nich and discrete '
+                         'blocks; a niw block needs '
+                         'sweep_blocked_pallas_fused_mixed')
+    n_blocks = _n_tiles(assignments, block)
+    lay = _mixed_static_layout(spec, values, supports)
+    C = spec.capacity
+    dev = assignments.device
+    sweep_seed = draw_seed(generator)
+    gen = device_generator(sweep_seed, dev) if backend == 'xla' else None
+    row_stats = mx.precompute_row_stats(spec, shareds, values)
+    out = []
+    for t in range(n_blocks):
+        sl = slice(t * block, (t + 1) * block)
+        tile_stats = tuple(rs[sl] for rs in row_stats)
+        cd, tiles = mx.tile_deltas_fast(spec, shareds, tile_stats,
+                                        assignments[sl])
+        state = mx.apply_stat_tiles(spec, shareds, state, cd, tiles, -1,
+                                    block)
+        cl_scores = _cl.score_value(cl_model, state.counts, state.alive,
+                                    state.sample_size)
+        t_nich, _, t_idx = _slice_rows(lay, t, block)
+        if backend == 'xla':
+            table_list = _column_tables(spec, lay, shareds, state)
+            scores = cl_scores[None, :].expand(block, C)
+            ncol = tcol = 0
+            for i, blk in enumerate(spec.blocks):
+                if i in lay.nich_blocks:
+                    part = mx._block_score_batch(
+                        blk, shareds[i], state.groups[i],
+                        t_nich[:, ncol:ncol + blk.cols])
+                    ncol += blk.cols
+                else:
+                    part = None
+                    for _ in range(blk.cols):
+                        s = table_list[tcol][t_idx[:, tcol].long()]
+                        part = s if part is None else part + s
+                        tcol += 1
+                scores = scores + part
+            new_assign = sample_from_scores(gen, scores).to(torch.int32)
+            del scores
+        else:
+            coeffs, tables = _build_v1_inputs(spec, lay, shareds, state)
+            seed = fold_seed(sweep_seed, t)
+            new_assign = fk.mixed_score_sample(
+                seed, t_nich, t_idx, cl_scores, coeffs, tables,
+                block_rows=block_rows, sampling=sampling,
+                noise=_tile_noise(sampling, seed, block, C, dev))
+        cd, tiles = mx.tile_deltas_fast(spec, shareds, tile_stats,
+                                        new_assign)
+        state = mx.apply_stat_tiles(spec, shareds, state, cd, tiles, +1,
+                                    block)
+        out.append(new_assign)
+    return state, torch.cat(out)
+
+
 def _check_constant_nu(lay, shareds):
     """The product-form nich block takes one log per block with one
     exponent, so `nu` must be column-constant within a block."""
@@ -227,13 +394,7 @@ def _build_fused_inputs(spec, lay, shareds, state):
     if lay.quad_blocks:
         qcoeffs = torch.cat([fk.niw_coeffs_v4(shareds[i], state.groups[i])
                              for i in lay.quad_blocks], dim=0).contiguous()
-    table_list = []
-    for i in lay.table_blocks:
-        blk = spec.blocks[i]
-        for j in range(blk.cols):
-            g = mx._map_group(lambda a: a[:, j], state.groups[i])
-            table_list.append(blk.module.score_value_batch(
-                shareds[i], g, lay.supports[i]))            # [V, C]
+    table_list = _column_tables(spec, lay, shareds, state)
     if table_list:
         tables = torch.cat(table_list, dim=0).contiguous()
     return coeffs, qcoeffs, tables
@@ -412,3 +573,115 @@ def sweep_blocked_pallas_fused_mixed(spec, cl_model, shareds, state, values,
                             block, block_rows, sampling, n_sweeps,
                             with_score, cl_model, shareds, state,
                             assignments, generator, cache)
+
+
+# -- row-by-row initializations ---------------------------------------------
+
+def sequential_init(spec, cl_model, shareds, state, values, generator):
+    """Sequential (greedy posterior-predictive) initialization: assign the
+    rows one at a time, each from the running predictive of the rows
+    before it.  A loop of R single-row steps (`mixture.score_value`, a
+    gumbel-argmax draw, `mixture.add_value`), each a few dozen [C]-sized
+    ops: meant for small R.  Returns (state, assignments)."""
+    values = tuple(torch.as_tensor(v) for v in values)
+    R = values[0].shape[0]
+    dev = state.counts.device
+    gen = device_generator(draw_seed(generator), dev)
+    assignments = torch.zeros(R, dtype=torch.int32, device=dev)
+    for i in range(R):
+        row = tuple(v[i] for v in values)
+        scores = mx.score_value(spec, cl_model, shareds, state, row)
+        k = sample_from_scores(gen, scores)
+        state, _ = mx.add_value(spec, cl_model, shareds, state, k, row)
+        assignments[i] = k
+    return state, assignments
+
+
+def _uniforms(generator, n):
+    """n float64 uniforms on [0, 1) from `generator`, on the host."""
+    return torch.rand(n, generator=generator, device=generator.device,
+                      dtype=torch.float64).cpu().numpy()
+
+
+def _crp_seating(alpha, d, counts, alive, R, generator):
+    """Slots for R rows seated one after another by the Pitman-Yor prior
+    on top of `counts` [C] (host int array; `alive` marks the slots that
+    may be taken), as `clustering.score_value` would seat them: an
+    occupied slot k with probability (n_k - d) / (n + alpha), a new table
+    with (alpha + d K) / (n + alpha) on one of the alive empty slots, the
+    first dead slot coming alive when an empty one is taken.
+
+    It depends on counts only, so it needs no scan over [C]-sized scores:
+    whether row i opens a table depends on K alone (one scalar chain over
+    the rows); a row that joins a table copies the slot of an earlier
+    customer picked uniformly, a table's first customer being accepted
+    with probability 1 - d (table k is then picked with n_k - d); the
+    chains of copies are resolved by pointer doubling."""
+    counts = np.asarray(counts, np.int64)
+    C = counts.shape[0]
+    n0 = int(counts.sum())
+    # earlier customers 0..n0-1 stand for the rows already in `counts`
+    slot_of = np.full(n0 + R, -1, np.int64)
+    slot_of[:n0] = np.repeat(np.arange(C), counts)
+    first = np.zeros(n0 + R, bool)
+    first[np.cumsum(counts)[counts > 0] - counts[counts > 0]] = True
+    empties = [int(k) for k in np.flatnonzero(np.asarray(alive)
+                                              & (counts == 0))]
+    dead = [int(k) for k in np.flatnonzero(~np.asarray(alive))][::-1]
+    K = int((counts > 0).sum())
+
+    # the scalar chain: which rows open a table, and on which slot
+    u_new = _uniforms(generator, R).tolist()
+    u_slot = _uniforms(generator, min(R, C)).tolist()
+    opened = 0
+    for i in range(R):
+        if empties and u_new[i] * (n0 + i + alpha) < alpha + d * K:
+            e = int(u_slot[opened] * len(empties))
+            slot_of[n0 + i] = empties[e]
+            first[n0 + i] = True
+            if dead:
+                empties[e] = dead.pop()
+            else:
+                del empties[e]
+            opened += 1
+            K += 1
+    if n0 == 0 and R > 0 and slot_of[0] < 0:
+        raise ValueError('prior_init needs an alive empty slot to start in')
+
+    # the other rows: a parent among the earlier customers
+    parent = np.arange(n0 + R)
+    pending = n0 + np.flatnonzero(slot_of[n0:] < 0)
+    while pending.size:
+        j = np.minimum(
+            (_uniforms(generator, pending.size) * pending).astype(np.int64),
+            pending - 1)
+        ok = ~first[j] | (_uniforms(generator, pending.size) < 1.0 - d)
+        parent[pending[ok]] = j[ok]
+        pending = pending[~ok]
+    while True:
+        up = parent[parent]
+        if np.array_equal(up, parent):
+            break
+        parent = up
+    return slot_of[parent][n0:]
+
+
+def prior_init(spec, cl_model, shareds, state, values, generator):
+    """Prior-predictive initialization: assign each row from the
+    clustering prior only, ignoring the likelihoods, as if by adding the
+    rows one at a time.  The seating depends on the counts alone, so it is
+    drawn on the host (`_crp_seating`) and the rows' statistics are added
+    in one `mixture.add_tile`.  Returns (state, assignments)."""
+    if not isinstance(cl_model, _cl.PitmanYor):
+        # raises for the clustering priors whose scorers are not ported
+        _cl.score_value(cl_model, state.counts, state.alive,
+                        state.sample_size)
+    values = tuple(torch.as_tensor(v) for v in values)
+    R = values[0].shape[0]
+    slots = _crp_seating(float(cl_model.alpha), float(cl_model.d),
+                         state.counts.cpu().numpy(),
+                         state.alive.cpu().numpy(), R, generator)
+    assignments = torch.from_numpy(slots.astype(np.int32)).to(
+        state.counts.device)
+    state = mx.add_tile(spec, cl_model, shareds, state, values, assignments)
+    return state, assignments

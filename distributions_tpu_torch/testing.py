@@ -39,6 +39,8 @@ MIXED_KINDS = {
     # package's profile_mixed.py)
     'niw2mix': (('niw', 2), ('nich', None), ('bb', None)),
     'bbddgp': (('bb', None), ('dd', None), ('gp', None)),
+    # bbddgp with a nich column in front: the v1 mixed sweep's layout
+    'nichbbddgp': (('nich', None), ('bb', None), ('dd', None), ('gp', None)),
 }
 
 
@@ -56,10 +58,11 @@ def mixed_problem(R, C, seed=0, kind='nich_gp_bb', n_clusters=3):
       capacity  C
 
     The small kinds are separated clusters (as tests/test_fused_mixed.py
-    builds them); 'niw2mix' and 'bbddgp' follow profile_mixed.py."""
+    builds them); 'niw2mix', 'bbddgp' and 'nichbbddgp' follow
+    profile_mixed.py."""
     rng = np.random.RandomState(seed)
     labels = rng.randint(0, n_clusters, R)
-    wide = kind in ('niw2mix', 'bbddgp')
+    wide = kind in ('niw2mix', 'bbddgp', 'nichbbddgp')
     blocks, values = [], []
     for name, d in MIXED_KINDS[kind]:
         kwargs = {}

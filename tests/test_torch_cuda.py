@@ -1,4 +1,5 @@
-"""The CUDA kernels K1 and K2 against their plain twins, on the card.
+"""The CUDA kernels K1, K2, K4 and K5 against their plain twins, and the
+runner's bitwise resume, on the card.
 Every test here needs an NVIDIA GPU and skips without one.  On a machine
 with a GPU and no JAX, run them with
 
@@ -199,3 +200,150 @@ def test_k2_wrapper_rejects_bad_inputs(dev):
         fk.fused_mixed_score_sample_stats(
             0, values.cpu(), table_idx, cls, coeffs, tables, col_groups,
             sampling='argmax', **kwargs)
+
+
+# -- K4 and K5 ----------------------------------------------------------------
+
+def _v1_inputs(dev, kind, B, C):
+    """K5's inputs (K4's when the kind is 'nich2') for B rows against the
+    state of those rows."""
+    if kind == 'nich2':
+        v, cls, _ = _inputs(dev, B, C)
+        values, labels = testing.nich_problem(B, seed=0,
+                                              n_clusters=min(C - 4, 40))
+        spec = mx.make_spec([(nich, 2)], capacity=C)
+        sh = (nich.shared_from_dict(testing.NICH_SHARED, device=dev),)
+        py = cl.PitmanYor.from_dict(testing.PY, device=dev)
+        st = mx.state_from_assignments(spec, py, sh, (v,),
+                                       torch.from_numpy(labels).to(dev))
+        return (v, None, cls, fk.nich_coeffs(sh[0], st.groups[0]).contiguous(),
+                None), (spec, py, sh, st, (v,))
+    _, _, (spec, py, sh, st, tv) = _mixed_inputs(dev, kind, B, C)
+    lay = gibbs._mixed_static_layout(spec, tv)
+    cls = cl.score_value(py, st.counts, st.alive, st.sample_size)
+    coeffs, tables = gibbs._build_v1_inputs(spec, lay, sh, st)
+    return (lay.nich_vals, lay.table_idx, cls, coeffs, tables), \
+        (spec, py, sh, st, tv)
+
+
+@pytest.mark.parametrize('kind,B,C', [
+    ('nich2', 4096, 128), ('nich2', 3000, 1000), ('nich2', 257, 2500),
+    ('nich_gp_bb', 4096, 128), ('dd_bb', 3000, 1000), ('dpd_nich', 1024, 128),
+    ('bnb', 1024, 128), ('bbddgp', 4096, 1024)])
+@pytest.mark.parametrize('sampling', ['argmax', 'gumbel_host'])
+def test_v1_kernels_match_twins(dev, kind, B, C, sampling):
+    args, _ = _v1_inputs(dev, kind, B, C)
+    noise = _noise(dev, sampling, B, C)
+    if kind == 'nich2':
+        wrapper, plain = fk.nich_score_sample, fk.nich_score_sample_plain
+        args = (args[0], args[2], args[3])
+    else:
+        wrapper, plain = fk.mixed_score_sample, fk.mixed_score_sample_plain
+    before = wrapper.launches
+    got = wrapper(0, *args, sampling=sampling, noise=noise)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = plain(0, *args, sampling=sampling, noise=noise)
+    # the kernel repeats the twin's f32 operations in the same order
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('kind', ['nich2', 'nich_gp_bb', 'dd_bb'])
+def test_v1_kernels_rng_mode(dev, kind):
+    B, C = 8192, 128
+    args, (spec, py, sh, st, tv) = _v1_inputs(dev, kind, B, C)
+    a = fk.mixed_score_sample(5, *args)
+    assert torch.equal(a, fk.mixed_score_sample(5, *args))
+    if kind == 'nich2':
+        b = fk.nich_score_sample(5, args[0], args[2], args[3])
+        assert torch.equal(a, b)
+    scores = mx.score_batch(spec, py, sh, st, tv)
+    assert testing.softmax_ztest(a, scores) < 5.0
+
+
+def test_v1_wrappers_reject_bad_inputs(dev):
+    args, _ = _v1_inputs(dev, 'nich_gp_bb', 512, 128)
+    values, idx, cls, coeffs, tables = args
+    with pytest.raises(TypeError):
+        fk.mixed_score_sample(0, values, idx.long(), cls, coeffs, tables)
+    with pytest.raises(ValueError):
+        fk.mixed_score_sample(0, values, idx, cls, coeffs[:-1], tables)
+    with pytest.raises(ValueError):
+        fk.mixed_score_sample(0, values, idx, cls, coeffs, tables[:, :, :-1])
+    with pytest.raises(ValueError):
+        fk.nich_score_sample(0, values, cls.cpu(), coeffs)
+    with pytest.raises(TypeError):
+        fk.nich_score_sample(0, values, cls, coeffs, sampling='gumbel_host')
+    with pytest.raises(ValueError):
+        fk.nich_score_sample(0, values, cls, coeffs, sampling='cdf')
+
+
+@pytest.mark.parametrize('backend', ['pallas', 'xla'])
+def test_v1_mixed_sweep_on_the_card(dev, backend):
+    """The v1 mixed sweep on the card: under 'argmax' the kernel path
+    equals the twin path on the CPU draw for draw, and the 'xla' backend
+    equals sweep_blocked bitwise."""
+    _, (spec, py, sh, st, tv) = _v1_inputs(dev, 'nich_gp_bb', 2048, 128)
+    a0 = torch.from_numpy(testing.mixed_problem(
+        2048, 128, seed=2, kind='nich_gp_bb', n_clusters=40)['labels']).to(dev)
+    if backend == 'xla':
+        _, an = gibbs.sweep_blocked_pallas_mixed(
+            spec, py, sh, st, tv, a0, 512, torch.Generator().manual_seed(0),
+            backend='xla')
+        _, want = gibbs.sweep_blocked(spec, py, sh, st, tv, a0, 512,
+                                      generator=torch.Generator().manual_seed(0))
+        assert torch.equal(an, want)
+        return
+    before = fk.mixed_score_sample.launches
+    st1, an = gibbs.sweep_blocked_pallas_mixed(
+        spec, py, sh, st, tv, a0, 512, torch.Generator().manual_seed(0),
+        sampling='argmax')
+    assert fk.mixed_score_sample.launches == before + 4
+    assert torch.equal(torch.bincount(an.long(), minlength=128).int(),
+                       st1.counts)
+    p = testing.mixed_problem(2048, 128, seed=2, kind='nich_gp_bb',
+                              n_clusters=40)
+    cspec, cpy, csh = testing.build_problem(p, MODULES, mx.make_spec,
+                                            cl.PitmanYor.from_dict,
+                                            device='cpu')
+    ctv = tuple(torch.from_numpy(v) for v in p['values'])
+    ca0 = torch.from_numpy(p['labels'])
+    cst = mx.state_from_assignments(cspec, cpy, csh, ctv, ca0)
+    _, can = gibbs.sweep_blocked_pallas_mixed(
+        cspec, cpy, csh, cst, ctv, ca0, 512, torch.Generator().manual_seed(0),
+        sampling='argmax')
+    n_bad = int((an.cpu() != can).sum())
+    assert n_bad <= 2, n_bad         # near-ties across devices' log1p
+
+
+@pytest.mark.parametrize('use_pallas', [False, True])
+def test_resume_is_bitwise_on_the_card(dev, use_pallas, tmp_path):
+    """Interrupted plus resumed equals uninterrupted on the card, on the
+    fused path and on the plain path (no float atomics anywhere), with a
+    CUDA generator's state in the checkpoint."""
+    from distributions_tpu_torch.inference import runner
+    values, _ = testing.nich_problem(4096, seed=3)
+    spec = mx.make_spec([(nich, 2)], capacity=128)
+    py = cl.PitmanYor.from_dict(testing.PY, device=dev)
+    sh = (nich.shared_from_dict(testing.NICH_SHARED, device=dev),)
+    tv = (torch.from_numpy(values).to(dev),)
+    common = dict(block=1024, use_pallas=use_pallas, sampling='gumbel',
+                  checkpoint_every=2, init='random:16')
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+    st_a, an_a, log_a = runner.run_gibbs(
+        spec, py, sh, tv, gen(3), 5, resume=False,
+        checkpoint_path=str(tmp_path / 'full.ckpt'), **common)
+    ckpt = str(tmp_path / 'crash.ckpt')
+    runner.run_gibbs(spec, py, sh, tv, gen(3), 2, resume=False,
+                     checkpoint_path=ckpt, **common)
+    st_b, an_b, log_b = runner.run_gibbs(spec, py, sh, tv, gen(999), 5,
+                                         checkpoint_path=ckpt, **common)
+    assert an_b.device.type == 'cuda'
+    assert torch.equal(an_a, an_b) and torch.equal(st_a.counts, st_b.counts)
+    assert torch.equal(st_a.groups[0].mean, st_b.groups[0].mean)
+    assert [r['sweep'] for r in log_b.rows] == [0, 1, 2, 3, 4]
+    with pytest.raises(ValueError, match='cuda generator'):
+        runner.run_gibbs(spec, py, sh, tv, torch.Generator().manual_seed(0),
+                         5, checkpoint_path=ckpt, **common)

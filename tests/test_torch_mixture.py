@@ -269,3 +269,76 @@ def test_mixed_row_stat_tiles_and_growth(kind):
 def test_init_without_shareds_uses_the_default_device():
     spec = tmx.make_spec([], capacity=4)
     assert tmx.init(spec, ()).counts.device.type == 'cpu'
+
+
+# -- single-row ops, on every model -----------------------------------------
+
+@pytest.mark.parametrize('kind', MIXED)
+def test_single_row_ops_match_jax(kind):
+    """score_value, remove_value and add_value of one row against the JAX
+    package, from the same (converted) state: scores within the
+    score_batch tolerances, integer leaves exactly, float stats within
+    RTOL / ATOL.  Row 5 leaves slot k for the first dead slot's
+    predecessor, a reserved empty slot, so a slot comes alive."""
+    q = _mixed(kind)
+    i = 5
+    k_old = int(q['p']['labels'][i])
+    jrow = tuple(v[i] for v in q['jv'])
+    trow = tuple(v[i] for v in q['tv'])
+    if kind == 'dd_bb':
+        # the JAX package's score_value fails on a dd block (dd.score_value
+        # under vmap indexes a [C, dim] table with a scalar); its
+        # score_batch of the one row is the same score
+        want = np.asarray(jmx.score_batch(
+            q['jspec'], q['jpy'], q['jsh'], q['jst'],
+            tuple(v[i:i + 1] for v in q['jv'])))[0]
+    else:
+        want = np.asarray(jmx.score_value(q['jspec'], q['jpy'], q['jsh'],
+                                          q['jst'], jrow))
+    got = tmx.score_value(q['spec'], q['py'], q['sh'], q['st'], trow).numpy()
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=RTOL, atol=2e-3)
+    # one row's score equals its row of score_batch
+    batch = tmx.score_batch(q['spec'], q['py'], q['sh'], q['st'],
+                            tuple(v[i:i + 1] for v in q['tv']))[0].numpy()
+    np.testing.assert_allclose(got[fin], batch[fin], rtol=RTOL, atol=2e-3)
+
+    jst, jempty = jmx.remove_value(q['jspec'], q['jpy'], q['jsh'], q['jst'],
+                                   k_old, jrow)
+    tst, tempty = tmx.remove_value(q['spec'], q['py'], q['sh'], q['st'],
+                                   k_old, trow)
+    assert bool(tempty) == bool(jempty)
+    _leaves_close(tst, jst)
+    k_new = int(np.flatnonzero(np.asarray(q['jst'].alive)
+                               & (np.asarray(q['jst'].counts) == 0))[0])
+    jst2, jwas = jmx.add_value(q['jspec'], q['jpy'], q['jsh'], jst, k_new,
+                               jrow)
+    tst2, twas = tmx.add_value(q['spec'], q['py'], q['sh'], tst,
+                               torch.tensor(k_new), trow)
+    assert bool(twas) and bool(jwas)
+    _leaves_close(tst2, jst2)
+    assert int(tst2.alive.sum()) == int(tst.alive.sum()) + 1
+
+
+def test_remove_value_kills_the_slot():
+    """A slot that empties leaves the alive set with bitwise-zero stats,
+    and adding the row back does not revive a dead slot by itself."""
+    q = _mixed('nich_gp_bb')
+    spec, py, sh = q['spec'], q['py'], q['sh']
+    tv = tuple(v[:3] for v in q['tv'])
+    st = tmx.state_from_assignments(spec, py, sh, tv,
+                                    torch.tensor([0, 0, 2], dtype=torch.int32))
+    row = tuple(v[2] for v in tv)
+    st2, now_empty = tmx.remove_value(spec, py, sh, st, 2, row)
+    assert bool(now_empty) and not bool(st2.alive[2])
+    assert int(st2.counts[2]) == 0 and int(st2.sample_size) == 2
+    for g in st2.groups:
+        for leaf in g:
+            assert not leaf[2].any()
+    jst = jmx.state_from_assignments(
+        q['jspec'], q['jpy'], q['jsh'], tuple(v[:3] for v in q['jv']),
+        jnp.asarray([0, 0, 2], jnp.int32))
+    jst2, _ = jmx.remove_value(q['jspec'], q['jpy'], q['jsh'], jst, 2,
+                               tuple(v[2] for v in q['jv']))
+    _leaves_close(st2, jst2)

@@ -76,16 +76,185 @@ def test_run_gibbs_random_init_and_plain_path():
 
 
 @pytest.mark.parametrize('option', [
-    {'checkpoint_path': 'ckpt.npz'}, {'mesh': object()},
-    {'hyper_grids': {0: None}}, {'cl_grid': object()},
+    {'mesh': object()}, {'hyper_grids': {0: None}}, {'cl_grid': object()},
     {'hyper_slice': {0: (('mu',), 1.0)}}, {'cl_slice': True},
-    {'init': 'prior'}, {'init': 'sequential'}])
+    {'checkpoint_path': 'ckpt', 'checkpoint_format': 'orbax'}])
 def test_run_gibbs_options_not_ported(option):
     values, _ = testing.nich_problem(256, seed=6)
     spec, py, sh, tv = _port_problem(values)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tr.run_gibbs(spec, py, sh, tv, torch.Generator(), 1, block=256,
                      **option)
+
+
+def test_run_gibbs_rejects_unknown_init_and_format():
+    values, _ = testing.nich_problem(256, seed=6)
+    spec, py, sh, tv = _port_problem(values)
+    with pytest.raises(ValueError, match='init must be'):
+        tr.run_gibbs(spec, py, sh, tv, torch.Generator(), 1, block=256,
+                     init='greedy')
+    with pytest.raises(ValueError, match='checkpoint_format'):
+        tr.run_gibbs(spec, py, sh, tv, torch.Generator(), 1, block=256,
+                     checkpoint_format='zip')
+
+
+# -- init, checkpoint and resume ----------------------------------------------
+
+def _small():
+    values, _ = testing.nich_problem(64, seed=12, n_clusters=2)
+    spec = tmx.make_spec([(tnich, 2)], capacity=16)
+    py = tcl.PitmanYor.from_dict(testing.PY)
+    sh = (tnich.shared_from_dict(testing.NICH_SHARED),)
+    return spec, py, sh, (torch.from_numpy(values),)
+
+
+@pytest.mark.parametrize('init', [None, 'prior', 'sequential'])
+def test_run_gibbs_default_and_sequential_init(init):
+    """The default init is 'prior'; both row-by-row inits give a
+    consistent chain, and one generator seed gives one chain."""
+    spec, py, sh, tv = _small()
+    kwargs = {} if init is None else {'init': init}
+    runs = [tr.run_gibbs(spec, py, sh, tv, torch.Generator().manual_seed(4),
+                         3, block=16, **kwargs) for _ in range(2)]
+    (st, an, log), (_, an2, _) = runs
+    assert torch.equal(an, an2) and an.dtype == torch.int32
+    np.testing.assert_array_equal(np.bincount(an.numpy(), minlength=16),
+                                  st.counts.numpy())
+    assert [r['sweep'] for r in log.rows] == [0, 1, 2]
+    if init is None:
+        _, an3, _ = tr.run_gibbs(spec, py, sh, tv,
+                                 torch.Generator().manual_seed(4), 3,
+                                 block=16, init='prior')
+        assert torch.equal(an, an3)
+
+
+@pytest.mark.parametrize('use_pallas', [False, True])
+def test_resume_continues_exactly(tmp_path, use_pallas):
+    """Kill and restart: 2 sweeps, a checkpoint, and a resume to 5 equal
+    an uninterrupted 5-sweep run bitwise: the same stream of sweep seeds,
+    the same sweep numbering, the same logger history
+    (tests/test_runner.py's test of the same name).  On the fused path
+    both runs checkpoint every 2 sweeps, since a checkpoint boundary is
+    where the stat cache is rebuilt."""
+    spec, py, sh, tv = _small()
+    common = dict(block=16, use_pallas=use_pallas, sampling='gumbel')
+    every = 2 if use_pallas else 100
+    full = {'checkpoint_path': str(tmp_path / 'full.ckpt'),
+            'checkpoint_every': every} if use_pallas else {}
+    st_a, an_a, log_a = tr.run_gibbs(
+        spec, py, sh, tv, torch.Generator().manual_seed(3), 5, resume=False,
+        **common, **full)
+    ckpt = str(tmp_path / 'crash.ckpt')
+    tr.run_gibbs(spec, py, sh, tv, torch.Generator().manual_seed(3), 2,
+                 checkpoint_path=ckpt, checkpoint_every=every, resume=False,
+                 **common)
+    st_b, an_b, log_b = tr.run_gibbs(
+        spec, py, sh, tv, torch.Generator().manual_seed(999),   # replaced
+        5, checkpoint_path=ckpt, checkpoint_every=every, resume=True,
+        **common)
+    assert torch.equal(an_a, an_b)
+    assert torch.equal(st_a.counts, st_b.counts)
+    assert torch.equal(st_a.groups[0].mean, st_b.groups[0].mean)
+    assert [r['sweep'] for r in log_b.rows] == [0, 1, 2, 3, 4]
+    assert [r['sweep'] for r in log_a.rows] == [0, 1, 2, 3, 4]
+    assert log_b.rows[-1]['score_data'] == log_a.rows[-1]['score_data']
+
+
+def test_resume_noop_when_done(tmp_path):
+    """Resuming a finished run does zero additional sweeps."""
+    spec, py, sh, tv = _small()
+    ckpt = str(tmp_path / 'done.ckpt')
+    _, an1, _ = tr.run_gibbs(spec, py, sh, tv,
+                             torch.Generator().manual_seed(0), 3, block=16,
+                             checkpoint_path=ckpt, resume=False)
+    _, an2, log2 = tr.run_gibbs(spec, py, sh, tv,
+                                torch.Generator().manual_seed(1), 3,
+                                block=16, checkpoint_path=ckpt, resume=True)
+    assert torch.equal(an1, an2)
+    assert [r['sweep'] for r in log2.rows] == [0, 1, 2]
+    # resume=False starts over and overwrites
+    _, an3, log3 = tr.run_gibbs(spec, py, sh, tv,
+                                torch.Generator().manual_seed(1), 2,
+                                block=16, checkpoint_path=ckpt, resume=False)
+    assert [r['sweep'] for r in log3.rows] == [0, 1]
+
+
+@pytest.mark.parametrize('use_pallas', [False, True])
+def test_runner_sweeps_per_step_resume_bitwise(tmp_path, use_pallas):
+    """A run of multi-sweep steps interrupted at a checkpoint boundary and
+    resumed equals the uninterrupted run bitwise: steps clamp to
+    checkpoint_every boundaries, so the step grid re-aligns."""
+    spec, py, sh, tv = _small()
+    common = dict(block=16, checkpoint_every=3, sweeps_per_step=4,
+                  use_pallas=use_pallas, sampling='gumbel')
+    st_a, an_a, log_a = tr.run_gibbs(
+        spec, py, sh, tv, torch.Generator().manual_seed(7), 6, resume=False,
+        checkpoint_path=str(tmp_path / 'full.ckpt'), **common)
+    # steps of 4 are clamped to the boundary at 3
+    assert [r['sweep'] for r in log_a.rows] == [2, 5]
+    assert [r['sweeps'] for r in log_a.rows] == [3, 3]
+    ckpt = str(tmp_path / 'spstep.ckpt')
+    tr.run_gibbs(spec, py, sh, tv, torch.Generator().manual_seed(7), 3,
+                 checkpoint_path=ckpt, resume=False, **common)
+    st_b, an_b, log_b = tr.run_gibbs(
+        spec, py, sh, tv, torch.Generator().manual_seed(999), 6,
+        checkpoint_path=ckpt, resume=True, **common)
+    assert torch.equal(an_a, an_b)
+    assert torch.equal(st_a.counts, st_b.counts)
+    assert [r['sweep'] for r in log_b.rows] == [2, 5]
+    assert log_b.rows[-1]['score_data'] == log_a.rows[-1]['score_data']
+
+
+def test_checkpoint_every_zero_writes_only_the_final_checkpoint(
+        tmp_path, monkeypatch):
+    """checkpoint_every=0 means no intermediate checkpoint (the JAX runner
+    treats 0 as off when it clamps its steps, then divides by it)."""
+    from distributions_tpu_torch.io import checkpoint as tckpt
+    spec, py, sh, tv = _small()
+    saves = []
+    real = tckpt.save
+    monkeypatch.setattr(
+        tckpt, 'save',
+        lambda path, *a, **kw: (saves.append(kw['sweep']),
+                                real(path, *a, **kw))[1])
+    ckpt = str(tmp_path / 'zero.ckpt')
+    _, an, _ = tr.run_gibbs(spec, py, sh, tv,
+                            torch.Generator().manual_seed(0), 4, block=16,
+                            checkpoint_path=ckpt, checkpoint_every=0,
+                            sweeps_per_step=3)
+    assert saves == [4]
+    _, an_l, _, sweep, rows = tckpt.load_extended(ckpt, spec, sh)
+    assert sweep == 4 and torch.equal(an, an_l)
+    assert [r['sweep'] for r in rows] == [2, 3]
+    del saves[:]
+    tr.run_gibbs(spec, py, sh, tv, torch.Generator().manual_seed(0), 5,
+                 block=16, checkpoint_path=str(tmp_path / 'two.ckpt'),
+                 checkpoint_every=2, resume=False)
+    assert saves == [2, 4, 5]
+
+
+def test_resume_adopts_a_grown_capacity_and_saved_hypers(tmp_path):
+    """A checkpoint written after capacity growth resumes at the grown
+    capacity, and the shareds and clustering model it holds replace the
+    caller's."""
+    values, _ = testing.nich_problem(64, seed=2)
+    spec = tmx.make_spec([(tnich, 2)], capacity=4)
+    py = tcl.PitmanYor.from_dict({'alpha': 20.0, 'd': 0.1})
+    sh = (tnich.shared_from_dict(dict(testing.NICH_SHARED, sigmasq=0.01)),)
+    tv = (torch.from_numpy(5 * values),)
+    ckpt = str(tmp_path / 'grown.ckpt')
+    st, an, _ = tr.run_gibbs(spec, py, sh, tv,
+                             torch.Generator().manual_seed(1), 3, block=16,
+                             checkpoint_path=ckpt)
+    assert st.counts.shape[0] >= 8
+    other_py = tcl.PitmanYor.from_dict({'alpha': 1.0, 'd': 0.0})
+    st2, an2, log2 = tr.run_gibbs(spec, other_py, sh, tv,
+                                  torch.Generator().manual_seed(1), 4,
+                                  block=16, checkpoint_path=ckpt)
+    assert st2.counts.shape[0] >= st.counts.shape[0]
+    assert [r['sweep'] for r in log2.rows] == [0, 1, 2, 3]
+    assert log2.final_cl_model.to_dict() == py.to_dict()
+    assert int(st2.sample_size) == 64
 
 
 # -- mixed specs (kernel K2's path) -----------------------------------------
