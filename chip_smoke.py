@@ -6,7 +6,7 @@
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero:
 
-1. build      -- compile the kernels K1 (csrc/fused_v2.cu), K2
+1. build      -- compile the kernels K1 (csrc/fused_v2.cu), K2 and K3
                  (csrc/fused_v3.cu), K4 and K5 (csrc/score_sample_v1.cu)
                  with nvcc from the sources in this checkout, the
                  compilers started together; print the card's name and
@@ -24,6 +24,16 @@ exits non-zero:
                  layouts, niw2mix (niw d=2 + nich + bb) and bbddgp
                  (bb + dd + gp, no nich block), with the count tables
                  exactly equal; the ragged case is niw d=3 + nich + bb.
+3a. kernel_k3 -- the pair kernel K3 at B=65536 x C_local=256, the four
+                 component shards of the K2 problems above (niw2mix and
+                 bbddgp), and once at C_local=1024: equal to its twin in
+                 'argmax', 'argmax_fast' and 'gumbel_host' (slot exactly,
+                 best score within 1e-6); the four shards' pairs reduced
+                 (largest best, then lowest slot) equal to K2's draw on the
+                 whole slot axis in 'argmax', 'gumbel_host' and 'gumbel';
+                 z-tests of the reduced draws in 'gumbel' and
+                 'gumbel_fast'; bitwise repeatability; a ragged case with
+                 odd slot offsets; milliseconds of kernel and twin.
 3b. kernel_k4, kernel_k5 -- the v1 score + sample kernels (no stat
                  outputs) against their twins: K4 at B=131072 x C=1024 x 2
                  nich, K5 at B=65536 x C=1024 on nich + bb + dd + gp and on
@@ -59,6 +69,26 @@ exits non-zero:
 6d. init      -- run_gibbs with its default init='prior' at full width and
                  with init='sequential' on a few hundred rows; ms per row
                  of both.
+6e. sharded   -- the sharded sweeps on in-process meshes on the one card,
+                 at 1,048,576 rows x 1024 slots: sharded_sweep_fused on 4
+                 row shards (nich2 on K1, niw2mix on K2) and
+                 sharded_sweep_2d_fused on a 2 x 4 mesh (niw2mix, K3 at
+                 C_local=256); at 262,144 rows sharded_sweep_2d,
+                 sharded_sweep_components and sharded_sweep_blocked, and
+                 'argmax' 2-D fused against 'argmax' 2-D plain (equal but
+                 for near-ties, at most one row in 10,000).  Launches
+                 = tiles x shards x sweeps, counts equal a bincount,
+                 score_data equals a fresh recompute, every component
+                 shard keeps an alive empty slot; ms per sweep beside the
+                 single-device fused sweep.  N shards on one card measure
+                 the sharded code's overhead, not a speed-up.
+6f. main_mesh -- run_gibbs(mesh=make_mesh(4)) on nich2 at full width with
+                 a checkpoint, and an interrupted plus resumed run against
+                 it, bitwise.
+6g. process_group -- distributed.initialize with NCCL at world size 1, a
+                 make_global_mesh() sweep equal to the single-device one,
+                 destroy_process_group.  More than one rank is not run:
+                 the machine has one card.
 7. kernels    -- one line listing each ported kernel with its launches on
                  its main path, its time, its twin's time and its bound.
 
@@ -638,6 +668,194 @@ def phase_kernel_k5(port):
     return summary
 
 
+def slot_slice(m, a, b, noise=None):
+    """K3's arguments for slots [a, b) of the K2 problem `m`: (args,
+    kwargs) of fused_score_sample_pair without seed and sampling."""
+    import torch
+    lay = m['lay']
+
+    def cut(x):
+        return None if x is None else x[:, a:b].contiguous()
+    tables = m['tables']
+    if tables is not None:
+        tables = torch.clamp(tables, min=-1e30)
+    args = (lay.nich_vals, lay.table_idx, m['cl_scores'][a:b].contiguous(),
+            cut(m['coeffs']), cut(tables), m['col_groups'])
+    kwargs = dict(qvalues=lay.quad_vals, qcoeffs=cut(m['qcoeffs']),
+                  quad_groups=lay.quad_groups, table_vs=lay.table_vs,
+                  noise=cut(noise), slot_offset=a,
+                  total_slots=m['cl_scores'].shape[0])
+    return args, kwargs
+
+
+def pair_reduce(pairs, offsets, C):
+    """The reduce of the component-sharded sweeps: the largest best and, at
+    equal best, the lowest global slot."""
+    import torch
+    best = torch.stack([p[1] for p in pairs])
+    ids = torch.stack([p[0].long() + o for p, o in zip(pairs, offsets)])
+    top = best.max(0).values
+    return torch.where(best == top, ids,
+                       torch.full_like(ids, C)).min(0).values.to(torch.int32)
+
+
+def check_pair_shards(port, m, cuts, noise, z_scores):
+    """K3 over the slot ranges `cuts` of the K2 problem `m`: each shard
+    against its twin, the reduced shards against K2 on the whole slot axis,
+    z-tests and repeatability.  Returns (per-mode results, largest error of
+    a best score)."""
+    import torch
+    fk, testing = port['fk'], port['testing']
+    lay = m['lay']
+    C = m['cl_scores'].shape[0]
+    B = (lay.table_idx if lay.table_idx is not None
+         else lay.quad_vals).shape[0]
+    k2_args = (lay.nich_vals, lay.table_idx, m['cl_scores'], m['coeffs'],
+               m['tables'], m['col_groups'])
+    k2_kwargs = dict(qvalues=lay.quad_vals, qcoeffs=m['qcoeffs'],
+                     quad_groups=lay.quad_groups, table_vs=lay.table_vs)
+    spans = list(zip(cuts[:-1], cuts[1:]))
+    modes = {}
+    best_err = 0.0
+    for mode in ('argmax', 'argmax_fast', 'gumbel_host', 'gumbel',
+                 'gumbel_fast'):
+        nz = noise if mode == 'gumbel_host' else None
+        pairs, n_bad, gap, bitwise = [], 0, 0.0, True
+        for a, b in spans:
+            args, kwargs = slot_slice(m, a, b, nz)
+            got = fk.fused_score_sample_pair(7, *args, sampling=mode,
+                                             **kwargs)
+            again = fk.fused_score_sample_pair(7, *args, sampling=mode,
+                                               **kwargs)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], again[0])
+                    and torch.equal(got[1], again[1])):
+                raise AssertionError('K3 %s is not bitwise repeatable' % mode)
+            pairs.append(got)
+            if mode in ('gumbel', 'gumbel_fast'):
+                continue
+            want = fk.fused_score_sample_pair_plain(7, *args, sampling=mode,
+                                                    **kwargs)
+            scores = fk._score_mixed(
+                B, *args, kwargs['qvalues'], kwargs['qcoeffs'],
+                kwargs['quad_groups'], kwargs['table_vs'],
+                fk.fast_log if mode.endswith('_fast') else torch.log)
+            if nz is not None:
+                scores = scores + kwargs['noise']
+            bad, g = testing.mismatches(scores, got[0], want[0])
+            del scores
+            n_bad += bad
+            gap = max(gap, g)
+            # equal values (also two -inf: a shard of dead slots) are no error
+            err = torch.where(got[1] == want[1], torch.zeros_like(want[1]),
+                              (got[1] - want[1]).abs())
+            best_err = max(best_err, float(err.max()))
+            bitwise = bitwise and bool(torch.equal(got[1], want[1]))
+            if gap > TIE_GAP or not bool(
+                    (err <= 1e-6 + 1e-6 * want[1].abs()).all()):
+                raise AssertionError(
+                    'K3 %s slots [%d, %d) disagrees with its twin: %d draws '
+                    'differ (gap %g), best err %g' % (mode, a, b, bad, g,
+                                                      float(err.max())))
+        r = {}
+        if mode not in ('gumbel', 'gumbel_fast'):
+            r.update(mismatched_draws=n_bad, max_tie_gap=gap,
+                     best_bitwise_equal=bitwise)
+        reduced = pair_reduce(pairs, cuts[:-1], C)
+        if mode in ('argmax', 'gumbel_host', 'gumbel'):
+            whole = fk.fused_mixed_score_sample_stats(
+                7, *k2_args, sampling=mode, noise=nz, **k2_kwargs)[0]
+            r['reduced_shards_differ_from_k2'] = int((reduced != whole).sum())
+            if r['reduced_shards_differ_from_k2']:
+                raise AssertionError(
+                    'K3 %s: the reduced shards differ from K2 on the whole '
+                    'slot axis in %d rows'
+                    % (mode, r['reduced_shards_differ_from_k2']))
+        if mode in ('gumbel', 'gumbel_fast') and z_scores is not None:
+            r['max_abs_z'] = testing.softmax_ztest(reduced, z_scores)
+            if not r['max_abs_z'] < Z_MAX:
+                raise AssertionError('K3 %s draws fail the z-test: max |z| %g'
+                                     % (mode, r['max_abs_z']))
+        modes[mode] = r
+    return modes, best_err
+
+
+def phase_kernel_k3(port):
+    import torch
+    fk, mx = port['fk'], port['mx']
+    B, C, n_comp = BLOCK_MIXED, SLOTS, 4
+    CL = C // n_comp
+    cuts = tuple(range(0, C + 1, CL))
+    result = {'phase': 'kernel_k3', 'B': B, 'C_local': CL, 'shards': n_comp,
+              'layouts': {}}
+    summary = None
+    worst = 0.0
+    for kind in ('niw2mix', 'bbddgp'):
+        m = mixed_inputs(port, kind, B, C, TRUE_CLUSTERS)
+        lay = m['lay']
+        noise = host_noise(port, B, C, 13)['gumbel_host']
+        ref_scores = mx.score_batch(m['spec'], m['py'], m['shareds'],
+                                    m['state'], m['values'])
+        modes, err = check_pair_shards(port, m, cuts, noise, ref_scores)
+        del ref_scores
+        worst = max(worst, err)
+        timing = {}
+        for mode in ('gumbel', 'gumbel_fast', 'argmax', 'gumbel_host'):
+            args, kwargs = slot_slice(
+                m, 0, CL, noise if mode == 'gumbel_host' else None)
+
+            def launch():
+                return fk.fused_score_sample_pair(3, *args, sampling=mode,
+                                                  **kwargs)
+
+            def plain():
+                return fk.fused_score_sample_pair_plain(
+                    3, *args, sampling=mode, **kwargs)
+            launch()
+            plain()
+            timing[mode] = {'ms': cuda_ms(launch, 7),
+                            'plain_ms': cuda_ms(plain, 3)}
+        args, kwargs = slot_slice(m, 0, CL)
+        flops = gumbel_flops_per_cell(m['col_groups'], lay.quad_groups,
+                                      len(lay.table_vs))
+        bound, bound_by = bound_ms(
+            (lay.nich_vals, lay.quad_vals, lay.table_idx) + args[2:5]
+            + (kwargs['qcoeffs'], torch.empty(B, dtype=torch.int32),
+               torch.empty(B)), flops, B, CL)
+        entry = {'modes': modes, 'timing': timing, 'bitwise_repeatable': True,
+                 'bound_ms': bound, 'bound_by': bound_by}
+        if kind == 'niw2mix':
+            # one launch over the whole slot axis
+            w_args, w_kwargs = slot_slice(m, 0, C)
+            one, _ = check_pair_shards(port, m, (0, C), noise, None)
+            fk.fused_score_sample_pair(3, *w_args, sampling='gumbel',
+                                       **w_kwargs)
+            w_bound, w_by = bound_ms(
+                (lay.nich_vals, lay.quad_vals, lay.table_idx) + w_args[2:5]
+                + (w_kwargs['qcoeffs'], torch.empty(B, dtype=torch.int32),
+                   torch.empty(B)), flops, B, C)
+            entry['whole_slot_axis'] = {
+                'C_local': C, 'modes': one,
+                'gumbel_ms': cuda_ms(lambda: fk.fused_score_sample_pair(
+                    3, *w_args, sampling='gumbel', **w_kwargs), 7),
+                'bound_ms': w_bound, 'bound_by': w_by}
+            summary = {'ms': timing['gumbel']['ms'],
+                       'plain_ms': timing['gumbel']['plain_ms'],
+                       'bound_ms': bound, 'bound_by': bound_by}
+        result['layouts'][kind] = entry
+        del m
+
+    # ragged rows and slots, slot ranges at odd offsets, niw d=3 + nich + bb
+    Br, Cr = 3000, 1000
+    m = mixed_inputs(port, 'niw3_nich_bb', Br, Cr, 40, seed=4)
+    result['ragged'], err = check_pair_shards(
+        port, m, (0, 333, 335, Cr), host_noise(port, Br, Cr, 5)['gumbel_host'],
+        None)
+    summary['max_abs_err'] = max(worst, err)
+    emit(result)
+    return summary
+
+
 def check_run(port, spec, py, shareds, values, state, assignments, log):
     """What comes out of a run is right: shapes, ranges, counts and a
     fresh score."""
@@ -774,12 +992,11 @@ def phase_main(port, X, labels):
     return main['launches']
 
 
-def phase_main_mixed(port):
+def phase_main_mixed(port, problem):
+    """`problem`: testing.mixed_problem(ROWS, SLOTS, kind='niw2mix')."""
     import torch
     fk, mx, gibbs, testing = (port['fk'], port['mx'], port['gibbs'],
                               port['testing'])
-    problem = testing.mixed_problem(ROWS, SLOTS, seed=0, kind='niw2mix',
-                                    n_clusters=TRUE_CLUSTERS)
     spec, py, shareds = testing.build_problem(
         problem, port['models'], mx.make_spec, port['cl'].PitmanYor.from_dict)
     state, assignments, log, main = run_main(
@@ -1069,6 +1286,322 @@ def phase_init(port, X):
     emit(out)
 
 
+ROWS_SMALL = ROWS // 4
+ROW_SHARDS = 4
+MESH_2D = (2, 4)
+
+
+def events_ms(fn):
+    """(result, milliseconds by CUDA events) of one call."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def check_sharded(port, spec, py, shareds, values, state, assignments,
+                  n_comp=1):
+    """`check_sweep`, sample_size = rows, results on the card and, for a
+    component-sharded state, an alive empty slot in every shard."""
+    out = check_sweep(port, spec, py, shareds, values, state, assignments)
+    R = assignments.shape[0]
+    empties = (state.alive & (state.counts == 0)).reshape(n_comp, -1).sum(1)
+    checks = {'sample_size': int(state.sample_size) == R,
+              'on_the_card': assignments.device.type == 'cuda'
+              and state.counts.device.type == 'cuda',
+              'alive_empty_slot_per_shard': bool((empties >= 1).all())}
+    if not all(checks.values()):
+        raise AssertionError('sharded sweep output is wrong: %s' % checks)
+    return dict(out, **checks)
+
+
+def expect_launches(name, wrapper, want):
+    if wrapper.launches != want:
+        raise AssertionError('%s: %d launches, expected tiles x shards x '
+                             'sweeps = %d' % (name, wrapper.launches, want))
+    return want
+
+
+def phase_sharded(port, X, labels, mixed):
+    """The sharded sweeps on in-process meshes.  Returns K3's launches in
+    the 2-D fused run."""
+    import torch
+    fk, mx, gibbs, sharding = (port['fk'], port['mx'], port['gibbs'],
+                               port['sharding'])
+    dev = port['config'].default_device()
+    out = {'phase': 'sharded', 'rows': ROWS, 'slots': SLOTS,
+           'rows_small': ROWS_SMALL,
+           'note': 'logical shards on one card: overhead, not speed-up'}
+    n = 2
+    rows_mesh = sharding.make_mesh(ROW_SHARDS)
+    gen = torch.Generator().manual_seed(3)
+
+    def fused_rows(name, wrapper, spec, py, shareds, values, a0, block):
+        """sharded_sweep_fused on 4 row shards beside the single-device
+        fused sweep with the same global tile."""
+        st0 = mx.state_from_assignments(spec, py, shareds, values, a0)
+        local = block // ROW_SHARDS
+        tiles = ROWS // ROW_SHARDS // local
+        cache = gibbs.build_stat_cache(spec, shareds, values, local, a0)
+
+        def sharded(k):
+            return sharding.sharded_sweep_fused(
+                spec, py, shareds, st0, values, a0, gen, rows_mesh, local,
+                cache, block_rows=2048, sampling='gumbel', n_sweeps=k,
+                with_score=True)
+        sharded(1)
+        torch.cuda.synchronize()
+        wrapper.launches = 0
+        (st, an, _, score), ms = events_ms(lambda: sharded(n))
+        launches = expect_launches(name, wrapper, tiles * ROW_SHARDS * n)
+        checks = check_sharded(port, spec, py, shareds, values, st, an)
+        if abs(float(score) - checks['score_data']) > 1e-4 * abs(
+                checks['score_data']):
+            raise AssertionError('%s: with_score disagrees' % name)
+        cache1 = gibbs.build_stat_cache(spec, shareds, values, block, a0)
+
+        def single():
+            return gibbs.sweep_blocked_pallas_fused_mixed(
+                spec, py, shareds, st0, values, a0, block, 2048, gen, cache1,
+                sampling='gumbel', n_sweeps=n)
+        single()
+        _, ms1 = events_ms(single)
+        return dict(checks, shards=ROW_SHARDS, local_block=local,
+                    tiles_per_shard=tiles, launches=launches, sweeps=n,
+                    ms_per_sweep=ms / n,
+                    single_device_fused_ms_per_sweep=ms1 / n)
+
+    spec = mx.make_spec([(port['nich'], FEATURES)], capacity=SLOTS)
+    shareds = (port['nich'].shared_from_dict(SHARED),)
+    py = port['cl'].PitmanYor.from_dict(PY)
+    values = (torch.as_tensor(X, device=dev),)
+    a0 = torch.as_tensor(labels, device=dev)
+    out['rows_fused_nich2'] = fused_rows(
+        'sharded_sweep_fused nich2', fk.fused_score_sample_stats, spec, py,
+        shareds, values, a0, BLOCK)
+
+    # the un-kernelled row-sharded sweep, a quarter of the rows
+    small = (values[0][:ROWS_SMALL].contiguous(),)
+    a_s = a0[:ROWS_SMALL].contiguous()
+    st_s = mx.state_from_assignments(spec, py, shareds, small, a_s)
+    local = BLOCK_MIXED // ROW_SHARDS
+
+    def blocked():
+        return sharding.sharded_sweep_blocked(spec, py, shareds, st_s, small,
+                                              a_s, gen, rows_mesh, local)
+    blocked()
+    (st, an), ms = events_ms(blocked)
+    out['rows_blocked_nich2'] = dict(
+        check_sharded(port, spec, py, shareds, small, st, an),
+        rows=ROWS_SMALL, shards=ROW_SHARDS, local_block=local,
+        ms_per_sweep=ms)
+    del values, small, st_s, st, an
+
+    spec, py, shareds = port['testing'].build_problem(
+        mixed, port['models'], mx.make_spec, port['cl'].PitmanYor.from_dict)
+    values = tuple(torch.as_tensor(v, device=dev) for v in mixed['values'])
+    # the generating clusters spread evenly over the component shards'
+    # slot ranges, so that every shard has free slots
+    n_row, n_comp = MESH_2D
+    per = -(-TRUE_CLUSTERS // n_comp)
+    a0 = torch.as_tensor(mixed['labels'], device=dev)
+    a0 = a0 + (a0 // per) * (SLOTS // n_comp - per)
+    out['rows_fused_niw2mix'] = fused_rows(
+        'sharded_sweep_fused niw2mix', fk.fused_mixed_score_sample_stats,
+        spec, py, shareds, values, a0, BLOCK_MIXED)
+
+    # 2-D fused (K3) at full width
+    mesh2 = sharding.make_mesh_2d(n_row, n_comp)
+    st0 = mx.state_from_assignments(spec, py, shareds, values, a0)
+    local = BLOCK_MIXED // n_row
+    tiles = ROWS // n_row // local
+
+    def fused_2d(st, an, sampling='gumbel'):
+        return sharding.sharded_sweep_2d_fused(
+            spec, py, shareds, st, values, an, gen, mesh2, local,
+            sampling=sampling)
+    fused_2d(st0, a0)
+    torch.cuda.synchronize()
+    fk.fused_score_sample_pair.launches = 0
+    st, an, ms = timed_sweeps(fused_2d, st0, a0, n)
+    k3_launches = expect_launches('sharded_sweep_2d_fused',
+                                  fk.fused_score_sample_pair,
+                                  tiles * n_row * n_comp * n)
+    out['fused_2d_niw2mix'] = dict(
+        check_sharded(port, spec, py, shareds, values, st, an, n_comp),
+        mesh=list(MESH_2D), C_local=SLOTS // n_comp, local_block=local,
+        tiles_per_row_shard=tiles, launches=k3_launches, sweeps=n,
+        ms_per_sweep=ms,
+        profile=profile_sweep(lambda: fused_2d(st0, a0),
+                              'fused_v3_score_pair'))
+    del st, an
+
+    # the plain 2-D and component sweeps, and 'argmax' fused against plain,
+    # on a quarter of the rows
+    small = tuple(v[:ROWS_SMALL].contiguous() for v in values)
+    a_s = a0[:ROWS_SMALL].contiguous()
+    st_s = mx.state_from_assignments(spec, py, shareds, small, a_s)
+    del values, st0
+
+    def small_sweep(fn, mesh, block, **kw):
+        def run():
+            return fn(spec, py, shareds, st_s, small, a_s, gen, mesh, block,
+                      **kw)
+        return run
+    plain_2d = small_sweep(sharding.sharded_sweep_2d, mesh2, local)
+    plain_2d()
+    (st, an), ms = events_ms(plain_2d)
+    out['plain_2d_niw2mix'] = dict(
+        check_sharded(port, spec, py, shareds, small, st, an, n_comp),
+        rows=ROWS_SMALL, mesh=list(MESH_2D), local_block=local,
+        ms_per_sweep=ms)
+    comp_mesh = sharding.make_component_mesh(n_comp)
+    comps = small_sweep(sharding.sharded_sweep_components, comp_mesh, local)
+    comps()
+    (st, an), ms = events_ms(comps)
+    out['components_niw2mix'] = dict(
+        check_sharded(port, spec, py, shareds, small, st, an, n_comp),
+        rows=ROWS_SMALL, shards=n_comp, block=local, ms_per_sweep=ms)
+    st_x, an_x = small_sweep(sharding.sharded_sweep_2d, mesh2, local,
+                             sampling='argmax')()
+    st_f, an_f = small_sweep(sharding.sharded_sweep_2d_fused, mesh2, local,
+                             sampling='argmax')()
+    # the plain sweep scores with the models' score_value_batch formulas
+    # and K3 with the product-form coefficient rows: equal to f32 rounding,
+    # so an 'argmax' draw can differ only at a near-tie.  The draws must
+    # agree but for at most one row in 10,000, and the counts by no more
+    # than those rows move (tests/test_torch_cuda.py and the CPU tests hold
+    # the two to exact equality on separated clusters).
+    differ = int((an_x != an_f).sum())
+    moved = int((st_x.counts - st_f.counts).abs().sum())
+    out['argmax_2d_fused_vs_plain'] = {
+        'rows': ROWS_SMALL, 'draws_differ': differ,
+        'allowed': ROWS_SMALL // 10000, 'counts_l1_difference': moved}
+    emit(out)
+    if differ > ROWS_SMALL // 10000 or moved > 2 * differ:
+        raise AssertionError("'argmax' 2-D fused differs from 'argmax' 2-D "
+                             'plain in %d rows (counts moved %d)'
+                             % (differ, moved))
+    return k3_launches
+
+
+def phase_main_mesh(port, X, labels):
+    """run_gibbs(mesh=...) through the normal entry point on 4 row shards,
+    nich2 at full width, with a checkpoint; then an interrupted and resumed
+    run against it, bitwise."""
+    import shutil
+    import tempfile
+    import torch
+    fk, mx, runner, sharding = (port['fk'], port['mx'], port['runner'],
+                                port['sharding'])
+    spec = mx.make_spec([(port['nich'], FEATURES)], capacity=SLOTS)
+    shareds = (port['nich'].shared_from_dict(SHARED),)
+    py = port['cl'].PitmanYor.from_dict(PY)
+    mesh = sharding.make_mesh(ROW_SHARDS)
+    local = BLOCK // ROW_SHARDS
+    passes, per_step = 6, 3
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_')
+    try:
+        def run(n, path, seed, resume):
+            return runner.run_gibbs(
+                spec, py, shareds, (X,), torch.Generator().manual_seed(seed),
+                n, block=local, use_pallas=True, sampling='gumbel',
+                grow_headroom=0.0, checkpoint_every=per_step,
+                sweeps_per_step=per_step, initial_assignments=labels,
+                mesh=mesh, checkpoint_path=os.path.join(tmp, path),
+                resume=resume)
+        torch.cuda.synchronize()
+        fk.fused_score_sample_stats.launches = 0
+        t0 = time.time()
+        st_a, an_a, log_a = run(passes, 'full.ckpt', 5, False)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = expect_launches(
+            'run_gibbs(mesh)', fk.fused_score_sample_stats,
+            (ROWS // ROW_SHARDS // local) * ROW_SHARDS * passes)
+        values = (torch.as_tensor(X, device=an_a.device),)
+        checks, score = check_run(port, spec, py, shareds, values, st_a, an_a,
+                                  log_a)
+        run(per_step, 'crash.ckpt', 5, False)
+        st_b, an_b, log_b = run(passes, 'crash.ckpt', 999, True)
+        resume = {
+            'assignments_equal': bool(torch.equal(an_a, an_b)),
+            'counts_equal': bool(torch.equal(st_a.counts, st_b.counts)),
+            'stats_equal': all(bool(torch.equal(x, y)) for x, y in zip(
+                st_a.groups[0], st_b.groups[0])),
+            'score_equal': log_a.rows[-1]['score_data']
+                == log_b.rows[-1]['score_data'],
+            'sweeps_continuous': [r['sweep'] for r in log_b.rows]
+                == [per_step - 1, passes - 1]}
+        if not all(resume.values()):
+            raise AssertionError('resume under a mesh is not bitwise: %s'
+                                 % resume)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps = [r['seconds'] for r in log_a.rows]
+    emit({'phase': 'main_mesh', 'rows': ROWS, 'slots': SLOTS,
+          'shards': ROW_SHARDS, 'local_block': local, 'sweeps': passes,
+          'sweeps_per_step': per_step, 'launches': launches,
+          'step_seconds': steps, 'wall_seconds': round(wall, 3),
+          'ms_per_sweep_last_step': 1e3 * steps[-1] / per_step,
+          'score_data': score, 'checks': checks, 'resume': resume})
+
+
+def phase_process_group(port, X, labels):
+    """A torch.distributed group of one rank with NCCL on the card: a
+    row-sharded fused sweep on the global mesh against the single-device
+    fused sweep.  More than one rank needs more than one card."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    mx, gibbs, sharding, distributed = (port['mx'], port['gibbs'],
+                                        port['sharding'], port['distributed'])
+    dev = port['config'].default_device()
+    spec = mx.make_spec([(port['nich'], FEATURES)], capacity=SLOTS)
+    shareds = (port['nich'].shared_from_dict(SHARED),)
+    py = port['cl'].PitmanYor.from_dict(PY)
+    values = (torch.as_tensor(X[:ROWS_SMALL], device=dev),)
+    a0 = torch.as_tensor(labels[:ROWS_SMALL], device=dev)
+    st0 = mx.state_from_assignments(spec, py, shareds, values, a0)
+    cache = gibbs.build_stat_cache(spec, shareds, values, BLOCK_MIXED, a0)
+    sock = socket.socket()
+    sock.bind(('localhost', 0))
+    port_no = sock.getsockname()[1]
+    sock.close()
+    distributed.initialize('localhost:%d' % port_no, 1, 0, timeout=120)
+    try:
+        backend = dist.get_backend()
+        mesh = distributed.make_global_mesh()
+        st_g, an_g, _ = sharding.sharded_sweep_fused(
+            spec, py, shareds, st0, values, a0,
+            torch.Generator().manual_seed(8), mesh, BLOCK_MIXED, cache,
+            sampling='gumbel', n_sweeps=2)
+        # an all_reduce that changes its input, to see that NCCL ran
+        probe = mesh.psum([torch.arange(4, device=dev)], sharding.ROWS)[0]
+        torch.cuda.synchronize()
+    finally:
+        distributed.shutdown()
+    st_1, an_1, _ = gibbs.sweep_blocked_pallas_fused_mixed(
+        spec, py, shareds, st0, values, a0, BLOCK_MIXED, 2048,
+        torch.Generator().manual_seed(8), cache, sampling='gumbel',
+        n_sweeps=2)
+    checks = {'backend_is_nccl': backend == 'nccl',
+              'group_per_axis': sharding.ROWS in mesh.groups,
+              'assignments_equal': bool(torch.equal(an_g, an_1)),
+              'counts_equal': bool(torch.equal(st_g.counts, st_1.counts)),
+              'psum_of_one_rank': probe.tolist() == [0, 1, 2, 3],
+              'group_destroyed': not dist.is_initialized()}
+    emit({'phase': 'process_group', 'backend': backend, 'world_size': 1,
+          'rows': ROWS_SMALL, 'checks': checks,
+          'note': 'more than one rank was not run: one card'})
+    if not all(checks.values()):
+        raise AssertionError('process-group mesh: %s' % checks)
+
+
 def tile_bookkeeping_ms(port, spec, py, shareds, state, values, cache):
     """Host wall milliseconds (ending in a synchronize, median of 5) of the
     [C]-sized work the fused sweep does around each K2 launch."""
@@ -1151,10 +1684,12 @@ def main():
     from distributions_tpu_torch.io import checkpoint
     from distributions_tpu_torch.models import MODULES, base, nich
     from distributions_tpu_torch.ops import fused_kernels, gibbs
+    from distributions_tpu_torch.parallel import distributed, sharding
     port = {'cl': clustering, 'config': config, 'mx': mixture,
             'random': random, 'testing': testing, 'runner': runner,
             'base': base, 'nich': nich, 'models': MODULES,
-            'fk': fused_kernels, 'gibbs': gibbs, 'checkpoint': checkpoint}
+            'fk': fused_kernels, 'gibbs': gibbs, 'checkpoint': checkpoint,
+            'sharding': sharding, 'distributed': distributed}
     fk = fused_kernels
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError('TF32 matmuls must stay off on this path')
@@ -1166,6 +1701,7 @@ def main():
     X, labels = flagship_data()
     k1 = phase_kernel(port, X, labels)
     k2 = phase_kernel_k2(port)
+    k3 = phase_kernel_k3(port)
     k4 = phase_kernel_k4(port, X, labels)
     k5 = phase_kernel_k5(port)
 
@@ -1189,12 +1725,18 @@ def main():
     k4['launches'], k5['launches'] = phase_paths_v1(port, X, labels)
     phase_main_resume(port, X, labels)
     phase_init(port, X)
-    del X
-    k2['launches'] = phase_main_mixed(port)
+    phase_main_mesh(port, X, labels)
+    phase_process_group(port, X, labels)
+    mixed = testing.mixed_problem(ROWS, SLOTS, seed=0, kind='niw2mix',
+                                  n_clusters=TRUE_CLUSTERS)
+    k2['launches'] = phase_main_mixed(port, mixed)
+    k3['launches'] = phase_sharded(port, X, labels, mixed)
+    del X, mixed
     kernels = []
     for name, source, replaces, k in (
             ('fused_v2 (K1)', 'fused_v2.cu', 535, k1),
             ('fused_v3 (K2)', 'fused_v3.cu', 749, k2),
+            ('fused_v3_pair (K3)', 'fused_v3.cu', 1061, k3),
             ('score_sample_v1_nich (K4)', 'score_sample_v1.cu', 137, k4),
             ('score_sample_v1_mixed (K5)', 'score_sample_v1.cu', 247, k5)):
         kernels.append({

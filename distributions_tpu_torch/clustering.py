@@ -104,6 +104,31 @@ def py_score_value(model, counts, alive, sample_size,
     return torch.where(alive, scores, neg_inf).to(scores_dtype)
 
 
+def py_score_value_sharded(model, counts, alive, sample_size, global_empty,
+                           global_nonempty):
+    """`py_score_value` for a LOCAL slot range of a component-sharded
+    state: the same math, with the empty and nonempty slot counts being
+    the caller's global values (summed over the component axis), so that
+    the empty-slot mass is split as the unsharded scorer splits it."""
+    counts = torch.as_tensor(counts).to(torch.float32)
+    alive = torch.as_tensor(alive).to(torch.bool)
+    dev = counts.device
+    is_empty = alive & (counts == 0)
+    n = torch.as_tensor(sample_size, device=dev).to(torch.float32)
+    shift = -torch.log(n + model.alpha)
+    g_nonempty = torch.as_tensor(global_nonempty, device=dev).to(
+        torch.float32)
+    g_empty = torch.clamp(
+        torch.as_tensor(global_empty, device=dev).to(torch.float32), min=1.0)
+    empty_score = torch.log(
+        (model.alpha + model.d * g_nonempty) / g_empty) + shift
+    occupied_score = torch.log(
+        torch.clamp(counts - model.d, min=1e-30)) + shift
+    scores = torch.where(is_empty, empty_score, occupied_score)
+    neg_inf = torch.full((), float('-inf'), device=dev)
+    return torch.where(alive, scores, neg_inf)
+
+
 def score_value(model, counts, alive, sample_size,
                 scores_dtype=torch.float32):
     if isinstance(model, PitmanYor):

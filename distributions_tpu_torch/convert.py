@@ -63,6 +63,19 @@ def state(ref_spec, ref_state, device=None):
                            groups=groups)
 
 
+def sharded_state(ref_spec, ref_state, mesh, device=None):
+    """A component-sharded state of the JAX package (gathered: numpy
+    leaves of the full [C], whose `n_comp` contiguous ranges are the
+    shards, each with its own alive mask) as the port's sharded state: the
+    list, per local shard of `mesh`, of its range's MixtureState.  The cut
+    is pure slicing, so every shard's leaves cross over as they are;
+    `parallel.sharding.unshard_state_components` plus `to_numpy` is the
+    way back."""
+    from distributions_tpu_torch.parallel import sharding
+    return sharding.shard_state_components(
+        state(ref_spec, ref_state, device), mesh)
+
+
 def cache(ref_cache, device=None):
     """A fused-sweep stat cache (counts_delta [T, C], per-block sums)."""
     cd, sums = ref_cache

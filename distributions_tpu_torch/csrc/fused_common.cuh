@@ -1,5 +1,5 @@
-// Device code shared by the fused score + sample + stat-sum kernels
-// (fused_v2.cu, fused_v3.cu): the polynomial fast_log / fast_exp of the JAX
+// Device code shared by the fused score + sample kernels (fused_v2.cu,
+// fused_v3.cu, score_sample_v1.cu): the polynomial fast_log / fast_exp of the JAX
 // package, Philox4x32-10, and the per-row draw state that turns a stream
 // of slot scores into one drawn slot.
 //
@@ -107,8 +107,12 @@ __device__ __forceinline__ unsigned uint4_get(uint4 v, int i) {
 //     sequential scan), so dead slots (score -inf) are never drawn unless
 //     every slot is dead;
 //   - 'gumbel' uses Philox4x32-10 keyed by the 64-bit tile seed, counted
-//     by (row, slot / 4); m = low 24 bits of the word, and the perturbed
-//     score is score - log(max(-log(m * 2^-24), 6e-8));
+//     by (row, g / 4) with word g % 4, where g = slot_offset + slot is the
+//     slot's global id (slot_offset is 0 unless the caller scores one
+//     shard of a wider slot axis: the noise of a (row, global slot) then
+//     does not depend on how the slots are cut); m = low 24 bits of the
+//     word, and the perturbed score is score - log(max(-log(m * 2^-24),
+//     6e-8));
 //   - 'cdf' takes one uniform per row (Philox counter (row, 0, 1, 0)),
 //     t = max(u, 1e-7) * total, and draws the number of slots whose
 //     inclusive prefix of exp(score - rowmax) is strictly below t; the
@@ -123,13 +127,15 @@ struct Draw {
   static constexpr int kPasses = kCdf ? 3 : 1;
 
   float best, rmax, total, acc, t, u;
-  int best_idx, count, bits_q;
+  int best_idx, count, bits_q, koff;
   uint4 bits4;
   uint2 key;
 
   __device__ __forceinline__ void init(int row, bool active,
                                        unsigned long long seed,
-                                       const float* __restrict__ noise) {
+                                       const float* __restrict__ noise,
+                                       int slot_offset = 0) {
+    koff = slot_offset;
     key = make_uint2((unsigned)seed, (unsigned)(seed >> 32));
     best = -INFINITY;
     best_idx = 0;
@@ -166,13 +172,14 @@ struct Draw {
         MODE == MODE_GUMBEL_HOST) {
       float tot = s;
       if (MODE == MODE_GUMBEL) {
-        const int q = k >> 2;
+        const int g = koff + k;
+        const int q = g >> 2;
         if (q != bits_q) {
           bits4 = philox4x32_10(
               make_uint4((unsigned)row, (unsigned)q, 0u, 0u), key);
           bits_q = q;
         }
-        const unsigned m = uint4_get(bits4, k & 3) & 0x00FFFFFFu;
+        const unsigned m = uint4_get(bits4, g & 3) & 0x00FFFFFFu;
         const float inner =
             -log_<FAST>(__fmul_rn((float)m, F(5.960464477539063e-08)));
         tot = __fsub_rn(s, log_<FAST>(fmaxf(inner, F(6e-8))));

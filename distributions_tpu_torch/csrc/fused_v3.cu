@@ -55,9 +55,12 @@
 // (constants, nich blocks, niw blocks, table columns), and the draws are
 // Draw<MODE, FAST> of fused_common.cuh.
 //
-// Bound through ctypes: fused_v3_launch() is a plain C entry point that
-// launches on the caller's stream, allocates nothing, and returns
-// cudaGetLastError().
+// The same scoring walk also serves the pair kernel fused_v3_score_pair
+// (one shard of a wider slot axis; see its note below).
+//
+// Bound through ctypes: fused_v3_launch() and fused_v3_pair_launch() are
+// plain C entry points that launch on the caller's stream, allocate
+// nothing, and return cudaGetLastError().
 
 #include <string.h>
 
@@ -121,19 +124,21 @@ __device__ __forceinline__ float quad_form(const float* __restrict__ v,
 // niw block lc, then per column d mean rows and d(d+1)/2 precision rows),
 // followed by the block's nich values [ncols][SCORE_THREADS], niw values
 // [qvals][SCORE_THREADS] and packed table rows [n_tab][SCORE_THREADS].
+//
+// score_and_draw is the body shared by the two kernels below: it scores
+// the thread's row against slots 0..C-1 of the arrays it is given and
+// feeds each score to `dr`.  Every thread of the block must call it (it
+// synchronises the block around each staged chunk).  slot_offset is the
+// global id of slot 0, which only the 'gumbel' noise counter sees.
 
 template <int MODE, bool FAST>
-__global__ void __launch_bounds__(SCORE_THREADS)
-fused_v3_score_sample(const float* __restrict__ values,
-                      const float* __restrict__ qvalues,
-                      const int* __restrict__ table_idx,
-                      const float* __restrict__ cl,
-                      const float* __restrict__ coeffs,
-                      const float* __restrict__ qcoeffs,
-                      const float* __restrict__ tables,
-                      const float* __restrict__ noise,
-                      int* __restrict__ out, int B, int C, Layout L, int CK,
-                      unsigned long long seed) {
+__device__ __forceinline__ void score_and_draw(
+    const float* __restrict__ values, const float* __restrict__ qvalues,
+    const int* __restrict__ table_idx, const float* __restrict__ cl,
+    const float* __restrict__ coeffs, const float* __restrict__ qcoeffs,
+    const float* __restrict__ tables, const float* __restrict__ noise, int B,
+    int C, const Layout& L, int CK, unsigned long long seed, int slot_offset,
+    Draw<MODE, FAST>& dr) {
   extern __shared__ float smem[];
   float* sco = smem;
   float* sval = smem + (size_t)L.W * CK;
@@ -155,8 +160,7 @@ fused_v3_score_sample(const float* __restrict__ values,
       srow[j * SCORE_THREADS + tid] = v;
     }
   }
-  Draw<MODE, FAST> dr;
-  dr.init(row, active, seed, noise);
+  dr.init(row, active, seed, noise, slot_offset);
 
   for (int pass = 0; pass < Draw<MODE, FAST>::kPasses; ++pass) {
     dr.begin_pass(pass);
@@ -249,7 +253,63 @@ fused_v3_score_sample(const float* __restrict__ values,
       }
     }
   }
-  if (active) out[row] = dr.result();
+}
+
+template <int MODE, bool FAST>
+__global__ void __launch_bounds__(SCORE_THREADS)
+fused_v3_score_sample(const float* __restrict__ values,
+                      const float* __restrict__ qvalues,
+                      const int* __restrict__ table_idx,
+                      const float* __restrict__ cl,
+                      const float* __restrict__ coeffs,
+                      const float* __restrict__ qcoeffs,
+                      const float* __restrict__ tables,
+                      const float* __restrict__ noise,
+                      int* __restrict__ out, int B, int C, Layout L, int CK,
+                      unsigned long long seed) {
+  Draw<MODE, FAST> dr;
+  score_and_draw<MODE, FAST>(values, qvalues, table_idx, cl, coeffs, qcoeffs,
+                             tables, noise, B, C, L, CK, seed, 0, dr);
+  const int row = blockIdx.x * SCORE_THREADS + threadIdx.x;
+  if (row < B) out[row] = dr.result();
+}
+
+// -- the pair kernel ---------------------------------------------------------
+//
+// Replaces pallas_kernels.py::_fused_pair_kernel (wrapper
+// fused_score_sample_pair): the score of every row against the C slots of
+// ONE shard of a wider slot axis, and per row the first maximal local slot
+// and its (perturbed) score; no stat sums, because the winner over all
+// shards is known only after the caller's pair reduce.  Like the kernel
+// above it is bound by operations, so it is the same one-thread-per-row
+// walk; it moves 8 more bytes per row (idx and best).  MODE is 'argmax',
+// 'gumbel' or 'gumbel_host': a cdf draw has no pair reduce.  With one seed
+// for all shards of a row block and slot_offset = the global id of the
+// shard's slot 0, the shards' pairs reduced by (largest best, then lowest
+// global slot) give exactly the slot that fused_v3_score_sample draws on
+// the whole slot axis.
+
+template <int MODE, bool FAST>
+__global__ void __launch_bounds__(SCORE_THREADS)
+fused_v3_score_pair(const float* __restrict__ values,
+                    const float* __restrict__ qvalues,
+                    const int* __restrict__ table_idx,
+                    const float* __restrict__ cl,
+                    const float* __restrict__ coeffs,
+                    const float* __restrict__ qcoeffs,
+                    const float* __restrict__ tables,
+                    const float* __restrict__ noise, int* __restrict__ out,
+                    float* __restrict__ best, int B, int C, Layout L, int CK,
+                    unsigned long long seed, int slot_offset) {
+  Draw<MODE, FAST> dr;
+  score_and_draw<MODE, FAST>(values, qvalues, table_idx, cl, coeffs, qcoeffs,
+                             tables, noise, B, C, L, CK, seed, slot_offset,
+                             dr);
+  const int row = blockIdx.x * SCORE_THREADS + threadIdx.x;
+  if (row < B) {
+    out[row] = dr.best_idx;
+    best[row] = dr.best;
+  }
 }
 
 // -- kernel 2: count tables and per-block stat partials ---------------------
@@ -374,6 +434,53 @@ extern "C" const char* fused_v3_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// Fill L from the per-family counts; *qdim gets the width of the niw stat
+// sums.  Returns false on a layout beyond the caps above.
+static bool make_layout(int n_nich, const int* nich_cols, int n_quad,
+                        const int* quad_cols, const int* quad_d, int n_tab,
+                        const int* table_vs, Layout* Lp, int* qdim) {
+  Layout& L = *Lp;
+  if (n_nich < 0 || n_nich > MAX_GROUPS || n_quad < 0 ||
+      n_quad > MAX_GROUPS || n_tab < 0 || n_tab > MAX_TABLE_COLS)
+    return false;
+  memset(&L, 0, sizeof(L));
+  L.n_nich = n_nich;
+  L.n_quad = n_quad;
+  L.n_tab = n_tab;
+  L.W = 1;
+  *qdim = 0;
+  for (int g = 0; g < n_nich; ++g) {
+    if (nich_cols[g] < 1) return false;
+    L.nich_cols[g] = nich_cols[g];
+    L.ncols += nich_cols[g];
+    L.W += 1 + 2 * nich_cols[g];
+  }
+  for (int g = 0; g < n_quad; ++g) {
+    const int nc = quad_cols[g], d = quad_d[g];
+    if (nc < 1 || d < 1 || d > MAX_D) return false;
+    L.quad_cols[g] = nc;
+    L.quad_d[g] = d;
+    L.qvals += nc * d;
+    L.W += 1 + nc * (d + d * (d + 1) / 2);
+    *qdim += nc * (1 + d + d * (d + 1) / 2);
+  }
+  for (int j = 0; j < n_tab; ++j) {
+    if (table_vs[j] < 1) return false;
+    L.tab_off[j] = L.vtot;
+    L.vtot += table_vs[j];
+  }
+  return L.ncols <= MAX_COLS && L.qvals <= MAX_QVALS;
+}
+
+// Slots per staged chunk and the score kernels' dynamic shared memory.
+static int score_chunk(const Layout& L, int C, size_t* smem) {
+  const int per_thread = L.ncols + L.qvals + L.n_tab;
+  const int CK = imin(C, (SMEM_FLOATS - SCORE_THREADS * per_thread) / L.W);
+  *smem =
+      ((size_t)L.W * CK + (size_t)SCORE_THREADS * per_thread) * sizeof(float);
+  return CK;
+}
+
 // nich_cols[n_nich], quad_cols[n_quad], quad_d[n_quad], table_vs[n_tab]
 // describe the layout; values / qvalues / table_idx and their coefficient
 // arrays may be null when their count is 0.  partials is scratch of
@@ -386,46 +493,18 @@ extern "C" int fused_v3_launch(
     int n_nich, const int* nich_cols, int n_quad, const int* quad_cols,
     const int* quad_d, int n_tab, const int* table_vs, int mode, int fast,
     unsigned long long seed, int stat_rows, void* stream) {
-  if (B < 1 || C < 1 || n_nich < 0 || n_nich > MAX_GROUPS || n_quad < 0 ||
-      n_quad > MAX_GROUPS || n_tab < 0 || n_tab > MAX_TABLE_COLS ||
-      stat_rows < 1 || mode < MODE_ARGMAX || mode > MODE_CDF_HOST)
+  if (B < 1 || C < 1 || stat_rows < 1 || mode < MODE_ARGMAX ||
+      mode > MODE_CDF_HOST)
     return (int)cudaErrorInvalidValue;
   Layout L;
-  memset(&L, 0, sizeof(L));
-  L.n_nich = n_nich;
-  L.n_quad = n_quad;
-  L.n_tab = n_tab;
-  L.W = 1;
   int qdim = 0;
-  for (int g = 0; g < n_nich; ++g) {
-    if (nich_cols[g] < 1) return (int)cudaErrorInvalidValue;
-    L.nich_cols[g] = nich_cols[g];
-    L.ncols += nich_cols[g];
-    L.W += 1 + 2 * nich_cols[g];
-  }
-  for (int g = 0; g < n_quad; ++g) {
-    const int nc = quad_cols[g], d = quad_d[g];
-    if (nc < 1 || d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
-    L.quad_cols[g] = nc;
-    L.quad_d[g] = d;
-    L.qvals += nc * d;
-    L.W += 1 + nc * (d + d * (d + 1) / 2);
-    qdim += nc * (1 + d + d * (d + 1) / 2);
-  }
-  for (int j = 0; j < n_tab; ++j) {
-    if (table_vs[j] < 1) return (int)cudaErrorInvalidValue;
-    L.tab_off[j] = L.vtot;
-    L.vtot += table_vs[j];
-  }
-  if (L.ncols > MAX_COLS || L.qvals > MAX_QVALS)
+  if (!make_layout(n_nich, nich_cols, n_quad, quad_cols, quad_d, n_tab,
+                   table_vs, &L, &qdim))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-
-  const int per_thread = L.ncols + L.qvals + L.n_tab;
-  const int CK = imin(C, (SMEM_FLOATS - SCORE_THREADS * per_thread) / L.W);
+  size_t smem1 = 0;
+  const int CK = score_chunk(L, C, &smem1);
   if (CK < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem1 =
-      ((size_t)L.W * CK + (size_t)SCORE_THREADS * per_thread) * sizeof(float);
   const dim3 grid1((B + SCORE_THREADS - 1) / SCORE_THREADS);
   switch (mode) {
     case MODE_ARGMAX:
@@ -477,5 +556,68 @@ extern "C" int fused_v3_launch(
   fused_v3_stat_reduce<<<grid3, 256, 0, st>>>(partials, tcounts_i, sums, qsums,
                                               tcounts, nblocks, C, S, S1,
                                               L.vtot);
+  return (int)cudaGetLastError();
+}
+
+template <int MODE>
+static void launch_pair(bool fast, dim3 grid, size_t smem, cudaStream_t st,
+                        const float* values, const float* qvalues,
+                        const int* table_idx, const float* cl,
+                        const float* coeffs, const float* qcoeffs,
+                        const float* tables, const float* noise, int* out,
+                        float* best, int B, int C, const Layout& L, int CK,
+                        unsigned long long seed, int slot_offset) {
+  if (fast)
+    fused_v3_score_pair<MODE, true><<<grid, SCORE_THREADS, smem, st>>>(
+        values, qvalues, table_idx, cl, coeffs, qcoeffs, tables, noise, out,
+        best, B, C, L, CK, seed, slot_offset);
+  else
+    fused_v3_score_pair<MODE, false><<<grid, SCORE_THREADS, smem, st>>>(
+        values, qvalues, table_idx, cl, coeffs, qcoeffs, tables, noise, out,
+        best, B, C, L, CK, seed, slot_offset);
+}
+
+// The pair kernel over one shard's C slots: out[B] local slot ids, best[B]
+// their (perturbed) scores.  The layout arguments are those of
+// fused_v3_launch; mode is MODE_ARGMAX, MODE_GUMBEL or MODE_GUMBEL_HOST
+// (noise [B, C]); slot_offset >= 0 is the global id of the shard's slot 0.
+extern "C" int fused_v3_pair_launch(
+    const float* values, const float* qvalues, const int* table_idx,
+    const float* cl, const float* coeffs, const float* qcoeffs,
+    const float* tables, const float* noise, int* out, float* best, int B,
+    int C, int n_nich, const int* nich_cols, int n_quad, const int* quad_cols,
+    const int* quad_d, int n_tab, const int* table_vs, int mode, int fast,
+    unsigned long long seed, int slot_offset, void* stream) {
+  if (B < 1 || C < 1 || slot_offset < 0 || mode < MODE_ARGMAX ||
+      mode > MODE_GUMBEL_HOST)
+    return (int)cudaErrorInvalidValue;
+  Layout L;
+  int qdim = 0;
+  if (!make_layout(n_nich, nich_cols, n_quad, quad_cols, quad_d, n_tab,
+                   table_vs, &L, &qdim))
+    return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  const int CK = score_chunk(L, C, &smem);
+  if (CK < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid((B + SCORE_THREADS - 1) / SCORE_THREADS);
+  switch (mode) {
+    case MODE_ARGMAX:
+      launch_pair<MODE_ARGMAX>(fast, grid, smem, st, values, qvalues,
+                               table_idx, cl, coeffs, qcoeffs, tables, noise,
+                               out, best, B, C, L, CK, seed, slot_offset);
+      break;
+    case MODE_GUMBEL:
+      launch_pair<MODE_GUMBEL>(fast, grid, smem, st, values, qvalues,
+                               table_idx, cl, coeffs, qcoeffs, tables, noise,
+                               out, best, B, C, L, CK, seed, slot_offset);
+      break;
+    default:
+      launch_pair<MODE_GUMBEL_HOST>(fast, grid, smem, st, values, qvalues,
+                                    table_idx, cl, coeffs, qcoeffs, tables,
+                                    noise, out, best, B, C, L, CK, seed,
+                                    slot_offset);
+      break;
+  }
   return (int)cudaGetLastError();
 }

@@ -3,10 +3,12 @@ blocked collapsed-Gibbs sweeps in steps with periodic checkpoints and
 resume, grows capacity between steps, validates invariants and logs one
 row per step.
 
-Not ported yet, each raising NotImplementedError when set: row sharding
-(`mesh`, ROADMAP Queue 1 item 11), hyperparameter resampling
-(`hyper_grids`, `cl_grid`, `hyper_slice`, `cl_slice`, item 13) and
-`checkpoint_format='orbax'` (item 16).
+With `mesh=` the sweeps run row-sharded over a `parallel.sharding` mesh.
+
+Not ported yet, each raising NotImplementedError when set:
+hyperparameter resampling (`hyper_grids`, `cl_grid`, `hyper_slice`,
+`cl_slice`, ROADMAP Queue 1 item 13) and `checkpoint_format='orbax'`
+(item 16).
 """
 
 import os
@@ -20,6 +22,7 @@ from distributions_tpu_torch import mixture as mx
 from distributions_tpu_torch.io import checkpoint
 from distributions_tpu_torch.ops import fused_kernels as fk
 from distributions_tpu_torch.ops import gibbs
+from distributions_tpu_torch.parallel import distributed, sharding
 
 
 def _not_ported(option, item):
@@ -126,6 +129,16 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
     spec) when every block is nich, niw or a discrete model with score
     tables (`fused_kernels.supports_mixed_pallas`) and R is a multiple of
     `block`; otherwise the plain `gibbs.sweep_blocked`.
+    mesh: a `parallel.sharding` mesh (`sharding.make_mesh(4)` in one
+    process, `distributed.make_global_mesh()` over a process group) runs
+    the sweeps row-sharded: on a 1-D 'rows' mesh with R a multiple of
+    shards * block and the fused gate above,
+    `sharding.sharded_sweep_fused` with the stat cache; otherwise
+    `sharding.sharded_sweep_blocked` sweep by sweep.  Under a process
+    group every rank calls run_gibbs with the same arguments (the full
+    `values`, of which each rank uses its rows) and a generator in the
+    same state; every rank returns the full assignments, and rank 0
+    writes the checkpoints, which all ranks read on resume.
     sweeps_per_step: whole sweeps per step; validation, logging and the
     capacity-growth check happen at step boundaries, with one logger row
     per step.  Capacity doubles when
@@ -138,8 +151,6 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
     if checkpoint_format != 'npz':
         raise ValueError('unknown checkpoint_format %r'
                          % (checkpoint_format,))
-    if mesh is not None:
-        raise _not_ported('mesh', 11)
     for name, opt in (('hyper_grids', hyper_grids), ('cl_grid', cl_grid),
                       ('hyper_slice', hyper_slice),
                       ('cl_slice', cl_slice or None)):
@@ -192,10 +203,16 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
                          'got %r' % (init,))
 
     def save(at_sweep):
-        checkpoint.save(checkpoint_path, state, assignments=assignments,
-                        generator=generator, sweep=at_sweep,
-                        logger_rows=logger.rows, shareds=shareds,
-                        cl_model=cl_model, spec=spec)
+        # the state is replicated and the assignments are gathered: rank
+        # 0's view is the whole chain
+        if mesh is None or distributed.process_index() == 0:
+            checkpoint.save(checkpoint_path, state, assignments=assignments,
+                            generator=generator, sweep=at_sweep,
+                            logger_rows=logger.rows, shareds=shareds,
+                            cl_model=cl_model, spec=spec)
+        if mesh is not None:
+            # no rank goes on (or resumes) before the file is whole
+            distributed.barrier()
 
     cache = None
     counts_host = None
@@ -211,6 +228,9 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
         # auto_block_rows) do not apply to the CUDA kernel
         fused_ok = (use_pallas and fk.supports_mixed_pallas(spec)
                     and R % block == 0)
+        if mesh is not None:
+            fused_ok = (fused_ok and mesh.axis_names == (sharding.ROWS,)
+                        and R % (mesh.size * block) == 0)
         # every checkpoint boundary lands on a step edge
         k = min(sweeps_per_step, passes - sweep)
         if checkpoint_path and checkpoint_every:
@@ -222,11 +242,24 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
             if cache is None:
                 cache = gibbs.build_stat_cache(spec, shareds, values, block,
                                                assignments)
-            state, assignments, cache, step_score = \
-                gibbs.sweep_blocked_pallas_fused_mixed(
+            if mesh is not None:
+                state, assignments, cache, step_score = \
+                    sharding.sharded_sweep_fused(
+                        spec, cl_model, shareds, state, values, assignments,
+                        generator, mesh, block, cache,
+                        block_rows=min(block_rows, block), sampling=sampling,
+                        n_sweeps=k, with_score=True)
+            else:
+                state, assignments, cache, step_score = \
+                    gibbs.sweep_blocked_pallas_fused_mixed(
+                        spec, cl_model, shareds, state, values, assignments,
+                        block, min(block_rows, block), generator, cache,
+                        sampling=sampling, n_sweeps=k, with_score=True)
+        elif mesh is not None:
+            for _ in range(k):
+                state, assignments = sharding.sharded_sweep_blocked(
                     spec, cl_model, shareds, state, values, assignments,
-                    block, min(block_rows, block), generator, cache,
-                    sampling=sampling, n_sweeps=k, with_score=True)
+                    generator, mesh, block)
         else:
             for _ in range(k):
                 state, assignments = gibbs.sweep_blocked(

@@ -6,6 +6,10 @@ twins.  Counterpart of distributions_tpu/ops/pallas_kernels.py:
 - K2, `fused_mixed_score_sample_stats` (`_fused_v3_kernel`): nich columns,
   niw columns (`niw_coeffs_v4`, `quad_sums_to_raw`) and table columns of
   the discrete models.  A nich-only call falls through to K1;
+- K3, `fused_score_sample_pair` (`_fused_pair_kernel`): K2's score over
+  the slots of one shard of a wider slot axis, giving per row the (local
+  argmax, best perturbed score) pair that the component-sharded sweeps
+  reduce across shards; no stat outputs;
 - K4, `nich_score_sample` (`_score_sample_kernel`) and K5,
   `mixed_score_sample` (`_mixed_kernel`): the v1 score + sample kernels
   without stat outputs, with `nich_coeffs` (four rows per column, `log1p`
@@ -394,38 +398,46 @@ def _cdf_draw(scores, u, exp_):
     return idx
 
 
+def _perturb(scores, mode, fast, seed, noise, slot_offset=0,
+             total_slots=None):
+    """[B, C] scores plus the noise of an argmax-family draw ('argmax':
+    none; 'gumbel_host': `noise`; 'gumbel': from a generator seeded with
+    `seed`).  The 'gumbel' words are drawn as [B, total_slots] and columns
+    [slot_offset, slot_offset + C) kept, so that the shards of a slot axis
+    of `total_slots` slots see the noise of the whole matrix
+    (total_slots=None: slot_offset + C)."""
+    if mode == 'argmax':
+        return scores
+    if mode == 'gumbel_host':
+        return scores + noise
+    log_ = fast_log if fast else torch.log
+    B, C = scores.shape
+    width = slot_offset + C if total_slots is None else int(total_slots)
+    m = torch.randint(0, 1 << 24, (B, width), dtype=torch.int32,
+                      device=scores.device,
+                      generator=device_generator(seed, scores.device))
+    m = m[:, slot_offset:slot_offset + C]
+    inner = -log_(m.to(torch.float32) * 5.960464477539063e-08)
+    del m
+    return scores - log_(torch.clamp(inner, min=6e-8))
+
+
 def _draw(scores, mode, fast, seed, noise):
     """One slot per row of [B, C] scores -> [B] int32.  'gumbel' and 'cdf'
     draw their noise from a generator seeded with `seed` and then apply
     the '_host' formulas."""
-    log_ = fast_log if fast else torch.log
-    exp_ = fast_exp if fast else torch.exp
-    B, C = scores.shape
-    dev = scores.device
-    if mode == 'argmax':
-        idx = torch.argmax(scores, dim=1)
-    elif mode in ('gumbel', 'gumbel_host'):
-        if mode == 'gumbel':
-            m = torch.randint(0, 1 << 24, (B, C), dtype=torch.int32,
-                              device=dev,
-                              generator=device_generator(seed, dev))
-            inner = -log_(m.to(torch.float32) * 5.960464477539063e-08)
-            del m
-            total = scores - log_(torch.clamp(inner, min=6e-8))
-            del inner
-        else:
-            total = scores + noise
-        idx = torch.argmax(total, dim=1)
-        del total
+    if mode in ('argmax', 'gumbel', 'gumbel_host'):
+        idx = torch.argmax(_perturb(scores, mode, fast, seed, noise), dim=1)
     else:
         if mode == 'cdf':
-            u = torch.randint(0, 1 << 24, (B, 1), dtype=torch.int32,
-                              device=dev,
-                              generator=device_generator(seed, dev))
+            u = torch.randint(0, 1 << 24, (scores.shape[0], 1),
+                              dtype=torch.int32, device=scores.device,
+                              generator=device_generator(seed,
+                                                         scores.device))
             u = u.to(torch.float32) * 5.960464477539063e-08
         else:
             u = noise
-        idx = _cdf_draw(scores, u, exp_)
+        idx = _cdf_draw(scores, u, fast_exp if fast else torch.exp)
     return idx.to(torch.int32)
 
 
@@ -515,6 +527,45 @@ def _mixed_rows(values, qvalues, table_idx):
     raise ValueError('no nich, niw or table columns given')
 
 
+# the draws of K3: a cdf draw has no pair reduce
+PAIR_SAMPLING = ('argmax', 'gumbel', 'gumbel_host')
+
+
+def _parse_pair_sampling(sampling):
+    mode, fast = _parse_sampling(sampling)
+    if mode not in PAIR_SAMPLING:
+        raise ValueError('sampling %r: the pair kernel draws with '
+                         "'gumbel', 'argmax' or 'gumbel_host' (optionally "
+                         "'_fast')" % (sampling,))
+    return mode, fast
+
+
+def fused_score_sample_pair_plain(
+        seed, values, table_idx, cl_scores, coeffs, tables, col_groups,
+        block_rows=DEFAULT_BLOCK_ROWS, sampling='gumbel', qvalues=None,
+        qcoeffs=None, quad_groups=(), table_vs=(), noise=None,
+        slot_offset=0, total_slots=None):
+    """The plain PyTorch version of K3, on any device: K2's scores over
+    the shard's slots, the argmax-family noise, then the first maximal
+    slot and its perturbed score.  Same arguments and results as
+    `fused_score_sample_pair`.  In 'gumbel' its generator fills the noise
+    of the whole [B, total_slots] matrix and the shard keeps its columns:
+    with total_slots given, the shards of one slot axis, pair-reduced,
+    draw what `fused_mixed_score_sample_stats_plain` draws on the whole
+    axis with that seed."""
+    mode, fast = _parse_pair_sampling(sampling)
+    B = _mixed_rows(values, qvalues, table_idx)
+    scores = _score_mixed(B, values, table_idx, cl_scores, coeffs, tables,
+                          tuple(col_groups), qvalues, qcoeffs, quad_groups,
+                          table_vs, fast_log if fast else torch.log)
+    total = _perturb(scores, mode, fast, seed, noise, int(slot_offset),
+                     total_slots)
+    del scores
+    idx = torch.argmax(total, dim=1)
+    best = total.gather(1, idx[:, None])[:, 0]
+    return idx.to(torch.int32), best
+
+
 # the draws of K4 and K5
 V1_SAMPLING = ('gumbel', 'argmax', 'gumbel_host')
 
@@ -582,7 +633,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 # library -> its C entry points that launch a kernel
 _LAUNCHERS = {'fused_v2': ('fused_v2_launch',),
-              'fused_v3': ('fused_v3_launch',),
+              'fused_v3': ('fused_v3_launch', 'fused_v3_pair_launch'),
               'score_sample_v1': ('score_sample_v1_nich_launch',
                                   'score_sample_v1_mixed_launch')}
 
@@ -606,6 +657,8 @@ def _bind(name, lib):
                                         i, ctypes.c_uint64, i, p]
     elif name == 'fused_v3':
         lib.fused_v3_launch.argtypes = [p] * 14 + [
+            i, i, i, ip, i, ip, ip, i, ip, i, i, ctypes.c_uint64, i, p]
+        lib.fused_v3_pair_launch.argtypes = [p] * 10 + [
             i, i, i, ip, i, ip, ip, i, ip, i, i, ctypes.c_uint64, i, p]
     else:
         lib.score_sample_v1_nich_launch.argtypes = [p] * 5 + [
@@ -811,10 +864,10 @@ def fused_score_sample_stats(seed, values, cl_scores, coeffs, col_groups,
 fused_score_sample_stats.launches = 0
 
 
-def _launch_mixed(seed, values, table_idx, cl_scores, coeffs, tables,
-                  col_groups, sampling, qvalues, qcoeffs, quad_groups, noise,
-                  table_vs):
-    mode, fast = _parse_sampling(sampling)
+def _check_mixed(values, table_idx, cl_scores, coeffs, tables, col_groups,
+                 qvalues, qcoeffs, quad_groups, table_vs):
+    """Raise on inputs that K2 and K3 do not take.  Returns (device, B, C,
+    col_groups)."""
     col_groups = _check_col_groups(col_groups, 0)
     if len(quad_groups) > MAX_GROUPS or any(
             nc < 1 or not 1 <= d <= MAX_D for nc, d in quad_groups):
@@ -832,7 +885,8 @@ def _launch_mixed(seed, values, table_idx, cl_scores, coeffs, tables,
     if vtot > MAX_VTOT:
         raise ValueError('at most %d packed table rows, got %d'
                          % (MAX_VTOT, vtot))
-    if cl_scores.dim() != 1 or cl_scores.shape[0] < 1:
+    if not isinstance(cl_scores, torch.Tensor) or cl_scores.dim() != 1 \
+            or cl_scores.shape[0] < 1:
         raise ValueError('cl_scores must be [C >= 1]')
     dev = cl_scores.device
     C = cl_scores.shape[0]
@@ -841,10 +895,9 @@ def _launch_mixed(seed, values, table_idx, cl_scores, coeffs, tables,
                     table_idx if table_vs else None)
     if B < 1:
         raise ValueError('need at least one row')
-    ncols = sum(col_groups)
     _check('cl_scores', cl_scores, dev, (C,))
     if col_groups:
-        _check('values', values, dev, (B, ncols))
+        _check('values', values, dev, (B, sum(col_groups)))
         _check('coeffs', coeffs, dev,
                (sum(2 + 2 * c for c in col_groups), C))
     if quad_groups:
@@ -855,6 +908,38 @@ def _launch_mixed(seed, values, table_idx, cl_scores, coeffs, tables,
     if table_vs:
         _check('table_idx', table_idx, dev, (B, len(table_vs)), torch.int32)
         _check('tables', tables, dev, (vtot, C))
+    return dev, B, C, col_groups
+
+
+def _mixed_pointers(values, table_idx, cl_scores, coeffs, tables, col_groups,
+                    qvalues, qcoeffs, quad_groups, table_vs, noise):
+    """The eight input pointers that fused_v3_launch and
+    fused_v3_pair_launch take first."""
+    return (_ptr(values if col_groups else None),
+            _ptr(qvalues if quad_groups else None),
+            _ptr(table_idx if table_vs else None), cl_scores.data_ptr(),
+            _ptr(coeffs if col_groups else None),
+            _ptr(qcoeffs if quad_groups else None),
+            _ptr(tables if table_vs else None), _ptr(noise))
+
+
+def _layout_args(col_groups, quad_groups, table_vs):
+    """The layout arguments of fused_v3_launch and fused_v3_pair_launch."""
+    return (len(col_groups), _int_array(col_groups), len(quad_groups),
+            _int_array([nc for nc, _ in quad_groups]),
+            _int_array([d for _, d in quad_groups]), len(table_vs),
+            _int_array(table_vs))
+
+
+def _launch_mixed(seed, values, table_idx, cl_scores, coeffs, tables,
+                  col_groups, sampling, qvalues, qcoeffs, quad_groups, noise,
+                  table_vs):
+    mode, fast = _parse_sampling(sampling)
+    dev, B, C, col_groups = _check_mixed(
+        values, table_idx, cl_scores, coeffs, tables, col_groups, qvalues,
+        qcoeffs, quad_groups, table_vs)
+    ncols = sum(col_groups)
+    vtot = sum(table_vs)
     _check_noise(mode, sampling, noise, dev, B, C)
     seed = _check_seed(seed)
 
@@ -874,19 +959,13 @@ def _launch_mixed(seed, values, table_idx, cl_scores, coeffs, tables,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_v3_launch(
-            _ptr(values if col_groups else None),
-            _ptr(qvalues if quad_groups else None),
-            _ptr(table_idx if table_vs else None), cl_scores.data_ptr(),
-            _ptr(coeffs if col_groups else None),
-            _ptr(qcoeffs if quad_groups else None),
-            _ptr(tables if table_vs else None), _ptr(noise), out.data_ptr(),
-            partials.data_ptr(), sums.data_ptr(), qsums.data_ptr(),
-            tcounts_i.data_ptr(), tcounts.data_ptr(), B, C, len(col_groups),
-            _int_array(col_groups), len(quad_groups),
-            _int_array([nc for nc, _ in quad_groups]),
-            _int_array([d for _, d in quad_groups]), len(table_vs),
-            _int_array(table_vs), SAMPLING_MODES[mode], int(fast), seed,
-            STAT_ROWS, stream)
+            *_mixed_pointers(values, table_idx, cl_scores, coeffs, tables,
+                             col_groups, qvalues, qcoeffs, quad_groups,
+                             table_vs, noise),
+            out.data_ptr(), partials.data_ptr(), sums.data_ptr(),
+            qsums.data_ptr(), tcounts_i.data_ptr(), tcounts.data_ptr(), B, C,
+            *_layout_args(col_groups, quad_groups, table_vs),
+            SAMPLING_MODES[mode], int(fast), seed, STAT_ROWS, stream)
     _raise_on('fused_v3', lib, err)
     fused_mixed_score_sample_stats.launches += 1
     return out, sums, tcounts, qsums
@@ -948,6 +1027,89 @@ def fused_mixed_score_sample_stats(seed, values, table_idx, cl_scores,
 
 
 fused_mixed_score_sample_stats.launches = 0
+
+
+def _launch_pair(seed, values, table_idx, cl_scores, coeffs, tables,
+                 col_groups, sampling, qvalues, qcoeffs, quad_groups,
+                 table_vs, noise, slot_offset):
+    mode, fast = _parse_pair_sampling(sampling)
+    dev, B, C, col_groups = _check_mixed(
+        values, table_idx, cl_scores, coeffs, tables, col_groups, qvalues,
+        qcoeffs, quad_groups, table_vs)
+    _check_noise(mode, sampling, noise, dev, B, C)
+    seed = _check_seed(seed)
+
+    lib = build('fused_v3')['lib']
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    best = torch.empty(B, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_v3_pair_launch(
+            *_mixed_pointers(values, table_idx, cl_scores, coeffs, tables,
+                             col_groups, qvalues, qcoeffs, quad_groups,
+                             table_vs, noise),
+            out.data_ptr(), best.data_ptr(), B, C,
+            *_layout_args(col_groups, quad_groups, table_vs),
+            SAMPLING_MODES[mode], int(fast), seed, slot_offset, stream)
+    _raise_on('fused_v3', lib, err)
+    fused_score_sample_pair.launches += 1
+    return out, best
+
+
+def fused_score_sample_pair(seed, values, table_idx, cl_scores, coeffs,
+                            tables, col_groups,
+                            block_rows=DEFAULT_BLOCK_ROWS, interpret=None,
+                            sampling='gumbel', qvalues=None, qcoeffs=None,
+                            quad_groups=(), table_vs=(), noise=None,
+                            slot_offset=0, total_slots=None):
+    """K3: fused score + LOCAL argmax pair over one component shard's slot
+    range, for the component-sharded sweeps.
+
+    The operands are those of `fused_mixed_score_sample_stats` (tables
+    PACKED [Vtot, C_local] with table_vs; a nich-only call is served too),
+    with cl_scores, coeffs, qcoeffs and tables holding the shard's C_local
+    slots.  Returns (idx [B] int32 local slot ids, best [B] f32 their
+    perturbed scores): idx is the first maximal local slot.  Across shards
+    the caller keeps the largest best and, at equal best, the lowest
+    global slot.
+
+    sampling: 'gumbel' (Philox in the kernel, optionally '_fast') |
+    'argmax' | 'gumbel_host' taking `noise` [B, C_local].  seed: an int in
+    [0, 2**64).  slot_offset (>= 0, any value): the global id of the
+    shard's slot 0.  The 'gumbel' noise of a cell is counted by (row,
+    slot_offset + local slot), so with one seed for all shards of a row
+    block the shards' pairs, reduced, give exactly the slot that
+    `fused_mixed_score_sample_stats` draws on the whole slot axis with
+    that seed.  total_slots: the width of the whole slot axis; only the
+    twin needs it (its generator is not counter-based), to give the same
+    property on CPU tensors.
+
+    CPU tensors run the plain twin; CUDA tensors launch the kernel or
+    raise.  `block_rows` and `interpret` are kept for parity with the JAX
+    signature."""
+    col_groups = tuple(col_groups)
+    quad_groups = tuple((int(nc), int(d)) for nc, d in quad_groups)
+    table_vs = tuple(int(v) for v in table_vs)
+    slot_offset = int(slot_offset)
+    if slot_offset < 0:
+        raise ValueError('slot_offset must be >= 0')
+    if table_vs:
+        tables = torch.clamp(tables, min=-1e30)
+    if cl_scores.device.type == 'cpu':
+        return fused_score_sample_pair_plain(
+            seed, values, table_idx, cl_scores, coeffs, tables, col_groups,
+            block_rows=block_rows, sampling=sampling, qvalues=qvalues,
+            qcoeffs=qcoeffs, quad_groups=quad_groups, table_vs=table_vs,
+            noise=noise, slot_offset=slot_offset, total_slots=total_slots)
+    if cl_scores.device.type != 'cuda':
+        raise ValueError('fused_score_sample_pair runs on CPU or CUDA '
+                         'tensors, got %s' % cl_scores.device)
+    return _launch_pair(seed, values, table_idx, cl_scores, coeffs, tables,
+                        col_groups, sampling, qvalues, qcoeffs, quad_groups,
+                        table_vs, noise, slot_offset)
+
+
+fused_score_sample_pair.launches = 0
 
 
 def _launch_v1(seed, nich_values, table_indices, cl_scores, coeffs, tables,

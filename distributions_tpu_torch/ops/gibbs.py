@@ -406,15 +406,26 @@ def _slice_rows(lay, t, block):
                  for x in (lay.nich_vals, lay.quad_vals, lay.table_idx))
 
 
-def _fused_tile_core(spec, lay, W, block_rows, sampling, cl_model, shareds,
-                     state, t_nich, t_quad, t_idx, seed, noise=None):
-    """Score + sample + stats for ONE tile against the current (already
-    tile-removed) state via the fused kernel.  Returns (new_assign [B],
-    counts_delta [C], per-block raw sums in build_stat_cache's format)."""
-    col_groups = tuple(spec.blocks[i].cols for i in lay.nich_blocks)
+def _fused_tile_inputs(spec, lay, cl_model, shareds, state):
+    """The fused kernel's per-slot inputs from the current state:
+    (cl_scores, coeffs, qcoeffs, tables)."""
     cl_scores = _cl.score_value(cl_model, state.counts, state.alive,
                                 state.sample_size)
-    coeffs, qcoeffs, tables = _build_fused_inputs(spec, lay, shareds, state)
+    return (cl_scores,) + _build_fused_inputs(spec, lay, shareds, state)
+
+
+def _fused_tile_core(spec, lay, W, block_rows, sampling, cl_model, shareds,
+                     state, t_nich, t_quad, t_idx, seed, noise=None,
+                     inputs=None):
+    """Score + sample + stats for ONE tile against the current (already
+    tile-removed) state via the fused kernel.  `inputs`: the
+    `_fused_tile_inputs` of `state` when the caller has them already (row
+    shards that share one state).  Returns (new_assign [B], counts_delta
+    [C], per-block raw sums in build_stat_cache's format)."""
+    col_groups = tuple(spec.blocks[i].cols for i in lay.nich_blocks)
+    if inputs is None:
+        inputs = _fused_tile_inputs(spec, lay, cl_model, shareds, state)
+    cl_scores, coeffs, qcoeffs, tables = inputs
     new_assign, nich_sums, tcounts, qsums = \
         fk.fused_mixed_score_sample_stats(
             seed, t_nich, t_idx, cl_scores, coeffs, tables, col_groups,

@@ -1,9 +1,12 @@
-"""The CUDA kernels K1, K2, K4 and K5 against their plain twins, and the
-runner's bitwise resume, on the card.
+"""The CUDA kernels K1, K2, K3, K4 and K5 against their plain twins, the
+sharded sweeps on in-process meshes, and the runner's bitwise resume, on
+the card.
 Every test here needs an NVIDIA GPU and skips without one.  On a machine
 with a GPU and no JAX, run them with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+(`-k pair` picks the tests of K3.)
 """
 
 import pytest
@@ -200,6 +203,156 @@ def test_k2_wrapper_rejects_bad_inputs(dev):
         fk.fused_mixed_score_sample_stats(
             0, values.cpu(), table_idx, cls, coeffs, tables, col_groups,
             sampling='argmax', **kwargs)
+
+
+# -- K3 ---------------------------------------------------------------------
+
+def _slot_slice(args, kwargs, a, b):
+    """K2's arguments cut to slots [a, b): what one component shard of K3
+    takes."""
+    values, table_idx, cls, coeffs, tables, col_groups = args
+
+    def cut(x):
+        return None if x is None else x[:, a:b].contiguous()
+    if tables is not None:
+        tables = torch.clamp(tables, min=-1e30)
+    return ((values, table_idx, cls[a:b].contiguous(), cut(coeffs),
+             cut(tables), col_groups),
+            dict(kwargs, qcoeffs=cut(kwargs['qcoeffs'])))
+
+
+def _pair_reduce(pairs, offsets, C):
+    """Largest best, then lowest global slot."""
+    best = torch.stack([p[1] for p in pairs])
+    ids = torch.stack([p[0].long() + o for p, o in zip(pairs, offsets)])
+    top = best.max(0).values
+    return torch.where(best == top, ids,
+                       torch.full_like(ids, C)).min(0).values.to(torch.int32)
+
+
+@pytest.mark.parametrize('kind,B,C,cuts', [
+    ('niw2mix', 4096, 1024, (0, 256, 512, 768, 1024)),
+    ('bbddgp', 4096, 1024, (0, 256, 512, 768, 1024)),
+    ('nich_gp_bb', 4096, 128, (0, 128)),
+    # ragged: B not a multiple of the thread block, slot ranges that are
+    # no multiple of 4 and start at odd offsets
+    ('niw3_nich_bb', 3001, 1000, (0, 333, 335, 1000)),
+    ('niw4', 257, 1200, (0, 7, 1200))])
+@pytest.mark.parametrize('sampling', ['argmax', 'argmax_fast', 'gumbel_host',
+                                      'gumbel', 'gumbel_fast'])
+def test_pair_kernel_matches_twin_and_k2(dev, kind, B, C, cuts, sampling):
+    args, kwargs, _ = _mixed_inputs(dev, kind, B, C)
+    noise = _noise(dev, sampling, B, C)
+    whole = fk.fused_mixed_score_sample_stats(11, *args, sampling=sampling,
+                                              noise=noise, **kwargs)[0]
+    pairs = []
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        s_args, s_kwargs = _slot_slice(args, kwargs, a, b)
+        nz = None if noise is None else noise[:, a:b].contiguous()
+        before = fk.fused_score_sample_pair.launches
+        got = fk.fused_score_sample_pair(11, *s_args, sampling=sampling,
+                                         noise=nz, slot_offset=a, **s_kwargs)
+        torch.cuda.synchronize()
+        assert fk.fused_score_sample_pair.launches == before + 1
+        assert got[0].dtype == torch.int32 and got[1].dtype == torch.float32
+        again = fk.fused_score_sample_pair(11, *s_args, sampling=sampling,
+                                           noise=nz, slot_offset=a,
+                                           **s_kwargs)
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        if sampling not in ('gumbel', 'gumbel_fast'):
+            # the kernel repeats the twin's f32 operations in the same order
+            want = fk.fused_score_sample_pair_plain(
+                11, *s_args, sampling=sampling, noise=nz, slot_offset=a,
+                **s_kwargs)
+            assert torch.equal(got[0], want[0])
+            torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=1e-6)
+        pairs.append(got)
+    # the shards, pair-reduced, draw what K2 draws on the whole slot axis
+    assert torch.equal(_pair_reduce(pairs, cuts[:-1], C), whole)
+
+
+@pytest.mark.parametrize('sampling', ['gumbel', 'gumbel_fast'])
+def test_pair_kernel_rng_modes(dev, sampling):
+    B, C = 8192, 128
+    args, kwargs, (spec, py, sh, st, tv) = _mixed_inputs(dev, 'niw2mix', B, C)
+    pairs = []
+    for a in (0, 64):
+        s_args, s_kwargs = _slot_slice(args, kwargs, a, a + 64)
+        pairs.append(fk.fused_score_sample_pair(
+            5, *s_args, sampling=sampling, slot_offset=a, **s_kwargs))
+    draws = _pair_reduce(pairs, (0, 64), C)
+    assert testing.softmax_ztest(draws, mx.score_batch(spec, py, sh, st,
+                                                       tv)) < 5.0
+
+
+def test_pair_wrapper_rejects_bad_inputs(dev):
+    args, kwargs, _ = _mixed_inputs(dev, 'niw2mix', 512, 128)
+    values, table_idx, cls, coeffs, tables, col_groups = args
+
+    def call(*a, sampling='argmax', **kw):
+        return fk.fused_score_sample_pair(0, *a, sampling=sampling,
+                                          **dict(kwargs, **kw))
+    with pytest.raises(TypeError):
+        call(values.double(), table_idx, cls, coeffs, tables, col_groups)
+    with pytest.raises(ValueError):
+        call(values.cpu(), table_idx, cls, coeffs, tables, col_groups)
+    with pytest.raises(ValueError):
+        call(values, table_idx, cls, coeffs, tables, col_groups,
+             qvalues=kwargs['qvalues'].t().contiguous().t())
+    with pytest.raises(ValueError):
+        call(values, table_idx, cls, coeffs, tables[:-1], col_groups)
+    with pytest.raises(ValueError):
+        call(values, table_idx, cls, coeffs, tables, col_groups,
+             sampling='cdf')
+    with pytest.raises(ValueError):
+        call(values, table_idx, cls, coeffs, tables, col_groups,
+             slot_offset=-4)
+    with pytest.raises(TypeError):
+        call(values, table_idx, cls, coeffs, tables, col_groups,
+             sampling='gumbel_host')
+
+
+def test_pair_sweeps_on_the_card(dev):
+    """The 2-D sweeps on an in-process mesh on the card: K3 launches =
+    tiles x shards, 'argmax' fused equals 'argmax' plain but for near-ties,
+    and a 1 x 1 mesh
+    in 'gumbel' equals the single-device fused sweep draw for draw."""
+    from distributions_tpu_torch.parallel import sharding
+    R, C, block = 4096, 128, 512
+    _, _, (spec, py, sh, st, tv) = _mixed_inputs(dev, 'niw3_nich_bb', R, C)
+    p = testing.mixed_problem(R, C, seed=2, kind='niw3_nich_bb',
+                              n_clusters=min(C - 4, 40))
+    a0 = torch.from_numpy(p['labels']).to(dev)
+    mesh = sharding.make_mesh_2d(2, 4)
+    fk.fused_score_sample_pair.launches = 0
+    st_f, an_f = sharding.sharded_sweep_2d_fused(
+        spec, py, sh, st, tv, a0, torch.Generator().manual_seed(0), mesh,
+        block, sampling='argmax')
+    assert fk.fused_score_sample_pair.launches == (R // 2 // block) * 8
+    st_x, an_x = sharding.sharded_sweep_2d(
+        spec, py, sh, st, tv, a0, torch.Generator().manual_seed(0), mesh,
+        block, sampling='argmax')
+    assert an_f.device.type == 'cuda'
+    # the plain sweep scores with the models' score_value_batch formulas,
+    # K3 with the product-form coefficient rows: equal to f32 rounding, so
+    # an 'argmax' draw may differ at a near-tie only
+    differ = int((an_f != an_x).sum())
+    moved = int((st_f.counts - st_x.counts).abs().sum())
+    # (a third of these rows change slot in the sweep: close competition)
+    assert differ <= R // 100 and moved <= 2 * differ, (differ, moved)
+
+    # one shard, one seed: K3 + the one-hot stats against K2's own sums
+    one = sharding.make_mesh_2d(1, 1)
+    _, an_1 = sharding.sharded_sweep_2d_fused(
+        spec, py, sh, st, tv, a0, torch.Generator().manual_seed(4), one,
+        block, sampling='gumbel')
+    cache = gibbs.build_stat_cache(spec, sh, tv, block, a0)
+    _, an_k2, _ = gibbs.sweep_blocked_pallas_fused_mixed(
+        spec, py, sh, st, tv, a0, block, 256,
+        torch.Generator().manual_seed(4), cache, sampling='gumbel')
+    # the same seeds and counters; the states differ by f32 rounding of
+    # the stat sums only, so at most a few near-tie rows may differ
+    assert int((an_1 != an_k2).sum()) <= R // 1000
 
 
 # -- K4 and K5 ----------------------------------------------------------------

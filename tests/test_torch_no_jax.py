@@ -30,15 +30,14 @@ assert not bad, bad
 for name in ('models.bb', 'models.dd', 'models.dpd', 'models.gp',
              'models.bnb', 'models.niw', 'models.nich', 'ops.gibbs',
              'ops.fused_kernels', 'inference.runner', 'convert', 'testing',
-             'io.stream', 'io.wire', 'io.checkpoint'):
+             'io.stream', 'io.wire', 'io.checkpoint', 'parallel.sharding',
+             'parallel.distributed'):
     assert 'distributions_tpu_torch.' + name in names, name
 '''
 
 
-def test_chip_smoke_never_imports_jax():
-    """chip_smoke.py imports nothing of JAX or of the JAX package, even
-    lazily inside its functions."""
-    with open(os.path.join(ROOT, 'chip_smoke.py')) as f:
+def _assert_no_jax_imports(path):
+    with open(os.path.join(ROOT, path)) as f:
         src = f.read()
     for line in src.splitlines():
         words = line.split()
@@ -47,10 +46,21 @@ def test_chip_smoke_never_imports_jax():
             assert words[1].split('.')[0] != 'distributions_tpu', line
 
 
+def test_chip_smoke_never_imports_jax():
+    """chip_smoke.py imports nothing of JAX or of the JAX package, even
+    lazily inside its functions."""
+    _assert_no_jax_imports('chip_smoke.py')
+
+
+def test_process_group_worker_never_imports_jax():
+    _assert_no_jax_imports(os.path.join('tests',
+                                        'torch_multiprocess_worker.py'))
+
+
 def test_port_never_imports_jax():
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, '-c', PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(' ', 1)
-    assert int(n_modules) >= 27 and bad.strip() == '[]'
+    assert int(n_modules) >= 30 and bad.strip() == '[]'
