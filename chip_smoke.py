@@ -6,11 +6,42 @@
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero:
 
-1. build      -- compile the kernels K1 (csrc/fused_v2.cu), K2 and K3
-                 (csrc/fused_v3.cu), K4 and K5 (csrc/score_sample_v1.cu)
-                 with nvcc from the sources in this checkout, the
-                 compilers started together; print the card's name and
-                 power limit.
+1. build      -- compile the kernels K1 and B5 (csrc/fused_v2.cu), K2 and
+                 K3 (csrc/fused_v3.cu), K4 and K5 (csrc/score_sample_v1.cu),
+                 B2, B3 and B4 (csrc/roofline.cu) and B1
+                 (csrc/sampler_bench.cu) with nvcc from the sources in this
+                 checkout, the compilers started together; print the card's
+                 name and power limit.
+1a. kernel_b4, kernel_b2, kernel_b3 -- the roofline kernels against their
+                 plain-PyTorch twins at the entry point's sizes: the
+                 streamed copy B4 exact over 512 MB; the dependent chain B2
+                 at every op and depth (exact for add, mul, fma, fast_log,
+                 fast_exp and philox, rtol 1e-5 for logf, expf, log1pf,
+                 rsqrtf) and
+                 at 4096 x 1024 elements, T = 256; the tensor-core product
+                 B3 at 1024^3, exact on operands from {-1, 0, 1}, rtol 1e-2
+                 on normal ones; milliseconds of kernel, twin and, for B3
+                 and B4, the one PyTorch call that computes the same
+                 (torch.matmul, torch.add).
+1b. roofline  -- benchmarks.roofline.measure(): the card's measured rates
+                 (evaluations/s per op from B2's slope between depths 1 and
+                 9, a Philox block among the ops, FLOP/s of B3, bytes/s of
+                 B4).  They give every kernel
+                 below a measured bound beside the nominal one.
+1c. kernel_phases -- benchmarks.kernel_phases.run(): K1 cut into cumulative
+                 phases (B5) over 1,048,576 rows x 1024 slots in tiles of
+                 131072, at the entry point's one nich column and at the
+                 flagship's two; the split of K1's time, and the cost of a
+                 Philox block in place beside the generator alone.
+1d. kernel_b5, kernel_b1 -- B5 at K1's flagship tile: 'noop' and
+                 'score_max' equal to their twins, 'score_bits' within its
+                 perturbation of the row maximum, 'score_<mode>' equal to
+                 K1's draws and 'full_<mode>' to K1's outputs, bitwise.  B1
+                 at 2048 rows x C = 256, 1024, 4096: 0 mismatches in
+                 'argmax' and 'gumbel_host', a z-test in 'gumbel', bitwise
+                 repeatability.
+1e. suite     -- benchmarks.suite sections kernel_sampler (B1) and
+                 hyper_grid at their default sizes.
 2. kernel     -- K1 against its plain-PyTorch twin on the card at the
                  flagship tile (B=131072 rows x C=1024 slots x 2 nich
                  columns, state built from the flagship data): equal draws
@@ -89,8 +120,17 @@ exits non-zero:
                  make_global_mesh() sweep equal to the single-device one,
                  destroy_process_group.  More than one rank is not run:
                  the machine has one card.
-7. kernels    -- one line listing each ported kernel with its launches on
-                 its main path, its time, its twin's time and its bound.
+6h. main_hypers -- run_gibbs with hyperparameter moves on nich2 at full
+                 width: a 64-point sigmasq grid and an 8 x 8 Pitman-Yor
+                 grid every 5 of 10 sweeps; the chosen indices, the final
+                 shareds equal to the logged grid points, score_data equal
+                 to a fresh recompute under the hyperparameters in force,
+                 ms per hyper step beside ms per sweep.
+7. kernels    -- one line listing each ported kernel (K1-K5, B1-B5) with
+                 its launches on its main path, its time, its twin's time,
+                 its nominal bound (data-sheet rates, a log as one
+                 operation) and its measured bound (the roofline phase's
+                 rates, each op kind at its own rate).
 
 The entry points are called without a device, so they run on the package's
 default device, the card.  The last line is {"ok": true, "device": {...}}.
@@ -128,6 +168,17 @@ Z_MAX = 5.0
 # tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+# the same data sheet: dense bf16 on the tensor cores
+PEAK_BF16_PER_S = 989e12
+# the roofline entry point's default sizes (benchmarks/roofline.py)
+COPY_MB = 512
+CHAIN_SHAPE = (4096, 1024)
+CHAIN_T = 256
+MMA_N = 1024
+MMA_STEPS = 512
+# the suite's kernel_sampler sizes (benchmarks/suite.py); the one timed
+SAMPLER_SIZES = (256, 1024, 4096)
+SAMPLER_TIMED = 1024
 
 
 def emit(obj):
@@ -168,46 +219,78 @@ def flagship_data():
     return X.astype(np.float32), labels.astype(np.int32)
 
 
-def bound_ms(tensors, flops_per_cell, B, C):
-    """The least time the card could take for one launch: the larger of
-    the bytes it must move (every input read once, every output written
-    once) over the memory rate, and its f32 operations over the f32 rate.
-    Operations are those of the kernel's inner loop per (row, slot) cell,
-    each log or exp counted as one operation and the integer work of
-    Philox not at all: a lower bound."""
-    nbytes = sum(t.numel() * t.element_size() for t in tensors
-                 if t is not None)
+def nominal_bound(nbytes, n_ops, peak_ops=PEAK_F32_PER_S):
+    """(milliseconds, 'bytes' | 'operations'): the larger of `nbytes` over
+    the data sheet's memory rate and `n_ops` over its operation rate."""
     by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
-    by_ops = 1e3 * float(B) * C * flops_per_cell / PEAK_F32_PER_S
+    by_ops = 1e3 * n_ops / peak_ops
     if by_ops >= by_bytes:
         return by_ops, 'operations'
     return by_bytes, 'bytes'
 
 
-def gumbel_flops_per_cell(col_groups, quad_groups, n_tab):
-    """f32 operations per cell in 'gumbel' mode, from the inner loops of
-    csrc/fused_v2.cu and csrc/fused_v3.cu."""
-    ops = 0
+def bounds(port, tensors, counts, B, C):
+    """The least time the card could take for one launch, twice over.
+
+    Nominal (`bound_ms`, `bound_by`): the larger of the bytes it must move
+    (every input read once, every output written once) over the data
+    sheet's memory rate, and its f32 operations over the data sheet's f32
+    rate, each log counted as one operation and the integer work of Philox
+    not at all.
+
+    Measured (`measured_bound_ms`, `measured_bound_by`): the same bytes
+    over the copy rate the roofline phase measured (B4), and the operations
+    per (row, slot) cell by kind (`counts`), each kind at the rate the
+    roofline phase measured for it (B2), a Philox block among them."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors
+                 if t is not None)
+    cells = float(B) * C
+    n_ops = sum(n for kind, n in counts.items() if kind != 'philox')
+    bound, bound_by = nominal_bound(nbytes, cells * n_ops)
+    rates = port['rates']
+    by_bytes = 1e3 * nbytes / rates['bytes_per_sec']
+    by_ops = 1e3 * cells * sum(n * rates['sec_per'][kind]
+                               for kind, n in counts.items())
+    return {'bound_ms': bound, 'bound_by': bound_by,
+            'measured_bound_ms': max(by_ops, by_bytes),
+            'measured_bound_by': 'operations' if by_ops >= by_bytes
+            else 'bytes', 'ops_per_cell': counts}
+
+
+# the draw of one cell in 'gumbel' mode: m * 2^-24, log, negate, max, log,
+# subtract, compare; a Philox4x32-10 block serves four cells
+DRAW_OPS = {'simple': 5, 'log': 2, 'philox': 0.25}
+
+
+def gumbel_ops_per_cell(col_groups, quad_groups, n_tab, log='log'):
+    """Operations per cell in 'gumbel' mode by kind, from the inner loops
+    of csrc/fused_v2.cu and csrc/fused_v3.cu: 'simple' (an add, subtract,
+    multiply, max or compare), `log` ('log': the accurate logf; 'fast_log'
+    in the '_fast' modes) and 'philox' (blocks)."""
+    simple = logs = 0
     for nc in col_groups:
         # per column sub, mul, mul, add; the product chain; per chunk of 4
         # columns log, mul, add
         chunks = (nc + 3) // 4
-        ops += 4 * nc + (nc - chunks) + 3 * chunks
+        simple += 4 * nc + (nc - chunks) + 2 * chunks
+        logs += chunks
     for nc, d in quad_groups:
         tri = d * (d + 1) // 2
         chunks = (nc + 3) // 4
         # per column d subs, 2 muls per term, tri - 1 adds, 1 + q
-        ops += nc * (d + 2 * tri + (tri - 1) + 1) + (nc - chunks) + 3 * chunks
-    ops += n_tab
-    # the draw: m * 2^-24, log, negate, max, log, subtract, compare
-    return ops + 7
+        simple += nc * (d + 2 * tri + (tri - 1) + 1) + (nc - chunks) \
+            + 2 * chunks
+        logs += chunks
+    return {'simple': simple + n_tab + DRAW_OPS['simple'],
+            log: logs + DRAW_OPS['log'], 'philox': DRAW_OPS['philox']}
 
 
-def v1_flops_per_cell(cols, n_tab):
-    """f32 operations per cell of csrc/score_sample_v1.cu in 'gumbel'
-    mode: per nich column sub, mul, mul, log1p, mul, add, add; one add per
-    table column; the draw's seven."""
-    return 7 * cols + n_tab + 7
+def v1_ops_per_cell(cols, n_tab):
+    """Operations per cell of csrc/score_sample_v1.cu in 'gumbel' mode by
+    kind: per nich column sub, mul, mul, log1p, mul, add, add; one add per
+    table column; the draw."""
+    return {'simple': 6 * cols + n_tab + DRAW_OPS['simple'], 'log1p': cols,
+            'log': DRAW_OPS['log'], 'philox': DRAW_OPS['philox']}
 
 
 def phase_build(fk):
@@ -481,16 +564,20 @@ def phase_kernel(port, X, labels):
     ragged, err_r = check_ragged(port, k1_case(port, ragged_vals, cl_r, co_r),
                                  host_noise(port, Br, Cr, 5))
     max_err = max(max_err, err_r)
-    bound, bound_by = bound_ms(
-        (values, cl_scores, coeffs, torch.empty(B, dtype=torch.int32),
-         torch.empty(SLOTS, 3 * FEATURES)),
-        gumbel_flops_per_cell((FEATURES,), (), 0), B, SLOTS)
-    emit({'phase': 'kernel', 'B': B, 'C': SLOTS, 'cols': FEATURES,
-          'modes': modes, 'bitwise_repeatable': True, 'ragged': ragged,
-          'timing': timing, 'bound_ms': bound, 'bound_by': bound_by})
-    return {'max_abs_err': max_err, 'ms': timing['gumbel']['ms'],
-            'plain_ms': timing['gumbel']['plain_ms'], 'bound_ms': bound,
-            'bound_by': bound_by}
+    tensors = (values, cl_scores, coeffs, torch.empty(B, dtype=torch.int32),
+               torch.empty(SLOTS, 3 * FEATURES))
+    bd = bounds(port, tensors, gumbel_ops_per_cell((FEATURES,), (), 0), B,
+                SLOTS)
+    bd_fast = bounds(port, tensors,
+                     gumbel_ops_per_cell((FEATURES,), (), 0, 'fast_log'), B,
+                     SLOTS)
+    emit(dict({'phase': 'kernel', 'B': B, 'C': SLOTS, 'cols': FEATURES,
+               'modes': modes, 'bitwise_repeatable': True, 'ragged': ragged,
+               'timing': timing,
+               'gumbel_fast_measured_bound_ms': bd_fast['measured_bound_ms']},
+              **bd))
+    return dict(bd, max_abs_err=max_err, ms=timing['gumbel']['ms'],
+                plain_ms=timing['gumbel']['plain_ms'])
 
 
 def phase_kernel_k2(port):
@@ -511,22 +598,21 @@ def phase_kernel_k2(port):
         max_err = max(max_err, err)
         lay = m['lay']
         qdim = port['fk'].quad_stat_dim(lay.quad_groups)
-        bound, bound_by = bound_ms(
+        bd = bounds(
+            port,
             (lay.nich_vals, lay.quad_vals, lay.table_idx, m['cl_scores'],
              m['coeffs'], m['qcoeffs'], m['tables'],
              torch.empty(B, dtype=torch.int32),
              torch.empty(C, 3 * sum(m['col_groups']) + qdim
                          + sum(lay.table_vs))),
-            gumbel_flops_per_cell(m['col_groups'], lay.quad_groups,
-                                  len(lay.table_vs)), B, C)
-        result['layouts'][kind] = {
-            'modes': modes, 'timing': timing, 'bitwise_repeatable': True,
-            'table_vs': list(lay.table_vs), 'bound_ms': bound,
-            'bound_by': bound_by}
+            gumbel_ops_per_cell(m['col_groups'], lay.quad_groups,
+                                len(lay.table_vs)), B, C)
+        result['layouts'][kind] = dict(
+            {'modes': modes, 'timing': timing, 'bitwise_repeatable': True,
+             'table_vs': list(lay.table_vs)}, **bd)
         if kind == 'niw2mix':
-            summary = {'ms': timing['gumbel']['ms'],
-                       'plain_ms': timing['gumbel']['plain_ms'],
-                       'bound_ms': bound, 'bound_by': bound_by}
+            summary = dict(bd, ms=timing['gumbel']['ms'],
+                           plain_ms=timing['gumbel']['plain_ms'])
         del m, case
 
     # ragged slots and rows, niw d=3 + nich + bb
@@ -574,10 +660,11 @@ def v1_mixed_inputs(port, m):
                                           m['state'])
 
 
-def v1_bound(tensors, cols, n_tab, B, C):
+def v1_bounds(port, tensors, cols, n_tab, B, C):
     import torch
-    return bound_ms(tuple(tensors) + (torch.empty(B, dtype=torch.int32),),
-                    v1_flops_per_cell(cols, n_tab), B, C)
+    return bounds(port,
+                  tuple(tensors) + (torch.empty(B, dtype=torch.int32),),
+                  v1_ops_per_cell(cols, n_tab), B, C)
 
 
 def phase_kernel_k4(port, X, labels):
@@ -603,19 +690,17 @@ def phase_kernel_k4(port, X, labels):
     ragged, _ = check_ragged(
         port, v1_case(port, 'K4', ragged_vals, None, cl_r, co_r, None),
         host_noise(port, Br, Cr, 5))
-    bound, bound_by = v1_bound((values, cl_scores, coeffs), FEATURES, 0, B,
-                               SLOTS)
-    emit({'phase': 'kernel_k4', 'B': B, 'C': SLOTS, 'cols': FEATURES,
-          'modes': modes, 'bitwise_repeatable': True, 'ragged': ragged,
-          'timing': timing, 'bound_ms': bound, 'bound_by': bound_by})
+    bd = v1_bounds(port, (values, cl_scores, coeffs), FEATURES, 0, B, SLOTS)
+    emit(dict({'phase': 'kernel_k4', 'B': B, 'C': SLOTS, 'cols': FEATURES,
+               'modes': modes, 'bitwise_repeatable': True, 'ragged': ragged,
+               'timing': timing}, **bd))
     # draws only: the error against the twin is the count of draws that
     # differ, 0 or the check above has raised
-    return {'max_abs_err': float(max(r['mismatched_draws']
-                                     for r in modes.values()
-                                     if 'mismatched_draws' in r)),
-            'ms': timing['gumbel']['ms'],
-            'plain_ms': timing['gumbel']['plain_ms'], 'bound_ms': bound,
-            'bound_by': bound_by}
+    return dict(bd, max_abs_err=float(max(r['mismatched_draws']
+                                          for r in modes.values()
+                                          if 'mismatched_draws' in r)),
+                ms=timing['gumbel']['ms'],
+                plain_ms=timing['gumbel']['plain_ms'])
 
 
 def phase_kernel_k5(port):
@@ -638,17 +723,16 @@ def phase_kernel_k5(port):
         worst = max([worst] + [r['mismatched_draws'] for r in modes.values()
                                if 'mismatched_draws' in r])
         cols = 0 if lay.nich_vals is None else lay.nich_vals.shape[1]
-        bound, bound_by = v1_bound(
+        bd = v1_bounds(
+            port,
             (lay.nich_vals, lay.table_idx, m['cl_scores'], coeffs, tables),
             cols, len(lay.table_vs), B, C)
-        result['layouts'][kind] = {
-            'modes': modes, 'timing': timing, 'bitwise_repeatable': True,
-            'tables': list(tables.shape), 'bound_ms': bound,
-            'bound_by': bound_by}
+        result['layouts'][kind] = dict(
+            {'modes': modes, 'timing': timing, 'bitwise_repeatable': True,
+             'tables': list(tables.shape)}, **bd)
         if kind == 'nichbbddgp':
-            summary = {'ms': timing['gumbel']['ms'],
-                       'plain_ms': timing['gumbel']['plain_ms'],
-                       'bound_ms': bound, 'bound_by': bound_by}
+            summary = dict(bd, ms=timing['gumbel']['ms'],
+                           plain_ms=timing['gumbel']['plain_ms'])
         del m, case
 
     # ragged slots and rows, on nich + gp + bb and on dd + bb
@@ -816,32 +900,32 @@ def phase_kernel_k3(port):
             timing[mode] = {'ms': cuda_ms(launch, 7),
                             'plain_ms': cuda_ms(plain, 3)}
         args, kwargs = slot_slice(m, 0, CL)
-        flops = gumbel_flops_per_cell(m['col_groups'], lay.quad_groups,
-                                      len(lay.table_vs))
-        bound, bound_by = bound_ms(
+        ops = gumbel_ops_per_cell(m['col_groups'], lay.quad_groups,
+                                  len(lay.table_vs))
+        bd = bounds(
+            port,
             (lay.nich_vals, lay.quad_vals, lay.table_idx) + args[2:5]
             + (kwargs['qcoeffs'], torch.empty(B, dtype=torch.int32),
-               torch.empty(B)), flops, B, CL)
-        entry = {'modes': modes, 'timing': timing, 'bitwise_repeatable': True,
-                 'bound_ms': bound, 'bound_by': bound_by}
+               torch.empty(B)), ops, B, CL)
+        entry = dict({'modes': modes, 'timing': timing,
+                      'bitwise_repeatable': True}, **bd)
         if kind == 'niw2mix':
             # one launch over the whole slot axis
             w_args, w_kwargs = slot_slice(m, 0, C)
             one, _ = check_pair_shards(port, m, (0, C), noise, None)
             fk.fused_score_sample_pair(3, *w_args, sampling='gumbel',
                                        **w_kwargs)
-            w_bound, w_by = bound_ms(
+            w_bd = bounds(
+                port,
                 (lay.nich_vals, lay.quad_vals, lay.table_idx) + w_args[2:5]
                 + (w_kwargs['qcoeffs'], torch.empty(B, dtype=torch.int32),
-                   torch.empty(B)), flops, B, C)
-            entry['whole_slot_axis'] = {
-                'C_local': C, 'modes': one,
-                'gumbel_ms': cuda_ms(lambda: fk.fused_score_sample_pair(
-                    3, *w_args, sampling='gumbel', **w_kwargs), 7),
-                'bound_ms': w_bound, 'bound_by': w_by}
-            summary = {'ms': timing['gumbel']['ms'],
-                       'plain_ms': timing['gumbel']['plain_ms'],
-                       'bound_ms': bound, 'bound_by': bound_by}
+                   torch.empty(B)), ops, B, C)
+            entry['whole_slot_axis'] = dict(
+                {'C_local': C, 'modes': one,
+                 'gumbel_ms': cuda_ms(lambda: fk.fused_score_sample_pair(
+                     3, *w_args, sampling='gumbel', **w_kwargs), 7)}, **w_bd)
+            summary = dict(bd, ms=timing['gumbel']['ms'],
+                           plain_ms=timing['gumbel']['plain_ms'])
         result['layouts'][kind] = entry
         del m
 
@@ -854,6 +938,494 @@ def phase_kernel_k3(port):
     summary['max_abs_err'] = max(worst, err)
     emit(result)
     return summary
+
+
+def phase_kernel_b4(port):
+    """B4, the streamed copy, at the roofline entry point's 512 MB."""
+    import torch
+    bk = port['bk']
+    dev = port['config'].default_device()
+    n = COPY_MB * (1 << 20) // 4
+    x = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(4),
+                    device=dev)
+    got = bk.roofline_copy(x)
+    torch.cuda.synchronize()
+    want = bk.roofline_copy_plain(x)
+    err = float((got - want).abs().max())
+    # a length that is no multiple of the 16-byte access
+    ragged = x[:min(n - 1, (1 << 16) + 3)]
+    exact = bool(torch.equal(got, want)) and bool(torch.equal(
+        bk.roofline_copy(ragged), bk.roofline_copy_plain(ragged)))
+    del got, want
+    if not exact:
+        raise AssertionError('B4 differs from x + 1 (max abs err %g)' % err)
+    torch.add(x, 1)
+    ms = cuda_ms(lambda: bk.roofline_copy(x), 7)
+    plain_ms = cuda_ms(lambda: bk.roofline_copy_plain(x), 7)
+    library_ms = cuda_ms(lambda: torch.add(x, 1), 7)
+    nbytes = 2.0 * n * 4
+    bound, bound_by = nominal_bound(nbytes, n)
+    out = {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+           'library_ms': library_ms, 'bound_ms': bound, 'bound_by': bound_by,
+           # the kernel is its own yardstick: its rate is the measured one
+           'measured_bound_ms': ms, 'measured_bound_by': 'bytes'}
+    emit(dict({'phase': 'kernel_b4', 'mb': COPY_MB, 'exact': exact,
+               'bytes_per_sec': nbytes / (ms / 1e3),
+               'library': 'torch.add(x, 1)',
+               'library_bytes_per_sec': nbytes / (library_ms / 1e3)}, **out))
+    return out
+
+
+def phase_kernel_b2(port):
+    """B2, the dependent chain: every op and depth against the twin at a
+    small T, then 'mul' (exact) and 'log' at the entry point's size."""
+    import torch
+    bk = port['bk']
+    dev = port['config'].default_device()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    small = torch.rand((64, 1024), generator=gen, device=dev) + 0.5
+    per_op = {}
+    for op in bk.CHAIN_OPS:
+        worst = 0.0
+        for K in (1, 5, 9):
+            got = bk.roofline_chain(small, op, 3, K)
+            want = bk.roofline_chain_plain(small, op, 3, K)
+            worst = max(worst, float((got - want).abs().max()))
+            if op in bk.CHAIN_EXACT_OPS:
+                ok = bool(torch.equal(got, want))
+            else:
+                # CUDA's logf / expf / log1pf / rsqrtf against PyTorch's
+                ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-6))
+            if not ok:
+                raise AssertionError('B2 %s K=%d disagrees with its twin '
+                                     '(max abs err %g)' % (op, K, worst))
+        per_op[op] = worst
+
+    (rows, width), T, K = CHAIN_SHAPE, CHAIN_T, 9
+    x = torch.randn((rows, width), generator=gen, device=dev).abs() + 0.5
+    if not torch.equal(bk.roofline_chain(x, 'mul', T, K),
+                       bk.roofline_chain_plain(x, 'mul', T, K)):
+        raise AssertionError('B2 mul at full size differs from its twin')
+    got = bk.roofline_chain(x, 'log', T, K)
+    torch.cuda.synchronize()
+    want = bk.roofline_chain_plain(x, 'log', T, K)
+    err = float((got - want).abs().max())
+    # 256 summed terms of a 9-deep chain whose map expands near 0: ulps of
+    # logf may grow by two orders of magnitude
+    if not torch.allclose(got, want, rtol=1e-3, atol=1e-2):
+        raise AssertionError('B2 log at full size: max abs err %g' % err)
+    del got, want
+    ms = cuda_ms(lambda: bk.roofline_chain(x, 'log', T, K), 5)
+    plain_ms = cuda_ms(lambda: bk.roofline_chain_plain(x, 'log', T, K), 1)
+    # per chain step the renorm's add and the log; y = x + i and the sum
+    n_ops = float(rows) * width * T * (2 * K + 2)
+    bound, bound_by = nominal_bound(2.0 * rows * width * 4, n_ops)
+    out = {'max_abs_err': max(err, max(per_op.values())), 'ms': ms,
+           'plain_ms': plain_ms, 'library_ms': None, 'bound_ms': bound,
+           'bound_by': bound_by, 'measured_bound_ms': ms,
+           'measured_bound_by': 'operations'}
+    emit(dict({'phase': 'kernel_b2', 'small': {'shape': [64, 1024], 'T': 3,
+                                               'K': [1, 5, 9],
+                                               'max_abs_err': per_op},
+               'timed': {'op': 'log', 'shape': [rows, width], 'T': T, 'K': K,
+                         'max_abs_err': err},
+               'exact_ops': list(bk.CHAIN_EXACT_OPS)}, **out))
+    return out
+
+
+def phase_kernel_b3(port):
+    """B3, the tensor-core products, at the entry point's 1024^3."""
+    import torch
+    bk = port['bk']
+    dev = port['config'].default_device()
+    N, steps = MMA_N, MMA_STEPS
+    gen = torch.Generator(device=dev).manual_seed(3)
+    # operands from {-1, 0, 1}: every product and sum is an integer that
+    # f32 and, for acc, bf16 hold exactly, whatever the order of the sums
+    a, b = (torch.randint(-1, 2, (N, N), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    got = bk.roofline_mma(a, b, 1)
+    want = bk.roofline_mma_plain(a, b, 1)
+    int_err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError('B3 on integer operands differs from its twin '
+                             '(max abs err %g)' % int_err)
+    a, b = (torch.randn((N, N), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    got = bk.roofline_mma(a, b, 2)
+    want = bk.roofline_mma_plain(a, b, 2)
+    err = float((got - want).abs().max())
+    rms = float(want.pow(2).mean().sqrt())
+    # f32 sums in another order, and a bf16 rounding of acc that flips
+    # where acc lies at a rounding boundary (a quarter at |acc| ~ 32, one
+    # or two of the 1024 terms of an output): held to 1e-2 of the result's
+    # root mean square
+    if not err <= 1e-2 * rms:
+        raise AssertionError('B3 on normal operands: max abs err %g (rms of '
+                             'the result %g)' % (err, rms))
+    del got, want
+    bk.roofline_mma(a, b, steps)
+    ms = cuda_ms(lambda: bk.roofline_mma(a, b, steps), 3)
+    bk.roofline_mma_plain(a, b, 2)
+    plain_ms = cuda_ms(lambda: bk.roofline_mma_plain(a, b, steps), 1)
+
+    def library():
+        for _ in range(2 * steps):
+            torch.matmul(a, b)
+    library()
+    library_ms = cuda_ms(library, 3)
+    flops = 4.0 * N ** 3 * steps
+    bound, bound_by = nominal_bound(2.0 * N * N * 2 + N * N * 4, flops,
+                                    PEAK_BF16_PER_S)
+    out = {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+           'library_ms': library_ms, 'bound_ms': bound, 'bound_by': bound_by,
+           'measured_bound_ms': ms, 'measured_bound_by': 'operations'}
+    emit(dict({'phase': 'kernel_b3', 'N': N, 'steps': steps,
+               'launches_per_call': 2 * steps,
+               'integer_operands_max_abs_err': int_err,
+               'normal_operands': {'steps': 2, 'max_abs_err': err,
+                                   'result_rms': rms},
+               'flops_per_sec': flops / (ms / 1e3),
+               'library': '%d x torch.matmul(a, b)' % (2 * steps),
+               'library_flops_per_sec': flops / (library_ms / 1e3)}, **out))
+    return out
+
+
+def phase_roofline(port):
+    """The roofline entry point at its default sizes.  Leaves the measured
+    rates in port['rates'] and returns the launches of B2, B3 and B4."""
+    bk, roofline = port['bk'], port['roofline']
+    wrappers = {'B2': bk.roofline_chain, 'B3': bk.roofline_mma,
+                'B4': bk.roofline_copy}
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.time()
+    r = roofline.measure()
+    seconds = time.time() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    detail = r.pop('detail')
+    for op in roofline.OPS:
+        d = detail[op]
+        # the time is linear in the depth: the compiler kept every step
+        if not (d['evals_per_sec'] > 0 and 0.3 < d['midpoint'] < 0.7):
+            raise AssertionError('B2 %s: the time is not linear in the chain '
+                                 'depth: %s' % (op, d))
+    per = {op: 1.0 / r['vpu_%s_ops_per_sec' % op] for op in roofline.OPS}
+    # seconds per evaluation by kind.  A chain step of log, log1p, rsqrt
+    # and fast_log holds one add beside the op, of exp and fast_exp one
+    # multiply, of a Philox block one of each: taken off.
+    sec_per = {'simple': min(per['add'], per['mul'], per['fma']),
+               'philox': per['philox'] - per['add'] - per['mul']}
+    for op, renorm in (('log', 'add'), ('log1p', 'add'), ('rsqrt', 'add'),
+                       ('fast_log', 'add'), ('exp', 'mul'),
+                       ('fast_exp', 'mul')):
+        sec_per[op] = per[op] - per[renorm]
+    if min(sec_per.values()) <= 0:
+        raise AssertionError('a measured op cost is not positive: %s'
+                             % sec_per)
+    port['rates'] = {'bytes_per_sec': r['hbm_bytes_per_sec'],
+                     'sec_per': sec_per}
+    emit(dict({'phase': 'roofline', 'seconds': round(seconds, 3),
+               'launches': launches,
+               'chain_ms': {op: detail[op]['ms'] for op in roofline.OPS},
+               'chain_midpoint': {op: detail[op]['midpoint']
+                                  for op in roofline.OPS},
+               'mma': detail['mma'], 'hbm': detail['hbm'],
+               'seconds_per_op': sec_per,
+               'slots_per_op': {k: v / sec_per['simple']
+                                for k, v in sec_per.items()}}, **r))
+    return launches
+
+
+def phase_kernel_phases(port):
+    """The phase profiler's entry point, at its default single nich column
+    and at the flagship's two.  Returns B5's launches."""
+    bk, kp = port['bk'], port['kernel_phases']
+    bk.fused_phase.launches = 0
+    default = kp.run()
+    flagship = kp.run(cols=FEATURES)
+    launches = bk.fused_phase.launches
+    # the phases that are not K1 itself ('full_*' goes through K1's wrapper)
+    own = [m for m in kp.MODES if not m.startswith('full_')]
+    want = sum(len(own) * r['tiles'] * (r['reps'] + 1)
+               for r in (default, flagship))
+    if launches != want:
+        raise AssertionError('B5: %d launches, expected %d'
+                             % (launches, want))
+    ms = flagship['ms']
+    cells = float(flagship['rows']) * flagship['cap']
+    # what a Philox block costs in place, inside K1, beside the rate of
+    # the generator alone (B2's 'philox' op)
+    philox = 4.0 * (ms['score_bits'] - ms['score_max']) / 1e3 / cells
+    if not (philox > 0 and ms['full_gumbel'] > ms['score_gumbel']
+            > ms['score_bits'] > ms['score_max'] > ms['noop'] > 0):
+        raise AssertionError('the cumulative phases do not take cumulative '
+                             'time: %s' % ms)
+    emit({'phase': 'kernel_phases', 'launches': launches,
+          'cols_1': default, 'cols_%d' % FEATURES: flagship,
+          'philox_in_k1_seconds_per_block': philox,
+          'philox_alone_seconds_per_block':
+              port['rates']['sec_per']['philox']})
+    return launches
+
+
+def phase_kernel_b5(port, X, labels):
+    """B5 at K1's flagship tile: every phase against its twin or against
+    K1 itself, and the phases' milliseconds."""
+    import torch
+    bk, fk = port['bk'], port['fk']
+    dev = port['config'].default_device()
+    B = BLOCK
+    all_values = torch.as_tensor(X, device=dev)
+    values = all_values[:B].contiguous()
+    _, _, _, _, cl_scores, coeffs = nich_inputs(port, all_values, labels,
+                                                SLOTS)
+    args = (values, cl_scores, coeffs, (FEATURES,))
+    checks = {}
+    checks['noop_equal'] = bool(torch.equal(
+        bk.fused_phase('noop', 0, *args),
+        bk.fused_phase_plain('noop', 0, *args)))
+    best = bk.fused_phase('score_max', 0, *args)
+    want = bk.fused_phase_plain('score_max', 0, *args)
+    best_err = float((best - want).abs().max())
+    checks['score_max_bitwise_equal'] = bool(torch.equal(best, want))
+    checks['score_max_within_1e-6'] = bool(
+        ((best - want).abs() <= 1e-6 + 1e-6 * want.abs()).all())
+    # 'score_bits' perturbs by at most BITS_NOISE_MAX: its pick scores
+    # within that (and a rounding) of the row maximum
+    scores = fk._score_nich_product(values, coeffs, cl_scores, (FEATURES,),
+                                    torch.log)
+    pick = bk.fused_phase('score_bits', 5, *args)
+    top = scores.amax(1)
+    gap = top - scores.gather(1, pick.long().clamp(0, SLOTS - 1)[:, None])[:, 0]
+    del scores
+    checks['score_bits_in_range'] = bool(
+        int(pick.min()) >= 0 and int(pick.max()) < SLOTS)
+    checks['score_bits_near_the_maximum'] = bool(
+        (gap <= bk.BITS_NOISE_MAX + 1e-6 + 1e-6 * top.abs()).all())
+    noise = host_noise(port, B, SLOTS, 11)['gumbel_host']
+    for sampling, nz in (('argmax', None), ('gumbel_host', noise),
+                         ('gumbel', None), ('cdf', None),
+                         ('gumbel_fast', None)):
+        a, s = fk.fused_score_sample_stats(5, *args, sampling=sampling,
+                                           noise=nz)
+        checks['score_%s_equals_k1' % sampling] = bool(torch.equal(
+            bk.fused_phase('score_' + sampling, 5, *args, noise=nz), a))
+        a2, s2 = bk.fused_phase('full_' + sampling, 5, *args, noise=nz)
+        checks['full_%s_equals_k1' % sampling] = bool(
+            torch.equal(a2, a) and torch.equal(s2, s))
+    del noise
+    if not all(v for k, v in checks.items()
+               if k != 'score_max_bitwise_equal'):
+        raise AssertionError('B5 disagrees: %s (score_max err %g)'
+                             % (checks, best_err))
+    timing = {}
+    for phase in ('noop', 'score_max', 'score_bits', 'score_gumbel'):
+        bk.fused_phase(phase, 3, *args)
+        timing[phase] = cuda_ms(lambda: bk.fused_phase(phase, 3, *args), 7)
+    bk.fused_phase_plain('score_gumbel', 3, *args)
+    plain_ms = cuda_ms(
+        lambda: bk.fused_phase_plain('score_gumbel', 3, *args), 3)
+    bd = bounds(port, (values, cl_scores, coeffs,
+                       torch.empty(B, dtype=torch.int32)),
+                gumbel_ops_per_cell((FEATURES,), (), 0), B, SLOTS)
+    emit(dict({'phase': 'kernel_b5', 'B': B, 'C': SLOTS, 'cols': FEATURES,
+               'checks': checks, 'score_max_max_abs_err': best_err,
+               'timing_ms': timing, 'timed': 'score_gumbel'}, **bd))
+    return dict(bd, max_abs_err=best_err, ms=timing['score_gumbel'],
+                plain_ms=plain_ms)
+
+
+def repeated_ztest(draws, scores, min_expected=20.0):
+    """Largest |z| of the slot frequencies of draws [T, BR] (T independent
+    draws of each row's categorical) against the softmax of scores
+    [BR, C], over slots expecting more than `min_expected` draws."""
+    import torch
+    T = draws.shape[0]
+    p = torch.softmax(scores.to(torch.float64), dim=1)
+    counts = torch.bincount(draws.reshape(-1).long(),
+                            minlength=p.shape[1]).to(torch.float64)
+    expected = T * p.sum(0)
+    var = torch.clamp(T * (p * (1 - p)).sum(0), min=1e-9)
+    z = (counts - expected) / var.sqrt()
+    return float(z[expected > min_expected].abs().max())
+
+
+def phase_kernel_b1(port):
+    """B1, the sampler alone, at the suite's sizes."""
+    import torch
+    bk = port['bk']
+    dev = port['config'].default_device()
+    rows = port['suite'].SAMPLER_ROWS
+    gen = torch.Generator(device=dev).manual_seed(6)
+    sizes = {}
+    summary = None
+    for C in SAMPLER_SIZES:
+        scores = torch.randn((rows, C), generator=gen, device=dev)
+        noise = host_noise(port, rows, C, 17)['gumbel_host']
+        bad = 0
+        for sampling, nz in (('argmax', None), ('gumbel_host', noise)):
+            got = bk.sampler_gumbel(4, scores, 4, sampling, nz,
+                                    all_draws=True)
+            want = bk.sampler_gumbel_plain(4, scores, 4, sampling, nz,
+                                           all_draws=True)
+            bad += sum(int((x != y).sum()) for x, y in zip(got, want))
+        if bad:
+            raise AssertionError('B1 C=%d: %d draws or checksums differ from '
+                                 'the twin' % (C, bad))
+        T = 128
+        last, checksum, draws = bk.sampler_gumbel(9, scores, T,
+                                                  all_draws=True)
+        again = bk.sampler_gumbel(9, scores, T, all_draws=True)
+        consistent = (all(torch.equal(x, y) for x, y in zip(
+            (last, checksum, draws), again))
+            and torch.equal(last, draws[-1])
+            and torch.equal(checksum, draws.sum(0).to(torch.int32))
+            and not torch.equal(draws[0], draws[1]))
+        z = repeated_ztest(draws, scores)
+        if not (consistent and z < Z_MAX):
+            raise AssertionError('B1 C=%d gumbel: consistent %s, max |z| %g'
+                                 % (C, consistent, z))
+        sizes[C] = {'mismatches': bad, 'max_abs_z': z, 'z_draws': rows * T,
+                    'bitwise_repeatable': True}
+        if C == SAMPLER_TIMED:
+            # the suite's iteration count at this C: 2^28 cells a call
+            T = max(16, (1 << 28) // (rows * C))
+            bk.sampler_gumbel(3, scores, T)
+            ms = cuda_ms(lambda: bk.sampler_gumbel(3, scores, T), 7)
+            bk.sampler_gumbel_plain(3, scores, 2)
+            plain_ms = cuda_ms(
+                lambda: bk.sampler_gumbel_plain(3, scores, T), 2)
+            bd = bounds(port, (scores, last, checksum), dict(DRAW_OPS),
+                        rows * T, C)
+            summary = dict(bd, max_abs_err=float(bad), ms=ms,
+                           plain_ms=plain_ms, library_ms=None)
+            sizes[C]['timed'] = {'iters': T, 'ms': ms, 'plain_ms': plain_ms}
+    emit(dict({'phase': 'kernel_b1', 'rows': rows, 'sizes': sizes}, **bd))
+    return summary
+
+
+def phase_suite(port):
+    """The suite's ported sections at their default sizes (each prints its
+    own result lines).  Returns B1's launches."""
+    bk, suite = port['bk'], port['suite']
+    bk.sampler_gumbel.launches = 0
+    sampler = suite.bench_kernel_sampler()
+    launches = bk.sampler_gumbel.launches
+    # one warm-up and three timed calls per size
+    if launches != 4 * len(sampler):
+        raise AssertionError('B1: %d launches, expected %d'
+                             % (launches, 4 * len(sampler)))
+    grid = suite.bench_hyper_grid()
+    emit({'phase': 'suite', 'launches': launches,
+          'kernel_sampler_elems_per_sec': {r['size']: r['elems_per_sec']
+                                           for r in sampler},
+          'hyper_grid_ms': grid[0]['ms'],
+          'hyper_grid_cells_per_sec': grid[0]['value']})
+    return launches
+
+
+def phase_main_hypers(port, X, labels):
+    """run_gibbs with hyperparameter moves through the normal entry point:
+    nich2 at full width, a 64-point sigmasq grid and an 8 x 8 Pitman-Yor
+    grid every 5 of 10 sweeps."""
+    import numpy as np
+    import torch
+    fk, mx, hypers, nich = (port['fk'], port['mx'], port['hypers'],
+                            port['nich'])
+    dev = port['config'].default_device()
+    spec = mx.make_spec([(nich, FEATURES)], capacity=SLOTS)
+    shareds = (nich.shared_from_dict(SHARED),)
+    py = port['cl'].PitmanYor.from_dict(PY)
+    G = 64
+    grid = nich.Shared(
+        mu=torch.zeros(G, device=dev),
+        kappa=torch.full((G,), SHARED['kappa'], device=dev),
+        sigmasq=torch.as_tensor(np.logspace(-4, 0, G).astype(np.float32),
+                                device=dev),
+        nu=torch.ones(G, device=dev))
+    cl_grid = hypers.make_py_grid(np.logspace(-1, 2, 8).astype(np.float32),
+                                  np.linspace(0.0, 0.7, 8).astype(np.float32))
+    passes, every = 10, 5
+    torch.cuda.synchronize()
+    fk.fused_score_sample_stats.launches = 0
+    t0 = time.time()
+    state, an, log = port['runner'].run_gibbs(
+        spec, py, shareds, (X,), torch.Generator().manual_seed(0), passes,
+        block=BLOCK, use_pallas=True, sampling='gumbel',
+        initial_assignments=labels, grow_headroom=0.0, sweeps_per_step=every,
+        hyper_grids={0: grid}, cl_grid=cl_grid, hyper_every=every)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = expect_launches('run_gibbs(hyper_grids)',
+                               fk.fused_score_sample_stats,
+                               ROWS // BLOCK * passes)
+
+    def point(g, i):
+        return type(g)(*(leaf[i] for leaf in g))
+    moves = [(r['sweep'], r.get('hyper_0'), r.get('hyper_cl'))
+             for r in log.rows]
+    sh_new, py_new = log.final_shareds, log.final_cl_model
+    values = (torch.as_tensor(X, device=an.device),)
+    # the last row was scored before its move, under the hyperparameters
+    # chosen at the first edge
+    run_checks, score = check_run(
+        port, spec, point(cl_grid, moves[0][2]), (point(grid, moves[0][1]),),
+        values, state, an, log)
+    after = float(mx.score_data(spec, py_new, sh_new, state))
+    fresh = float(mx.score_data(spec, py_new, sh_new,
+                                mx.state_from_assignments(
+                                    spec, py_new, sh_new, values, an)))
+    last = moves[-1]
+    checks = dict(
+        run_checks,
+        moves_at_the_edges=[m[0] for m in moves] == [every - 1, passes - 1],
+        indices_in_range=all(0 <= m[1] < G and 0 <= m[2] < 64
+                             for m in moves),
+        final_shareds_are_the_logged_point=bool(
+            torch.equal(sh_new[0].sigmasq, grid.sigmasq[last[1]])
+            and torch.equal(py_new.alpha, cl_grid.alpha[last[2]])
+            and torch.equal(py_new.d, cl_grid.d[last[2]])),
+        score_after_equals_fresh=abs(after - fresh) <= 1e-4 * abs(fresh))
+    if not all(checks.values()):
+        raise AssertionError('main_hypers: %s (moves %s, score after %r, '
+                             'fresh %r)' % (checks, moves, after, fresh))
+
+    gen = torch.Generator().manual_seed(1)
+
+    def wall_ms(fn):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.time() - t0))
+        return sorted(times)[2]
+    # a move as the runner makes it: the chosen index is read on the host
+    feature_ms = wall_ms(lambda: int(hypers.grid_step_feature(
+        gen, spec, 0, sh_new, state, grid)[1]))
+    cl_ms = wall_ms(lambda: int(hypers.grid_step_clustering(
+        gen, cl_grid, state)[1]))
+    steps = [r['seconds'] for r in log.rows]
+    emit({'phase': 'main_hypers', 'rows': ROWS, 'slots': SLOTS,
+          'sweeps': passes, 'hyper_every': every, 'launches': launches,
+          'moves': [{'sweep': m[0], 'hyper_0': m[1], 'hyper_cl': m[2],
+                     'sigmasq': float(grid.sigmasq[m[1]]),
+                     'alpha': float(cl_grid.alpha[m[2]]),
+                     'd': float(cl_grid.d[m[2]])} for m in moves],
+          'grid_argmax': {
+              'hyper_0': int(hypers.grid_step_feature(
+                  gen, spec, 0, sh_new, state, grid, sample=False)[1]),
+              'hyper_cl': int(hypers.grid_step_clustering(
+                  gen, cl_grid, state, sample=False)[1])},
+          'score_data_last_row': score, 'score_data_after_move': after,
+          'fresh_score_data_after_move': fresh, 'checks': checks,
+          'step_seconds': steps, 'wall_seconds': round(wall, 3),
+          # the second step also rebuilds the stat cache after the move
+          'ms_per_sweep_by_step': [1e3 * s / every for s in steps],
+          'feature_grid_step_ms': feature_ms,
+          'clustering_grid_step_ms': cl_ms})
 
 
 def check_run(port, spec, py, shareds, values, state, assignments, log):
@@ -1680,16 +2252,20 @@ def main():
     sys.path.insert(0, HERE)
     from distributions_tpu_torch import (clustering, config, mixture, random,
                                          testing)
-    from distributions_tpu_torch.inference import runner
+    from distributions_tpu_torch.benchmarks import (kernel_phases, roofline,
+                                                    suite)
+    from distributions_tpu_torch.inference import hypers, runner
     from distributions_tpu_torch.io import checkpoint
     from distributions_tpu_torch.models import MODULES, base, nich
-    from distributions_tpu_torch.ops import fused_kernels, gibbs
+    from distributions_tpu_torch.ops import bench_kernels, fused_kernels, gibbs
     from distributions_tpu_torch.parallel import distributed, sharding
     port = {'cl': clustering, 'config': config, 'mx': mixture,
             'random': random, 'testing': testing, 'runner': runner,
             'base': base, 'nich': nich, 'models': MODULES,
             'fk': fused_kernels, 'gibbs': gibbs, 'checkpoint': checkpoint,
-            'sharding': sharding, 'distributed': distributed}
+            'sharding': sharding, 'distributed': distributed,
+            'bk': bench_kernels, 'roofline': roofline, 'suite': suite,
+            'kernel_phases': kernel_phases, 'hypers': hypers}
     fk = fused_kernels
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError('TF32 matmuls must stay off on this path')
@@ -1698,7 +2274,20 @@ def main():
           'default_device': str(config.default_device()),
           'torch': torch.__version__, 'cuda': torch.version.cuda})
     phase_build(fk)
+    # the measurement kernels and the card's rates first: the measured
+    # bounds of every kernel below divide by them
+    b4 = phase_kernel_b4(port)
+    b2 = phase_kernel_b2(port)
+    b3 = phase_kernel_b3(port)
+    launches = phase_roofline(port)
+    b2['launches'], b3['launches'], b4['launches'] = (
+        launches['B2'], launches['B3'], launches['B4'])
+    b5_launches = phase_kernel_phases(port)
     X, labels = flagship_data()
+    b5 = phase_kernel_b5(port, X, labels)
+    b5['launches'] = b5_launches
+    b1 = phase_kernel_b1(port)
+    b1['launches'] = phase_suite(port)
     k1 = phase_kernel(port, X, labels)
     k2 = phase_kernel_k2(port)
     k3 = phase_kernel_k3(port)
@@ -1731,24 +2320,43 @@ def main():
                                   n_clusters=TRUE_CLUSTERS)
     k2['launches'] = phase_main_mixed(port, mixed)
     k3['launches'] = phase_sharded(port, X, labels, mixed)
-    del X, mixed
+    del mixed
+    phase_main_hypers(port, X, labels)
+    del X
+    pk = 'distributions_tpu/ops/pallas_kernels.py:%d'
     kernels = []
     for name, source, replaces, k in (
-            ('fused_v2 (K1)', 'fused_v2.cu', 535, k1),
-            ('fused_v3 (K2)', 'fused_v3.cu', 749, k2),
-            ('fused_v3_pair (K3)', 'fused_v3.cu', 1061, k3),
-            ('score_sample_v1_nich (K4)', 'score_sample_v1.cu', 137, k4),
-            ('score_sample_v1_mixed (K5)', 'score_sample_v1.cu', 247, k5)):
+            ('fused_v2 (K1)', 'fused_v2.cu', pk % 535, k1),
+            ('fused_v3 (K2)', 'fused_v3.cu', pk % 749, k2),
+            ('fused_v3_pair (K3)', 'fused_v3.cu', pk % 1061, k3),
+            ('score_sample_v1_nich (K4)', 'score_sample_v1.cu', pk % 137, k4),
+            ('score_sample_v1_mixed (K5)', 'score_sample_v1.cu', pk % 247,
+             k5),
+            ('sampler_gumbel (B1)', 'sampler_bench.cu',
+             'benchmarks/suite.py:481', b1),
+            ('roofline_chain (B2)', 'roofline.cu',
+             'benchmarks/roofline.py:79', b2),
+            ('roofline_mma (B3)', 'roofline.cu',
+             'benchmarks/roofline.py:124', b3),
+            ('roofline_copy (B4)', 'roofline.cu',
+             'benchmarks/roofline.py:166', b4),
+            ('fused_v2 phases (B5)', 'fused_v2.cu',
+             'profile_kernel_phases.py:64', b5)):
+        if not k['launches'] > 0:
+            raise AssertionError('%s was not launched on its main path'
+                                 % name)
         kernels.append({
             'name': name, 'route': 'cuda',
             'source': 'distributions_tpu_torch/csrc/' + source,
-            'replaces': 'distributions_tpu/ops/pallas_kernels.py:%d'
-                        % replaces,
+            'replaces': replaces,
             'launches': k['launches'], 'max_abs_err': k['max_abs_err'],
             'ms': k['ms'], 'plain_ms': k['plain_ms'],
             'bound_ms': k['bound_ms'], 'bound_by': k['bound_by'],
-            # no single PyTorch call computes score + draw (+ sums)
-            'library_ms': None})
+            'measured_bound_ms': k['measured_bound_ms'],
+            'measured_bound_by': k['measured_bound_by'],
+            # no single PyTorch call computes score + draw (+ sums), a
+            # dependent chain or a resident sampler; B3 and B4 have one
+            'library_ms': k.get('library_ms')})
     emit({'kernels': kernels})
     print('nvidia-smi: %s' % card, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',

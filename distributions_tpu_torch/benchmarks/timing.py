@@ -1,0 +1,52 @@
+"""Timing for the measurement entry points: CUDA events on the card, the
+host clock on the CPU (where the entry points only run as small tests;
+every result names its device)."""
+
+import os
+import subprocess
+import time
+
+import torch
+
+
+def int_env(name, default):
+    return int(os.environ.get(name, default))
+
+
+def median_ms(fn, reps, device):
+    """Median milliseconds of `fn` over `reps` runs after one warm-up run:
+    by CUDA events on a CUDA device, by the host clock otherwise."""
+    device = torch.device(device)
+    fn()
+    times = []
+    for _ in range(reps):
+        if device.type == 'cuda':
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize(device)
+            times.append(a.elapsed_time(b))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def device_name(device):
+    """The device a result was measured on: for a card its name and power
+    limit as nvidia-smi gives them."""
+    device = torch.device(device)
+    if device.type != 'cuda':
+        return str(device)
+    try:
+        out = subprocess.run(
+            ['nvidia-smi', '--query-gpu=name,power.limit',
+             '--format=csv,noheader'], capture_output=True, text=True,
+            check=True, timeout=60)
+        return out.stdout.strip().splitlines()[device.index or 0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return torch.cuda.get_device_name(device)

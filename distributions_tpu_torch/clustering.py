@@ -61,7 +61,9 @@ def _low_entropy_not_ported():
 
 
 def py_score_counts(model, counts):
-    """Log prob of a partition given its counts [..., K] (zeros ignored):
+    """Log prob of a partition given its counts [..., K] (zeros ignored;
+    `model` may hold a grid of hyperparameters [G] against counts [K] or
+    [1, K], giving [G]):
       sum_k' log(alpha + d k') (k' = 0..K'-1)
       + sum_k [lgamma(c_k - d) - lgamma(1 - d)]
       + lgamma(alpha) - lgamma(alpha + n)."""
@@ -72,13 +74,17 @@ def py_score_counts(model, counts):
     K = counts.shape[-1]
     k_idx = torch.arange(K, dtype=torch.float32, device=counts.device)
     zero = torch.zeros((), dtype=torch.float32, device=counts.device)
+    # hyperparameters with a batch shape (a grid of models) broadcast
+    # against the counts' batch axes: [..., None] lines them up with K
+    alpha_k = torch.as_tensor(model.alpha)[..., None]
+    d_k = torch.as_tensor(model.d)[..., None]
     new_table_terms = torch.where(
         k_idx < nonempty_count[..., None],
-        torch.log(model.alpha + model.d * k_idx), zero).sum(-1)
+        torch.log(alpha_k + d_k * k_idx), zero).sum(-1)
     size_terms = torch.where(
         nonzero,
-        gammaln(torch.clamp(counts, min=1) - model.d)
-        - gammaln(1.0 - model.d), zero).sum(-1)
+        gammaln(torch.clamp(counts, min=1) - d_k) - gammaln(1.0 - d_k),
+        zero).sum(-1)
     denom = gammaln(model.alpha + n) - gammaln(model.alpha)
     return new_table_terms + size_terms - denom
 

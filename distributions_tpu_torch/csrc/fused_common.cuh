@@ -19,7 +19,7 @@
 #define F(x) ((float)(x))
 
 enum { MODE_ARGMAX = 0, MODE_GUMBEL = 1, MODE_GUMBEL_HOST = 2,
-       MODE_CDF = 3, MODE_CDF_HOST = 4 };
+       MODE_CDF = 3, MODE_CDF_HOST = 4, MODE_BITS = 5 };
 
 // -- fast_log / fast_exp: pallas_kernels.py _FAST_LOG_C / _FAST_EXP_C ------
 
@@ -119,7 +119,10 @@ __device__ __forceinline__ unsigned uint4_get(uint4 v, int i) {
 //     prefix is a sequential f32 sum in slot order, and total is the last
 //     prefix of that same scan, so the draw never reaches C.  It needs the
 //     scores three times (max, total, count);
-//   - '_host' modes read the caller's noise instead of Philox.
+//   - '_host' modes read the caller's noise instead of Philox;
+//   - 'bits' (the phase profiler's generator-only draw, never a sampler)
+//     takes 'gumbel's Philox words and adds m * 1e-9 to the score: the
+//     generator's cost without the two logs.
 
 template <int MODE, bool FAST>
 struct Draw {
@@ -169,9 +172,9 @@ struct Draw {
                                         float s,
                                         const float* __restrict__ noise) {
     if (MODE == MODE_ARGMAX || MODE == MODE_GUMBEL ||
-        MODE == MODE_GUMBEL_HOST) {
+        MODE == MODE_GUMBEL_HOST || MODE == MODE_BITS) {
       float tot = s;
-      if (MODE == MODE_GUMBEL) {
+      if (MODE == MODE_GUMBEL || MODE == MODE_BITS) {
         const int g = koff + k;
         const int q = g >> 2;
         if (q != bits_q) {
@@ -180,9 +183,13 @@ struct Draw {
           bits_q = q;
         }
         const unsigned m = uint4_get(bits4, g & 3) & 0x00FFFFFFu;
-        const float inner =
-            -log_<FAST>(__fmul_rn((float)m, F(5.960464477539063e-08)));
-        tot = __fsub_rn(s, log_<FAST>(fmaxf(inner, F(6e-8))));
+        if (MODE == MODE_BITS) {
+          tot = __fadd_rn(s, __fmul_rn((float)m, F(1e-9)));
+        } else {
+          const float inner =
+              -log_<FAST>(__fmul_rn((float)m, F(5.960464477539063e-08)));
+          tot = __fsub_rn(s, log_<FAST>(fmaxf(inner, F(6e-8))));
+        }
       } else if (MODE == MODE_GUMBEL_HOST) {
         tot = __fadd_rn(s, noise[(size_t)row * C + k]);
       }

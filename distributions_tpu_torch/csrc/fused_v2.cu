@@ -39,6 +39,16 @@
 // Bound through ctypes: fused_v2_launch() is a plain C entry point that
 // launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError().
+//
+// The same score + sample kernel is also instantiated over a compile-time
+// PHASE, for the phase profiler (replaces profile_kernel_phases.py::
+// _variant_kernel of the JAX package; entry point fused_v2_phase_launch):
+// 'noop' loads the values and writes one int per row, 'score_max' adds the
+// scoring and writes the row maximum, the draw MODE_BITS adds Philox
+// without the logs, and PHASE_FULL with any draw is the production kernel
+// without the two stat kernels behind it.  Each phase writes something
+// that depends on all its work.  The differences of their times split the
+// production kernel's time into load, scoring, generator, draw and sums.
 
 #include "fused_common.cuh"
 
@@ -47,6 +57,10 @@
 #define SCORE_THREADS 128
 #define STAT_THREADS 256
 #define SMEM_FLOATS (48 * 1024 / 4)
+
+static inline int imin(int a, int b) { return a < b ? a : b; }
+
+enum { PHASE_FULL = 0, PHASE_NOOP = 1, PHASE_SCORE_MAX = 2 };
 
 struct ColGroups {
   int n;
@@ -60,14 +74,15 @@ struct ColGroups {
 // one lc row per group, then prec, mean per column), followed by the
 // block's values [total_cols][SCORE_THREADS].
 
-template <int MODE, bool FAST>
+template <int MODE, bool FAST, int PHASE>
 __global__ void __launch_bounds__(SCORE_THREADS)
 fused_v2_score_sample(const float* __restrict__ values,
                       const float* __restrict__ cl,
                       const float* __restrict__ coeffs,
                       const float* __restrict__ noise,
-                      int* __restrict__ out, int B, int C, ColGroups cg,
-                      int total_cols, int CK, unsigned long long seed) {
+                      int* __restrict__ out, float* __restrict__ best, int B,
+                      int C, ColGroups cg, int total_cols, int CK,
+                      unsigned long long seed) {
   extern __shared__ float smem[];
   const int G = cg.n;
   const int W = 1 + G + 2 * total_cols;
@@ -80,8 +95,18 @@ fused_v2_score_sample(const float* __restrict__ values,
     for (int c = 0; c < total_cols; ++c)
       sval[c * SCORE_THREADS + tid] = values[(size_t)row * total_cols + c];
   }
+  if (PHASE == PHASE_NOOP) {
+    if (active) {
+      float s = F(0.0);
+      for (int c = 0; c < total_cols; ++c)
+        s = __fadd_rn(s, sval[c * SCORE_THREADS + tid]);
+      out[row] = (int)s;
+    }
+    return;
+  }
   Draw<MODE, FAST> dr;
   dr.init(row, active, seed, noise);
+  float rmax = -INFINITY;
 
   for (int pass = 0; pass < Draw<MODE, FAST>::kPasses; ++pass) {
     dr.begin_pass(pass);
@@ -133,11 +158,18 @@ fused_v2_score_sample(const float* __restrict__ values,
           }
           cidx += nc;
         }
-        dr.visit(pass, row, k, C, s, noise);
+        if (PHASE == PHASE_SCORE_MAX)
+          rmax = fmaxf(rmax, s);
+        else
+          dr.visit(pass, row, k, C, s, noise);
       }
     }
   }
-  if (active) out[row] = dr.result();
+  if (!active) return;
+  if (PHASE == PHASE_SCORE_MAX)
+    best[row] = rmax;
+  else
+    out[row] = dr.result();
 }
 
 // -- kernel 2: per-block stat partials --------------------------------------
@@ -196,21 +228,88 @@ __global__ void fused_v2_stat_reduce(const float* __restrict__ partials,
   }
 }
 
-static inline int imin(int a, int b) { return a < b ? a : b; }
-
-template <int MODE>
+template <int MODE, int PHASE>
 static void launch_score(bool fast, dim3 grid, size_t smem,
                          cudaStream_t st, const float* values,
                          const float* cl, const float* coeffs,
-                         const float* noise, int* out, int B, int C,
-                         ColGroups cg, int total_cols, int CK,
+                         const float* noise, int* out, float* best, int B,
+                         int C, ColGroups cg, int total_cols, int CK,
                          unsigned long long seed) {
   if (fast)
-    fused_v2_score_sample<MODE, true><<<grid, SCORE_THREADS, smem, st>>>(
-        values, cl, coeffs, noise, out, B, C, cg, total_cols, CK, seed);
+    fused_v2_score_sample<MODE, true, PHASE>
+        <<<grid, SCORE_THREADS, smem, st>>>(values, cl, coeffs, noise, out,
+                                            best, B, C, cg, total_cols, CK,
+                                            seed);
   else
-    fused_v2_score_sample<MODE, false><<<grid, SCORE_THREADS, smem, st>>>(
-        values, cl, coeffs, noise, out, B, C, cg, total_cols, CK, seed);
+    fused_v2_score_sample<MODE, false, PHASE>
+        <<<grid, SCORE_THREADS, smem, st>>>(values, cl, coeffs, noise, out,
+                                            best, B, C, cg, total_cols, CK,
+                                            seed);
+}
+
+// Check the layout and launch the score + sample kernel in one phase and
+// draw mode.  `total_cols_out` receives the number of nich columns.
+static int launch_score_phase(const float* values, const float* cl,
+                              const float* coeffs, const float* noise,
+                              int* out, float* best, int B, int C,
+                              int n_groups, const int* col_groups, int phase,
+                              int mode, int fast, unsigned long long seed,
+                              cudaStream_t st, int* total_cols_out) {
+  if (B < 1 || C < 1 || n_groups < 1 || n_groups > MAX_GROUPS ||
+      mode < MODE_ARGMAX || mode > MODE_BITS || phase < PHASE_FULL ||
+      phase > PHASE_SCORE_MAX)
+    return (int)cudaErrorInvalidValue;
+  ColGroups cg;
+  cg.n = n_groups;
+  int total_cols = 0;
+  for (int g = 0; g < n_groups; ++g) {
+    if (col_groups[g] < 1) return (int)cudaErrorInvalidValue;
+    cg.cols[g] = col_groups[g];
+    total_cols += col_groups[g];
+  }
+  for (int g = n_groups; g < MAX_GROUPS; ++g) cg.cols[g] = 0;
+  if (total_cols > MAX_COLS) return (int)cudaErrorInvalidValue;
+  *total_cols_out = total_cols;
+
+  const int W = 1 + n_groups + 2 * total_cols;
+  const int CK = imin(C, (SMEM_FLOATS - SCORE_THREADS * total_cols) / W);
+  if (CK < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem1 =
+      ((size_t)W * CK + (size_t)SCORE_THREADS * total_cols) * sizeof(float);
+  const dim3 grid1((B + SCORE_THREADS - 1) / SCORE_THREADS);
+#define LAUNCH_SCORE(MODE, PHASE)                                          \
+  launch_score<MODE, PHASE>(fast, grid1, smem1, st, values, cl, coeffs,    \
+                            noise, out, best, B, C, cg, total_cols, CK, seed)
+  if (phase == PHASE_NOOP) {
+    LAUNCH_SCORE(MODE_ARGMAX, PHASE_NOOP);
+  } else if (phase == PHASE_SCORE_MAX) {
+    LAUNCH_SCORE(MODE_ARGMAX, PHASE_SCORE_MAX);
+  } else {
+    switch (mode) {
+      case MODE_ARGMAX: LAUNCH_SCORE(MODE_ARGMAX, PHASE_FULL); break;
+      case MODE_GUMBEL: LAUNCH_SCORE(MODE_GUMBEL, PHASE_FULL); break;
+      case MODE_GUMBEL_HOST: LAUNCH_SCORE(MODE_GUMBEL_HOST, PHASE_FULL); break;
+      case MODE_CDF: LAUNCH_SCORE(MODE_CDF, PHASE_FULL); break;
+      case MODE_CDF_HOST: LAUNCH_SCORE(MODE_CDF_HOST, PHASE_FULL); break;
+      default: LAUNCH_SCORE(MODE_BITS, PHASE_FULL); break;
+    }
+  }
+#undef LAUNCH_SCORE
+  return (int)cudaGetLastError();
+}
+
+// One phase of the score + sample kernel alone (no stat kernels): `out`
+// [B] int for every phase but PHASE_SCORE_MAX, which writes `best` [B].
+extern "C" int fused_v2_phase_launch(const float* values, const float* cl,
+                                     const float* coeffs, const float* noise,
+                                     int* out, float* best, int B, int C,
+                                     int n_groups, const int* col_groups,
+                                     int phase, int mode, int fast,
+                                     unsigned long long seed, void* stream) {
+  int total_cols = 0;
+  return launch_score_phase(values, cl, coeffs, noise, out, best, B, C,
+                            n_groups, col_groups, phase, mode, fast, seed,
+                            (cudaStream_t)stream, &total_cols);
 }
 
 extern "C" const char* fused_v2_error_string(int err) {
@@ -223,53 +322,15 @@ extern "C" int fused_v2_launch(const float* values, const float* cl,
                                int C, int n_groups, const int* col_groups,
                                int mode, int fast, unsigned long long seed,
                                int stat_rows, void* stream) {
-  if (B < 1 || C < 1 || n_groups < 1 || n_groups > MAX_GROUPS ||
-      stat_rows < 1 || mode < MODE_ARGMAX || mode > MODE_CDF_HOST)
+  if (stat_rows < 1 || mode > MODE_CDF_HOST)
     return (int)cudaErrorInvalidValue;
-  ColGroups cg;
-  cg.n = n_groups;
-  int total_cols = 0;
-  for (int g = 0; g < n_groups; ++g) {
-    if (col_groups[g] < 1) return (int)cudaErrorInvalidValue;
-    cg.cols[g] = col_groups[g];
-    total_cols += col_groups[g];
-  }
-  for (int g = n_groups; g < MAX_GROUPS; ++g) cg.cols[g] = 0;
-  if (total_cols > MAX_COLS) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-
-  const int W = 1 + n_groups + 2 * total_cols;
-  const int CK = imin(C, (SMEM_FLOATS - SCORE_THREADS * total_cols) / W);
-  if (CK < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem1 =
-      ((size_t)W * CK + (size_t)SCORE_THREADS * total_cols) * sizeof(float);
-  const dim3 grid1((B + SCORE_THREADS - 1) / SCORE_THREADS);
-  switch (mode) {
-    case MODE_ARGMAX:
-      launch_score<MODE_ARGMAX>(fast, grid1, smem1, st, values, cl, coeffs,
-                                noise, out, B, C, cg, total_cols, CK, seed);
-      break;
-    case MODE_GUMBEL:
-      launch_score<MODE_GUMBEL>(fast, grid1, smem1, st, values, cl, coeffs,
-                                noise, out, B, C, cg, total_cols, CK, seed);
-      break;
-    case MODE_GUMBEL_HOST:
-      launch_score<MODE_GUMBEL_HOST>(fast, grid1, smem1, st, values, cl,
-                                     coeffs, noise, out, B, C, cg,
-                                     total_cols, CK, seed);
-      break;
-    case MODE_CDF:
-      launch_score<MODE_CDF>(fast, grid1, smem1, st, values, cl, coeffs,
-                             noise, out, B, C, cg, total_cols, CK, seed);
-      break;
-    default:
-      launch_score<MODE_CDF_HOST>(fast, grid1, smem1, st, values, cl,
-                                  coeffs, noise, out, B, C, cg, total_cols,
-                                  CK, seed);
-      break;
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  int total_cols = 0;
+  int rc = launch_score_phase(values, cl, coeffs, noise, out, nullptr, B, C,
+                              n_groups, col_groups, PHASE_FULL, mode, fast,
+                              seed, st, &total_cols);
+  if (rc != 0) return rc;
+  cudaError_t err;
 
   const int S = 3 * total_cols;
   const int CKS = imin(C, (SMEM_FLOATS - stat_rows) / S);

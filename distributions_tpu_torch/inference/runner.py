@@ -4,11 +4,12 @@ resume, grows capacity between steps, validates invariants and logs one
 row per step.
 
 With `mesh=` the sweeps run row-sharded over a `parallel.sharding` mesh.
+Every `hyper_every` sweeps the hyperparameters of the feature blocks and
+of the clustering prior are resampled, from grids (`inference/hypers.py`)
+or by slice sampling (`inference/slice.py`).
 
-Not ported yet, each raising NotImplementedError when set:
-hyperparameter resampling (`hyper_grids`, `cl_grid`, `hyper_slice`,
-`cl_slice`, ROADMAP Queue 1 item 13) and `checkpoint_format='orbax'`
-(item 16).
+Not ported yet, raising NotImplementedError when set:
+`checkpoint_format='orbax'` (ROADMAP Queue 1 item 16).
 """
 
 import os
@@ -19,6 +20,8 @@ import torch
 
 from distributions_tpu_torch import clustering, config, debug, diagnostics
 from distributions_tpu_torch import mixture as mx
+from distributions_tpu_torch.inference import hypers as _hypers
+from distributions_tpu_torch.inference import slice as _slice
 from distributions_tpu_torch.io import checkpoint
 from distributions_tpu_torch.ops import fused_kernels as fk
 from distributions_tpu_torch.ops import gibbs
@@ -87,6 +90,29 @@ def _place(spec, cl_model, shareds, values, initial_assignments, device):
     return device, cl_model, shareds, values, initial_assignments
 
 
+def _grid_on(grid, device):
+    """A grid of Shareds or clustering models (a NamedTuple of leaves with
+    a leading [G] axis: tensors, numpy arrays or lists) on `device`."""
+    return type(grid)(*(
+        x.to(device) if isinstance(x, torch.Tensor)
+        else torch.as_tensor(np.asarray(x)).to(device) for x in grid))
+
+
+def _unfused_sweep(spec, use_pallas):
+    """The sweep of a step that the fused gate refused, as (spec, cl_model,
+    shareds, state, values, assignments, block, generator) -> (state,
+    assignments): with use_pallas the v1 score + sample sweep that serves
+    the spec (K4 for nich-only, K5 without niw blocks), else the plain
+    sweep."""
+    if use_pallas and fk.supports_pallas(spec):
+        return lambda *a: gibbs.sweep_blocked_pallas(*a[:7], generator=a[7])
+    if use_pallas and all(
+            b.module is not fk.niw_mod
+            and hasattr(b.module, 'score_value_batch') for b in spec.blocks):
+        return gibbs.sweep_blocked_pallas_mixed
+    return lambda *a: gibbs.sweep_blocked(*a[:7], generator=a[7])
+
+
 def run_gibbs(spec, cl_model, shareds, values, generator, passes,
               block=4096, checkpoint_path=None, checkpoint_every=10,
               resume=True, init='prior', use_pallas=False,
@@ -128,7 +154,26 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
     (`gibbs.sweep_blocked_pallas_fused_mixed`: K2, or K1 for a nich-only
     spec) when every block is nich, niw or a discrete model with score
     tables (`fused_kernels.supports_mixed_pallas`) and R is a multiple of
-    `block`; otherwise the plain `gibbs.sweep_blocked`.
+    `block`.  A spec that fails that gate takes the v1 score + sample
+    sweeps where they serve it: `gibbs.sweep_blocked_pallas` (K4) for a
+    nich-only spec, `gibbs.sweep_blocked_pallas_mixed` (K5) for a spec
+    without niw blocks, else the plain `gibbs.sweep_blocked`.
+
+    Hyperparameter moves, every `hyper_every` (>= 1) sweeps, in this
+    order: each block in `hyper_grids` ({block index: a Shared with a
+    leading grid axis [G]}) is resampled from its grid
+    (`hypers.grid_step_feature`; hyper_sample=False takes the argmax);
+    each block in `hyper_slice` ({block index: (param names, width) or a
+    dict of `slice.slice_step_feature` keywords with 'params'}) by slice
+    sampling; the clustering prior from `cl_grid` (a model with leaves
+    [G], e.g. `hypers.make_py_grid`) or, with `cl_slice` (True or a dict
+    of `slice.slice_step_clustering` keywords), by slice sampling.  Steps
+    are clamped to `hyper_every` edges, the logger row of such a step
+    gains `hyper_<block>`, `hyper_slice_<block>`, `hyper_cl`,
+    `hyper_cl_alpha` and `hyper_cl_d`, the fused stat cache is rebuilt
+    after the move, and the new shareds and clustering model go into the
+    checkpoint and come back on resume.  Under a process group every rank
+    draws the same move from its generator; nothing is broadcast.
     mesh: a `parallel.sharding` mesh (`sharding.make_mesh(4)` in one
     process, `distributed.make_global_mesh()` over a process group) runs
     the sweeps row-sharded: on a 1-D 'rows' mesh with R a multiple of
@@ -143,7 +188,10 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
     capacity-growth check happen at step boundaries, with one logger row
     per step.  Capacity doubles when
     fewer than `grow_headroom * capacity` slots are free, and the fused
-    stat cache is then rebuilt.
+    stat cache is then rebuilt.  A step that ends with no free slot at all
+    raises RuntimeError: the sweeps inside it may have refused new groups
+    (the JAX runner goes on in silence), so size `grow_headroom` for what
+    a step can add.
 
     Returns (state, assignments, logger)."""
     if checkpoint_format == 'orbax':
@@ -151,11 +199,11 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
     if checkpoint_format != 'npz':
         raise ValueError('unknown checkpoint_format %r'
                          % (checkpoint_format,))
-    for name, opt in (('hyper_grids', hyper_grids), ('cl_grid', cl_grid),
-                      ('hyper_slice', hyper_slice),
-                      ('cl_slice', cl_slice or None)):
-        if opt is not None:
-            raise _not_ported(name, 13)
+    hyper_active = bool(hyper_grids or hyper_slice or cl_grid is not None
+                        or cl_slice)
+    if hyper_active and int(hyper_every) < 1:
+        raise ValueError('hyper_every must be >= 1 when hyperparameter '
+                         'moves are asked for, got %r' % (hyper_every,))
     if sweeps_per_step < 1:
         raise ValueError('sweeps_per_step must be >= 1')
     logger = log or diagnostics.SweepLogger()
@@ -231,8 +279,10 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
         if mesh is not None:
             fused_ok = (fused_ok and mesh.axis_names == (sharding.ROWS,)
                         and R % (mesh.size * block) == 0)
-        # every checkpoint boundary lands on a step edge
+        # every hyper and checkpoint boundary lands on a step edge
         k = min(sweeps_per_step, passes - sweep)
+        if hyper_active:
+            k = min(k, hyper_every - sweep % hyper_every)
         if checkpoint_path and checkpoint_every:
             k = min(k, checkpoint_every - sweep % checkpoint_every)
 
@@ -261,14 +311,23 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
                     spec, cl_model, shareds, state, values, assignments,
                     generator, mesh, block)
         else:
+            sweep_once = _unfused_sweep(spec, use_pallas)
             for _ in range(k):
-                state, assignments = gibbs.sweep_blocked(
+                state, assignments = sweep_once(
                     spec, cl_model, shareds, state, values, assignments,
-                    block, generator=generator)
+                    block, generator)
         # the host copy of the [C] counts is the step's sync point
         counts_host = state.counts.cpu().numpy()
         dt = time.time() - t0
         sweep += k
+        if int((counts_host > 0).sum()) >= spec.capacity:
+            # growth is only checked between steps: a step that ends with
+            # no free slot may have refused new groups along the way
+            raise RuntimeError(
+                'no free slot is left after sweep %d (capacity %d): the '
+                'chain may have been truncated within the step; raise '
+                'grow_headroom or the capacity, or lower sweeps_per_step'
+                % (sweep, spec.capacity))
 
         debug.validate_state(spec, state)
         debug.validate_assignments(spec, state, assignments)
@@ -277,6 +336,36 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
         stats['seconds'] = round(dt, 4)
         if sweeps_per_step > 1:
             stats['sweeps'] = k
+        if hyper_active and sweep % hyper_every == 0:
+            for block_idx, grid in (hyper_grids or {}).items():
+                shareds, idx, _ = _hypers.grid_step_feature(
+                    generator, spec, block_idx, shareds, state,
+                    _grid_on(grid, dev), sample=hyper_sample)
+                stats['hyper_%d' % block_idx] = int(idx)
+            for block_idx, cfg in (hyper_slice or {}).items():
+                if isinstance(cfg, dict):
+                    kw = dict(cfg)
+                    params = tuple(kw.pop('params'))
+                else:
+                    params, width = cfg
+                    params, kw = tuple(params), {'width': width}
+                shareds, _ = _slice.slice_step_feature(
+                    generator, spec, block_idx, shareds, state, params, **kw)
+                stats['hyper_slice_%d' % block_idx] = 1
+            if cl_grid is not None:
+                cl_model, idx, _ = _hypers.grid_step_clustering(
+                    generator, _grid_on(cl_grid, dev), state,
+                    sample=hyper_sample)
+                stats['hyper_cl'] = int(idx)
+            elif cl_slice:
+                kw = cl_slice if isinstance(cl_slice, dict) else {}
+                cl_model, _ = _slice.slice_step_clustering(
+                    generator, cl_model, state, **kw)
+                stats['hyper_cl_alpha'] = float(cl_model.alpha)
+                stats['hyper_cl_d'] = float(cl_model.d)
+            # the cache's raw sums were built under the old shareds (dpd's
+            # value tables depend on them): rebuild it next sweep
+            cache = None
         logger.log(sweep - 1, **stats)
 
         if checkpoint_path and checkpoint_every \

@@ -195,6 +195,60 @@ def score_batch(spec, cl_model, shareds, state, values):
     return scores
 
 
+def log_predictive(spec, cl_model, shareds, state, values):
+    """Collapsed posterior-predictive density of new rows [B]:
+    log p(x | data) = logsumexp_k [log p(z=k | partition) + log p(x | k)].
+    The seating scores of the clustering prior are normalised over the
+    alive slots, so one logsumexp over `score_batch` marginalises the
+    assignment."""
+    return torch.logsumexp(
+        score_batch(spec, cl_model, shareds, state, values), dim=1)
+
+
+def _broadcasts_over_grid(module):
+    """True for the models whose `score_data` is elementwise in the Shared
+    leaves (nich, bb, gp, bnb): a leading grid axis broadcasts through it.
+    dd sums its `alphas`, dpd its `betas`, niw takes determinants of
+    `psi`: those are scored one grid point at a time."""
+    return module.__name__.rsplit('.', 1)[-1] in ('nich', 'bb', 'gp', 'bnb')
+
+
+def block_score_data_grid(block, grid_shared, group):
+    """[G] data scores of one block's groups under each point of a grid
+    of Shareds (leaves with a leading [G] axis): the sum of `score_data`
+    over the block's [C, cols] groups."""
+    G = grid_shared[0].shape[0]
+    if _broadcasts_over_grid(block.module):
+        rank = group[0].dim()
+        lifted = type(grid_shared)(*(
+            leaf.reshape((G,) + (1,) * (rank - (leaf.dim() - 1))
+                         + tuple(leaf.shape[1:]))
+            for leaf in grid_shared))
+        per = block.module.score_data(lifted, group)       # [G, C, cols]
+        return per.reshape(G, -1).sum(1)
+    return torch.stack([
+        block.module.score_data(
+            type(grid_shared)(*(leaf[g] for leaf in grid_shared)),
+            group).sum()
+        for g in range(G)])
+
+
+def score_data_grid(spec, cl_model, shareds_grid, state):
+    """Score the current groups under a grid of Shared settings.
+
+    shareds_grid: per block a Shared whose leaves carry a leading grid
+    axis [G].  Returns [G] total data scores (the feature part only, the
+    clustering term excluded).  Where the JAX package vmaps over the grid,
+    nich, bb, gp and bnb blocks broadcast the grid axis through
+    `score_data`; dd, dpd and niw blocks loop over the grid points."""
+    total = None
+    for block, grid_shared, group in zip(spec.blocks, shareds_grid,
+                                         state.groups):
+        s = block_score_data_grid(block, grid_shared, group)
+        total = s if total is None else total + s
+    return total
+
+
 def _zero_emptied(group, counts):
     """Re-zero the slots that emptied (cancels float drift)."""
     empty_now = counts == 0

@@ -94,6 +94,20 @@ def add_value(shared, group, value):
     return Group(count=count, mean=mean, count_times_variance=ctv)
 
 
+def add_repeated_value(shared, group, value, count):
+    """`count` copies of `value` in one update, with the JAX package's
+    formula (which equals `count` successive `add_value` calls only at
+    count = 1)."""
+    dev = group.mean.device
+    value = torch.as_tensor(value, device=dev).to(torch.float32)
+    count = torch.as_tensor(count, device=dev).to(torch.int32)
+    new_count = group.count + count
+    delta = count.to(torch.float32) * value - group.mean
+    mean = group.mean + delta / new_count.to(torch.float32)
+    ctv = group.count_times_variance + delta * (value - mean)
+    return Group(count=new_count, mean=mean, count_times_variance=ctv)
+
+
 def remove_value(shared, group, value):
     """Welford downdate, exact zeros once the group empties."""
     value = torch.as_tensor(value, device=group.mean.device).to(

@@ -625,17 +625,40 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'csrc')
 # device code that every kernel source includes
 _COMMON = 'fused_common.cuh'
-KERNELS = ('fused_v2', 'fused_v3', 'score_sample_v1')
+KERNELS = ('fused_v2', 'fused_v3', 'score_sample_v1', 'roofline',
+           'sampler_bench')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), 'build', 'torch_kernels')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
-# library -> its C entry points that launch a kernel
-_LAUNCHERS = {'fused_v2': ('fused_v2_launch',),
-              'fused_v3': ('fused_v3_launch', 'fused_v3_pair_launch'),
-              'score_sample_v1': ('score_sample_v1_nich_launch',
-                                  'score_sample_v1_mixed_launch')}
+_P, _I, _U64, _I64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64,
+                      ctypes.c_longlong)
+_IP = ctypes.POINTER(_I)
+_LAYOUT = [_I, _IP, _I, _IP, _IP, _I, _IP]
+# library -> its C entry points that launch a kernel -> their argument
+# types (the wrappers of roofline and sampler_bench are in
+# ops/bench_kernels.py)
+_LAUNCHERS = {
+    'fused_v2': {
+        'fused_v2_launch': [_P] * 7 + [_I, _I, _I, _IP, _I, _I, _U64, _I, _P],
+        'fused_v2_phase_launch': [_P] * 6 + [_I, _I, _I, _IP, _I, _I, _I,
+                                             _U64, _P]},
+    'fused_v3': {
+        'fused_v3_launch': [_P] * 14 + [_I, _I] + _LAYOUT + [_I, _I, _U64,
+                                                             _I, _P],
+        'fused_v3_pair_launch': [_P] * 10 + [_I, _I] + _LAYOUT + [
+            _I, _I, _U64, _I, _P]},
+    'score_sample_v1': {
+        'score_sample_v1_nich_launch': [_P] * 5 + [_I, _I, _I, _I, _U64, _P],
+        'score_sample_v1_mixed_launch': [_P] * 7 + [_I] * 6 + [_U64, _P]},
+    'roofline': {
+        'roofline_chain_launch': [_P, _P, _I64, _I, _I, _I, _P],
+        'roofline_copy_launch': [_P, _P, _I64, _P],
+        'roofline_mma_launch': [_P] * 5 + [_I, _I, _P]},
+    'sampler_bench': {
+        'sampler_bench_launch': [_P] * 5 + [_I, _I, _I, _I, _U64, _P]},
+}
 
 _LIBRARIES = {}
 
@@ -649,25 +672,10 @@ def _nvcc():
 
 
 def _bind(name, lib):
-    p = ctypes.c_void_p
-    i = ctypes.c_int
-    ip = ctypes.POINTER(i)
-    if name == 'fused_v2':
-        lib.fused_v2_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, ip, i,
-                                        i, ctypes.c_uint64, i, p]
-    elif name == 'fused_v3':
-        lib.fused_v3_launch.argtypes = [p] * 14 + [
-            i, i, i, ip, i, ip, ip, i, ip, i, i, ctypes.c_uint64, i, p]
-        lib.fused_v3_pair_launch.argtypes = [p] * 10 + [
-            i, i, i, ip, i, ip, ip, i, ip, i, i, ctypes.c_uint64, i, p]
-    else:
-        lib.score_sample_v1_nich_launch.argtypes = [p] * 5 + [
-            i, i, i, i, ctypes.c_uint64, p]
-        lib.score_sample_v1_mixed_launch.argtypes = [p] * 7 + [
-            i, i, i, i, i, i, ctypes.c_uint64, p]
-    for launch in _LAUNCHERS[name]:
-        getattr(lib, launch).restype = i
-    getattr(lib, name + '_error_string').argtypes = [i]
+    for launch, argtypes in _LAUNCHERS[name].items():
+        getattr(lib, launch).argtypes = argtypes
+        getattr(lib, launch).restype = _I
+    getattr(lib, name + '_error_string').argtypes = [_I]
     getattr(lib, name + '_error_string').restype = ctypes.c_char_p
 
 

@@ -1,0 +1,134 @@
+"""The port's measurement entry points run small on the CPU, through the
+kernels' plain twins, and print parseable JSON.  Times from these runs
+are host times of a CPU: only their shape is checked."""
+
+import json
+import math
+
+import pytest
+import torch
+
+from distributions_tpu_torch import config
+from distributions_tpu_torch.benchmarks import (bench, bench_runner,
+                                                kernel_phases, roofline,
+                                                suite)
+
+torch.set_num_threads(1)
+config.set_default_device('cpu')
+
+
+def _json_lines(text):
+    return [json.loads(line) for line in text.splitlines()
+            if line.startswith('{')]
+
+
+def test_roofline_entry_point(monkeypatch, capsys, tmp_path):
+    for name, value in (('ROWS', 8), ('WIDTH', 128), ('T', 3), ('N', 128),
+                        ('STEPS', 1), ('MB', 1), ('REPS', 1)):
+        monkeypatch.setenv('ROOFLINE_' + name, str(value))
+    path = tmp_path / 'roofline.json'
+    assert roofline.main(['--device', 'cpu', '--json', str(path)]) == 0
+    (line,) = _json_lines(capsys.readouterr().out)
+    assert line['device'] == 'cpu'
+    for op in roofline.OPS:
+        assert 'vpu_%s_ops_per_sec' % op in line
+        assert 'slots_%s' % op in line
+    for key in ('mma_bf16_flops_per_sec', 'matmul_bf16_flops_per_sec',
+                'hbm_bytes_per_sec', 'hbm_torch_add_bytes_per_sec'):
+        assert line[key] > 0
+    saved = json.loads(path.read_text())
+    assert saved['detail']['mma']['launches_per_call'] == 2
+    assert set(saved['detail']['log']['ms']) == {'1', '5', '9'}
+
+
+def test_suite_kernel_sampler_and_hyper_grid(monkeypatch, capsys):
+    monkeypatch.setenv('BENCH_SAMPLER_SIZES', '16,64')
+    monkeypatch.setenv('BENCH_SAMPLER_ROWS', '8')
+    monkeypatch.setenv('BENCH_SAMPLER_CELLS', '4096')
+    monkeypatch.setenv('BENCH_ROWS', '512')
+    monkeypatch.setenv('BENCH_CAP', '16')
+    monkeypatch.setenv('BENCH_GRID', '5')
+    assert suite.main(['kernel_sampler', 'hyper_grid', '--device',
+                       'cpu']) == 0
+    lines = _json_lines(capsys.readouterr().out)
+    assert [x['metric'] for x in lines] == [
+        'kernel_gumbel_draws_per_sec', 'kernel_gumbel_draws_per_sec',
+        'hyper_grid_cells_per_sec']
+    assert [x['size'] for x in lines[:2]] == [16, 64]
+    # T = max(16, cells / (rows * C))
+    assert [x['in_kernel_iters'] for x in lines[:2]] == [32, 16]
+    assert lines[2]['G'] == 5 and lines[2]['C'] == 16
+    assert all(x['value'] > 0 and x['device'] == 'cpu' for x in lines)
+
+
+def test_suite_mixture_section(monkeypatch, capsys):
+    monkeypatch.setenv('BENCH_ROWS', '256')
+    monkeypatch.setenv('BENCH_BLOCK', '64')
+    monkeypatch.setenv('BENCH_K', '16')
+    assert suite.main(['mixture', '--device', 'cpu']) == 0
+    lines = _json_lines(capsys.readouterr().out)
+    assert [x['model'] for x in lines] == ['bb', 'dd4', 'gp', 'bnb', 'nich',
+                                           'dpd']
+    assert all(x['mode'] == 'xla' and x['value'] > 0 for x in lines)
+    monkeypatch.setenv('BENCH_SWEEP', 'fused')
+    monkeypatch.setenv('BENCH_MODELS', 'nich,gp')
+    suite.main(['mixture', '--device', 'cpu'])
+    lines = _json_lines(capsys.readouterr().out)
+    assert [(x['model'], x['mode']) for x in lines] == [('gp', 'fused'),
+                                                        ('nich', 'fused')]
+
+
+@pytest.mark.parametrize('section,item', [
+    ('sample_from_scores', 12), ('score_counts', 12),
+    ('sample_assignments', 12), ('special', 12), ('backends', 15)])
+def test_suite_sections_not_ported(section, item):
+    with pytest.raises(NotImplementedError, match='item %d' % item):
+        suite.main([section, '--device', 'cpu'])
+
+
+def test_kernel_phases_entry_point(monkeypatch, capsys):
+    for name, value in (('ROWS', 256), ('CAP', 16), ('BLOCK', 64),
+                        ('COLS', 2), ('REPS', 1)):
+        monkeypatch.setenv(name, str(value))
+    assert kernel_phases.main(['--device', 'cpu']) == 0
+    (line,) = _json_lines(capsys.readouterr().out)
+    assert line['tiles'] == 4 and line['cols'] == 2
+    assert list(line['ms']) == list(kernel_phases.MODES)
+    assert set(line['split']) == {label for label, _, _ in
+                                  kernel_phases.SPLIT}
+    assert all(math.isfinite(v) for v in line['split'].values())
+    # a phase that fails ends the run
+    monkeypatch.setenv('MODES', 'noop,score_sideways')
+    with pytest.raises(ValueError, match='sampling mode'):
+        kernel_phases.main(['--device', 'cpu'])
+    monkeypatch.setenv('MODES', 'noop')
+    monkeypatch.setenv('BLOCK', '100')
+    with pytest.raises(ValueError, match='multiple of BLOCK'):
+        kernel_phases.main(['--device', 'cpu'])
+
+
+@pytest.mark.parametrize('kernel', ['v2', 'v1', 'plain'])
+def test_bench_entry_point(monkeypatch, capsys, kernel):
+    for name, value in (('ROWS', 256), ('COMPONENTS', 16), ('BLOCK', 64),
+                        ('SWEEPS', 2), ('REPEATS', 2), ('KERNEL', kernel)):
+        monkeypatch.setenv('BENCH_' + name, str(value))
+    assert bench.main(['--device', 'cpu']) == 0
+    (line,) = _json_lines(capsys.readouterr().out)
+    assert line['metric'] == 'gibbs_cell_scores_per_sec'
+    assert line['kernel'] == kernel and line['value'] > 0
+    assert len(line['ms_per_sweep_of_each_call']) == 2
+    assert 'vs_baseline' not in line
+
+
+@pytest.mark.parametrize('model', ['nich', 'niw2mix'])
+def test_bench_runner_entry_point(monkeypatch, capsys, model):
+    for name, value in (('ROWS', 512), ('COMPONENTS', 64), ('BLOCK', 128),
+                        ('SPS', 2), ('PASSES', 4), ('REPEATS', 2),
+                        ('MODEL', model)):
+        monkeypatch.setenv('RUNNER_' + name, str(value))
+    assert bench_runner.main(['--device', 'cpu']) == 0
+    (line,) = _json_lines(capsys.readouterr().out)
+    assert line['metric'] == 'runner_gibbs_cells_per_sec'
+    assert line['model'] == model and line['value'] > 0
+    assert line['final_capacity'] == 64 and len(line['step_seconds']) == 2
+    assert 'vs_baseline' not in line

@@ -6,7 +6,7 @@ with a GPU and no JAX, run them with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-(`-k pair` picks the tests of K3.)
+(`-k pair` picks the tests of K3, `-k bench` those of B1-B5.)
 """
 
 import pytest
@@ -14,6 +14,7 @@ import torch
 
 from distributions_tpu_torch import clustering as cl, mixture as mx, testing
 from distributions_tpu_torch.models import MODULES, nich
+from distributions_tpu_torch.ops import bench_kernels as bk
 from distributions_tpu_torch.ops import fused_kernels as fk, gibbs
 
 torch.set_num_threads(1)
@@ -500,3 +501,148 @@ def test_resume_is_bitwise_on_the_card(dev, use_pallas, tmp_path):
     with pytest.raises(ValueError, match='cuda generator'):
         runner.run_gibbs(spec, py, sh, tv, torch.Generator().manual_seed(0),
                          5, checkpoint_path=ckpt, **common)
+
+
+# -- B1-B5: the measurement kernels (`-k bench`) ------------------------------
+
+@pytest.mark.parametrize('n', [1 << 20, (1 << 16) + 3, 5])
+def test_bench_copy_is_exact(dev, n):
+    x = torch.randn(n, device=dev)
+    before = bk.roofline_copy.launches
+    got = bk.roofline_copy(x)
+    assert bk.roofline_copy.launches == before + 1
+    assert torch.equal(got, bk.roofline_copy_plain(x))
+
+
+@pytest.mark.parametrize('K', [1, 3, 9])
+@pytest.mark.parametrize('op', sorted(bk.CHAIN_OPS))
+def test_bench_chain_matches_twin(dev, op, K):
+    x = torch.rand((64, 1024), device=dev) + 0.5
+    before = bk.roofline_chain.launches
+    got = bk.roofline_chain(x, op, 3, K)
+    assert bk.roofline_chain.launches == before + 1
+    want = bk.roofline_chain_plain(x, op, 3, K)
+    if op in bk.CHAIN_EXACT_OPS:
+        # the kernel repeats the twin's rounded operations in its order
+        assert torch.equal(got, want)
+    else:
+        # CUDA's logf / expf / log1pf / rsqrtf against PyTorch's: ulps,
+        # which a chain carries along
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_bench_mma_exact_on_small_integers(dev):
+    """Operands from {-1, 0, 1}: every product and sum is an integer that
+    f32 and (for acc) bf16 hold exactly, whatever the order of the sums."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    a, b = (torch.randint(-1, 2, (256, 256), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    before = bk.roofline_mma.launches
+    got = bk.roofline_mma(a, b, 1)
+    assert bk.roofline_mma.launches == before + 1
+    assert torch.equal(got, bk.roofline_mma_plain(a, b, 1))
+
+
+def test_bench_mma_normal_operands(dev):
+    g = torch.Generator(device=dev).manual_seed(1)
+    a, b = (torch.randn((256, 256), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    got = bk.roofline_mma(a, b, 3)
+    want = bk.roofline_mma_plain(a, b, 3)
+    # f32 sums in another order, and a bf16 rounding of acc that may flip
+    torch.testing.assert_close(got, want, rtol=1e-2,
+                               atol=1e-3 * float(want.pow(2).mean().sqrt()))
+
+
+@pytest.mark.parametrize('BR,C,T', [(64, 256, 40), (33, 1000, 16),
+                                    (8, 13000, 5), (5, 64, 300)])
+@pytest.mark.parametrize('sampling', ['argmax', 'gumbel_host'])
+def test_bench_sampler_matches_twin(dev, BR, C, T, sampling):
+    g = torch.Generator(device=dev).manual_seed(2)
+    scores = torch.randn((BR, C), generator=g, device=dev)
+    noise = _noise(dev, sampling, BR, C)
+    before = bk.sampler_gumbel.launches
+    got = bk.sampler_gumbel(4, scores, T, sampling, noise, all_draws=True)
+    assert bk.sampler_gumbel.launches == before + 1
+    want = bk.sampler_gumbel_plain(4, scores, T, sampling, noise,
+                                   all_draws=True)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_bench_sampler_gumbel_distribution(dev):
+    BR, C, T = 256, 64, 512
+    g = torch.Generator(device=dev).manual_seed(3)
+    scores = torch.randn((BR, C), generator=g, device=dev)
+    last, checksum, draws = bk.sampler_gumbel(9, scores, T, all_draws=True)
+    again = bk.sampler_gumbel(9, scores, T, all_draws=True)
+    assert all(torch.equal(x, y) for x, y in zip((last, checksum, draws),
+                                                 again))
+    assert torch.equal(last, draws[-1])
+    assert torch.equal(checksum, draws.sum(0).to(torch.int32))
+    # the iterations are independent draws of one categorical per row
+    assert not torch.equal(draws[0], draws[1])
+    assert testing.softmax_ztest(draws.reshape(-1),
+                                 scores.repeat(T, 1)) < 5.0
+    two = bk.sampler_gumbel(9, scores, T)
+    assert torch.equal(two[0], last) and torch.equal(two[1], checksum)
+
+
+def test_bench_wrappers_reject_bad_inputs(dev):
+    x = torch.rand((8, 128), device=dev)
+    with pytest.raises(ValueError):
+        bk.roofline_chain(x, 'sin', 3, 1)
+    with pytest.raises(ValueError):
+        bk.roofline_chain(x, 'log', 3, 4)
+    with pytest.raises(TypeError):
+        bk.roofline_copy(x.double())
+    with pytest.raises(ValueError):
+        bk.roofline_copy(x.t())
+    a = torch.zeros((128, 128), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(TypeError):
+        bk.roofline_mma(a.float(), a, 1)
+    with pytest.raises(ValueError):
+        bk.roofline_mma(a[:64, :64].contiguous(), a[:64, :64].contiguous(), 1)
+    with pytest.raises(ValueError):
+        bk.sampler_gumbel(0, x, 0)
+    with pytest.raises(TypeError):
+        bk.sampler_gumbel(0, x, 2, 'gumbel_host')
+    with pytest.raises(ValueError):
+        bk.sampler_gumbel(0, x, 2, 'cdf')
+
+
+@pytest.mark.parametrize('B,C', [(4096, 128), (3000, 1000), (257, 2500)])
+def test_bench_phases_match_twin(dev, B, C):
+    v, cls, co = _inputs(dev, B, C)
+    args = (v, cls, co, (2,))
+    before = bk.fused_phase.launches
+    k1_before = fk.fused_score_sample_stats.launches
+    assert torch.equal(bk.fused_phase('noop', 0, *args),
+                       bk.fused_phase_plain('noop', 0, *args))
+    # the row maximum is the twin's, bitwise: the same rounded operations
+    assert torch.equal(bk.fused_phase('score_max', 0, *args),
+                       bk.fused_phase_plain('score_max', 0, *args))
+    # 'score_bits' perturbs by at most BITS_NOISE_MAX: its pick scores
+    # within that of the row maximum
+    scores = fk._score_nich_product(v, co, cls, (2,), torch.log)
+    pick = bk.fused_phase('score_bits', 5, *args)
+    assert int(pick.min()) >= 0 and int(pick.max()) < C
+    gap = scores.amax(1) - scores.gather(1, pick.long()[:, None])[:, 0]
+    assert float(gap.max()) <= bk.BITS_NOISE_MAX + 1e-6
+    noise = _noise(dev, 'gumbel_host', B, C)
+    for sampling, nz in (('argmax', None), ('gumbel_host', noise),
+                         ('gumbel', None), ('cdf', None),
+                         ('gumbel_fast', None)):
+        a, s = fk.fused_score_sample_stats(5, *args, sampling=sampling,
+                                           noise=nz)
+        # the score + sample kernel alone draws what K1 draws
+        assert torch.equal(
+            bk.fused_phase('score_' + sampling, 5, *args, noise=nz), a)
+        a2, s2 = bk.fused_phase('full_' + sampling, 5, *args, noise=nz)
+        assert torch.equal(a2, a) and torch.equal(s2, s)
+    # a 'full' phase is K1's own launch, counted by K1's wrapper
+    assert bk.fused_phase.launches == before + 8
+    assert fk.fused_score_sample_stats.launches == k1_before + 10
+    with pytest.raises(ValueError):
+        bk.fused_phase('score', 0, *args)
+    with pytest.raises(ValueError):
+        bk.fused_phase('noop', 0, v, cls, co[:-1], (2,))

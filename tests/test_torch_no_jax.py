@@ -31,7 +31,10 @@ for name in ('models.bb', 'models.dd', 'models.dpd', 'models.gp',
              'models.bnb', 'models.niw', 'models.nich', 'ops.gibbs',
              'ops.fused_kernels', 'inference.runner', 'convert', 'testing',
              'io.stream', 'io.wire', 'io.checkpoint', 'parallel.sharding',
-             'parallel.distributed'):
+             'parallel.distributed', 'ops.bench_kernels', 'inference.hypers',
+             'inference.slice', 'benchmarks.roofline', 'benchmarks.suite',
+             'benchmarks.kernel_phases', 'benchmarks.bench',
+             'benchmarks.bench_runner', 'benchmarks.timing'):
     assert 'distributions_tpu_torch.' + name in names, name
 '''
 
@@ -63,4 +66,4 @@ def test_port_never_imports_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(' ', 1)
-    assert int(n_modules) >= 30 and bad.strip() == '[]'
+    assert int(n_modules) >= 39 and bad.strip() == '[]'

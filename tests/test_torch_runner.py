@@ -76,8 +76,6 @@ def test_run_gibbs_random_init_and_plain_path():
 
 
 @pytest.mark.parametrize('option', [
-    {'hyper_grids': {0: None}}, {'cl_grid': object()},
-    {'hyper_slice': {0: (('mu',), 1.0)}}, {'cl_slice': True},
     {'checkpoint_path': 'ckpt', 'checkpoint_format': 'orbax'}])
 def test_run_gibbs_options_not_ported(option):
     values, _ = testing.nich_problem(256, seed=6)
