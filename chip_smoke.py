@@ -14,15 +14,22 @@ exits non-zero:
                  name and power limit.
 1a. kernel_b4, kernel_b2, kernel_b3 -- the roofline kernels against their
                  plain-PyTorch twins at the entry point's sizes: the
-                 streamed copy B4 exact over 512 MB; the dependent chain B2
-                 at every op and depth (exact for add, mul, fma, fast_log,
-                 fast_exp and philox, rtol 1e-5 for logf, expf, log1pf,
-                 rsqrtf) and
-                 at 4096 x 1024 elements, T = 256; the tensor-core product
-                 B3 at 1024^3, exact on operands from {-1, 0, 1}, rtol 1e-2
-                 on normal ones; milliseconds of kernel, twin and, for B3
-                 and B4, the one PyTorch call that computes the same
-                 (torch.matmul, torch.add).
+                 streamed copy B4 (TMA bulk-copy ring) exact over 512 MB
+                 and at lengths around its chunk and ring, timed as 10
+                 calls back to back beside torch.add; the dependent chain
+                 B2 at every op and depth (exact for add, mul, fma,
+                 fast_log, fast_exp and philox, rtol 1e-5 for logf, expf,
+                 log1pf, rsqrtf) and at 4096 x 1024 elements, T = 256; the
+                 tensor-core product B3 (one persistent wgmma launch a
+                 call) at 1024^3, exact on integer operands from {-1, 0,
+                 1} and {-4, ..., 4} at 1024 and 2048 and with every
+                 buffer poisoned, within 5e-3 of the rms plus 1e-2 of the
+                 element on normal ones (N = 256, 1024, 2048, and the
+                 timed 512 steps; distances to the float64 function of
+                 kernel and twin printed), beside 1024 torch.matmul
+                 replayed from one CUDA graph; milliseconds of kernel,
+                 twin and library call, and each new kernel's -Xptxas -v
+                 line.
 1b. roofline  -- benchmarks.roofline.measure(): the card's measured rates
                  (evaluations/s per op from B2's slope between depths 1 and
                  9, a Philox block among the ops, FLOP/s of B3, bytes/s of
@@ -193,20 +200,11 @@ def smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps):
-    """Median milliseconds of `fn` over `reps` runs, by CUDA events."""
-    import torch
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
+def cuda_ms(fn, reps, batch=1):
+    """The entry points' timing on the card: median milliseconds of `fn`
+    over `reps` runs by CUDA events, after one warm-up run."""
+    from distributions_tpu_torch.benchmarks.timing import median_ms
+    return median_ms(fn, reps, 'cuda', batch)
 
 
 def flagship_data():
@@ -506,8 +504,6 @@ def check_case(port, case, ref_scores, noise):
     timing = {}
     for mode in case.time_modes:
         nz = noise.get(mode)
-        case.launch(mode, nz, 3)
-        case.plain(mode, nz, 3)
         timing[mode] = {
             'ms': cuda_ms(lambda: case.launch(mode, nz, 3), 7),
             'plain_ms': cuda_ms(lambda: case.plain(mode, nz, 3), 3)}
@@ -895,8 +891,6 @@ def phase_kernel_k3(port):
             def plain():
                 return fk.fused_score_sample_pair_plain(
                     3, *args, sampling=mode, **kwargs)
-            launch()
-            plain()
             timing[mode] = {'ms': cuda_ms(launch, 7),
                             'plain_ms': cuda_ms(plain, 3)}
         args, kwargs = slot_slice(m, 0, CL)
@@ -940,10 +934,28 @@ def phase_kernel_k3(port):
     return summary
 
 
+def ptxas_report(fk, source, kernel):
+    """The `-Xptxas -v` lines of one kernel of csrc/<source>.cu (its entry
+    functions' mangled names hold len(kernel) + kernel), from the build's
+    log: the 'Used ...' line and the stack and spill line of each."""
+    lines = fk.build(source)['report'].splitlines()
+    tag = '%d%s' % (len(kernel), kernel)
+    out, keep = [], False
+    for line in lines:
+        if 'Compiling entry function' in line:
+            keep = tag in line
+        elif keep and ('Used ' in line or 'spill' in line):
+            out.append(line.strip())
+    return out
+
+
 def phase_kernel_b4(port):
-    """B4, the streamed copy, at the roofline entry point's 512 MB."""
+    """B4, the streamed copy, at the roofline entry point's 512 MB, and at
+    lengths around its chunk and ring and with ragged tails."""
     import torch
     bk = port['bk']
+    lengths = (5, (1 << 16) + 3) + bk.COPY_EDGE_LENGTHS + ((1 << 20) - 1,
+                                                           (1 << 20) + 1)
     dev = port['config'].default_device()
     n = COPY_MB * (1 << 20) // 4
     x = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(4),
@@ -952,17 +964,21 @@ def phase_kernel_b4(port):
     torch.cuda.synchronize()
     want = bk.roofline_copy_plain(x)
     err = float((got - want).abs().max())
-    # a length that is no multiple of the 16-byte access
-    ragged = x[:min(n - 1, (1 << 16) + 3)]
-    exact = bool(torch.equal(got, want)) and bool(torch.equal(
-        bk.roofline_copy(ragged), bk.roofline_copy_plain(ragged)))
+    exact = bool(torch.equal(got, want)) and all(
+        bool(torch.equal(bk.roofline_copy(x[:m]), bk.roofline_copy_plain(
+            x[:m]))) for m in lengths)
     del got, want
     if not exact:
         raise AssertionError('B4 differs from x + 1 (max abs err %g)' % err)
     torch.add(x, 1)
-    ms = cuda_ms(lambda: bk.roofline_copy(x), 7)
-    plain_ms = cuda_ms(lambda: bk.roofline_copy_plain(x), 7)
-    library_ms = cuda_ms(lambda: torch.add(x, 1), 7)
+    # 0.4 ms calls: timed back to back, as the roofline entry point times
+    # them, so that the wrapper's tens of us of Python before each launch
+    # do not count as the card's time
+    batch = port['roofline'].COPY_BATCH
+    ms = cuda_ms(lambda: bk.roofline_copy(x), 7, batch)
+    plain_ms = cuda_ms(lambda: bk.roofline_copy_plain(x), 7, batch)
+    library_ms = cuda_ms(lambda: torch.add(x, 1), 7, batch)
+    single_ms = cuda_ms(lambda: bk.roofline_copy(x), 7)
     nbytes = 2.0 * n * 4
     bound, bound_by = nominal_bound(nbytes, n)
     out = {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
@@ -970,9 +986,14 @@ def phase_kernel_b4(port):
            # the kernel is its own yardstick: its rate is the measured one
            'measured_bound_ms': ms, 'measured_bound_by': 'bytes'}
     emit(dict({'phase': 'kernel_b4', 'mb': COPY_MB, 'exact': exact,
+               'lengths': list(lengths), 'batch': batch,
+               'single_call_ms': single_ms,
                'bytes_per_sec': nbytes / (ms / 1e3),
+               'share_of_bound': bound / ms,
                'library': 'torch.add(x, 1)',
-               'library_bytes_per_sec': nbytes / (library_ms / 1e3)}, **out))
+               'library_bytes_per_sec': nbytes / (library_ms / 1e3),
+               'ptxas': ptxas_report(port['fk'], 'roofline', 'roofline_copy')},
+              **out))
     return out
 
 
@@ -1033,47 +1054,118 @@ def phase_kernel_b2(port):
     return out
 
 
-def phase_kernel_b3(port):
-    """B3, the tensor-core products, at the entry point's 1024^3."""
+def mma_exact(a, b, steps):
+    """B3's function with float64 sums, acc rounded to bf16 once from
+    them: exact but for that rounding."""
     import torch
-    bk = port['bk']
+    af, bf = a.double(), b.double()
+    acc = af @ bf
+    acc = acc + af @ acc.to(torch.bfloat16).double()
+    out = torch.zeros_like(acc)
+    for _ in range(steps):
+        out = out + acc
+    return out.float()
+
+
+def mma_close(got, want, rms):
+    """Normal operands: the tensor cores' f32 sums round acc to bf16 apart
+    from the twin's where it lies near a rounding boundary, each such term
+    moving an output by |a| x one bf16 ulp; held per element to 5e-3 of the
+    result's rms and 1e-2 of the element, as tests/test_torch_cuda.py
+    holds them."""
+    return bool(((got - want).abs() <= 5e-3 * rms + 1e-2 * want.abs()).all())
+
+
+def phase_kernel_b3(port):
+    """B3, the tensor-core products, at the entry point's 1024^3: bitwise
+    on integer operands (at 2048 too), every buffer written before it is
+    read, normal operands and the timed call against the twin."""
+    import torch
+    bk, roofline = port['bk'], port['roofline']
     dev = port['config'].default_device()
     N, steps = MMA_N, MMA_STEPS
     gen = torch.Generator(device=dev).manual_seed(3)
-    # operands from {-1, 0, 1}: every product and sum is an integer that
-    # f32 and, for acc, bf16 hold exactly, whatever the order of the sums
-    a, b = (torch.randint(-1, 2, (N, N), generator=gen, device=dev).to(
-        torch.bfloat16) for _ in range(2))
-    got = bk.roofline_mma(a, b, 1)
-    want = bk.roofline_mma_plain(a, b, 1)
-    int_err = float((got - want).abs().max())
-    if not torch.equal(got, want):
-        raise AssertionError('B3 on integer operands differs from its twin '
-                             '(max abs err %g)' % int_err)
-    a, b = (torch.randn((N, N), generator=gen, device=dev).to(torch.bfloat16)
-            for _ in range(2))
-    got = bk.roofline_mma(a, b, 2)
-    want = bk.roofline_mma_plain(a, b, 2)
-    err = float((got - want).abs().max())
-    rms = float(want.pow(2).mean().sqrt())
-    # f32 sums in another order, and a bf16 rounding of acc that flips
-    # where acc lies at a rounding boundary (a quarter at |acc| ~ 32, one
-    # or two of the 1024 terms of an output): held to 1e-2 of the result's
-    # root mean square
-    if not err <= 1e-2 * rms:
-        raise AssertionError('B3 on normal operands: max abs err %g (rms of '
-                             'the result %g)' % (err, rms))
-    del got, want
-    bk.roofline_mma(a, b, steps)
-    ms = cuda_ms(lambda: bk.roofline_mma(a, b, steps), 3)
-    bk.roofline_mma_plain(a, b, 2)
-    plain_ms = cuda_ms(lambda: bk.roofline_mma_plain(a, b, steps), 1)
 
-    def library():
-        for _ in range(2 * steps):
-            torch.matmul(a, b)
-    library()
-    library_ms = cuda_ms(library, 3)
+    def operands(n, hi=None):
+        def draw():
+            if hi is None:
+                return torch.randn((n, n), generator=gen, device=dev)
+            return torch.randint(-hi, hi + 1, (n, n), generator=gen,
+                                 device=dev)
+        return draw().to(torch.bfloat16), draw().to(torch.bfloat16)
+
+    # operands from {-hi, ..., hi}: every product and sum is an integer
+    # below 2^24 that f32 holds exactly whatever the order of the sums, so
+    # bf16(acc) rounds the same value in the kernel and the twin; from {-1,
+    # 0, 1} |acc| stays below 256, where bf16 is exact, from {-4, ..., 4}
+    # it often passes 256 and the rounding is held bitwise.  N = 2048 gives
+    # more tiles than SMs.
+    int_err = 0.0
+    for n_int, st, hi in ((N, 1, 1), (N, 3, 4), (2 * N, 1, 4)):
+        a, b = operands(n_int, hi)
+        got = bk.roofline_mma(a, b, st)
+        want = bk.roofline_mma_plain(a, b, st)
+        int_err = max(int_err, float((got - want).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError('B3 on integer operands from {-%d..%d}, N=%d '
+                                 'steps=%d, differs from its twin (max abs '
+                                 'err %g)' % (hi, hi, n_int, st, int_err))
+    # every buffer NaN and every strip counter -1 before the call: a read
+    # before this call's write, or a counter left unzeroed, shows.  Each
+    # accb buffer is first read at step 1 or 2; later steps compute the same
+    # acc again, so a stale read there cannot show through this function.
+    scratch = bk._mma_scratch
+
+    def poisoned(n, d):
+        bufs = scratch(n, d)
+        for t in bufs[:3]:
+            t.fill_(float('nan'))
+        bufs[3].fill_(-1)
+        return bufs
+    bk._mma_scratch = poisoned
+    try:
+        got = bk.roofline_mma(a, b, 3)
+    finally:
+        bk._mma_scratch = scratch
+    if not torch.equal(got, bk.roofline_mma_plain(a, b, 3)):
+        raise AssertionError('B3 with its buffers poisoned differs from its '
+                             'twin')
+    # normal operands: the kernel, the twin and the exact function, each
+    # distance as max abs / rms of the result
+    normal = []
+    for n, st in ((256, 1), (N, 2), (2 * N, 1)):
+        a, b = operands(n)
+        got = bk.roofline_mma(a, b, st)
+        want = bk.roofline_mma_plain(a, b, st)
+        exact = mma_exact(a, b, st)
+        rms = float(want.pow(2).mean().sqrt())
+        normal.append({
+            'N': n, 'steps': st, 'result_rms': rms,
+            'kernel_twin': float((got - want).abs().max()) / rms,
+            'kernel_exact': float((got - exact).abs().max()) / rms,
+            'twin_exact': float((want - exact).abs().max()) / rms})
+        if not mma_close(got, want, rms):
+            raise AssertionError('B3 on normal operands, N=%d steps=%d: %s'
+                                 % (n, st, normal[-1]))
+    err = normal[1]['kernel_twin'] * normal[1]['result_rms']
+    del got, want, exact
+    # the timed configuration, held to its twin
+    a, b = operands(N)
+    launches = bk.roofline_mma.launches
+    got = bk.roofline_mma(a, b, steps)
+    if bk.roofline_mma.launches != launches + 1:
+        raise AssertionError('B3 is one launch a call')
+    want = bk.roofline_mma_plain(a, b, steps)
+    rms = float(want.pow(2).mean().sqrt())
+    timed_err = float((got - want).abs().max())
+    if not mma_close(got, want, rms):
+        raise AssertionError('B3 at %d steps: max abs err %g (rms of the '
+                             'result %g)' % (steps, timed_err, rms))
+    del got, want
+    ms = cuda_ms(lambda: bk.roofline_mma(a, b, steps), 3)
+    plain_ms = cuda_ms(lambda: bk.roofline_mma_plain(a, b, steps), 1)
+    # the yardstick: the same library calls replayed from one CUDA graph
+    library_ms = roofline.matmul_graph_ms(a, b, 2 * steps, 3)
     flops = 4.0 * N ** 3 * steps
     bound, bound_by = nominal_bound(2.0 * N * N * 2 + N * N * 4, flops,
                                     PEAK_BF16_PER_S)
@@ -1081,13 +1173,17 @@ def phase_kernel_b3(port):
            'library_ms': library_ms, 'bound_ms': bound, 'bound_by': bound_by,
            'measured_bound_ms': ms, 'measured_bound_by': 'operations'}
     emit(dict({'phase': 'kernel_b3', 'N': N, 'steps': steps,
-               'launches_per_call': 2 * steps,
+               'launches_per_call': 1,
                'integer_operands_max_abs_err': int_err,
-               'normal_operands': {'steps': 2, 'max_abs_err': err,
-                                   'result_rms': rms},
+               'normal_operands': normal,
+               'timed_call': {'max_abs_err': timed_err, 'result_rms': rms},
                'flops_per_sec': flops / (ms / 1e3),
-               'library': '%d x torch.matmul(a, b)' % (2 * steps),
-               'library_flops_per_sec': flops / (library_ms / 1e3)}, **out))
+               'share_of_bound': bound / ms,
+               'library': '%d x torch.matmul(a, b, out=c) in one CUDA graph'
+                          % (2 * steps),
+               'library_flops_per_sec': flops / (library_ms / 1e3),
+               'ptxas': ptxas_report(port['fk'], 'roofline', 'roofline_mma')},
+              **out))
     return out
 
 
@@ -1221,9 +1317,7 @@ def phase_kernel_b5(port, X, labels):
                              % (checks, best_err))
     timing = {}
     for phase in ('noop', 'score_max', 'score_bits', 'score_gumbel'):
-        bk.fused_phase(phase, 3, *args)
         timing[phase] = cuda_ms(lambda: bk.fused_phase(phase, 3, *args), 7)
-    bk.fused_phase_plain('score_gumbel', 3, *args)
     plain_ms = cuda_ms(
         lambda: bk.fused_phase_plain('score_gumbel', 3, *args), 3)
     bd = bounds(port, (values, cl_scores, coeffs,
@@ -1291,9 +1385,7 @@ def phase_kernel_b1(port):
         if C == SAMPLER_TIMED:
             # the suite's iteration count at this C: 2^28 cells a call
             T = max(16, (1 << 28) // (rows * C))
-            bk.sampler_gumbel(3, scores, T)
             ms = cuda_ms(lambda: bk.sampler_gumbel(3, scores, T), 7)
-            bk.sampler_gumbel_plain(3, scores, 2)
             plain_ms = cuda_ms(
                 lambda: bk.sampler_gumbel_plain(3, scores, T), 2)
             bd = bounds(port, (scores, last, checksum), dict(DRAW_OPS),
@@ -1542,13 +1634,11 @@ def phase_main(port, X, labels):
         return gibbs.run_sweeps_pallas_fused(
             spec, py, shareds, state, values, assignments, BLOCK, 2048, gen,
             cache, n_fused, sampling='gumbel')
-    fused()
     fused_ms = cuda_ms(fused, 3) / n_fused
 
     def plain():
         return gibbs.sweep_blocked(spec, py, shareds, state, values,
                                    assignments, BLOCK, generator=gen)
-    plain()
     plain_ms = cuda_ms(plain, 3)
 
     # where a fused sweep's time goes, by the profiler's device times
@@ -1592,13 +1682,11 @@ def phase_main_mixed(port, problem):
         return gibbs.sweep_blocked_pallas_fused_mixed(
             spec, py, shareds, state, values, assignments, BLOCK_MIXED, 2048,
             gen, cache, sampling='gumbel')
-    fused()
     fused_ms = cuda_ms(fused, 3)
 
     def plain():
         return gibbs.sweep_blocked(spec, py, shareds, state, values,
                                    assignments, BLOCK_MIXED, generator=gen)
-    plain()
     plain_ms = cuda_ms(plain, 2)
     emit({'phase': 'paths_mixed',
           'fused_mixed_ms_per_sweep': fused_ms,
@@ -1717,13 +1805,11 @@ def phase_paths_v1(port, X, labels):
         return gibbs.sweep_blocked_pallas_fused_mixed(
             spec, py, shareds, st0, values, a0, BLOCK_MIXED, 2048, gen, cache,
             sampling='gumbel', supports=supports)
-    fused()
     mixed['fused_mixed_ms_per_sweep'] = cuda_ms(fused, 2)
 
     def plain():
         return gibbs.sweep_blocked(spec, py, shareds, st0, values, a0,
                                    BLOCK_MIXED, generator=gen)
-    plain()
     mixed['plain_sweep_blocked_ms_per_sweep'] = cuda_ms(plain, 2)
     out['nichbbddgp'] = mixed
     emit(out)

@@ -11,9 +11,10 @@ to give the least time it could take.
   include one add or multiply; `philox` is one Philox4x32-10 block (four
   words) with a multiply and an add.
 - `mma_rate()`: tensor-core FLOP/s of B3 (`roofline_mma`, bf16 operands,
-  f32 sums), and beside it `torch.matmul` on the same operands.
+  f32 sums), and beside it `torch.matmul` on the same operands, its calls
+  replayed from one CUDA graph on the card.
 - `hbm_rate()`: bytes per second of B4 (`roofline_copy`, read + write),
-  and beside it `torch.add(x, 1)`.
+  and beside it `torch.add(x, 1)`, both timed as calls back to back.
 
 The library calls are yardsticks only; nothing in the port calls them.
 
@@ -33,6 +34,9 @@ from distributions_tpu_torch import config
 from distributions_tpu_torch.benchmarks.timing import (device_name, int_env,
                                                        median_ms)
 from distributions_tpu_torch.ops import bench_kernels as bk
+
+# hbm_rate times this many calls back to back
+COPY_BATCH = 10
 
 OPS = ('add', 'mul', 'fma', 'log', 'exp', 'log1p', 'rsqrt', 'fast_log',
        'fast_exp', 'philox')
@@ -62,9 +66,32 @@ def vpu_rate(op, device=None, K0=1, K1=9, rows=None, width=None, T=None,
             if ms[K1] != ms[K0] else float('nan')}
 
 
+def matmul_graph_ms(a, b, launches, reps):
+    """Milliseconds of `launches` calls `torch.matmul(a, b, out=c)`
+    captured in one CUDA graph, by CUDA events around its replay: what the
+    card takes for the library's products, without the host's time to
+    issue them one by one.  Warmed up on a side stream before the
+    capture, as graph capture requires."""
+    device = a.device
+    c = torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype, device=device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            torch.matmul(a, b, out=c)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            torch.matmul(a, b, out=c)
+    return median_ms(graph.replay, reps, device)
+
+
 def mma_rate(device=None, N=None, steps=None, reps=None):
     """B3 and `torch.matmul` on [N, N] bf16 operands: 4 N^3 steps
-    floating-point operations either way."""
+    floating-point operations either way.  On the card the library's
+    2 steps products are timed as one CUDA graph; on the CPU as a loop of
+    calls."""
     device = config.resolve_device(device)
     N = int_env('ROOFLINE_N', 1024) if N is None else N
     steps = int_env('ROOFLINE_STEPS', 512) if steps is None else steps
@@ -78,9 +105,11 @@ def mma_rate(device=None, N=None, steps=None, reps=None):
     def library():
         for _ in range(2 * steps):
             torch.matmul(a, b)
-    lib_ms = median_ms(library, reps, device)
+    lib_ms = (matmul_graph_ms(a, b, 2 * steps, reps)
+              if torch.device(device).type == 'cuda'
+              else median_ms(library, reps, device))
     return {'flops_per_sec': flops / (ms / 1e3), 'ms': ms, 'N': N,
-            'steps': steps, 'launches_per_call': 2 * steps,
+            'steps': steps, 'launches_per_call': 1,
             'library_flops_per_sec': flops / (lib_ms / 1e3),
             'library_ms': lib_ms}
 
@@ -93,8 +122,9 @@ def hbm_rate(device=None, mb=None, reps=None):
     reps = int_env('ROOFLINE_REPS', 5) if reps is None else reps
     x = torch.zeros(mb * (1 << 20) // 4, dtype=torch.float32, device=device)
     nbytes = 2.0 * x.numel() * 4
-    ms = median_ms(lambda: bk.roofline_copy(x), reps, device)
-    lib_ms = median_ms(lambda: torch.add(x, 1), reps, device)
+    # calls of a few tenths of a ms, timed back to back (both alike)
+    ms = median_ms(lambda: bk.roofline_copy(x), reps, device, COPY_BATCH)
+    lib_ms = median_ms(lambda: torch.add(x, 1), reps, device, COPY_BATCH)
     return {'bytes_per_sec': nbytes / (ms / 1e3), 'ms': ms, 'mb': mb,
             'library_bytes_per_sec': nbytes / (lib_ms / 1e3),
             'library_ms': lib_ms}

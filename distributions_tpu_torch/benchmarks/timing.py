@@ -13,9 +13,12 @@ def int_env(name, default):
     return int(os.environ.get(name, default))
 
 
-def median_ms(fn, reps, device):
+def median_ms(fn, reps, device, batch=1):
     """Median milliseconds of `fn` over `reps` runs after one warm-up run:
-    by CUDA events on a CUDA device, by the host clock otherwise."""
+    by CUDA events on a CUDA device, by the host clock otherwise.  With
+    `batch` > 1 a run is `batch` calls back to back, divided by `batch`:
+    for calls short enough that the host's time to issue one would
+    otherwise count."""
     device = torch.device(device)
     fn()
     times = []
@@ -24,14 +27,16 @@ def median_ms(fn, reps, device):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            fn()
+            for _ in range(batch):
+                fn()
             b.record()
             torch.cuda.synchronize(device)
-            times.append(a.elapsed_time(b))
+            times.append(a.elapsed_time(b) / batch)
         else:
             t0 = time.perf_counter()
-            fn()
-            times.append(1e3 * (time.perf_counter() - t0))
+            for _ in range(batch):
+                fn()
+            times.append(1e3 * (time.perf_counter() - t0) / batch)
     times.sort()
     return times[len(times) // 2]
 

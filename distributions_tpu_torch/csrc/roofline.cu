@@ -14,8 +14,9 @@
 // What bounds each: B2 the rate at which the card executes the op's
 // instruction sequence (x stays in a register for all T x K evaluations, so
 // neither memory nor the launch enters the slope between two depths K); B3
-// the tensor-core rate and, in this simple form, the shared-memory reads
-// that feed it; B4 the device-memory rate.
+// the tensor-core rate (wgmma fed by TMA, all products in one persistent
+// launch); B4 the device-memory rate (TMA bulk copies through a ring in
+// shared memory).
 //
 // Semantics held against the plain-PyTorch twins
 // (distributions_tpu_torch/ops/bench_kernels.py): every float operation of
@@ -29,9 +30,9 @@
 // stream, allocate nothing, and return cudaGetLastError().
 
 #include "fused_common.cuh"
+#include "hopper.cuh"
 
 #include <cuda_bf16.h>
-#include <mma.h>
 
 // -- B2: the dependent chain -------------------------------------------------
 
@@ -121,47 +122,127 @@ extern "C" int roofline_chain_launch(const float* x, float* o, long long n,
 }
 
 // -- B4: the streamed copy ----------------------------------------------------
+//
+// o = x + 1 through shared memory by the TMA unit: a persistent grid, each
+// block walking whole chunks b, b + G, b + 2G, ... of CHUNK contiguous bytes
+// (G blocks side by side cover one contiguous window).  A ring of STAGES
+// chunks per block is filled by 1-D bulk copies that complete on one
+// mbarrier per stage; the block's threads add 1 in shared memory; one
+// thread stores the chunk back with a bulk copy and, once the previous
+// chunk's store has read its stage, refills that stage.  Both streams carry
+// an L2 evict-first policy: 512 MB passes through a 50 MB L2 once.  The
+// bytes after the last whole chunk (fewer than CHUNK, and the n % 4 tail)
+// go by plain 16-byte and 4-byte accesses.  x must be 16-byte aligned.
 
-// o = x + 1 with 16-byte loads and stores, grid-stride, four independent
-// loads in flight per thread before the first store; the tail of n % 4
-// elements goes one float at a time.
-#define COPY_UNROLL 4
+#define COPY_THREADS 256
+#define COPY_CHUNK 16384
+#define COPY_STAGES 6
+#define COPY_BLOCKS_PER_SM 2
 
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(COPY_THREADS)
 roofline_copy(const float* __restrict__ x, float* __restrict__ o,
               long long n) {
-  const long long n4 = n >> 2;
-  const float4* __restrict__ x4 = reinterpret_cast<const float4*>(x);
-  float4* __restrict__ o4 = reinterpret_cast<float4*>(o);
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  for (long long i = t0; i < n4; i += COPY_UNROLL * stride) {
-    float4 v[COPY_UNROLL];
-#pragma unroll
-    for (int u = 0; u < COPY_UNROLL; ++u)
-      if (i + u * stride < n4) v[u] = x4[i + u * stride];
-#pragma unroll
-    for (int u = 0; u < COPY_UNROLL; ++u)
-      if (i + u * stride < n4) {
-        v[u].x = __fadd_rn(v[u].x, F(1.0));
-        v[u].y = __fadd_rn(v[u].y, F(1.0));
-        v[u].z = __fadd_rn(v[u].z, F(1.0));
-        v[u].w = __fadd_rn(v[u].w, F(1.0));
-        o4[i + u * stride] = v[u];
-      }
+  constexpr int CHUNK = COPY_CHUNK, STAGES = COPY_STAGES;
+  uint8_t* ring = dynamic_smem();
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * CHUNK);
+  const int tid = threadIdx.x;
+  const long long G = gridDim.x, b = blockIdx.x;
+  const long long chunks = n * 4 / CHUNK;
+  const long long mine = b < chunks ? (chunks - 1 - b) / G + 1 : 0;
+  const char* xb = reinterpret_cast<const char*>(x);
+  char* ob = reinterpret_cast<char*>(o);
+  const uint64_t policy = l2_evict_first();
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
+    for (int s = 0; s < STAGES && s < mine; ++s) {
+      mbar_arrive_expect_tx(&full[s], CHUNK);
+      bulk_load(ring + s * CHUNK, xb + (b + s * G) * CHUNK, CHUNK, &full[s],
+                policy);
+    }
   }
-  for (long long i = (n4 << 2) + t0; i < n; i += stride)
-    o[i] = __fadd_rn(x[i], F(1.0));
+  __syncthreads();
+  for (long long i = 0; i < mine; ++i) {
+    const int s = (int)(i % STAGES);
+    mbar_wait(&full[s], (unsigned)((i / STAGES) & 1));
+    float4* v = reinterpret_cast<float4*>(ring + s * CHUNK);
+#pragma unroll
+    for (int u = 0; u < CHUNK / 16 / COPY_THREADS; ++u) {
+      float4 t = v[tid + u * COPY_THREADS];
+      t.x = __fadd_rn(t.x, F(1.0));
+      t.y = __fadd_rn(t.y, F(1.0));
+      t.z = __fadd_rn(t.z, F(1.0));
+      t.w = __fadd_rn(t.w, F(1.0));
+      v[tid + u * COPY_THREADS] = t;
+    }
+    fence_proxy_async_shared();
+    __syncthreads();
+    if (tid == 0) {
+      bulk_store(ob + (b + i * G) * CHUNK, ring + s * CHUNK, CHUNK, policy);
+      bulk_commit();
+      // the stage of chunk i - 1 takes chunk i - 1 + STAGES once its store
+      // has read it: STAGES - 1 loads and two stores in flight
+      const long long next = i - 1 + STAGES;
+      if (i >= 1 && next < mine) {
+        const int sp = (int)((i - 1) % STAGES);
+        bulk_wait_read<1>();
+        mbar_arrive_expect_tx(&full[sp], CHUNK);
+        bulk_load(ring + sp * CHUNK, xb + (b + next * G) * CHUNK, CHUNK,
+                  &full[sp], policy);
+      }
+    }
+  }
+  // after the whole chunks, by the block whose turn the next chunk would be
+  if (b == chunks % G) {
+    const long long e0 = chunks * (CHUNK / 4);
+    const long long n4 = (n - e0) >> 2;
+    const float4* x4 = reinterpret_cast<const float4*>(x + e0);
+    float4* o4 = reinterpret_cast<float4*>(o + e0);
+    for (long long j = tid; j < n4; j += COPY_THREADS) {
+      float4 t = x4[j];
+      t.x = __fadd_rn(t.x, F(1.0));
+      t.y = __fadd_rn(t.y, F(1.0));
+      t.z = __fadd_rn(t.z, F(1.0));
+      t.w = __fadd_rn(t.w, F(1.0));
+      o4[j] = t;
+    }
+    for (long long e = e0 + (n4 << 2) + tid; e < n; e += COPY_THREADS)
+      o[e] = __fadd_rn(x[e], F(1.0));
+  }
+  if (tid == 0) bulk_wait<0>();
 }
 
+// 16 KB chunks, a ring of 6, two blocks an SM: 2 x 96 KB of shared memory
+// and ~160 KB of loads in flight per SM
 extern "C" int roofline_copy_launch(const float* x, float* o, long long n,
                                     void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
-  // 8 blocks of 256 threads per SM (a full SM), grid-stride over the rest
-  long long blocks = ((n >> 2) + 255) / 256;
-  if (blocks < 1) blocks = 1;
-  if (blocks > 132 * 8) blocks = 132 * 8;
-  roofline_copy<<<(int)blocks, 256, 0, (cudaStream_t)stream>>>(x, o, n);
+  const int smem = COPY_STAGES * COPY_CHUNK + COPY_STAGES * 8;
+  // blocks resident on the card at once, found once per device
+  static int resident[64] = {0};
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidValue;
+  if (resident[dev] == 0) {
+    err = cudaFuncSetAttribute(
+        roofline_copy, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    int sms, per_sm;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, roofline_copy, COPY_THREADS, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm > COPY_BLOCKS_PER_SM) per_sm = COPY_BLOCKS_PER_SM;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    resident[dev] = sms * per_sm;
+  }
+  long long grid = n * 4 / COPY_CHUNK;
+  if (grid < 1) grid = 1;
+  if (grid > resident[dev]) grid = resident[dev];
+  roofline_copy<<<(int)grid, COPY_THREADS, smem, (cudaStream_t)stream>>>(
+      x, o, n);
   return (int)cudaGetLastError();
 }
 
@@ -171,174 +252,323 @@ extern "C" int roofline_copy_launch(const float* x, float* o, long long n,
 //
 //   acc = a . b;  acc += a . bf16(acc);  out += acc        (f32 sums)
 //
-// The second product needs the whole first product, a grid-wide step edge:
-// each product is one launch, 2 * steps launches on one stream.  The first
-// launch writes acc as f32 and, from its epilogue, as bf16; the second
-// starts its accumulators from acc, adds a . bf16(acc), and adds the result
-// into out.
+// All 2 * steps products run in ONE cooperative launch (every block
+// resident), phase p = 0, 1, ..., 2 steps - 1 being product p % 2 + 1 of
+// step p / 2.  The operands stay in L2 (a, b, the two accb 2 MB each, accf
+// and out 4 MB each at N = 1024), as the TPU kernel's single program keeps
+// them resident.
 //
-// A block computes a 128 x 64 tile of the product with 8 warps as 4 x 2,
-// each warp 32 x 32 = 2 x 2 wmma tiles of 16 x 16 x 16 (mma.sync on the
-// tensor cores; wgmma is later work).  Operand tiles of depth 32 are staged
-// in shared memory, the next tile prefetched into registers while the
-// current one is multiplied.
+// Tiles of 128 x 64 (128 tiles at N = 1024 for 132 SMs); a block loops
+// over tiles blockIdx.x, + gridDim.x, ... in every phase, so it owns the
+// same tiles of accf and out throughout.  Per block a producer warp and two
+// consumer warpgroups:
+//   - the producer's one thread issues TMA tiled loads of a (128 x 64, K
+//     inner) and of b or accb (64 x 64, N inner), 128-byte swizzled, into
+//     a ring of MMA_STAGES stages, paced by a full and an empty mbarrier
+//     per stage;
+//   - each consumer warpgroup runs wgmma m64n64k16 (A K-major, B MN-major:
+//     the transposed-B mode, no transposed copy) on its 64 rows, one group
+//     of four k16 products per stage, one group in flight while the
+//     previous stage is released;
+//   - the epilogue works in the accumulator's documented register layout:
+//     product 1 stores accf (f32) and accb (bf16); product 2 adds accf and
+//     adds the sum into out (out = 0 + sum at step 0: no memset), both
+//     loaded into registers before its products.
+//
+// Only accb crosses blocks: a product-2 tile reads the column strip of accb
+// that the product-1 tiles of the same strip wrote.  So
+//   - steps alternate between two accb buffers: product 1 of step s + 1
+//     writes the other one, and never waits;
+//   - after each product-1 tile its consumers arrive on the strip's
+//     counter; before loading a tile's accb in product 2 the producer
+//     waits for all N / 128 tiles of the strip, then fences the async
+//     proxy (accb was written by thread stores and is read by TMA), having
+//     issued the a tiles of its first stages already;
+//   - product 1 of step s + 2 overwrites a buffer only after its own
+//     product 2 of step s + 1 waited for its strip, whose tiles finished
+//     reading that buffer before their product 1 of step s + 1.
 
 #define MMA_BM 128
 #define MMA_BN 64
-#define MMA_BK 32
-#define MMA_THREADS 256
-#define MMA_LDA (MMA_BK + 8)     // bf16 elements; rows stay 16-byte aligned
-#define MMA_LDB (MMA_BN + 8)
+#define MMA_BK 64
+#define MMA_STAGES 8
+#define MMA_CONSUMERS 256
+#define MMA_THREADS (MMA_CONSUMERS + 32)
+#define MMA_A_BYTES (MMA_BM * MMA_BK * 2)
+#define MMA_B_BYTES (MMA_BK * MMA_BN * 2)
+#define MMA_STAGE_BYTES (MMA_A_BYTES + MMA_B_BYTES)
+// the ring, 1024-byte aligned for the swizzle, and its 2 x STAGES barriers
+#define MMA_SMEM (1024 + MMA_STAGES * MMA_STAGE_BYTES + 16 * MMA_STAGES)
 
-using namespace nvcuda;
-
-// SECOND = false: accf = a . b, accb = bf16(accf).
-// SECOND = true:  out += accf + a . b   (b is then bf16(accf)).
-template <bool SECOND>
-__global__ void __launch_bounds__(MMA_THREADS)
-roofline_mma(const __nv_bfloat16* __restrict__ a,
-             const __nv_bfloat16* __restrict__ b, float* __restrict__ accf,
-             __nv_bfloat16* __restrict__ accb, float* __restrict__ out,
-             int N) {
-  __shared__ __align__(32) __nv_bfloat16 sa[MMA_BM * MMA_LDA];
-  __shared__ __align__(32) __nv_bfloat16 sb[MMA_BK * MMA_LDB];
-  __shared__ __align__(32) float stage[MMA_THREADS / 32][16 * 16];
-
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+roofline_mma(const __grid_constant__ CUtensorMap map_a,
+             const __grid_constant__ CUtensorMap map_b,
+             const __grid_constant__ CUtensorMap map_acc0,
+             const __grid_constant__ CUtensorMap map_acc1,
+             float* __restrict__ accf, __nv_bfloat16* __restrict__ accb,
+             float* __restrict__ out, unsigned* __restrict__ done, int N,
+             int steps) {
+  uint8_t* raw = dynamic_smem();
+  uint8_t* ring = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring +
+                                               MMA_STAGES * MMA_STAGE_BYTES);
+  uint64_t* empty = full + MMA_STAGES;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wm = warp >> 1;            // 0..3: rows 32 * wm of the tile
-  const int wn = warp & 1;             // 0..1: cols 32 * wn of the tile
-  const int row0 = blockIdx.y * MMA_BM;
-  const int col0 = blockIdx.x * MMA_BN;
+  if (tid == 0) {
+    for (int s = 0; s < MMA_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);    // one arrival per consumer warpgroup
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int tiles_n = N / MMA_BN;
+  const int tiles_m = N / MMA_BM;
+  const int tiles = tiles_m * tiles_n;
+  const int kchunks = N / MMA_BK;
+  const int phases = 2 * steps;
+  const int G = gridDim.x;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      if (SECOND) {
-        wmma::load_matrix_sync(
-            c[i][j],
-            accf + (size_t)(row0 + 32 * wm + 16 * i) * N + col0 + 32 * wn +
-                16 * j,
-            N, wmma::mem_row_major);
-      } else {
-        wmma::fill_fragment(c[i][j], 0.0f);
+  if (tid >= MMA_CONSUMERS) {
+    // the producer warp: one thread issues every load
+    if (tid == MMA_CONSUMERS) {
+      int stage = 0;
+      unsigned parity = 0;
+      for (int p = 0; p < phases; ++p) {
+        const bool second = p & 1;
+        const int step = p >> 1;
+        const CUtensorMap* map_k =
+            !second ? &map_b : (step & 1) ? &map_acc1 : &map_acc0;
+        // product 2 waits for accb; the a tiles of its first stages need
+        // not, and go first
+        int ahead = 0;
+        if (second) {
+          const int row0 = (blockIdx.x / tiles_n) * MMA_BM;
+          int s = stage;
+          unsigned par = parity;
+          for (; ahead < MMA_STAGES && ahead < kchunks; ++ahead) {
+            mbar_wait(&empty[s], par ^ 1);
+            mbar_arrive_expect_tx(&full[s], MMA_STAGE_BYTES);
+            tma_load_2d(ring + s * MMA_STAGE_BYTES, &map_a, &full[s],
+                        ahead * MMA_BK, row0);
+            if (++s == MMA_STAGES) {
+              s = 0;
+              par ^= 1;
+            }
+          }
+        }
+        int n = 0;
+        for (int t = blockIdx.x; t < tiles; t += G) {
+          const int row0 = (t / tiles_n) * MMA_BM;
+          const int col0 = (t % tiles_n) * MMA_BN;
+          if (second) {
+            // the tile reads accb's column strip: every tile of the strip
+            // has finished this step's product 1.  accb was written by
+            // thread stores and is read by TMA: fence the async proxy.
+            counter_wait(&done[t % tiles_n], (unsigned)(tiles_m * (step + 1)));
+            fence_proxy_async_global();
+          }
+          for (int kc = 0; kc < kchunks; ++kc, ++n) {
+            uint8_t* sa = ring + stage * MMA_STAGE_BYTES;
+            if (n >= ahead) {
+              mbar_wait(&empty[stage], parity ^ 1);
+              mbar_arrive_expect_tx(&full[stage], MMA_STAGE_BYTES);
+              tma_load_2d(sa, &map_a, &full[stage], kc * MMA_BK, row0);
+            }
+            tma_load_2d(sa + MMA_A_BYTES, map_k, &full[stage], col0,
+                        kc * MMA_BK);
+            if (++stage == MMA_STAGES) {
+              stage = 0;
+              parity ^= 1;
+            }
+          }
+        }
       }
     }
-
-  // global -> registers: the a tile is 128 x 32 bf16 = 512 chunks of 16
-  // bytes (2 per thread), the b tile 32 x 64 = 256 chunks (1 per thread)
-  uint4 ra[2], rb;
-  auto load_tiles = [&](int k0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int chunk = tid + h * MMA_THREADS;
-      const int r = chunk >> 2, cc = (chunk & 3) * 8;
-      ra[h] = *reinterpret_cast<const uint4*>(
-          a + (size_t)(row0 + r) * N + k0 + cc);
-    }
-    const int r = tid >> 3, cc = (tid & 7) * 8;
-    rb = *reinterpret_cast<const uint4*>(b + (size_t)(k0 + r) * N + col0 + cc);
-  };
-  auto store_tiles = [&]() {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int chunk = tid + h * MMA_THREADS;
-      const int r = chunk >> 2, cc = (chunk & 3) * 8;
-      *reinterpret_cast<uint4*>(sa + r * MMA_LDA + cc) = ra[h];
-    }
-    const int r = tid >> 3, cc = (tid & 7) * 8;
-    *reinterpret_cast<uint4*>(sb + r * MMA_LDB + cc) = rb;
-  };
-
-  load_tiles(0);
-  store_tiles();
-  __syncthreads();
-  for (int k0 = 0; k0 < N; k0 += MMA_BK) {
-    const bool more = k0 + MMA_BK < N;
-    if (more) load_tiles(k0 + MMA_BK);
-#pragma unroll
-    for (int kk = 0; kk < MMA_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], sa + (32 * wm + 16 * i) * MMA_LDA + kk,
-                               MMA_LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], sb + kk * MMA_LDB + 32 * wn + 16 * j,
-                               MMA_LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(c[i][j], fa[i], fb[j], c[i][j]);
-    }
-    __syncthreads();
-    if (more) {
-      store_tiles();
-      __syncthreads();
-    }
+    return;
   }
 
+  // the consumer warpgroups: wg 0 rows 0-63 of a tile, wg 1 rows 64-127
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  int stage = 0;
+  unsigned parity = 0;
+  for (int p = 0; p < phases; ++p) {
+    const bool second = p & 1;
+    const int step = p >> 1;
+    __nv_bfloat16* acc_bf = accb + (size_t)(step & 1) * N * N;
+    for (int t = blockIdx.x; t < tiles; t += G) {
+      const int row0 = (t / tiles_n) * MMA_BM;
+      const int col0 = (t % tiles_n) * MMA_BN;
+      // this thread's elements: i -> row + 8 (i & 1), columns 8 (i >> 1)
+      // and + 1 (the accumulator layout of wgmma_m64n64k16_bf16_tb)
+      const size_t base = (size_t)(row0 + 64 * wg + 16 * warp + (lane >> 2)) *
+                              N + col0 + 2 * (lane & 3);
+      // product 2 adds accf and the running out: this thread wrote both
+      // (its block has the same tiles in every phase), so it loads them
+      // before its products, to be in registers by the epilogue
+      float2 pf[16], po[16];
+      if (second) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const size_t base =
-          (size_t)(row0 + 32 * wm + 16 * i) * N + col0 + 32 * wn + 16 * j;
-      if (SECOND) {
-        // same fragment type, same element mapping: add element by element
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-        wmma::load_matrix_sync(o, out + base, N, wmma::mem_row_major);
-#pragma unroll
-        for (int t = 0; t < o.num_elements; ++t)
-          o.x[t] = __fadd_rn(o.x[t], c[i][j].x[t]);
-        wmma::store_matrix_sync(out + base, o, N, wmma::mem_row_major);
-      } else {
-        wmma::store_matrix_sync(accf + base, c[i][j], N, wmma::mem_row_major);
-        // the bf16 copy goes through a staging tile: the accumulator's
-        // element mapping is opaque
-        wmma::store_matrix_sync(stage[warp], c[i][j], 16,
-                                wmma::mem_row_major);
-        __syncwarp();
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int e = lane + 32 * t;           // 0..255
-          accb[base + (size_t)(e >> 4) * N + (e & 15)] =
-              __float2bfloat16(stage[warp][e]);
+        for (int i = 0; i < 16; ++i) {
+          const size_t idx = base + (size_t)(8 * (i & 1)) * N + 8 * (i >> 1);
+          pf[i] = *reinterpret_cast<const float2*>(accf + idx);
+          po[i] = p == 1 ? make_float2(F(0.0), F(0.0))
+                         : *reinterpret_cast<const float2*>(out + idx);
         }
-        __syncwarp();
+      }
+      float d[32];
+#pragma unroll
+      for (int r = 0; r < 32; ++r) d[r] = 0.0f;
+      int prev = 0;
+      for (int kc = 0; kc < kchunks; ++kc) {
+        mbar_wait(&full[stage], parity);
+        const uint32_t sa = smem_u32(ring + stage * MMA_STAGE_BYTES) +
+                            wg * (64 * 128);
+        const uint32_t sb = smem_u32(ring + stage * MMA_STAGE_BYTES +
+                                     MMA_A_BYTES);
+        wgmma_fence_regs(d);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < MMA_BK / 16; ++k)
+          // A: 32 bytes further along K per k16 inside the swizzled rows;
+          // B: 16 rows of 128 bytes further per k16; 8-row atoms 1024
+          // bytes apart
+          wgmma_m64n64k16_bf16_tb(d, wgmma_desc(sa + 32 * k, 16, 1024),
+                                  wgmma_desc(sb + 2048 * k, 8192, 1024));
+        wgmma_commit();
+        wgmma_fence_regs(d);
+        if (kc > 0) {
+          wgmma_wait<1>();
+          if ((tid & 127) == 0) mbar_arrive(&empty[prev]);
+        }
+        prev = stage;
+        if (++stage == MMA_STAGES) {
+          stage = 0;
+          parity ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      if ((tid & 127) == 0) mbar_arrive(&empty[prev]);
+      wgmma_fence_regs(d);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const size_t idx = base + (size_t)(8 * (i & 1)) * N + 8 * (i >> 1);
+        if (!second) {
+          *reinterpret_cast<float2*>(accf + idx) =
+              make_float2(d[2 * i], d[2 * i + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(acc_bf + idx) =
+              __floats2bfloat162_rn(d[2 * i], d[2 * i + 1]);
+        } else {
+          float2 o = po[i];
+          o.x = __fadd_rn(o.x, __fadd_rn(pf[i].x, d[2 * i]));
+          o.y = __fadd_rn(o.y, __fadd_rn(pf[i].y, d[2 * i + 1]));
+          *reinterpret_cast<float2*>(out + idx) = o;
+        }
+      }
+      if (!second) {
+        // the tile's accb is written: one arrival on its column strip
+        fence_proxy_async_global();
+        named_barrier(1, MMA_CONSUMERS);
+        if (tid == 0) counter_arrive(&done[t % tiles_n]);
       }
     }
+  }
 }
 
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no link against the driver
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+// an [N, N] row-major bf16 matrix in boxes of 64 columns x `rows`, swizzled
+// by 128 bytes
+static bool bf16_map(EncodeTiledFn encode, CUtensorMap* map, const void* base,
+                     int N, int rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)N};
+  const cuuint64_t strides[1] = {(cuuint64_t)N * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// accb: 2 x N x N bf16 (steps alternate between the two), done: N / 64
+// unsigned of scratch, zeroed here before the launch
 extern "C" int roofline_mma_launch(const void* a, const void* b, void* accf,
-                                   void* accb, void* out, int N, int steps,
-                                   void* stream) {
+                                   void* accb, void* out, void* done, int N,
+                                   int steps, void* stream) {
   if (N < MMA_BM || N % MMA_BM != 0 || steps < 1)
     return (int)cudaErrorInvalidValue;
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  __nv_bfloat16* acc_bf = (__nv_bfloat16*)accb;
+  CUtensorMap map_a, map_b, map_acc0, map_acc1;
+  if (!bf16_map(encode, &map_a, a, N, MMA_BM) ||
+      !bf16_map(encode, &map_b, b, N, MMA_BK) ||
+      !bf16_map(encode, &map_acc0, acc_bf, N, MMA_BK) ||
+      !bf16_map(encode, &map_acc1, acc_bf + (size_t)N * N, N, MMA_BK))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err =
-      cudaMemsetAsync(out, 0, (size_t)N * N * sizeof(float), st);
+  // blocks resident on the card at once, found once per device
+  static int resident[64] = {0};
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(N / MMA_BN, N / MMA_BM);
-  const __nv_bfloat16* pa = (const __nv_bfloat16*)a;
-  const __nv_bfloat16* pb = (const __nv_bfloat16*)b;
-  for (int s = 0; s < steps; ++s) {
-    roofline_mma<false><<<grid, MMA_THREADS, 0, st>>>(
-        pa, pb, (float*)accf, (__nv_bfloat16*)accb, (float*)out, N);
-    roofline_mma<true><<<grid, MMA_THREADS, 0, st>>>(
-        pa, (const __nv_bfloat16*)accb, (float*)accf, (__nv_bfloat16*)accb,
-        (float*)out, N);
-    err = cudaGetLastError();
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidValue;
+  if (resident[dev] == 0) {
+    err = cudaFuncSetAttribute(
+        roofline_mma, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM);
     if (err != cudaSuccess) return (int)err;
+    int sms, per_sm;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, roofline_mma, MMA_THREADS, MMA_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    resident[dev] = sms * per_sm;
   }
+  const int tiles = (N / MMA_BM) * (N / MMA_BN);
+  const int grid = tiles < resident[dev] ? tiles : resident[dev];
+  err = cudaMemsetAsync(done, 0, sizeof(unsigned) * (N / MMA_BN), st);
+  if (err != cudaSuccess) return (int)err;
+  float* pf = (float*)accf;
+  float* po = (float*)out;
+  unsigned* pd = (unsigned*)done;
+  void* args[] = {&map_a, &map_b, &map_acc0, &map_acc1, &pf, &acc_bf, &po,
+                  &pd, &N, &steps};
+  // every block resident at once (a tile waits on others' arrivals), or
+  // the launch is refused
+  err = cudaLaunchCooperativeKernel(roofline_mma, dim3(grid),
+                                    dim3(MMA_THREADS), args, MMA_SMEM, st);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

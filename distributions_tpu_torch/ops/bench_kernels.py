@@ -7,9 +7,10 @@ the Pallas kernels on the JAX package's measurement entry points:
 - B2, `roofline_chain` (benchmarks/roofline.py::_chain_kernel): a K-deep
   dependent chain of one op per element, T times;
 - B3, `roofline_mma` (roofline.py::_mxu_kernel): repeated bf16 matrix
-  products with f32 accumulation on the tensor cores;
+  products with f32 accumulation on the tensor cores (wgmma fed by TMA,
+  one persistent launch a call);
 - B4, `roofline_copy` (roofline.py::_copy_kernel): `o = x + 1` streamed
-  (B2-B4 in `csrc/roofline.cu`);
+  by TMA bulk copies (B2-B4 in `csrc/roofline.cu`);
 - B5, `fused_phase` (profile_kernel_phases.py::_variant_kernel): K1's
   score + sample kernel cut into cumulative phases (`csrc/fused_v2.cu`
   instantiated over a compile-time phase).
@@ -180,25 +181,40 @@ roofline_chain.launches = 0
 
 # -- B4: the streamed copy ----------------------------------------------------
 
+# the kernel's chunk and ring (COPY_CHUNK bytes, COPY_STAGES in
+# csrc/roofline.cu): the lengths at and around one chunk and one ring are
+# where its bulk copies end and its plain tail begins
+COPY_CHUNK_FLOATS = 4096
+COPY_RING = 6
+COPY_EDGE_LENGTHS = tuple(
+    m * COPY_CHUNK_FLOATS + d for m in (1, COPY_RING) for d in (-1, 0, 1))
+
+
 def roofline_copy_plain(x):
     """The plain PyTorch version of B4, on any device."""
     return x + 1.0
 
 
-def roofline_copy(x):
-    """B4: `x + 1` of a contiguous f32 tensor, read and written once with
-    16-byte accesses: (bytes in + bytes out) / time is the device-memory
-    rate a kernel can reach.
-
-    CPU tensors run the plain twin; CUDA tensors launch the kernel or
-    raise."""
-    if _device_kind('roofline_copy', x) == 'cpu':
-        return roofline_copy_plain(x)
+def _check_copy(x):
+    fk._check('x', x, x.device, x.shape)
     if x.numel() < 1:
         raise ValueError('x must hold at least one element')
-    fk._check('x', x, x.device, x.shape)
+    # the kernel's bulk copies move 16-byte-aligned spans
     if x.data_ptr() % 16:
         raise ValueError('x must be 16-byte aligned')
+
+
+def roofline_copy(x):
+    """B4: `x + 1` of a contiguous, 16-byte-aligned f32 tensor, read and
+    written once by TMA bulk copies through shared memory: (bytes in +
+    bytes out) / time is the device-memory rate a kernel can reach.
+
+    CPU tensors run the plain twin (after the same checks); CUDA tensors
+    launch the kernel or raise."""
+    kind = _device_kind('roofline_copy', x)
+    _check_copy(x)
+    if kind == 'cpu':
+        return roofline_copy_plain(x)
     lib = fk.build('roofline')['lib']
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -214,7 +230,7 @@ roofline_copy.launches = 0
 
 # -- B3: bf16 matrix products -------------------------------------------------
 
-# the kernel's block tile: N must be a multiple of it
+# the kernel's block tile is 128 x 64: N must be a multiple of 128
 MMA_TILE = 128
 
 
@@ -231,39 +247,58 @@ def roofline_mma_plain(a, b, steps):
     return out
 
 
+def _check_mma(a, b, steps):
+    if steps < 1:
+        raise ValueError('steps must be >= 1')
+    if a.dim() != 2 or a.shape[0] != a.shape[1]:
+        raise ValueError('a must be [N, N], got %s' % (tuple(a.shape),))
+    N = a.shape[0]
+    if N % MMA_TILE or N < MMA_TILE:
+        raise ValueError('N must be a positive multiple of %d, got %d'
+                         % (MMA_TILE, N))
+    fk._check('a', a, a.device, (N, N), torch.bfloat16)
+    fk._check('b', b, a.device, (N, N), torch.bfloat16)
+    # the TMA unit reads from 16-byte-aligned rows
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError('a and b must be 16-byte aligned')
+    return N
+
+
+def _mma_scratch(N, dev):
+    """The kernel's buffers, uninitialised: accf, accb (bf16(acc) of even
+    and of odd steps), out (zeroed in the kernel) and, per column strip of
+    accb, its tiles done (zeroed by the launcher)."""
+    return (torch.empty((N, N), dtype=torch.float32, device=dev),
+            torch.empty((2, N, N), dtype=torch.bfloat16, device=dev),
+            torch.empty((N, N), dtype=torch.float32, device=dev),
+            torch.empty(N // 64, dtype=torch.int32, device=dev))
+
+
 def roofline_mma(a, b, steps):
     """B3: `steps` times on [N, N] bf16 operands, with f32 sums,
 
         acc = a @ b;  acc += a @ bf16(acc);  out += acc
 
     Returns out [N, N] f32.  4 * N**3 * steps floating-point operations.
-    N must be a multiple of 128.  Each product is one launch (the second
-    needs the whole first), 2 * steps launches on the current stream.
+    N must be a multiple of 128.  All 2 * steps products run in one
+    persistent cooperative launch (wgmma on TMA-loaded tiles; a tile of
+    product 2 waits for the product-1 tiles of its column strip) on the
+    current stream.
 
-    CPU tensors run the plain twin; CUDA tensors launch the kernel or
-    raise."""
+    CPU tensors run the plain twin (after the same checks); CUDA tensors
+    launch the kernel or raise."""
     steps = int(steps)
-    if steps < 1:
-        raise ValueError('steps must be >= 1')
-    if a.dim() != 2 or a.shape[0] != a.shape[1]:
-        raise ValueError('a must be [N, N], got %s' % (tuple(a.shape),))
-    N = a.shape[0]
-    if _device_kind('roofline_mma', a) == 'cpu':
+    kind = _device_kind('roofline_mma', a)
+    N = _check_mma(a, b, steps)
+    if kind == 'cpu':
         return roofline_mma_plain(a, b, steps)
-    if N % MMA_TILE:
-        raise ValueError('N must be a multiple of %d, got %d'
-                         % (MMA_TILE, N))
     dev = a.device
-    fk._check('a', a, dev, (N, N), torch.bfloat16)
-    fk._check('b', b, dev, (N, N), torch.bfloat16)
     lib = fk.build('roofline')['lib']
-    accf = torch.empty((N, N), dtype=torch.float32, device=dev)
-    accb = torch.empty((N, N), dtype=torch.bfloat16, device=dev)
-    out = torch.empty((N, N), dtype=torch.float32, device=dev)
+    accf, accb, out, done = _mma_scratch(N, dev)
     with torch.cuda.device(dev):
         err = lib.roofline_mma_launch(
             a.data_ptr(), b.data_ptr(), accf.data_ptr(), accb.data_ptr(),
-            out.data_ptr(), N, steps, _stream(dev))
+            out.data_ptr(), done.data_ptr(), N, steps, _stream(dev))
     fk._raise_on('roofline', lib, err)
     roofline_mma.launches += 1
     return out

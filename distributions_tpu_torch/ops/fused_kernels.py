@@ -623,8 +623,8 @@ def mixed_score_sample_plain(seed, nich_values, table_indices, cl_scores,
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'csrc')
-# device code that every kernel source includes
-_COMMON = 'fused_common.cuh'
+# device code that the kernel sources include
+_HEADERS = ('fused_common.cuh', 'hopper.cuh')
 KERNELS = ('fused_v2', 'fused_v3', 'score_sample_v1', 'roofline',
            'sampler_bench')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -655,7 +655,7 @@ _LAUNCHERS = {
     'roofline': {
         'roofline_chain_launch': [_P, _P, _I64, _I, _I, _I, _P],
         'roofline_copy_launch': [_P, _P, _I64, _P],
-        'roofline_mma_launch': [_P] * 5 + [_I, _I, _P]},
+        'roofline_mma_launch': [_P] * 6 + [_I, _I, _P]},
     'sampler_bench': {
         'sampler_bench_launch': [_P] * 5 + [_I, _I, _I, _I, _U64, _P]},
 }
@@ -681,11 +681,11 @@ def _bind(name, lib):
 
 def _start_build(name):
     """Start nvcc on csrc/<name>.cu unless its library exists already (one
-    library per content of the source, the shared header and the flags).
+    library per content of the source, the shared headers and the flags).
     Returns what `_finish_build` needs."""
     src = os.path.join(_CSRC, name + '.cu')
     h = hashlib.sha1(' '.join(NVCC_FLAGS).encode())
-    for path in (src, os.path.join(_CSRC, _COMMON)):
+    for path in (src,) + tuple(os.path.join(_CSRC, n) for n in _HEADERS):
         with open(path, 'rb') as f:
             h.update(f.read())
     so = os.path.join(BUILD_DIR, '%s_%s.so' % (name, h.hexdigest()[:12]))
@@ -725,7 +725,7 @@ def _finish_build(name, so, tmp, proc, t0):
 
 def build(name):
     """Compile csrc/<name>.cu (a name in KERNELS) with nvcc into
-    BUILD_DIR, once per content of the source and the shared header, and
+    BUILD_DIR, once per content of the source and the shared headers, and
     load it.  Returns a dict with the ctypes library, the build seconds
     (0 when it was already built) and the compiler's register and
     shared-memory report."""

@@ -9,6 +9,7 @@ same twins by tests/test_torch_cuda.py on the card."""
 import functools
 import importlib.util
 import os
+import re
 from fractions import Fraction
 
 import jax
@@ -186,6 +187,67 @@ def test_copy_twin():
     assert torch.equal(bk.roofline_copy(x), x + 1.0)
     with pytest.raises(ValueError, match='CPU or CUDA'):
         bk.roofline_copy(torch.empty(4, device='meta'))
+
+
+def test_copy_geometry_is_the_kernels():
+    """The chunk and ring whose edges the card's tests walk, and the tile
+    that N must be a multiple of, are csrc/roofline.cu's own."""
+    with open(os.path.join(ROOT, 'distributions_tpu_torch', 'csrc',
+                           'roofline.cu')) as f:
+        defines = dict(re.findall(r'^#define (\w+) (\d+)$', f.read(), re.M))
+    assert int(defines['COPY_CHUNK']) == 4 * bk.COPY_CHUNK_FLOATS
+    assert int(defines['COPY_STAGES']) == bk.COPY_RING
+    assert int(defines['MMA_BM']) == bk.MMA_TILE
+    assert bk.COPY_CHUNK_FLOATS in bk.COPY_EDGE_LENGTHS
+    assert bk.COPY_RING * bk.COPY_CHUNK_FLOATS + 1 in bk.COPY_EDGE_LENGTHS
+
+
+def _misaligned(shape, dtype):
+    """A contiguous tensor of `shape` that starts one element past a
+    16-byte boundary."""
+    n = 1
+    for d in shape:
+        n *= d
+    return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+
+
+# the wrappers check on the CPU what the kernels need on the card
+@pytest.mark.parametrize('case,error,match', [
+    ('dtype', TypeError, 'dtype'),
+    ('strided', ValueError, 'contiguous'),
+    ('empty', ValueError, 'at least one'),
+    ('misaligned', ValueError, '16-byte'),
+])
+def test_copy_wrapper_checks(case, error, match):
+    x = {'dtype': lambda: torch.zeros(64, dtype=torch.float64),
+         'strided': lambda: torch.zeros((8, 8)).t(),
+         'empty': lambda: torch.zeros(0),
+         'misaligned': lambda: _misaligned((64,), torch.float32)}[case]()
+    with pytest.raises(error, match=match):
+        bk.roofline_copy(x)
+
+
+@pytest.mark.parametrize('case,error,match', [
+    ('not_square', ValueError, r'\[N, N\]'),
+    ('not_multiple', ValueError, 'multiple of 128'),
+    ('dtype', TypeError, 'dtype'),
+    ('b_shape', ValueError, 'shape'),
+    ('misaligned', ValueError, '16-byte'),
+    ('steps', ValueError, 'steps'),
+])
+def test_mma_wrapper_checks(case, error, match):
+    a = torch.zeros((128, 128), dtype=torch.bfloat16)
+    args = {'not_square': lambda: (a[:, :64], a, 1),
+            'not_multiple': lambda: (a[:64, :64].contiguous(),
+                                     a[:64, :64].contiguous(), 1),
+            'dtype': lambda: (a.float(), a, 1),
+            'b_shape': lambda: (a, torch.zeros((256, 256),
+                                               dtype=torch.bfloat16), 1),
+            'misaligned': lambda: (_misaligned((128, 128), torch.bfloat16),
+                                   a, 1),
+            'steps': lambda: (a, a, 0)}[case]()
+    with pytest.raises(error, match=match):
+        bk.roofline_mma(*args)
 
 
 # -- B1 ------------------------------------------------------------------------

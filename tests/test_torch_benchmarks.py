@@ -37,7 +37,7 @@ def test_roofline_entry_point(monkeypatch, capsys, tmp_path):
                 'hbm_bytes_per_sec', 'hbm_torch_add_bytes_per_sec'):
         assert line[key] > 0
     saved = json.loads(path.read_text())
-    assert saved['detail']['mma']['launches_per_call'] == 2
+    assert saved['detail']['mma']['launches_per_call'] == 1
     assert set(saved['detail']['log']['ms']) == {'1', '5', '9'}
 
 
