@@ -7,7 +7,8 @@ Phases, each printing one JSON line; any failure raises and the script
 exits non-zero:
 
 1. build      -- compile the kernels K1 and B5 (csrc/fused_v2.cu), K2 and
-                 K3 (csrc/fused_v3.cu), K4 and K5 (csrc/score_sample_v1.cu),
+                 K3 (csrc/fused_v3.cu; both with the slot-split walk of
+                 csrc/fused_split.cuh), K4 and K5 (csrc/score_sample_v1.cu),
                  B2, B3 and B4 (csrc/roofline.cu) and B1
                  (csrc/sampler_bench.cu) with nvcc from the sources in this
                  checkout, the compilers started together; print the card's
@@ -56,12 +57,22 @@ exits non-zero:
                  (near ties counted and bounded), stat sums within
                  tolerance, slot-frequency z-tests against the softmax of
                  mixture.score_batch for the in-kernel-RNG modes, bitwise
-                 repeatability, a ragged C=1000 x B=3000 case, and median
-                 kernel and twin milliseconds per mode.
+                 repeatability, a ragged C=1000 x B=3000 case (also in
+                 two nich blocks of (2, 3) columns: the split walk's wide
+                 shape), median
+                 kernel and twin milliseconds per mode; 'gumbel' and
+                 'gumbel_fast' equal to 'gumbel_host' on
+                 fused_kernels.philox_gumbel_noise (the Philox counter
+                 and word exactly; near-ties only may differ); the split
+                 kernel's registers, local bytes, shared memory,
+                 occupancy and waves, and -Xptxas -v over its
+                 instantiations.
 3. kernel_k2  -- the same for K2 at one tile of B=65536 x C=1024 in two
                  layouts, niw2mix (niw d=2 + nich + bb) and bbddgp
                  (bb + dd + gp, no nich block), with the count tables
-                 exactly equal; the ragged case is niw d=3 + nich + bb.
+                 exactly equal; the ragged case is niw d=3 + nich + bb
+                 (the wide shape).  The Philox check and the split
+                 kernel's report as well, also for the wide shape.
 3a. kernel_k3 -- the pair kernel K3 at B=65536 x C_local=256, the four
                  component shards of the K2 problems above (niw2mix and
                  bbddgp), and once at C_local=1024: equal to its twin in
@@ -71,7 +82,9 @@ exits non-zero:
                  whole slot axis in 'argmax', 'gumbel_host' and 'gumbel';
                  z-tests of the reduced draws in 'gumbel' and
                  'gumbel_fast'; bitwise repeatability; a ragged case with
-                 odd slot offsets; milliseconds of kernel and twin.
+                 odd slot offsets; milliseconds of kernel and twin; the
+                 Philox check on each shard at its slot offset, and the
+                 split kernel's report.
 3b. kernel_k4, kernel_k5 -- the v1 score + sample kernels (no stat
                  outputs) against their twins: K4 at B=131072 x C=1024 x 2
                  nich, K5 at B=65536 x C=1024 on nich + bb + dd + gp and on
@@ -158,6 +171,9 @@ ROWS = 1048576
 SLOTS = 1024
 FEATURES = 2
 BLOCK = 131072
+# nich column groups off the main path: the ragged K1 case again in two
+# blocks, which takes the wide shape of the split walk
+WIDE_GROUPS = (2, 3)
 # the mixed path's tile (profile_mixed.py)
 BLOCK_MIXED = 65536
 TRUE_CLUSTERS = SLOTS // 8 * 7
@@ -338,10 +354,10 @@ class V1Case(Case):
     time_modes = ('gumbel', 'argmax', 'gumbel_host')
 
 
-def k1_case(port, values, cl_scores, coeffs):
+def k1_case(port, values, cl_scores, coeffs, groups=None):
     import torch
     fk, base = port['fk'], port['base']
-    groups = (values.shape[1],)
+    groups = groups or (values.shape[1],)
     C = cl_scores.shape[0]
 
     def launch(mode, noise, seed):
@@ -510,6 +526,66 @@ def check_case(port, case, ref_scores, noise):
     return modes, max_err, timing
 
 
+def philox_exact(port, name, launch, scores, B, C, slot_offset=0, seed=21):
+    """The kernel's own Philox noise, exactly: 'gumbel' draws against
+    'gumbel_host' draws on fused_kernels.philox_gumbel_noise at the same
+    seed (counter (row, g / 4), word g % 4, g = slot_offset + slot), and
+    the same for their '_fast' forms.  Only near-ties may differ (torch.log
+    against the kernel's logf).  `launch(sampling, noise, seed)` returns
+    the draws; `scores(fast)` the [B, C] scores."""
+    fk, testing = port['fk'], port['testing']
+    out = {}
+    for fast in (False, True):
+        noise = fk.philox_gumbel_noise(seed, B, C, slot_offset=slot_offset,
+                                       fast=fast)
+        suffix = '_fast' if fast else ''
+        a = launch('gumbel' + suffix, None, seed)
+        b = launch('gumbel_host' + suffix, noise, seed)
+        n_bad, gap = testing.mismatches(scores(fast) + noise, a, b)
+        del noise
+        if gap > TIE_GAP:
+            raise AssertionError(
+                '%s gumbel%s is not its Philox noise: %d draws differ from '
+                'gumbel_host on philox_gumbel_noise (gap %g)'
+                % (name, suffix, n_bad, gap))
+        out['gumbel' + suffix] = {'mismatched_draws': n_bad,
+                                  'max_tie_gap': gap}
+    return out
+
+
+def split_report(port, name, B, C, col_groups, quad_groups=(), table_vs=(),
+                 sampling='gumbel', phase=0):
+    """The split kernel that the launch takes: registers, local bytes,
+    shared memory, record floats, turns, resident blocks per SM, and from
+    them the occupancy (resident threads over the SM's maximum) and the
+    waves of the launch's grid."""
+    import torch
+    fk = port['fk']
+    r = fk.split_occupancy(name, C, col_groups, quad_groups, table_vs,
+                           sampling, phase)
+    props = torch.cuda.get_device_properties(0)
+    block_rows = fk.SPLIT_THREADS // fk.SPLIT_SLICES * fk.SPLIT_ROWS
+    blocks = -(-B // block_rows)
+    resident = r['blocks_per_sm'] * props.multi_processor_count
+    r.update(occupancy=r['blocks_per_sm'] * r['threads_per_block']
+             / props.max_threads_per_multi_processor,
+             grid_blocks=blocks, waves=blocks / max(resident, 1))
+    return r
+
+
+def split_ptxas(port, source):
+    """-Xptxas -v over every instantiation of the split walk in
+    csrc/<source>.cu: how many, their registers, and those that spill."""
+    lines = ptxas_report(port['fk'], source, 'split_score_sample')
+    regs = [int(line.split('Used ')[1].split(' ')[0]) for line in lines
+            if 'Used ' in line]
+    spills = [line for line in lines
+              if 'spill' in line and not line.startswith('0 bytes stack')
+              and ' 0 bytes spill stores' not in line]
+    return {'instantiations': len(regs), 'registers_min': min(regs),
+            'registers_max': max(regs), 'spill_lines': spills}
+
+
 def check_ragged(port, case, noise):
     out = {}
     max_err = 0.0
@@ -520,20 +596,25 @@ def check_ragged(port, case, noise):
     return out, max_err
 
 
-def nich_inputs(port, values, labels, C):
+def nich_inputs(port, values, labels, C, groups=None):
     """(spec, shareds, py, state, cl_scores, coeffs) of a nich mixture
-    built from data, on the default device."""
+    built from data, on the default device: one nich block of all the
+    columns, or a block per entry of `groups`."""
     import torch
     mx, cl, nich, fk = port['mx'], port['cl'], port['nich'], port['fk']
-    spec = mx.make_spec([(nich, values.shape[1])], capacity=C)
-    shareds = (nich.shared_from_dict(SHARED),)
+    groups = groups or (values.shape[1],)
+    spec = mx.make_spec([(nich, c) for c in groups], capacity=C)
+    shareds = tuple(nich.shared_from_dict(SHARED) for _ in groups)
     py = cl.PitmanYor.from_dict(PY)
+    cuts = [sum(groups[:i]) for i in range(len(groups) + 1)]
     state = mx.state_from_assignments(
-        spec, py, shareds, (values,),
+        spec, py, shareds,
+        tuple(values[:, a:b].contiguous() for a, b in zip(cuts, cuts[1:])),
         torch.as_tensor(labels, device=values.device))
     cl_scores = cl.score_value(py, state.counts, state.alive,
                                state.sample_size)
-    coeffs = fk.nich_coeffs_v2(shareds[0], state.groups[0]).contiguous()
+    coeffs = torch.cat([fk.nich_coeffs_v2(shareds[i], state.groups[i])
+                        for i in range(len(groups))]).contiguous()
     return spec, shareds, py, state, cl_scores, coeffs
 
 
@@ -560,6 +641,20 @@ def phase_kernel(port, X, labels):
     ragged, err_r = check_ragged(port, k1_case(port, ragged_vals, cl_r, co_r),
                                  host_noise(port, Br, Cr, 5))
     max_err = max(max_err, err_r)
+    # the same rows in two nich blocks of (2, 3) columns: the wide shape
+    wide_vals = torch.cat([ragged_vals, 0.5 * ragged_vals + 1.0,
+                           ragged_vals[:, :1] - 1.0], 1).contiguous()
+    _, _, _, _, cl_w, co_w = nich_inputs(port, wide_vals, labels[:Br] % 900,
+                                         Cr, WIDE_GROUPS)
+    ragged_wide, err_w = check_ragged(
+        port, k1_case(port, wide_vals, cl_w, co_w, WIDE_GROUPS),
+        host_noise(port, Br, Cr, 6))
+    max_err = max(max_err, err_w)
+    philox = philox_exact(
+        port, 'K1', lambda mode, nz, seed: case.launch(mode, nz, seed)[0],
+        lambda fast: port['fk']._score_nich_product(
+            values, coeffs, cl_scores, (FEATURES,),
+            port['fk'].fast_log if fast else torch.log), B, SLOTS)
     tensors = (values, cl_scores, coeffs, torch.empty(B, dtype=torch.int32),
                torch.empty(SLOTS, 3 * FEATURES))
     bd = bounds(port, tensors, gumbel_ops_per_cell((FEATURES,), (), 0), B,
@@ -569,7 +664,13 @@ def phase_kernel(port, X, labels):
                      SLOTS)
     emit(dict({'phase': 'kernel', 'B': B, 'C': SLOTS, 'cols': FEATURES,
                'modes': modes, 'bitwise_repeatable': True, 'ragged': ragged,
+               'ragged_wide': ragged_wide, 'philox_exact': philox,
                'timing': timing,
+               'split': split_report(port, 'fused_v2', B, SLOTS,
+                                     (FEATURES,)),
+               'split_wide': split_report(port, 'fused_v2', Br, Cr,
+                                          WIDE_GROUPS),
+               'split_ptxas': split_ptxas(port, 'fused_v2'),
                'gumbel_fast_measured_bound_ms': bd_fast['measured_bound_ms']},
               **bd))
     return dict(bd, max_abs_err=max_err, ms=timing['gumbel']['ms'],
@@ -593,7 +694,16 @@ def phase_kernel_k2(port):
         del ref_scores
         max_err = max(max_err, err)
         lay = m['lay']
-        qdim = port['fk'].quad_stat_dim(lay.quad_groups)
+        fk = port['fk']
+        philox = philox_exact(
+            port, 'K2 ' + kind,
+            lambda mode, nz, seed: case.launch(mode, nz, seed)[0],
+            lambda fast: fk._score_mixed(
+                B, lay.nich_vals, lay.table_idx, m['cl_scores'], m['coeffs'],
+                m['tables'], m['col_groups'], lay.quad_vals, m['qcoeffs'],
+                lay.quad_groups, lay.table_vs,
+                fk.fast_log if fast else torch.log), B, C)
+        qdim = fk.quad_stat_dim(lay.quad_groups)
         bd = bounds(
             port,
             (lay.nich_vals, lay.quad_vals, lay.table_idx, m['cl_scores'],
@@ -605,7 +715,9 @@ def phase_kernel_k2(port):
                                 len(lay.table_vs)), B, C)
         result['layouts'][kind] = dict(
             {'modes': modes, 'timing': timing, 'bitwise_repeatable': True,
-             'table_vs': list(lay.table_vs)}, **bd)
+             'table_vs': list(lay.table_vs), 'philox_exact': philox,
+             'split': split_report(port, 'fused_v3', B, C, m['col_groups'],
+                                   lay.quad_groups, lay.table_vs)}, **bd)
         if kind == 'niw2mix':
             summary = dict(bd, ms=timing['gumbel']['ms'],
                            plain_ms=timing['gumbel']['plain_ms'])
@@ -616,7 +728,11 @@ def phase_kernel_k2(port):
     m = mixed_inputs(port, 'niw3_nich_bb', Br, Cr, 40, seed=4)
     result['ragged'], err = check_ragged(port, k2_case(port, m),
                                          host_noise(port, Br, Cr, 5))
+    result['split_wide'] = split_report(port, 'fused_v3', Br, Cr,
+                                        m['col_groups'], m['lay'].quad_groups,
+                                        m['lay'].table_vs)
     summary['max_abs_err'] = max(max_err, err)
+    result['split_ptxas'] = split_ptxas(port, 'fused_v3')
     emit(result)
     return summary
 
@@ -879,6 +995,23 @@ def phase_kernel_k3(port):
         modes, err = check_pair_shards(port, m, cuts, noise, ref_scores)
         del ref_scores
         worst = max(worst, err)
+        philox = {}
+        for a, b in zip(cuts[:-1], cuts[1:]):
+            s_args, s_kwargs = slot_slice(m, a, b)
+            s_kwargs.pop('noise')
+
+            def launch(mode, nz, seed):
+                return fk.fused_score_sample_pair(
+                    seed, *s_args, sampling=mode, noise=nz, **s_kwargs)[0]
+
+            def scores(fast):
+                return fk._score_mixed(
+                    B, *s_args, s_kwargs['qvalues'], s_kwargs['qcoeffs'],
+                    s_kwargs['quad_groups'], s_kwargs['table_vs'],
+                    fk.fast_log if fast else torch.log)
+            philox['slot_offset_%d' % a] = philox_exact(
+                port, 'K3 %s [%d, %d)' % (kind, a, b), launch, scores, B,
+                b - a, slot_offset=a)
         timing = {}
         for mode in ('gumbel', 'gumbel_fast', 'argmax', 'gumbel_host'):
             args, kwargs = slot_slice(
@@ -902,7 +1035,10 @@ def phase_kernel_k3(port):
             + (kwargs['qcoeffs'], torch.empty(B, dtype=torch.int32),
                torch.empty(B)), ops, B, CL)
         entry = dict({'modes': modes, 'timing': timing,
-                      'bitwise_repeatable': True}, **bd)
+                      'bitwise_repeatable': True, 'philox_exact': philox,
+                      'split': split_report(port, 'fused_v3', B, CL,
+                                            m['col_groups'], lay.quad_groups,
+                                            lay.table_vs)}, **bd)
         if kind == 'niw2mix':
             # one launch over the whole slot axis
             w_args, w_kwargs = slot_slice(m, 0, C)
@@ -1578,8 +1714,9 @@ def run_main(port, wrapper, spec, py, shareds, values_np, labels, block):
         'nonempty_groups': log.rows[-1]['nonempty_groups']}
 
 
-def profile_sweep(sweep, kernel_prefix):
-    """Device time of one fused sweep by kernel name, and the device's
+def profile_sweep(sweep, kernel_names):
+    """Device time of one fused sweep by kernel name (`kernel_device_ms`:
+    the kernels whose names hold one of `kernel_names`), and the device's
     share of the sweep's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1600,7 +1737,8 @@ def profile_sweep(sweep, kernel_prefix):
     total_ms = sum(us for us, _ in rows) / 1e3
     if not rows:
         return {'device_ms': 'not measured', 'wall_ms': wall_ms}
-    kernel_ms = sum(us for us, k in rows if kernel_prefix in k) / 1e3
+    kernel_ms = sum(us for us, k in rows
+                    if any(name in k for name in kernel_names)) / 1e3
     return {'wall_ms': wall_ms, 'device_ms': total_ms,
             'kernel_device_ms': kernel_ms,
             'device_busy_share': total_ms / wall_ms,
@@ -1645,7 +1783,7 @@ def phase_main(port, X, labels):
     breakdown = profile_sweep(
         lambda: gibbs.sweep_blocked_pallas_fused(
             spec, py, shareds, state, values, assignments, BLOCK, 2048, gen,
-            cache, sampling='gumbel'), 'fused_v2')
+            cache, sampling='gumbel'), ('split_score_sample', 'fused_v2'))
     emit({'phase': 'paths', 'run_sweeps_pallas_fused_ms_per_sweep': fused_ms,
           'plain_sweep_blocked_ms_per_sweep': plain_ms,
           'fused_cells_per_sec': cells / (fused_ms / 1e3),
@@ -1693,7 +1831,8 @@ def phase_main_mixed(port, problem):
           'plain_sweep_blocked_ms_per_sweep': plain_ms,
           'per_tile_host_ms': tile_bookkeeping_ms(port, spec, py, shareds,
                                                   state, values, cache),
-          'fused_sweep_profile': profile_sweep(fused, 'fused_v3')})
+          'fused_sweep_profile': profile_sweep(
+              fused, ('split_score_sample', 'fused_v3'))})
     return main['launches']
 
 
@@ -2095,7 +2234,7 @@ def phase_sharded(port, X, labels, mixed):
         tiles_per_row_shard=tiles, launches=k3_launches, sweeps=n,
         ms_per_sweep=ms,
         profile=profile_sweep(lambda: fused_2d(st0, a0),
-                              'fused_v3_score_pair'))
+                              ('split_score_sample',)))
     del st, an
 
     # the plain 2-D and component sweeps, and 'argmax' fused against plain,

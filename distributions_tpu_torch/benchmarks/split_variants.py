@@ -1,0 +1,168 @@
+"""The compile-time design variants of the slot-split walk
+(csrc/fused_split.cuh) on one card: K1, K1's phases B5, K2 and K3 at the
+main path's shapes, each variant built as a library of its own
+(`fused_kernels.build(name, defines)`), its outputs held bit for bit to
+the default's, its times and its occupancy.
+
+    python -m distributions_tpu_torch.benchmarks.split_variants
+
+Variants: the default (each warp walks one slice, two rows a thread), the
+lane mapping (a row's eight slices on lanes of one warp, merged by warp
+shuffles: SPLIT_LANE_SLICES=1), one, three and four rows a thread
+(SPLIT_ROWS), and __launch_bounds__ with a minimum of resident blocks
+(SPLIT_MIN_BLOCKS; without one ptxas picks the registers by itself), and
+the wide shape in place of the exact shapes of the main path's layouts
+(SPLIT_WIDE_ONLY=1).
+Inputs: tree_compare's nich2 tile (131,072 x 1024) and niw2mix and bbddgp
+tiles (65,536 x 1024; K3 on the niw2mix tile's first 256 slots).  Every
+variant runs twice, in the order given and then in reverse, each time in a
+process of its own (two libraries with the same kernel names must not meet
+in one process), timed by median CUDA-event milliseconds of 7 launches.  Prints one JSON line per
+variant, then a summary; exits 1 when a variant's outputs differ from the
+default's.  Needs one card.
+"""
+
+import json
+import sys
+
+from distributions_tpu_torch.benchmarks import tree_compare
+
+VARIANTS = (('warp slices, 2 rows', ()),
+            ('warp slices, 2 rows, >= 1 block an SM', ('SPLIT_MIN_BLOCKS=1',)),
+            ('lane slices, 2 rows', ('SPLIT_LANE_SLICES=1',)),
+            ('warp slices, 1 row', ('SPLIT_ROWS=1',)),
+            ('warp slices, 3 rows', ('SPLIT_ROWS=3',)),
+            ('warp slices, 4 rows', ('SPLIT_ROWS=4',)),
+            ('warp slices, 4 rows, >= 1 block an SM',
+             ('SPLIT_ROWS=4', 'SPLIT_MIN_BLOCKS=1')),
+            ('warp slices, 4 rows, >= 3 blocks an SM',
+             ('SPLIT_ROWS=4', 'SPLIT_MIN_BLOCKS=3')),
+            ('warp slices, 2 rows, >= 6 blocks an SM',
+             ('SPLIT_MIN_BLOCKS=6',)),
+            ('wide shape for every layout', ('SPLIT_WIDE_ONLY=1',)))
+LIBS = ('fused_v2', 'fused_v3')
+
+
+def use(fk, defines):
+    """Make the variant the library that this process's wrappers launch:
+    a worker process runs one variant only."""
+    for name in LIBS:
+        fk._LIBRARIES[(name, ())] = fk.build(name, defines)
+
+
+def calls(fk, bk, data, dev):
+    """name -> a launch returning its outputs."""
+    import torch
+    k1 = {k: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+          for k, v in data['k1'].items()}
+    k1_args = (k1['values'], k1['cl_scores'], k1['coeffs'], (2,))
+    out = {}
+    for mode in ('gumbel', 'argmax'):
+        out['K1 ' + mode] = (lambda m: lambda: fk.fused_score_sample_stats(
+            5, *k1_args, sampling=m))(mode)
+    for phase in ('score_max', 'score_bits', 'score_gumbel'):
+        out['B5 ' + phase] = (lambda p: lambda: (bk.fused_phase(
+            p, 5, *k1_args),))(phase)
+    for kind in ('niw2mix', 'bbddgp'):
+        k2 = {k: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+              for k, v in data[kind].items()}
+        args = (k2['values'], k2['table_idx'], k2['cl_scores'],
+                k2['coeffs'], torch.clamp(k2['tables'], min=-1e30),
+                k2['col_groups'])
+        kwargs = dict(qvalues=k2['qvalues'], qcoeffs=k2['qcoeffs'],
+                      quad_groups=k2['quad_groups'],
+                      table_vs=k2['table_vs'])
+        for mode in ('gumbel', 'argmax'):
+            out['K2 %s %s' % (kind, mode)] = (
+                lambda m, a, kw: lambda: fk.fused_mixed_score_sample_stats(
+                    5, *a, sampling=m, **kw))(mode, args, kwargs)
+        if kind == 'niw2mix':
+            CL = tree_compare.SLOTS // tree_compare.SHARDS
+
+            def cut(x):
+                return None if x is None else x[:, :CL].contiguous()
+            s_args = args[:2] + (args[2][:CL].contiguous(), cut(args[3]),
+                                 cut(args[4]), args[5])
+            s_kwargs = dict(kwargs, qcoeffs=cut(kwargs['qcoeffs']))
+            out['K3 niw2mix gumbel'] = lambda: fk.fused_score_sample_pair(
+                5, *s_args, sampling='gumbel', **s_kwargs)
+    return out
+
+
+def worker(defines, inputs, out):
+    """One variant in a process of its own (libraries with the same kernel
+    names must not meet in one process): times, digests, occupancy."""
+    import torch
+    from distributions_tpu_torch.benchmarks.timing import median_ms
+    from distributions_tpu_torch.ops import bench_kernels as bk
+    from distributions_tpu_torch.ops import fused_kernels as fk
+    dev = torch.device('cuda')
+    use(fk, defines)
+    data = torch.load(inputs)
+    r = {'ms': {}, 'digests': {}}
+    for name, fn in calls(fk, bk, data, dev).items():
+        r['ms'][name] = median_ms(fn, 7, dev)
+        r['digests'][name] = tree_compare.digest(*fn())
+    mixed = data['niw2mix']
+    layout = (mixed['col_groups'], mixed['quad_groups'], mixed['table_vs'])
+    r['occupancy'] = {
+        'K1': fk.split_occupancy('fused_v2', tree_compare.SLOTS, (2,)),
+        'K2 niw2mix': fk.split_occupancy('fused_v3', tree_compare.SLOTS,
+                                         *layout),
+        'K3 niw2mix': fk.split_occupancy(
+            'fused_v3', tree_compare.SLOTS // tree_compare.SHARDS, *layout)}
+    with open(out, 'w') as f:
+        json.dump(r, f)
+
+
+def main(argv=None):
+    import os
+    import subprocess
+    import torch
+    from distributions_tpu_torch.benchmarks.timing import device_name
+    from distributions_tpu_torch.ops import fused_kernels as fk
+    argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] == '--worker':
+        worker(tuple(json.loads(argv[1])), argv[2], argv[3])
+        return 0
+    # every variant's compilers at once
+    jobs = [fk._start_build(name, defines) for _, defines in VARIANTS
+            for name in LIBS]
+    for job in jobs:
+        fk._finish_build(*job)
+    work = os.path.join(tree_compare.ROOT, 'build', 'split_variants')
+    os.makedirs(work, exist_ok=True)
+    inputs = os.path.join(work, 'inputs.pt')
+    torch.save(tree_compare.main_path_inputs(kinds=('niw2mix', 'bbddgp')),
+               inputs)
+    results = {label: {'defines': list(defines), 'ms': {}}
+               for label, defines in VARIANTS}
+    digests = {}
+    differ = []
+    for i, (label, defines) in enumerate(VARIANTS
+                                         + tuple(reversed(VARIANTS))):
+        out = os.path.join(work, 'run%d.json' % i)
+        subprocess.run([sys.executable, '-m', __spec__.name, '--worker',
+                        json.dumps(list(defines)), inputs, out],
+                       cwd=tree_compare.ROOT, check=True)
+        with open(out) as f:
+            run = json.load(f)
+        r = results[label]
+        for name, ms in run['ms'].items():
+            r['ms'].setdefault(name, []).append(ms)
+            if digests.setdefault(name, run['digests'][name]) != \
+                    run['digests'][name]:
+                differ.append((label, name))
+        r['occupancy'] = run['occupancy']
+    for label, _ in VARIANTS:
+        print(json.dumps(dict(results[label], variant=label)), flush=True)
+    print(json.dumps({'variants': len(VARIANTS),
+                      'outputs_that_differ': differ,
+                      'bitwise_equal': not differ,
+                      'device': device_name(torch.device('cuda'))}),
+          flush=True)
+    return 1 if differ else 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,0 +1,354 @@
+"""Two trees of this repository on one card: the fused kernels K1, K2, K3
+and K1's phases B5 at the main path's shapes in every sampling mode, held
+to each other bit for bit, with their times and the runner's ms per sweep.
+
+    python -m distributions_tpu_torch.benchmarks.tree_compare OLD [NEW]
+
+OLD and NEW are checkouts (a `git archive` of a commit unpacked somewhere
+will do); NEW defaults to this one.  The inputs are made once, on the CPU,
+by this checkout: one nich2 tile of 131,072 rows x 1024 slots (K1, B5) and
+one niw2mix tile of 65,536 x 1024 (K2, and K3 on its four shards of 256
+slots), and the same sizes off the main path (WIDE_K1: nich tiles of one
+block of 3 or 4 columns and of blocks (2, 3); WIDE_K2: niw d = 3 + nich +
+bb and niw d = 4); the '_host' noise is drawn on the card from a seeded
+generator.
+Then four processes run in turn, OLD, NEW, NEW, OLD, each importing the
+package of its own tree and building its kernels from its own sources:
+
+- every output of K1 and K2 in 'argmax', 'gumbel', 'gumbel_host', 'cdf',
+  'cdf_host' and their '_fast' forms (draws and every stat sum), of K3 in
+  'argmax', 'gumbel', 'gumbel_host' and their '_fast' forms on each shard
+  (draws and best scores), of B5's 'noop', 'score_max', 'score_bits' and
+  'score_<mode>' phases, and of K4 (the nich2 tile), K5 (a nichbbddgp tile
+  of 65,536 x 1024) and B1 (2048 rows of random scores, 4 iterations) in
+  'argmax', 'gumbel' and 'gumbel_host', each as a SHA-256 of its bytes;
+  off the main path, K1 and K2 in WIDE_MODES, B5's phases and K3's
+  'argmax', 'gumbel' and 'gumbel_host' on each shard;
+- median CUDA-event milliseconds of K1, K2, K3 (shard 0) in 'gumbel' and of
+  every B5 phase named above in 'gumbel'; of K1, K2 and K3 (shard 0) in
+  'gumbel' off the main path;
+- benchmarks.bench_runner at RUNNER_MODEL=nich and niw2mix (the `main` and
+  `main_mixed` runner configurations; RUNNER_* from the environment).
+
+Prints one JSON line per process, then one with the verdict: for each
+output whether all four runs agree, each tree's times (two runs each) and
+ms per sweep.  Exits 1 when an output differs.  Needs one card.
+"""
+
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+K1_ROWS, K2_ROWS, SLOTS, SHARDS = 131072, 65536, 1024, 4
+MODES = ('argmax', 'gumbel', 'gumbel_host', 'cdf', 'cdf_host')
+ALL_MODES = MODES + tuple(m + '_fast' for m in MODES)
+PAIR_MODES = ('argmax', 'gumbel', 'gumbel_host', 'argmax_fast',
+              'gumbel_fast', 'gumbel_host_fast')
+# K4, K5 and B1 (which share the draw code of csrc/fused_common.cuh)
+V1_MODES = ('argmax', 'gumbel', 'gumbel_host')
+B1_ROWS = 2048
+PHASES = ('noop', 'score_max', 'score_bits')
+TIMED_PHASES = PHASES + ('score_gumbel', 'full_gumbel')
+# layouts off the main path, each kernel timed and hashed on them too: K1
+# on one block of 3 or 4 nich columns and on two blocks (2, 3); K2 (and K3
+# on shard 0) on niw d = 3 + nich + bb and on niw d = 4 (the wide shape)
+WIDE_K1 = ((3,), (4,), (2, 3))
+WIDE_K2 = ('niw3_nich_bb', 'niw4')
+WIDE_MODES = ('argmax', 'gumbel', 'gumbel_host', 'cdf')
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def make_inputs(path):
+    """The kernels' inputs, made on the CPU by this checkout's package,
+    saved to `path`."""
+    import torch
+    d = main_path_inputs(kinds=('niw2mix', 'nichbbddgp') + WIDE_K2)
+    for groups in WIDE_K1:
+        d['k1 %s' % (groups,)] = nich_tile_inputs(groups)
+    torch.save(d, path)
+
+
+def nich_tile_inputs(groups=(2,), rows=K1_ROWS, slots=SLOTS):
+    """A K1 tile on the CPU (values, cl_scores, coeffs, col_groups;
+    v1_coeffs for one block): `rows` rows of blobs in sum(groups)
+    dimensions around 7/8 of `slots` centres, one nich block of
+    {mu 0, kappa 0.1, sigmasq 0.01, nu 1} per group, its state from the
+    generating labels."""
+    import numpy as np
+    import torch
+    from distributions_tpu_torch import clustering as cl, mixture as mx
+    from distributions_tpu_torch.models import nich
+    from distributions_tpu_torch.ops import fused_kernels as fk
+    cpu = torch.device('cpu')
+    rng = np.random.RandomState(0)
+    n_true = slots // 8 * 7
+    F = sum(groups)
+    labels = rng.randint(0, n_true, rows)
+    centers = rng.randn(n_true, F).astype(np.float32)
+    values = torch.from_numpy(
+        (centers[labels] + 0.1 * rng.randn(rows, F)).astype(np.float32))
+    spec = mx.make_spec([(nich, c) for c in groups], capacity=slots)
+    shareds = tuple(nich.shared_from_dict(
+        {'mu': 0., 'kappa': 0.1, 'sigmasq': 0.01, 'nu': 1.}, device=cpu)
+        for _ in groups)
+    py = cl.PitmanYor.from_dict({'alpha': 1.0, 'd': 0.1}, device=cpu)
+    cuts = np.cumsum((0,) + tuple(groups))
+    state = mx.state_from_assignments(
+        spec, py, shareds,
+        tuple(values[:, a:b].contiguous() for a, b in zip(cuts, cuts[1:])),
+        torch.from_numpy(labels))
+    out = dict(values=values,
+               cl_scores=cl.score_value(py, state.counts, state.alive,
+                                        state.sample_size),
+               coeffs=torch.cat([fk.nich_coeffs_v2(shareds[i],
+                                                   state.groups[i])
+                                 for i in range(len(groups))]).contiguous(),
+               col_groups=tuple(groups))
+    if len(groups) == 1:
+        out['v1_coeffs'] = fk.nich_coeffs(shareds[0],
+                                          state.groups[0]).contiguous()
+    return out
+
+
+def main_path_inputs(kinds=('niw2mix',)):
+    """K1's nich2 tile ('k1': values, cl_scores, coeffs, v1_coeffs) and
+    K2's tile of each mixed layout in `kinds` (its arguments by name), on
+    the CPU."""
+    import torch
+    from distributions_tpu_torch import clustering as cl, mixture as mx
+    from distributions_tpu_torch import testing
+    from distributions_tpu_torch.models import MODULES
+    from distributions_tpu_torch.ops import gibbs
+    cpu = torch.device('cpu')
+    n_true = SLOTS // 8 * 7
+    out = {'k1': nich_tile_inputs((2,))}
+    for kind in kinds:
+        problem = testing.mixed_problem(K2_ROWS, SLOTS, seed=0, kind=kind,
+                                        n_clusters=n_true)
+        spec, py, shareds = testing.build_problem(
+            problem, MODULES, mx.make_spec, cl.PitmanYor.from_dict,
+            device=cpu)
+        vals = tuple(torch.from_numpy(v) for v in problem['values'])
+        state = mx.state_from_assignments(
+            spec, py, shareds, vals, torch.from_numpy(problem['labels']))
+        lay = gibbs._mixed_static_layout(spec, vals)
+        coeffs, qcoeffs, tables = gibbs._build_fused_inputs(spec, lay,
+                                                            shareds, state)
+        out[kind] = dict(
+            values=lay.nich_vals, table_idx=lay.table_idx,
+            cl_scores=cl.score_value(py, state.counts, state.alive,
+                                     state.sample_size),
+            coeffs=coeffs, tables=tables, qvalues=lay.quad_vals,
+            qcoeffs=qcoeffs,
+            col_groups=tuple(spec.blocks[i].cols for i in lay.nich_blocks),
+            quad_groups=tuple(lay.quad_groups),
+            table_vs=tuple(lay.table_vs))
+        if kind == 'nichbbddgp':
+            out[kind]['v1_coeffs'], out[kind]['v1_tables'] = \
+                gibbs._build_v1_inputs(spec, lay, shareds, state)
+    return out
+
+
+def digest(*tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:24]
+
+
+def worker(tree, inputs, out):
+    """One tree's run; writes its JSON to `out`."""
+    import torch
+    from distributions_tpu_torch.benchmarks import bench_runner
+    from distributions_tpu_torch.benchmarks.timing import median_ms
+    from distributions_tpu_torch.ops import bench_kernels as bk
+    from distributions_tpu_torch.ops import fused_kernels as fk
+    dev = torch.device('cuda')
+    t0 = time.time()
+    fk.build_all()
+    build_s = time.time() - t0
+    d = torch.load(inputs)
+
+    def on_card(t):
+        return {k: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+                for k, v in t.items()}
+    k1 = on_card(d['k1'])
+    k1_wide = {groups: on_card(d['k1 %s' % (groups,)]) for groups in WIDE_K1}
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def noise(B, C):
+        u = torch.rand((B, C), generator=gen, device=dev)
+        return {'gumbel_host': -torch.log(-torch.log(u.clamp_min(1e-30))),
+                'cdf_host': torch.rand((B, 1), generator=gen, device=dev)}
+    n1, n2 = noise(K1_ROWS, SLOTS), noise(K2_ROWS, SLOTS)
+
+    def nz(table, mode):
+        return table.get(mode.replace('_fast', ''))
+
+    def mixed_args(t):
+        return ((t['values'], t['table_idx'], t['cl_scores'], t['coeffs'],
+                 torch.clamp(t['tables'], min=-1e30)
+                 if t['tables'] is not None else None, t['col_groups']),
+                dict(qvalues=t['qvalues'], qcoeffs=t['qcoeffs'],
+                     quad_groups=t['quad_groups'], table_vs=t['table_vs']))
+    mixed = {kind: mixed_args(on_card(d[kind]))
+             for kind in ('niw2mix',) + WIDE_K2}
+    CL = SLOTS // SHARDS
+
+    def shard(kind, a):
+        args, kwargs = mixed[kind]
+
+        def cut(x):
+            return None if x is None else x[:, a:a + CL].contiguous()
+        return ((args[0], args[1], args[2][a:a + CL].contiguous(),
+                 cut(args[3]), cut(args[4]), args[5]),
+                dict(kwargs, qcoeffs=cut(kwargs['qcoeffs']), slot_offset=a,
+                     total_slots=SLOTS))
+
+    def k1_args(t):
+        return (t['values'], t['cl_scores'], t['coeffs'], t['col_groups'])
+
+    def k1_call(mode, t=k1):
+        return fk.fused_score_sample_stats(5, *k1_args(t), sampling=mode,
+                                           noise=nz(n1, mode))
+
+    def k2_call(mode, kind='niw2mix'):
+        args, kwargs = mixed[kind]
+        return fk.fused_mixed_score_sample_stats(
+            5, *args, sampling=mode, noise=nz(n2, mode), **kwargs)
+
+    shards = {(kind, a): shard(kind, a) for kind in mixed
+              for a in range(0, SLOTS, CL)}
+    shard_noise = {a: n2['gumbel_host'][:, a:a + CL].contiguous()
+                   for a in range(0, SLOTS, CL)}
+
+    def k3_call(mode, a, kind='niw2mix'):
+        args, kwargs = shards[kind, a]
+        return fk.fused_score_sample_pair(
+            5, *args, sampling=mode,
+            noise=shard_noise[a] if nz(n2, mode) is not None else None,
+            **kwargs)
+
+    def b5_call(phase, t=k1):
+        mode = phase.split('_', 1)[1] if phase.startswith(
+            ('score_', 'full_')) and phase not in PHASES else None
+        return bk.fused_phase(phase, 5, *k1_args(t),
+                              noise=None if mode is None else nz(n1, mode))
+
+    k5 = on_card(d['nichbbddgp'])
+    k5_args = (k5['values'], k5['table_idx'], k5['cl_scores'],
+               k5['v1_coeffs'], torch.clamp(k5['v1_tables'], min=-1e30))
+    b1_scores = torch.randn((B1_ROWS, SLOTS), generator=gen, device=dev)
+    b1_noise = n1['gumbel_host'][:B1_ROWS].contiguous()
+
+    hashes = {}
+    for mode in V1_MODES:
+        nz1 = n1['gumbel_host'] if mode == 'gumbel_host' else None
+        nz2 = n2['gumbel_host'] if mode == 'gumbel_host' else None
+        hashes['K4 ' + mode] = digest(fk.nich_score_sample(
+            5, k1['values'], k1['cl_scores'], k1['v1_coeffs'], sampling=mode,
+            noise=nz1))
+        hashes['K5 ' + mode] = digest(fk.mixed_score_sample(
+            5, *k5_args, sampling=mode, noise=nz2))
+        hashes['B1 ' + mode] = digest(*bk.sampler_gumbel(
+            5, b1_scores, 4, mode,
+            b1_noise if mode == 'gumbel_host' else None, all_draws=True))
+    for mode in ALL_MODES:
+        hashes['K1 ' + mode] = digest(*k1_call(mode))
+        hashes['K2 ' + mode] = digest(*k2_call(mode))
+    for mode in PAIR_MODES:
+        for a in range(0, SLOTS, CL):
+            hashes['K3 %s slot_offset %d' % (mode, a)] = digest(
+                *k3_call(mode, a))
+    for phase in PHASES + tuple('score_' + m for m in ALL_MODES):
+        hashes['B5 ' + phase] = digest(b5_call(phase))
+    for groups, t in k1_wide.items():
+        for mode in WIDE_MODES:
+            hashes['K1 %s %s' % (groups, mode)] = digest(*k1_call(mode, t))
+        for phase in PHASES + ('score_gumbel',):
+            hashes['B5 %s %s' % (groups, phase)] = digest(b5_call(phase, t))
+    for kind in WIDE_K2:
+        for mode in WIDE_MODES:
+            hashes['K2 %s %s' % (kind, mode)] = digest(*k2_call(mode, kind))
+        for mode in PAIR_MODES[:3]:
+            for a in range(0, SLOTS, CL):
+                hashes['K3 %s %s slot_offset %d' % (kind, mode, a)] = \
+                    digest(*k3_call(mode, a, kind))
+    ms = {'K1 gumbel': median_ms(lambda: k1_call('gumbel'), 7, dev),
+          'K2 gumbel': median_ms(lambda: k2_call('gumbel'), 7, dev),
+          'K3 gumbel': median_ms(lambda: k3_call('gumbel', 0), 7, dev)}
+    for phase in TIMED_PHASES:
+        ms['B5 ' + phase] = median_ms(lambda: b5_call(phase), 7, dev)
+    for groups, t in k1_wide.items():
+        ms['K1 %s gumbel' % (groups,)] = median_ms(
+            lambda: k1_call('gumbel', t), 7, dev)
+    for kind in WIDE_K2:
+        ms['K2 %s gumbel' % kind] = median_ms(
+            lambda: k2_call('gumbel', kind), 7, dev)
+        ms['K3 %s gumbel' % kind] = median_ms(
+            lambda: k3_call('gumbel', 0, kind), 7, dev)
+    runner = {}
+    for model in ('nich', 'niw2mix'):
+        os.environ['RUNNER_MODEL'] = model
+        r = bench_runner.run(dev)
+        runner[model] = {'ms_per_sweep': r['ms_per_sweep'],
+                         'ms_per_sweep_of_each_run':
+                             r['ms_per_sweep_of_each_run']}
+    with open(out, 'w') as f:
+        json.dump({'tree': tree, 'build_seconds': build_s, 'hashes': hashes,
+                   'ms': ms, 'runner': runner,
+                   'device': bench_runner.device_name(dev)}, f)
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] == '--worker':
+        worker(*argv[1:4])
+        return 0
+    if not 1 <= len(argv) <= 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    trees = [os.path.abspath(t) for t in (argv + [ROOT])[:2]]
+    work = os.path.join(ROOT, 'build', 'tree_compare')
+    os.makedirs(work, exist_ok=True)
+    inputs = os.path.join(work, 'inputs.pt')
+    make_inputs(inputs)
+    runs = []
+    for i, tree in enumerate((trees[0], trees[1], trees[1], trees[0])):
+        out = os.path.join(work, 'run%d.json' % i)
+        env = dict(os.environ, PYTHONPATH=tree)
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        '--worker', tree, inputs, out], cwd=tree, env=env,
+                       check=True)
+        with open(out) as f:
+            runs.append(json.load(f))
+        print(json.dumps(dict(runs[-1], role=('old', 'new')[i in (1, 2)])),
+              flush=True)
+    keys = sorted(runs[0]['hashes'])
+    differ = [k for k in keys if len({r['hashes'].get(k) for r in runs}) != 1]
+    verdict = {
+        'outputs': len(keys), 'outputs_that_differ': differ,
+        'bitwise_equal': not differ,
+        'ms': {k: {'old': [runs[0]['ms'][k], runs[3]['ms'][k]],
+                   'new': [runs[1]['ms'][k], runs[2]['ms'][k]]}
+               for k in runs[0]['ms']},
+        'runner_ms_per_sweep': {
+            m: {'old': [runs[0]['runner'][m]['ms_per_sweep'],
+                        runs[3]['runner'][m]['ms_per_sweep']],
+                'new': [runs[1]['runner'][m]['ms_per_sweep'],
+                        runs[2]['runner'][m]['ms_per_sweep']]}
+            for m in runs[0]['runner']},
+        'device': runs[0]['device'], 'trees': trees}
+    print(json.dumps(verdict), flush=True)
+    return 1 if differ else 0
+
+
+if __name__ == '__main__':
+    if len(sys.argv) > 2 and sys.argv[1] == '--worker':
+        # import the package of the tree under test, not of this checkout
+        sys.path[0] = os.path.abspath(sys.argv[2])
+    raise SystemExit(main())

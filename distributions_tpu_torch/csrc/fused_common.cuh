@@ -92,6 +92,30 @@ __device__ __forceinline__ unsigned uint4_get(uint4 v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
+// -- the perturbations of the argmax-family draws --------------------------
+//
+// m is the low 24 bits of the cell's Philox word.  'gumbel': score -
+// log(max(-log(m * 2^-24), 6e-8)); 'bits' (the phase profiler's
+// generator-only draw): score + m * 1e-9.
+
+template <bool FAST>
+__device__ __forceinline__ float gumbel_perturb(float s, unsigned m) {
+  const float inner =
+      -log_<FAST>(__fmul_rn((float)m, F(5.960464477539063e-08)));
+  return __fsub_rn(s, log_<FAST>(fmaxf(inner, F(6e-8))));
+}
+
+__device__ __forceinline__ float bits_perturb(float s, unsigned m) {
+  return __fadd_rn(s, __fmul_rn((float)m, F(1e-9)));
+}
+
+// the first maximal value of a scan wins: `tot` replaces `best` only when
+// it is strictly greater, or NaN where best is not (NaN counts as maximal,
+// as torch/jnp argmax)
+__device__ __forceinline__ bool beats(float tot, float best) {
+  return tot > best || (isnan(tot) && !isnan(best));
+}
+
 // -- one row's draw ---------------------------------------------------------
 //
 // The owner of a row feeds its slot scores in slot order, once per pass:
@@ -107,12 +131,11 @@ __device__ __forceinline__ unsigned uint4_get(uint4 v, int i) {
 //     sequential scan), so dead slots (score -inf) are never drawn unless
 //     every slot is dead;
 //   - 'gumbel' uses Philox4x32-10 keyed by the 64-bit tile seed, counted
-//     by (row, g / 4) with word g % 4, where g = slot_offset + slot is the
-//     slot's global id (slot_offset is 0 unless the caller scores one
-//     shard of a wider slot axis: the noise of a (row, global slot) then
-//     does not depend on how the slots are cut); m = low 24 bits of the
-//     word, and the perturbed score is score - log(max(-log(m * 2^-24),
-//     6e-8));
+//     by (row, g / 4) with word g % 4, where g is the slot's id (the split
+//     walk of fused_split.cuh adds the slot offset of a shard of a wider
+//     slot axis, so that the noise of a (row, global slot) does not depend
+//     on how the slots are cut); m = low 24 bits of the word, and the
+//     perturbed score is gumbel_perturb(score, m);
 //   - 'cdf' takes one uniform per row (Philox counter (row, 0, 1, 0)),
 //     t = max(u, 1e-7) * total, and draws the number of slots whose
 //     inclusive prefix of exp(score - rowmax) is strictly below t; the
@@ -130,15 +153,13 @@ struct Draw {
   static constexpr int kPasses = kCdf ? 3 : 1;
 
   float best, rmax, total, acc, t, u;
-  int best_idx, count, bits_q, koff;
+  int best_idx, count, bits_q;
   uint4 bits4;
   uint2 key;
 
   __device__ __forceinline__ void init(int row, bool active,
                                        unsigned long long seed,
-                                       const float* __restrict__ noise,
-                                       int slot_offset = 0) {
-    koff = slot_offset;
+                                       const float* __restrict__ noise) {
     key = make_uint2((unsigned)seed, (unsigned)(seed >> 32));
     best = -INFINITY;
     best_idx = 0;
@@ -175,26 +196,19 @@ struct Draw {
         MODE == MODE_GUMBEL_HOST || MODE == MODE_BITS) {
       float tot = s;
       if (MODE == MODE_GUMBEL || MODE == MODE_BITS) {
-        const int g = koff + k;
-        const int q = g >> 2;
+        const int q = k >> 2;
         if (q != bits_q) {
           bits4 = philox4x32_10(
               make_uint4((unsigned)row, (unsigned)q, 0u, 0u), key);
           bits_q = q;
         }
-        const unsigned m = uint4_get(bits4, g & 3) & 0x00FFFFFFu;
-        if (MODE == MODE_BITS) {
-          tot = __fadd_rn(s, __fmul_rn((float)m, F(1e-9)));
-        } else {
-          const float inner =
-              -log_<FAST>(__fmul_rn((float)m, F(5.960464477539063e-08)));
-          tot = __fsub_rn(s, log_<FAST>(fmaxf(inner, F(6e-8))));
-        }
+        const unsigned m = uint4_get(bits4, k & 3) & 0x00FFFFFFu;
+        tot = MODE == MODE_BITS ? bits_perturb(s, m)
+                                : gumbel_perturb<FAST>(s, m);
       } else if (MODE == MODE_GUMBEL_HOST) {
         tot = __fadd_rn(s, noise[(size_t)row * C + k]);
       }
-      // first maximal slot; NaN counts as maximal (as torch/jnp argmax)
-      if (tot > best || (isnan(tot) && !isnan(best))) {
+      if (beats(tot, best)) {
         best = tot;
         best_idx = k;
       }

@@ -12,25 +12,38 @@
 // cancels on unstandardized data), draws one slot per row, and sums the
 // rows' [1 | v | v^2] statistics per drawn slot into [C, 3 * cols].
 //
-// What bounds it on the H100: per (row, slot) cell the kernel does one
-// log per 4 columns of scoring, plus two logs and a Philox block per 4
-// slots in 'gumbel' mode, or one exp per pass in 'cdf' mode -- about
-// 1.07e9 cells per sweep at the flagship size (1,048,576 rows x 1024 slots),
-// all on the SFU and the integer pipes.  Device-memory traffic is small:
-// the values, the assignments, the [C]-sized coefficient rows and the
-// [C, 3 * cols] sums, about 12 MB per sweep.  So the design keeps every
-// per-cell quantity in registers: one thread owns one row and walks all
-// slots in order; the per-slot coefficients are staged in shared memory
-// in chunks of C that fit and read as warp-wide broadcasts; nothing of
-// size [B, C] ever reaches device memory.  Making it fast (tiling C,
-// fewer transcendentals per cell) is later work.
+// What bounds it on the H100: operations, not bytes.  Per (row, slot)
+// cell the kernel does one log per 4 columns of scoring, plus two logs and
+// a quarter Philox block in 'gumbel' mode -- about 1.07e9 cells per sweep
+// at the flagship size (1,048,576 rows x 1024 slots), on the FMA, SFU and
+// integer pipes.  Device-memory traffic is small: the values, the
+// assignments, the [C]-sized coefficient rows and the [C, 3 * cols] sums,
+// about 12 MB per sweep.  Nothing of size [B, C] reaches device memory.
+//
+// The argmax family of draws ('argmax', 'gumbel', 'gumbel_host') runs the
+// slot-split walk of fused_split.cuh: eight threads share a row, each on
+// a slice of the slot axis made of whole Philox blocks, each thread holds
+// two rows in registers and reads each slot's staged coefficients once
+// (16-byte loads) for both, Philox runs as two independent chains, and a
+// merge in slice order gives the sequential scan's slot.  That is for one
+// block of 1-4 nich columns (an exact shape); other layouts take the wide
+// shape, which stages the rows in shared memory.  At
+// the flagship tile (131,072 x 1024) that is 524,288 threads where one
+// thread a row gave 131,072, a quarter of what the card holds resident.
+// 'cdf' and 'cdf_host' keep the sequential walk below (one thread owns one
+// row and walks all slots in order, three passes): the draw counts slots
+// whose inclusive prefix of exp(score - rowmax) is below t, and that f32
+// prefix is summed in slot order -- part of the function, summed so by
+// the twin (_cdf_draw in ops/fused_kernels.py) -- so it cannot be cut into
+// slices without changing the bits of the draw.
 //
 // Semantics held against the plain-PyTorch twin
 // (distributions_tpu_torch/ops/fused_kernels.py):
 //   - every float operation is an explicitly rounded __f*_rn op, in the
 //     twin's order, so nvcc cannot contract it into an FMA;
 //   - the draws ('argmax', 'gumbel', 'cdf' and their '_host' forms) are
-//     those of Draw<MODE, FAST> in fused_common.cuh;
+//     those of Draw<MODE, FAST> in fused_common.cuh, which the split walk
+//     reproduces slot for slot;
 //   - '_fast' replaces log/exp with the polynomial fast_log/fast_exp of the
 //     JAX package (same coefficients);
 //   - stat sums are deterministic: per-block partial sums in row order,
@@ -38,7 +51,8 @@
 //
 // Bound through ctypes: fused_v2_launch() is a plain C entry point that
 // launches on the caller's stream, allocates nothing, and returns
-// cudaGetLastError().
+// cudaGetLastError().  fused_v2_occupancy() reports the split kernel's
+// registers, shared memory and resident blocks for a layout.
 //
 // The same score + sample kernel is also instantiated over a compile-time
 // PHASE, for the phase profiler (replaces profile_kernel_phases.py::
@@ -49,8 +63,9 @@
 // without the two stat kernels behind it.  Each phase writes something
 // that depends on all its work.  The differences of their times split the
 // production kernel's time into load, scoring, generator, draw and sums.
+// All but the 'cdf' phases are the split walk.
 
-#include "fused_common.cuh"
+#include "fused_split.cuh"
 
 #define MAX_GROUPS 8
 #define MAX_COLS 32
@@ -60,29 +75,27 @@
 
 static inline int imin(int a, int b) { return a < b ? a : b; }
 
-enum { PHASE_FULL = 0, PHASE_NOOP = 1, PHASE_SCORE_MAX = 2 };
-
 struct ColGroups {
   int n;
   int cols[MAX_GROUPS];
 };
 
-// -- kernel 1: score + sample ----------------------------------------------
+// -- kernel 1a: the sequential score + sample walk, for 'cdf' --------------
 //
 // One thread per row.  Shared memory: the coefficient chunk [W][CK] with
 // W = 1 + n_groups + 2 * total_cols rows (row 0 = cl + sum of bases, then
 // one lc row per group, then prec, mean per column), followed by the
-// block's values [total_cols][SCORE_THREADS].
+// block's values [total_cols][SCORE_THREADS].  (Kernel 1b, the split walk
+// of every other draw, is split_score_sample of fused_split.cuh.)
 
-template <int MODE, bool FAST, int PHASE>
+template <int MODE, bool FAST>
 __global__ void __launch_bounds__(SCORE_THREADS)
 fused_v2_score_sample(const float* __restrict__ values,
                       const float* __restrict__ cl,
                       const float* __restrict__ coeffs,
                       const float* __restrict__ noise,
-                      int* __restrict__ out, float* __restrict__ best, int B,
-                      int C, ColGroups cg, int total_cols, int CK,
-                      unsigned long long seed) {
+                      int* __restrict__ out, int B, int C, ColGroups cg,
+                      int total_cols, int CK, unsigned long long seed) {
   extern __shared__ float smem[];
   const int G = cg.n;
   const int W = 1 + G + 2 * total_cols;
@@ -95,18 +108,8 @@ fused_v2_score_sample(const float* __restrict__ values,
     for (int c = 0; c < total_cols; ++c)
       sval[c * SCORE_THREADS + tid] = values[(size_t)row * total_cols + c];
   }
-  if (PHASE == PHASE_NOOP) {
-    if (active) {
-      float s = F(0.0);
-      for (int c = 0; c < total_cols; ++c)
-        s = __fadd_rn(s, sval[c * SCORE_THREADS + tid]);
-      out[row] = (int)s;
-    }
-    return;
-  }
   Draw<MODE, FAST> dr;
   dr.init(row, active, seed, noise);
-  float rmax = -INFINITY;
 
   for (int pass = 0; pass < Draw<MODE, FAST>::kPasses; ++pass) {
     dr.begin_pass(pass);
@@ -158,18 +161,11 @@ fused_v2_score_sample(const float* __restrict__ values,
           }
           cidx += nc;
         }
-        if (PHASE == PHASE_SCORE_MAX)
-          rmax = fmaxf(rmax, s);
-        else
-          dr.visit(pass, row, k, C, s, noise);
+        dr.visit(pass, row, k, C, s, noise);
       }
     }
   }
-  if (!active) return;
-  if (PHASE == PHASE_SCORE_MAX)
-    best[row] = rmax;
-  else
-    out[row] = dr.result();
+  if (active) out[row] = dr.result();
 }
 
 // -- kernel 2: per-block stat partials --------------------------------------
@@ -228,73 +224,132 @@ __global__ void fused_v2_stat_reduce(const float* __restrict__ partials,
   }
 }
 
-template <int MODE, int PHASE>
-static void launch_score(bool fast, dim3 grid, size_t smem,
-                         cudaStream_t st, const float* values,
-                         const float* cl, const float* coeffs,
-                         const float* noise, int* out, float* best, int B,
-                         int C, ColGroups cg, int total_cols, int CK,
-                         unsigned long long seed) {
-  if (fast)
-    fused_v2_score_sample<MODE, true, PHASE>
-        <<<grid, SCORE_THREADS, smem, st>>>(values, cl, coeffs, noise, out,
-                                            best, B, C, cg, total_cols, CK,
-                                            seed);
+// The split kernel of one phase and draw for the shape `SH`, handed to fn
+// with the record floats and staged row floats of layout L on it.
+template <class SH, class Fn>
+static void with_split_shape(const SplitLayout& L, int phase, int mode,
+                             bool fast, Fn&& fn) {
+  const int P = split_record_floats<SH>(L), R = split_row_floats<SH>(L);
+#define SPLIT(MODE, PHASE)                                             \
+  (fast ? fn(split_score_sample<MODE, true, PHASE, SH>, P, R)          \
+        : fn(split_score_sample<MODE, false, PHASE, SH>, P, R))
+  if (phase == PHASE_NOOP) {
+    fn(split_score_sample<MODE_ARGMAX, false, PHASE_NOOP, SH>, P, R);
+  } else if (phase == PHASE_SCORE_MAX) {
+    SPLIT(MODE_ARGMAX, PHASE_SCORE_MAX);
+  } else {
+    switch (mode) {
+      case MODE_ARGMAX: SPLIT(MODE_ARGMAX, PHASE_FULL); break;
+      case MODE_GUMBEL: SPLIT(MODE_GUMBEL, PHASE_FULL); break;
+      case MODE_GUMBEL_HOST: SPLIT(MODE_GUMBEL_HOST, PHASE_FULL); break;
+      default: SPLIT(MODE_BITS, PHASE_FULL); break;
+    }
+  }
+#undef SPLIT
+}
+
+// An exact shape for one block of 1-4 nich columns (one product, one log
+// a cell), the wide one for every other layout (several blocks, or more
+// columns).
+template <int NC>
+using ShapeNich = Shape<NC, 0, 1, 0>;
+
+template <class Fn>
+static void with_split_kernel(const SplitLayout& L, int phase, int mode,
+                              bool fast, Fn&& fn) {
+  if (split_fits<ShapeNich<1>>(L))
+    with_split_shape<ShapeNich<1>>(L, phase, mode, fast, fn);
+  else if (split_fits<ShapeNich<2>>(L))
+    with_split_shape<ShapeNich<2>>(L, phase, mode, fast, fn);
+  else if (split_fits<ShapeNich<3>>(L))
+    with_split_shape<ShapeNich<3>>(L, phase, mode, fast, fn);
+  else if (split_fits<ShapeNich<4>>(L))
+    with_split_shape<ShapeNich<4>>(L, phase, mode, fast, fn);
   else
-    fused_v2_score_sample<MODE, false, PHASE>
-        <<<grid, SCORE_THREADS, smem, st>>>(values, cl, coeffs, noise, out,
-                                            best, B, C, cg, total_cols, CK,
-                                            seed);
+    with_split_shape<WideShape>(L, phase, mode, fast, fn);
+}
+
+// Check the layout: *total_cols gets the nich columns, cg and L the two
+// walks' descriptions.
+static bool v2_layout(int B, int C, int n_groups, const int* col_groups,
+                      int phase, int mode, ColGroups* cg, SplitLayout* L,
+                      int* total_cols) {
+  if (B < 1 || C < 1 || n_groups < 1 || n_groups > MAX_GROUPS ||
+      mode < MODE_ARGMAX || mode > MODE_BITS || phase < PHASE_FULL ||
+      phase > PHASE_SCORE_MAX)
+    return false;
+  const bool cdf = mode == MODE_CDF || mode == MODE_CDF_HOST;
+  if (cdf && phase != PHASE_FULL) return false;
+  cg->n = n_groups;
+  *total_cols = 0;
+  for (int g = 0; g < n_groups; ++g) {
+    if (col_groups[g] < 1) return false;
+    cg->cols[g] = col_groups[g];
+    *total_cols += col_groups[g];
+  }
+  for (int g = n_groups; g < MAX_GROUPS; ++g) cg->cols[g] = 0;
+  if (*total_cols > MAX_COLS) return false;
+  return split_layout(n_groups, col_groups, 0, nullptr, nullptr, 0, nullptr,
+                      L);
 }
 
 // Check the layout and launch the score + sample kernel in one phase and
-// draw mode.  `total_cols_out` receives the number of nich columns.
+// draw mode: the split walk, or for 'cdf' the sequential one.
+// `total_cols_out` receives the number of nich columns.
 static int launch_score_phase(const float* values, const float* cl,
                               const float* coeffs, const float* noise,
                               int* out, float* best, int B, int C,
                               int n_groups, const int* col_groups, int phase,
                               int mode, int fast, unsigned long long seed,
                               cudaStream_t st, int* total_cols_out) {
-  if (B < 1 || C < 1 || n_groups < 1 || n_groups > MAX_GROUPS ||
-      mode < MODE_ARGMAX || mode > MODE_BITS || phase < PHASE_FULL ||
-      phase > PHASE_SCORE_MAX)
-    return (int)cudaErrorInvalidValue;
   ColGroups cg;
-  cg.n = n_groups;
+  SplitLayout L;
   int total_cols = 0;
-  for (int g = 0; g < n_groups; ++g) {
-    if (col_groups[g] < 1) return (int)cudaErrorInvalidValue;
-    cg.cols[g] = col_groups[g];
-    total_cols += col_groups[g];
-  }
-  for (int g = n_groups; g < MAX_GROUPS; ++g) cg.cols[g] = 0;
-  if (total_cols > MAX_COLS) return (int)cudaErrorInvalidValue;
+  if (!v2_layout(B, C, n_groups, col_groups, phase, mode, &cg, &L,
+                 &total_cols))
+    return (int)cudaErrorInvalidValue;
   *total_cols_out = total_cols;
 
-  const int W = 1 + n_groups + 2 * total_cols;
-  const int CK = imin(C, (SMEM_FLOATS - SCORE_THREADS * total_cols) / W);
-  if (CK < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem1 =
-      ((size_t)W * CK + (size_t)SCORE_THREADS * total_cols) * sizeof(float);
-  const dim3 grid1((B + SCORE_THREADS - 1) / SCORE_THREADS);
-#define LAUNCH_SCORE(MODE, PHASE)                                          \
-  launch_score<MODE, PHASE>(fast, grid1, smem1, st, values, cl, coeffs,    \
-                            noise, out, best, B, C, cg, total_cols, CK, seed)
-  if (phase == PHASE_NOOP) {
-    LAUNCH_SCORE(MODE_ARGMAX, PHASE_NOOP);
-  } else if (phase == PHASE_SCORE_MAX) {
-    LAUNCH_SCORE(MODE_ARGMAX, PHASE_SCORE_MAX);
-  } else {
-    switch (mode) {
-      case MODE_ARGMAX: LAUNCH_SCORE(MODE_ARGMAX, PHASE_FULL); break;
-      case MODE_GUMBEL: LAUNCH_SCORE(MODE_GUMBEL, PHASE_FULL); break;
-      case MODE_GUMBEL_HOST: LAUNCH_SCORE(MODE_GUMBEL_HOST, PHASE_FULL); break;
-      case MODE_CDF: LAUNCH_SCORE(MODE_CDF, PHASE_FULL); break;
-      case MODE_CDF_HOST: LAUNCH_SCORE(MODE_CDF_HOST, PHASE_FULL); break;
-      default: LAUNCH_SCORE(MODE_BITS, PHASE_FULL); break;
+  if (mode == MODE_CDF || mode == MODE_CDF_HOST) {
+    const int W = 1 + n_groups + 2 * total_cols;
+    const int CK = imin(C, (SMEM_FLOATS - SCORE_THREADS * total_cols) / W);
+    if (CK < 1) return (int)cudaErrorInvalidValue;
+    const size_t smem =
+        ((size_t)W * CK + (size_t)SCORE_THREADS * total_cols) * sizeof(float);
+    const dim3 grid((B + SCORE_THREADS - 1) / SCORE_THREADS);
+#define SEQ(MODE, FAST)                                                   \
+  fused_v2_score_sample<MODE, FAST><<<grid, SCORE_THREADS, smem, st>>>(   \
+      values, cl, coeffs, noise, out, B, C, cg, total_cols, CK, seed)
+    if (mode == MODE_CDF) {
+      if (fast) SEQ(MODE_CDF, true); else SEQ(MODE_CDF, false);
+    } else {
+      if (fast) SEQ(MODE_CDF_HOST, true); else SEQ(MODE_CDF_HOST, false);
     }
+#undef SEQ
+    return (int)cudaGetLastError();
   }
-#undef LAUNCH_SCORE
+
+  SplitArgs a = SplitArgs();
+  a.values = values;
+  a.cl = cl;
+  a.coeffs = coeffs;
+  a.noise = noise;
+  a.out = phase == PHASE_SCORE_MAX ? nullptr : out;
+  a.best = phase == PHASE_SCORE_MAX ? best : nullptr;
+  a.B = B;
+  a.C = C;
+  a.slot_offset = 0;
+  a.seed = seed;
+  const dim3 grid((B + SPLIT_BLOCK_ROWS - 1) / SPLIT_BLOCK_ROWS);
+  size_t smem = 0;
+  bool fits = true;
+  with_split_kernel(L, phase, mode, fast != 0,
+                    [&](auto kern, int P, int rows) {
+                      fits = split_geometry(P, rows, &a, &smem);
+                      if (fits) kern<<<grid, SPLIT_THREADS, smem, st>>>(a, L);
+                      return 0;
+                    });
+  if (!fits) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
@@ -310,6 +365,33 @@ extern "C" int fused_v2_phase_launch(const float* values, const float* cl,
   return launch_score_phase(values, cl, coeffs, noise, out, best, B, C,
                             n_groups, col_groups, phase, mode, fast, seed,
                             (cudaStream_t)stream, &total_cols);
+}
+
+// The split kernel that a launch with these arguments takes, at C slots:
+// info[0] resident blocks per SM, [1] threads per block, [2] dynamic
+// shared memory bytes, [3] record floats, [4] turns of the slot axis,
+// [5] registers per thread, [6] local memory bytes per thread (spills).
+// 'cdf' modes take the sequential walk and are refused here.
+extern "C" int fused_v2_occupancy(int C, int n_groups, const int* col_groups,
+                                  int phase, int mode, int fast, int* info) {
+  ColGroups cg;
+  SplitLayout L;
+  int total_cols = 0;
+  if (!v2_layout(1, C, n_groups, col_groups, phase, mode, &cg, &L,
+                 &total_cols) ||
+      mode == MODE_CDF || mode == MODE_CDF_HOST)
+    return (int)cudaErrorInvalidValue;
+  int rc = 0;
+  with_split_kernel(L, phase, mode, fast != 0,
+                    [&](auto kern, int P, int rows) {
+                      SplitArgs a = SplitArgs();
+                      a.C = C;
+                      size_t smem = 0;
+                      if (!split_geometry(P, rows, &a, &smem))
+                        return rc = (int)cudaErrorInvalidValue;
+                      return rc = split_occupancy(kern, P, a, smem, info);
+                    });
+  return rc;
 }
 
 extern "C" const char* fused_v2_error_string(int err) {

@@ -21,19 +21,29 @@
 // it does one log per nich or niw block and the draw's transcendentals
 // (two logs and a quarter Philox block in 'gumbel', one exp per pass in
 // 'cdf'), while device memory sees each row's values and draw once and
-// the [C]-sized coefficient rows once per block of rows.  So, as in the
-// nich-only kernel, one thread owns one row and walks all slots in order
-// with every per-cell quantity in registers; the per-slot coefficient
-// rows are staged through shared memory in chunks of C and read as
-// warp-wide broadcasts; nothing of size [B, C] reaches device memory.
+// the [C]-sized coefficient rows once per block of rows.  Nothing of size
+// [B, C] reaches device memory.
+//
+// The argmax family of draws ('argmax', 'gumbel', 'gumbel_host') runs the
+// slot-split walk of fused_split.cuh (eight threads a row, each on a slice
+// of whole Philox blocks; two rows a thread with their values, niw values
+// and table row pointers in registers; each slot's staged record read once
+// for both rows; a merge in slice order).  At the main path's
+// tile of 65,536 rows that is 262,144 threads where one thread a row gave
+// 65,536, an eighth of what the card holds resident.  'cdf' and 'cdf_host'
+// keep the sequential walk of score_and_draw below: their f32 prefix of
+// exp(score - rowmax) is summed in slot order, as the twin sums it, and a
+// slice cannot start that sum in the middle without changing its bits.
 //
 // Design points of its own:
 //   - The layout (how many nich blocks and columns, niw blocks as
-//     (columns, d), table offsets) is a small struct passed by value; the
-//     kernel is instantiated only over MODE x FAST, like the nich-only one.
-//     The quadratic form is a function template over d (1..MAX_D) picked
-//     by a warp-uniform switch, so the centred differences stay in
-//     registers.
+//     (columns, d), table offsets) is a small struct passed by value.  The
+//     split walk is instantiated over the layout's sizes for the layouts
+//     of the main path (Shape<> in fused_split.cuh) and a wide shape for
+//     the rest (its rows staged in shared memory, its loops to the
+//     layout's counts); the sequential 'cdf' walk only over MODE x FAST, its
+//     quadratic form a function template over d (1..MAX_D) picked by a
+//     warp-uniform switch, so the centred differences stay in registers.
 //   - Score tables are read from device memory through the read-only cache
 //     (__ldg), not staged in shared memory: a thread walks its own table
 //     row in slot order, so consecutive slots hit the same cache line, and
@@ -47,7 +57,7 @@
 //   - An index outside its column's support would read the next column's
 //     rows: the caller checks supports on the host (ops/gibbs.py
 //     _mixed_static_layout); building with -DFUSED_V3_DEBUG also traps in
-//     the kernel.
+//     the kernels.
 //
 // Semantics held against the plain-PyTorch twin
 // (fused_mixed_score_sample_stats_plain in ops/fused_kernels.py): every
@@ -55,16 +65,17 @@
 // (constants, nich blocks, niw blocks, table columns), and the draws are
 // Draw<MODE, FAST> of fused_common.cuh.
 //
-// The same scoring walk also serves the pair kernel fused_v3_score_pair
-// (one shard of a wider slot axis; see its note below).
+// The split walk also serves the pair kernel (one shard of a wider slot
+// axis; see its note below).
 //
 // Bound through ctypes: fused_v3_launch() and fused_v3_pair_launch() are
 // plain C entry points that launch on the caller's stream, allocate
-// nothing, and return cudaGetLastError().
+// nothing, and return cudaGetLastError(); fused_v3_occupancy() reports the
+// split kernel's registers, shared memory and resident blocks.
 
 #include <string.h>
 
-#include "fused_common.cuh"
+#include "fused_split.cuh"
 
 #define MAX_GROUPS 8        // nich blocks, and niw blocks
 #define MAX_COLS 32         // nich columns in all
@@ -117,7 +128,7 @@ __device__ __forceinline__ float quad_form(const float* __restrict__ v,
   return q;
 }
 
-// -- kernel 1: score + sample ----------------------------------------------
+// -- kernel 1: the sequential score + sample walk, for 'cdf' ----------------
 //
 // One thread per row.  Shared memory: the coefficient chunk [W][CK] (row 0
 // = cl + sum of bases; per nich block lc, then prec, mean per column; per
@@ -125,11 +136,9 @@ __device__ __forceinline__ float quad_form(const float* __restrict__ v,
 // followed by the block's nich values [ncols][SCORE_THREADS], niw values
 // [qvals][SCORE_THREADS] and packed table rows [n_tab][SCORE_THREADS].
 //
-// score_and_draw is the body shared by the two kernels below: it scores
-// the thread's row against slots 0..C-1 of the arrays it is given and
-// feeds each score to `dr`.  Every thread of the block must call it (it
-// synchronises the block around each staged chunk).  slot_offset is the
-// global id of slot 0, which only the 'gumbel' noise counter sees.
+// score_and_draw is the kernel's body: it scores the thread's row against
+// slots 0..C-1 and feeds each score to `dr`.  Every thread of the block
+// must call it (it synchronises the block around each staged chunk).
 
 template <int MODE, bool FAST>
 __device__ __forceinline__ void score_and_draw(
@@ -137,7 +146,7 @@ __device__ __forceinline__ void score_and_draw(
     const int* __restrict__ table_idx, const float* __restrict__ cl,
     const float* __restrict__ coeffs, const float* __restrict__ qcoeffs,
     const float* __restrict__ tables, const float* __restrict__ noise, int B,
-    int C, const Layout& L, int CK, unsigned long long seed, int slot_offset,
+    int C, const Layout& L, int CK, unsigned long long seed,
     Draw<MODE, FAST>& dr) {
   extern __shared__ float smem[];
   float* sco = smem;
@@ -160,7 +169,7 @@ __device__ __forceinline__ void score_and_draw(
       srow[j * SCORE_THREADS + tid] = v;
     }
   }
-  dr.init(row, active, seed, noise, slot_offset);
+  dr.init(row, active, seed, noise);
 
   for (int pass = 0; pass < Draw<MODE, FAST>::kPasses; ++pass) {
     dr.begin_pass(pass);
@@ -269,7 +278,7 @@ fused_v3_score_sample(const float* __restrict__ values,
                       unsigned long long seed) {
   Draw<MODE, FAST> dr;
   score_and_draw<MODE, FAST>(values, qvalues, table_idx, cl, coeffs, qcoeffs,
-                             tables, noise, B, C, L, CK, seed, 0, dr);
+                             tables, noise, B, C, L, CK, seed, dr);
   const int row = blockIdx.x * SCORE_THREADS + threadIdx.x;
   if (row < B) out[row] = dr.result();
 }
@@ -280,37 +289,12 @@ fused_v3_score_sample(const float* __restrict__ values,
 // fused_score_sample_pair): the score of every row against the C slots of
 // ONE shard of a wider slot axis, and per row the first maximal local slot
 // and its (perturbed) score; no stat sums, because the winner over all
-// shards is known only after the caller's pair reduce.  Like the kernel
-// above it is bound by operations, so it is the same one-thread-per-row
-// walk; it moves 8 more bytes per row (idx and best).  MODE is 'argmax',
-// 'gumbel' or 'gumbel_host': a cdf draw has no pair reduce.  With one seed
-// for all shards of a row block and slot_offset = the global id of the
-// shard's slot 0, the shards' pairs reduced by (largest best, then lowest
-// global slot) give exactly the slot that fused_v3_score_sample draws on
-// the whole slot axis.
-
-template <int MODE, bool FAST>
-__global__ void __launch_bounds__(SCORE_THREADS)
-fused_v3_score_pair(const float* __restrict__ values,
-                    const float* __restrict__ qvalues,
-                    const int* __restrict__ table_idx,
-                    const float* __restrict__ cl,
-                    const float* __restrict__ coeffs,
-                    const float* __restrict__ qcoeffs,
-                    const float* __restrict__ tables,
-                    const float* __restrict__ noise, int* __restrict__ out,
-                    float* __restrict__ best, int B, int C, Layout L, int CK,
-                    unsigned long long seed, int slot_offset) {
-  Draw<MODE, FAST> dr;
-  score_and_draw<MODE, FAST>(values, qvalues, table_idx, cl, coeffs, qcoeffs,
-                             tables, noise, B, C, L, CK, seed, slot_offset,
-                             dr);
-  const int row = blockIdx.x * SCORE_THREADS + threadIdx.x;
-  if (row < B) {
-    out[row] = dr.best_idx;
-    best[row] = dr.best;
-  }
-}
+// shards is known only after the caller's pair reduce.  It is the split
+// walk of K2 with `best` written too and slot_offset = the global id of
+// the shard's slot 0.  MODE is 'argmax', 'gumbel' or 'gumbel_host': a cdf
+// draw has no pair reduce.  With one seed for all shards of a row block,
+// the shards' pairs reduced by (largest best, then lowest global slot)
+// give exactly the slot that fused_v3_launch draws on the whole slot axis.
 
 // -- kernel 2: count tables and per-block stat partials ---------------------
 //
@@ -481,6 +465,84 @@ static int score_chunk(const Layout& L, int C, size_t* smem) {
   return CK;
 }
 
+// The split kernel of one draw for the shape `SH`, handed to fn with the
+// record floats and staged row floats of layout S on it.
+template <class SH, class Fn>
+static void with_split_shape(const SplitLayout& S, int mode, bool fast,
+                             Fn&& fn) {
+  const int P = split_record_floats<SH>(S), R = split_row_floats<SH>(S);
+#define SPLIT(MODE)                                                      \
+  (fast ? fn(split_score_sample<MODE, true, PHASE_FULL, SH>, P, R)       \
+        : fn(split_score_sample<MODE, false, PHASE_FULL, SH>, P, R))
+  switch (mode) {
+    case MODE_ARGMAX: SPLIT(MODE_ARGMAX); break;
+    case MODE_GUMBEL: SPLIT(MODE_GUMBEL); break;
+    default: SPLIT(MODE_GUMBEL_HOST); break;
+  }
+#undef SPLIT
+}
+
+// niw2mix: one nich column, one niw column of d = 2, one table column
+using ShapeNiw2Mix = Shape<1, 1, 2, 1>;
+// bbddgp: three table columns
+using ShapeTables3 = Shape<0, 0, 1, 3>;
+
+// The main path's exact shapes, the wide one for every other layout.
+template <class Fn>
+static void with_split_kernel(const SplitLayout& S, int mode, bool fast,
+                              Fn&& fn) {
+  if (split_fits<ShapeNiw2Mix>(S))
+    with_split_shape<ShapeNiw2Mix>(S, mode, fast, fn);
+  else if (split_fits<ShapeTables3>(S))
+    with_split_shape<ShapeTables3>(S, mode, fast, fn);
+  else
+    with_split_shape<WideShape>(S, mode, fast, fn);
+}
+
+static SplitLayout split_of(const Layout& L, const int* nich_cols,
+                            const int* quad_cols, const int* quad_d) {
+  SplitLayout S;
+  split_layout(L.n_nich, nich_cols, L.n_quad, quad_cols, quad_d, L.n_tab,
+               L.tab_off, &S);
+  S.vtot = L.vtot;
+  return S;
+}
+
+// Launch the split walk: K2's score + sample when best is null, K3's pair
+// kernel otherwise.
+static int launch_split(const float* values, const float* qvalues,
+                        const int* table_idx, const float* cl,
+                        const float* coeffs, const float* qcoeffs,
+                        const float* tables, const float* noise, int* out,
+                        float* best, int B, int C, const SplitLayout& S,
+                        int mode, int fast, unsigned long long seed,
+                        int slot_offset, cudaStream_t st) {
+  SplitArgs a = SplitArgs();
+  a.values = values;
+  a.qvalues = qvalues;
+  a.table_idx = table_idx;
+  a.cl = cl;
+  a.coeffs = coeffs;
+  a.qcoeffs = qcoeffs;
+  a.tables = tables;
+  a.noise = noise;
+  a.out = out;
+  a.best = best;
+  a.B = B;
+  a.C = C;
+  a.slot_offset = slot_offset;
+  a.seed = seed;
+  const dim3 grid((B + SPLIT_BLOCK_ROWS - 1) / SPLIT_BLOCK_ROWS);
+  bool fits = true;
+  with_split_kernel(S, mode, fast != 0, [&](auto kern, int P, int rows) {
+    size_t smem = 0;
+    fits = split_geometry(P, rows, &a, &smem);
+    if (fits) kern<<<grid, SPLIT_THREADS, smem, st>>>(a, S);
+    return 0;
+  });
+  return fits ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+}
+
 // nich_cols[n_nich], quad_cols[n_quad], quad_d[n_quad], table_vs[n_tab]
 // describe the layout; values / qvalues / table_idx and their coefficient
 // arrays may be null when their count is 0.  partials is scratch of
@@ -502,36 +564,25 @@ extern "C" int fused_v3_launch(
                    table_vs, &L, &qdim))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  size_t smem1 = 0;
-  const int CK = score_chunk(L, C, &smem1);
-  if (CK < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid1((B + SCORE_THREADS - 1) / SCORE_THREADS);
-  switch (mode) {
-    case MODE_ARGMAX:
-      launch_score<MODE_ARGMAX>(fast, grid1, smem1, st, values, qvalues,
-                                table_idx, cl, coeffs, qcoeffs, tables, noise,
-                                out, B, C, L, CK, seed);
-      break;
-    case MODE_GUMBEL:
-      launch_score<MODE_GUMBEL>(fast, grid1, smem1, st, values, qvalues,
-                                table_idx, cl, coeffs, qcoeffs, tables, noise,
-                                out, B, C, L, CK, seed);
-      break;
-    case MODE_GUMBEL_HOST:
-      launch_score<MODE_GUMBEL_HOST>(fast, grid1, smem1, st, values, qvalues,
-                                     table_idx, cl, coeffs, qcoeffs, tables,
-                                     noise, out, B, C, L, CK, seed);
-      break;
-    case MODE_CDF:
+  if (mode == MODE_CDF || mode == MODE_CDF_HOST) {
+    size_t smem1 = 0;
+    const int CK = score_chunk(L, C, &smem1);
+    if (CK < 1) return (int)cudaErrorInvalidValue;
+    const dim3 grid1((B + SCORE_THREADS - 1) / SCORE_THREADS);
+    if (mode == MODE_CDF)
       launch_score<MODE_CDF>(fast, grid1, smem1, st, values, qvalues,
                              table_idx, cl, coeffs, qcoeffs, tables, noise,
                              out, B, C, L, CK, seed);
-      break;
-    default:
+    else
       launch_score<MODE_CDF_HOST>(fast, grid1, smem1, st, values, qvalues,
                                   table_idx, cl, coeffs, qcoeffs, tables,
                                   noise, out, B, C, L, CK, seed);
-      break;
+  } else {
+    const int rc = launch_split(
+        values, qvalues, table_idx, cl, coeffs, qcoeffs, tables, noise, out,
+        nullptr, B, C, split_of(L, nich_cols, quad_cols, quad_d), mode, fast,
+        seed, 0, st);
+    if (rc != 0) return rc;
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -559,24 +610,6 @@ extern "C" int fused_v3_launch(
   return (int)cudaGetLastError();
 }
 
-template <int MODE>
-static void launch_pair(bool fast, dim3 grid, size_t smem, cudaStream_t st,
-                        const float* values, const float* qvalues,
-                        const int* table_idx, const float* cl,
-                        const float* coeffs, const float* qcoeffs,
-                        const float* tables, const float* noise, int* out,
-                        float* best, int B, int C, const Layout& L, int CK,
-                        unsigned long long seed, int slot_offset) {
-  if (fast)
-    fused_v3_score_pair<MODE, true><<<grid, SCORE_THREADS, smem, st>>>(
-        values, qvalues, table_idx, cl, coeffs, qcoeffs, tables, noise, out,
-        best, B, C, L, CK, seed, slot_offset);
-  else
-    fused_v3_score_pair<MODE, false><<<grid, SCORE_THREADS, smem, st>>>(
-        values, qvalues, table_idx, cl, coeffs, qcoeffs, tables, noise, out,
-        best, B, C, L, CK, seed, slot_offset);
-}
-
 // The pair kernel over one shard's C slots: out[B] local slot ids, best[B]
 // their (perturbed) scores.  The layout arguments are those of
 // fused_v3_launch; mode is MODE_ARGMAX, MODE_GUMBEL or MODE_GUMBEL_HOST
@@ -596,28 +629,34 @@ extern "C" int fused_v3_pair_launch(
   if (!make_layout(n_nich, nich_cols, n_quad, quad_cols, quad_d, n_tab,
                    table_vs, &L, &qdim))
     return (int)cudaErrorInvalidValue;
-  size_t smem = 0;
-  const int CK = score_chunk(L, C, &smem);
-  if (CK < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((B + SCORE_THREADS - 1) / SCORE_THREADS);
-  switch (mode) {
-    case MODE_ARGMAX:
-      launch_pair<MODE_ARGMAX>(fast, grid, smem, st, values, qvalues,
-                               table_idx, cl, coeffs, qcoeffs, tables, noise,
-                               out, best, B, C, L, CK, seed, slot_offset);
-      break;
-    case MODE_GUMBEL:
-      launch_pair<MODE_GUMBEL>(fast, grid, smem, st, values, qvalues,
-                               table_idx, cl, coeffs, qcoeffs, tables, noise,
-                               out, best, B, C, L, CK, seed, slot_offset);
-      break;
-    default:
-      launch_pair<MODE_GUMBEL_HOST>(fast, grid, smem, st, values, qvalues,
-                                    table_idx, cl, coeffs, qcoeffs, tables,
-                                    noise, out, best, B, C, L, CK, seed,
-                                    slot_offset);
-      break;
-  }
-  return (int)cudaGetLastError();
+  return launch_split(values, qvalues, table_idx, cl, coeffs, qcoeffs,
+                      tables, noise, out, best, B, C,
+                      split_of(L, nich_cols, quad_cols, quad_d), mode, fast,
+                      seed, slot_offset, (cudaStream_t)stream);
+}
+
+// The split kernel that fused_v3_launch takes for this layout and draw at
+// C slots (slot_offset 0): info[0..6] as fused_v2_occupancy's.
+extern "C" int fused_v3_occupancy(int C, int n_nich, const int* nich_cols,
+                                  int n_quad, const int* quad_cols,
+                                  const int* quad_d, int n_tab,
+                                  const int* table_vs, int mode, int fast,
+                                  int* info) {
+  Layout L;
+  int qdim = 0;
+  if (C < 1 || mode < MODE_ARGMAX || mode > MODE_GUMBEL_HOST ||
+      !make_layout(n_nich, nich_cols, n_quad, quad_cols, quad_d, n_tab,
+                   table_vs, &L, &qdim))
+    return (int)cudaErrorInvalidValue;
+  const SplitLayout S = split_of(L, nich_cols, quad_cols, quad_d);
+  int rc = 0;
+  with_split_kernel(S, mode, fast != 0, [&](auto kern, int P, int rows) {
+    SplitArgs a = SplitArgs();
+    a.C = C;
+    size_t smem = 0;
+    if (!split_geometry(P, rows, &a, &smem))
+      return rc = (int)cudaErrorInvalidValue;
+    return rc = split_occupancy(kern, P, a, smem, info);
+  });
+  return rc;
 }

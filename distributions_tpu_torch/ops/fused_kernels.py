@@ -32,6 +32,7 @@ import time
 
 import torch
 
+from distributions_tpu_torch import config
 from distributions_tpu_torch.models import base, nich as nich_mod
 from distributions_tpu_torch.models import niw as niw_mod
 from distributions_tpu_torch.random import device_generator
@@ -51,6 +52,14 @@ MAX_TABLE_COLS = 16
 MAX_VTOT = 4096         # packed table rows
 # rows per block of the kernel's stat partial sums
 STAT_ROWS = 1024
+# the slot-split walk of the argmax-family draws (csrc/fused_split.cuh):
+# threads per row (one slice of the slot axis each), rows per thread,
+# threads per block, and the unit of a staged slot record (floats: one
+# 16-byte load)
+SPLIT_SLICES = 8
+SPLIT_ROWS = 2
+SPLIT_THREADS = 256
+SPLIT_PACK = 4
 
 # -- fast transcendentals (pallas_kernels.py _FAST_LOG_C / _FAST_EXP_C) -----
 
@@ -422,6 +431,35 @@ def _perturb(scores, mode, fast, seed, noise, slot_offset=0,
     return scores - log_(torch.clamp(inner, min=6e-8))
 
 
+def philox_gumbel_noise(seed, B, C, slot_offset=0, fast=False, device=None):
+    """The [B, C] noise that the kernels add to a score in 'gumbel' mode
+    (`gumbel_perturb` of csrc/fused_common.cuh): the Philox4x32-10 block
+    keyed by the 64-bit `seed` at counter (row, g // 4, 0, 0), its word
+    g % 4, g = slot_offset + slot; m = the word's low 24 bits; noise =
+    -log(max(-log(m * 2^-24), 6e-8)) (fast_log with `fast`).  Given to
+    'gumbel_host' it reproduces the 'gumbel' draws up to the last bit of a
+    log.  A plain function for checks: the twins draw their 'gumbel' noise
+    from a torch generator."""
+    from distributions_tpu_torch.ops.bench_kernels import (
+        philox4x32_10_plain)
+    seed = _check_seed(seed)
+    dev = config.resolve_device(device)
+    lead, q0 = slot_offset % 4, slot_offset // 4
+    quads = (lead + C + 3) // 4
+    rows = torch.arange(B, dtype=torch.int64, device=dev)[:, None]
+    q = q0 + torch.arange(quads, dtype=torch.int64, device=dev)[None, :]
+    rows, q = torch.broadcast_tensors(rows, q)
+    zero = torch.zeros_like(rows)
+    words = philox4x32_10_plain((rows, q, zero, zero),
+                                (seed & 0xFFFFFFFF, seed >> 32))
+    del rows, q, zero
+    m = torch.stack(words, 2).reshape(B, 4 * quads)[:, lead:lead + C]
+    del words
+    log_ = fast_log if fast else torch.log
+    inner = -log_((m & 0x00FFFFFF).to(torch.float32) * 5.960464477539063e-08)
+    return -log_(torch.clamp(inner, min=6e-8))
+
+
 def _draw(scores, mode, fast, seed, noise):
     """One slot per row of [B, C] scores -> [B] int32.  'gumbel' and 'cdf'
     draw their noise from a generator seeded with `seed` and then apply
@@ -624,7 +662,7 @@ def mixed_score_sample_plain(seed, nich_values, table_indices, cl_scores,
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'csrc')
 # device code that the kernel sources include
-_HEADERS = ('fused_common.cuh', 'hopper.cuh')
+_HEADERS = ('fused_common.cuh', 'fused_split.cuh', 'hopper.cuh')
 KERNELS = ('fused_v2', 'fused_v3', 'score_sample_v1', 'roofline',
            'sampler_bench')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -660,6 +698,14 @@ _LAUNCHERS = {
         'sampler_bench_launch': [_P] * 5 + [_I, _I, _I, _I, _U64, _P]},
 }
 
+# library -> its C entry points that report on a kernel without launching
+# it (the split kernel's occupancy) -> their argument types
+_QUERIES = {
+    'fused_v2': {'fused_v2_occupancy': [_I, _I, _IP, _I, _I, _I, _IP]},
+    'fused_v3': {'fused_v3_occupancy': [_I] + _LAYOUT + [_I, _I, _IP]},
+}
+
+# (name, -D definitions) -> the loaded library
 _LIBRARIES = {}
 
 
@@ -672,19 +718,21 @@ def _nvcc():
 
 
 def _bind(name, lib):
-    for launch, argtypes in _LAUNCHERS[name].items():
+    for launch, argtypes in dict(_LAUNCHERS[name],
+                                 **_QUERIES.get(name, {})).items():
         getattr(lib, launch).argtypes = argtypes
         getattr(lib, launch).restype = _I
     getattr(lib, name + '_error_string').argtypes = [_I]
     getattr(lib, name + '_error_string').restype = ctypes.c_char_p
 
 
-def _start_build(name):
+def _start_build(name, defines=()):
     """Start nvcc on csrc/<name>.cu unless its library exists already (one
     library per content of the source, the shared headers and the flags).
     Returns what `_finish_build` needs."""
     src = os.path.join(_CSRC, name + '.cu')
-    h = hashlib.sha1(' '.join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS + tuple('-D' + d for d in defines)
+    h = hashlib.sha1(' '.join(flags).encode())
     for path in (src,) + tuple(os.path.join(_CSRC, n) for n in _HEADERS):
         with open(path, 'rb') as f:
             h.update(f.read())
@@ -694,7 +742,7 @@ def _start_build(name):
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
     os.close(fd)
-    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, '-o', tmp, src],
+    proc = subprocess.Popen([_nvcc(), *flags, '-o', tmp, src],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return name, so, tmp, proc, time.time()
@@ -719,29 +767,31 @@ def _finish_build(name, so, tmp, proc, t0):
     if os.path.exists(log_path):
         with open(log_path) as f:
             report = f.read()
-    _LIBRARIES[name] = dict(lib=lib, seconds=seconds, report=report, path=so)
-    return _LIBRARIES[name]
+    return dict(lib=lib, seconds=seconds, report=report, path=so)
 
 
-def build(name):
+def build(name, defines=()):
     """Compile csrc/<name>.cu (a name in KERNELS) with nvcc into
-    BUILD_DIR, once per content of the source and the shared headers, and
-    load it.  Returns a dict with the ctypes library, the build seconds
-    (0 when it was already built) and the compiler's register and
-    shared-memory report."""
-    if name not in _LIBRARIES:
-        _finish_build(*_start_build(name))
-    return _LIBRARIES[name]
+    BUILD_DIR, once per content of the source, the shared headers and the
+    flags, and load it.  `defines` ('NAME=VALUE' each, given to nvcc as
+    -D) builds a compile-time design variant as a library of its own; the
+    wrappers use the default one.  Returns a dict with the ctypes library,
+    the build seconds (0 when it was already built) and the compiler's
+    register and shared-memory report."""
+    key = (name, tuple(defines))
+    if key not in _LIBRARIES:
+        _LIBRARIES[key] = _finish_build(*_start_build(name, key[1]))
+    return _LIBRARIES[key]
 
 
 def build_all():
     """Build every kernel, with all the compilers started together.
     Returns {name: build(name)}."""
     started = [_start_build(name) for name in KERNELS
-               if name not in _LIBRARIES]
+               if (name, ()) not in _LIBRARIES]
     for job in started:
-        _finish_build(*job)
-    return {name: _LIBRARIES[name] for name in KERNELS}
+        _LIBRARIES[(job[0], ())] = _finish_build(*job)
+    return {name: _LIBRARIES[(name, ())] for name in KERNELS}
 
 
 def _check(name, t, device, shape, dtype=torch.float32):
@@ -801,6 +851,31 @@ def _raise_on(name, lib, err):
         msg = getattr(lib, name + '_error_string')(err).decode()
         raise RuntimeError('%s kernel launch failed: %s (%d)'
                            % (name, msg, err))
+
+
+def split_occupancy(name, C, col_groups, quad_groups=(), table_vs=(),
+                    sampling='gumbel', phase=0):
+    """What the split kernel that a launch of library `name` ('fused_v2':
+    K1 and B5, `phase` as B5's codes; 'fused_v3': K2 and K3) takes for this
+    layout and draw at C slots: its registers, local (spill) bytes,
+    dynamic shared memory, record floats, turns of the slot axis, threads
+    and resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+    Needs the card; 'cdf' draws take the sequential walk and raise."""
+    mode, fast = _parse_sampling(sampling)
+    lib = build(name)['lib']
+    info = (ctypes.c_int * 7)()
+    if name == 'fused_v2':
+        err = lib.fused_v2_occupancy(C, len(col_groups),
+                                     _int_array(col_groups), phase,
+                                     SAMPLING_MODES[mode], int(fast), info)
+    else:
+        err = lib.fused_v3_occupancy(
+            C, *_layout_args(col_groups, quad_groups, table_vs),
+            SAMPLING_MODES[mode], int(fast), info)
+    _raise_on(name, lib, err)
+    return dict(zip(('blocks_per_sm', 'threads_per_block', 'smem_bytes',
+                     'record_floats', 'turns', 'registers', 'local_bytes'),
+                    info))
 
 
 def _launch(seed, values, cl_scores, coeffs, col_groups, sampling, noise):

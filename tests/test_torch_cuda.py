@@ -6,7 +6,8 @@ with a GPU and no JAX, run them with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-(`-k pair` picks the tests of K3, `-k bench` those of B1-B5.)
+(`-k pair` picks the tests of K3, `-k bench` those of B1-B5, `-k fused`
+the edge tests of the slot-split walk of K1, B5, K2 and K3.)
 """
 
 import pytest
@@ -705,3 +706,278 @@ def test_bench_phases_match_twin(dev, B, C):
         bk.fused_phase('score', 0, *args)
     with pytest.raises(ValueError):
         bk.fused_phase('noop', 0, v, cls, co[:-1], (2,))
+
+
+# -- the split walk of K1, B5, K2 and K3: edge geometry ------------------------
+
+SPLIT_BLOCK_ROWS = fk.SPLIT_THREADS // fk.SPLIT_SLICES * fk.SPLIT_ROWS
+# one row, one short of two warps' rows, several blocks, and one row past a
+# whole number of blocks
+SPLIT_B = (1, 127, 3000, 47 * SPLIT_BLOCK_ROWS + 1)
+SPLIT_C = (1, 3, 5, 1000, 1025)
+SPLIT_OFFSETS = (0, 2, 6, 256)
+# layouts of K2 and K3: niw2mix's (an exact shape of the kernel) and some
+# that take the wide shape (several blocks of each kind; niw d = 3, 4; more
+# than four columns in a block)
+SPLIT_LAYOUTS = {'niw2mix': ((1,), ((1, 2),), (3,)),
+                 'wide': ((2, 3), ((1, 3), (2, 1)), (2, 5)),
+                 'niw3_nich_bb': ((1,), ((1, 3),), (2,)),
+                 'niw4': ((), ((1, 4),), ()),
+                 'niw1x5_nich6': ((6,), ((5, 1),), ())}
+
+
+def _rand_layout(dev, B, C, groups, quads, tvs, seed=0):
+    """Random inputs of K2 (K1 with quads = tvs = ()) on the card: nich
+    values and coefficients, niw values and coefficients with positive
+    diagonals, table columns, and cluster scores with every tenth slot
+    dead.  Returns (args, kwargs) of fused_mixed_score_sample_stats."""
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g)
+    values = coeffs = qvalues = qcoeffs = table_idx = tables = None
+    if groups:
+        values = r(B, sum(groups))
+        rows = []
+        for c in groups:
+            rows += [r(1, C), -r(1, C).abs() - 0.1]
+            for _ in range(c):
+                rows += [r(1, C).abs() + 0.1, r(1, C)]
+        coeffs = torch.cat(rows)
+    if quads:
+        qvalues = r(B, sum(nc * d for nc, d in quads))
+        rows = []
+        for nc, d in quads:
+            rows += [r(1, C), -r(1, C).abs() - 0.1]
+            for _ in range(nc):
+                rows += [r(1, C) for _ in range(d)]
+                rows += [r(1, C).abs() + 0.5 if a == b else 0.1 * r(1, C)
+                         for a in range(d) for b in range(a, d)]
+        qcoeffs = torch.cat(rows)
+    if tvs:
+        table_idx = torch.stack([torch.randint(0, v, (B,), generator=g)
+                                 for v in tvs], 1).to(torch.int32)
+        tables = r(sum(tvs), C)
+    cls = r(C)
+    cls[::10] = float('-inf')
+
+    def put(x):
+        return None if x is None else x.contiguous().to(dev)
+    args = (put(values), put(table_idx), put(cls), put(coeffs), put(tables),
+            tuple(groups))
+    kwargs = dict(qvalues=put(qvalues), qcoeffs=put(qcoeffs),
+                  quad_groups=tuple(quads), table_vs=tuple(tvs))
+    return args, kwargs
+
+
+def _scores(args, kwargs):
+    B = next(x for x in (args[0], args[1], kwargs['qvalues'])
+             if x is not None).shape[0]
+    return fk._score_mixed(B, *args, kwargs['qvalues'], kwargs['qcoeffs'],
+                           kwargs['quad_groups'], kwargs['table_vs'],
+                           torch.log)
+
+
+def _gumbel_is_philox(launch, scores, seed, B, C, slot_offset=0):
+    """'gumbel' draws the kernel's own Philox noise: equal to 'gumbel_host'
+    on philox_gumbel_noise but at near-ties (torch.log against the
+    kernel's logf)."""
+    noise = fk.philox_gumbel_noise(seed, B, C, slot_offset=slot_offset,
+                                   device=scores.device)
+    a = launch('gumbel', None)
+    b = launch('gumbel_host', noise)
+    n_bad, gap = testing.mismatches(scores + noise, a, b)
+    assert gap <= 1e-4, (n_bad, gap)
+
+
+def _check_k1_and_b5(dev, B, C, groups):
+    """K1 and B5 against their twins, and K1's 'gumbel' against its own
+    Philox noise, on random inputs of nich column groups `groups`."""
+    args, kwargs = _rand_layout(dev, B, C, groups, (), (), seed=B + C)
+    v, _, cls, co, _, groups = args
+    noise = _noise(dev, 'gumbel_host', B, C)
+    for sampling, nz in (('argmax', None), ('argmax_fast', None),
+                         ('gumbel_host', noise)):
+        a, s = fk.fused_score_sample_stats(3, v, cls, co, groups,
+                                           sampling=sampling, noise=nz)
+        a2, s2 = fk.fused_score_sample_stats_plain(3, v, cls, co, groups,
+                                                   sampling=sampling,
+                                                   noise=nz)
+        assert torch.equal(a, a2)
+        torch.testing.assert_close(s, s2, rtol=SUM_RTOL, atol=SUM_ATOL)
+        assert torch.equal(
+            bk.fused_phase('score_' + sampling, 3, v, cls, co, groups,
+                           noise=nz), a)
+    scores = _scores(args, kwargs)
+    _gumbel_is_philox(
+        lambda m, nz: fk.fused_score_sample_stats(9, v, cls, co, groups,
+                                                  sampling=m, noise=nz)[0],
+        scores, 9, B, C)
+    assert torch.equal(bk.fused_phase('noop', 0, v, cls, co, groups),
+                       bk.fused_phase_plain('noop', 0, v, cls, co, groups))
+    assert torch.equal(bk.fused_phase('score_max', 0, v, cls, co, groups),
+                       bk.fused_phase_plain('score_max', 0, v, cls, co,
+                                            groups))
+
+
+@pytest.mark.parametrize('C', SPLIT_C)
+@pytest.mark.parametrize('B', SPLIT_B)
+def test_fused_split_k1_and_b5_edges(dev, B, C):
+    _check_k1_and_b5(dev, B, C, (2,))
+
+
+# K1's other shapes: one block of 1, 3 or 4 columns (exact shapes), and
+# several blocks or more columns (the wide shape)
+SPLIT_K1_GROUPS = ((1,), (3,), (4,), (2, 3), (1, 1), (8,), (4, 4, 1))
+
+
+@pytest.mark.parametrize('C', (5, 1025))
+@pytest.mark.parametrize('B', (127, 47 * SPLIT_BLOCK_ROWS + 1))
+@pytest.mark.parametrize('groups', SPLIT_K1_GROUPS, ids=str)
+def test_fused_split_k1_and_b5_layouts(dev, groups, B, C):
+    _check_k1_and_b5(dev, B, C, groups)
+
+
+@pytest.mark.parametrize('C', SPLIT_C)
+@pytest.mark.parametrize('B', SPLIT_B)
+@pytest.mark.parametrize('layout', sorted(SPLIT_LAYOUTS))
+def test_fused_split_k2_edges(dev, layout, B, C):
+    args, kwargs = _rand_layout(dev, B, C, *SPLIT_LAYOUTS[layout],
+                                seed=B * C)
+    noise = _noise(dev, 'gumbel_host', B, C)
+    for sampling, nz in (('argmax', None), ('argmax_fast', None),
+                         ('gumbel_host', noise)):
+        got = fk.fused_mixed_score_sample_stats(3, *args, sampling=sampling,
+                                                noise=nz, **kwargs)
+        want = fk.fused_mixed_score_sample_stats_plain(
+            3, *args, sampling=sampling, noise=nz, **kwargs)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[2], want[2])
+        for i in (1, 3):
+            torch.testing.assert_close(got[i], want[i], rtol=SUM_RTOL,
+                                       atol=SUM_ATOL)
+    _gumbel_is_philox(
+        lambda m, nz: fk.fused_mixed_score_sample_stats(
+            9, *args, sampling=m, noise=nz, **kwargs)[0],
+        _scores(args, kwargs), 9, B, C)
+
+
+@pytest.mark.parametrize('C', SPLIT_C)
+@pytest.mark.parametrize('slot_offset', SPLIT_OFFSETS)
+def test_fused_split_k3_edges(dev, slot_offset, C):
+    B = 3000
+    args, kwargs = _rand_layout(dev, B, C, *SPLIT_LAYOUTS['niw2mix'],
+                                seed=C + slot_offset)
+    noise = _noise(dev, 'gumbel_host', B, C)
+    for sampling, nz in (('argmax', None), ('argmax_fast', None),
+                         ('gumbel_host', noise)):
+        got = fk.fused_score_sample_pair(3, *args, sampling=sampling,
+                                         noise=nz, slot_offset=slot_offset,
+                                         **kwargs)
+        want = fk.fused_score_sample_pair_plain(
+            3, *args, sampling=sampling, noise=nz, slot_offset=slot_offset,
+            **kwargs)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+    _gumbel_is_philox(
+        lambda m, nz: fk.fused_score_sample_pair(
+            9, *args, sampling=m, noise=nz, slot_offset=slot_offset,
+            **kwargs)[0],
+        _scores(args, kwargs), 9, B, C, slot_offset)
+
+
+@pytest.mark.parametrize('C', (5, 1025))
+@pytest.mark.parametrize('slot_offset', SPLIT_OFFSETS)
+@pytest.mark.parametrize('layout', ['wide', 'niw3_nich_bb'])
+def test_fused_split_k3_wide_layouts(dev, layout, slot_offset, C):
+    B = 3000
+    args, kwargs = _rand_layout(dev, B, C, *SPLIT_LAYOUTS[layout],
+                                seed=C + slot_offset)
+    noise = _noise(dev, 'gumbel_host', B, C)
+    for sampling, nz in (('argmax', None), ('argmax_fast', None),
+                         ('gumbel_host', noise)):
+        got = fk.fused_score_sample_pair(3, *args, sampling=sampling,
+                                         noise=nz, slot_offset=slot_offset,
+                                         **kwargs)
+        want = fk.fused_score_sample_pair_plain(
+            3, *args, sampling=sampling, noise=nz, slot_offset=slot_offset,
+            **kwargs)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+    _gumbel_is_philox(
+        lambda m, nz: fk.fused_score_sample_pair(
+            9, *args, sampling=m, noise=nz, slot_offset=slot_offset,
+            **kwargs)[0],
+        _scores(args, kwargs), 9, B, C, slot_offset)
+
+
+def _check_special_rows(dev, kernel, rows, lay):
+    """Rows whose scores all tie or are all -inf draw slot 0; NaN counts as
+    maximal, so a NaN row draws slot 0 and a NaN slot wins every row."""
+    B, C = 3000, 1025
+    args, kwargs = _rand_layout(dev, B, C, *lay, seed=5)
+    values, table_idx, cls, coeffs, tables, groups = args
+    want = torch.zeros(B, dtype=torch.int32, device=dev)
+    if rows == 'tied':
+        cls = torch.zeros_like(cls)
+        coeffs = coeffs[:, :1].expand(-1, C).contiguous()
+        if tables is not None:
+            tables = tables[:, :1].expand(-1, C).contiguous()
+        if kwargs['qcoeffs'] is not None:
+            kwargs['qcoeffs'] = kwargs['qcoeffs'][:, :1].expand(
+                -1, C).contiguous()
+    elif rows == 'dead':
+        cls = torch.full_like(cls, float('-inf'))
+    elif rows == 'nan':
+        values = values.clone()
+        values[:, 0] = float('nan')
+    else:
+        cls = cls.clone()
+        cls[C - 2] = float('nan')
+        want.fill_(C - 2)
+    args = (values, table_idx, cls, coeffs, tables, groups)
+    for sampling in ('argmax', 'gumbel_host'):
+        nz = (torch.zeros(B, C, device=dev) if sampling == 'gumbel_host'
+              else None)
+        if kernel == 'K1':
+            got = fk.fused_score_sample_stats(3, values, cls, coeffs, groups,
+                                              sampling=sampling, noise=nz)[0]
+        elif kernel == 'K2':
+            got = fk.fused_mixed_score_sample_stats(
+                3, *args, sampling=sampling, noise=nz, **kwargs)[0]
+        else:
+            got = fk.fused_score_sample_pair(3, *args, sampling=sampling,
+                                             noise=nz, slot_offset=2,
+                                             **kwargs)[0]
+        assert torch.equal(got, want), (sampling, got[:8])
+
+
+@pytest.mark.parametrize('rows', ['tied', 'dead', 'nan', 'nan_slot'])
+@pytest.mark.parametrize('kernel', ['K1', 'K2', 'K3'])
+def test_fused_split_special_rows(dev, kernel, rows):
+    _check_special_rows(dev, kernel, rows,
+                        ((2,), (), ()) if kernel == 'K1'
+                        else SPLIT_LAYOUTS['niw2mix'])
+
+
+@pytest.mark.parametrize('rows', ['tied', 'dead', 'nan', 'nan_slot'])
+@pytest.mark.parametrize('kernel', ['K1', 'K2', 'K3'])
+def test_fused_split_special_rows_wide(dev, kernel, rows):
+    _check_special_rows(dev, kernel, rows,
+                        ((2, 3), (), ()) if kernel == 'K1'
+                        else SPLIT_LAYOUTS['wide'])
+
+
+def test_fused_split_occupancy_report(dev):
+    """The occupancy entry points name the kernels of the main path, and
+    the wide shape of other layouts."""
+    r1 = fk.split_occupancy('fused_v2', 1024, (2,))
+    r2 = fk.split_occupancy('fused_v3', 1024, (1,), ((1, 2),), (2,))
+    r3 = fk.split_occupancy('fused_v2', 1024, (2, 3))
+    r4 = fk.split_occupancy('fused_v3', 1024, *SPLIT_LAYOUTS['wide'])
+    for r in (r1, r2, r3, r4):
+        assert r['threads_per_block'] == fk.SPLIT_THREADS
+        assert r['blocks_per_sm'] >= 1 and r['registers'] > 0
+        assert r['record_floats'] % fk.SPLIT_PACK == 0
+    with pytest.raises(RuntimeError):
+        fk.split_occupancy('fused_v2', 1024, (2,), sampling='cdf')

@@ -34,7 +34,9 @@ for name in ('models.bb', 'models.dd', 'models.dpd', 'models.gp',
              'parallel.distributed', 'ops.bench_kernels', 'inference.hypers',
              'inference.slice', 'benchmarks.roofline', 'benchmarks.suite',
              'benchmarks.kernel_phases', 'benchmarks.bench',
-             'benchmarks.bench_runner', 'benchmarks.timing'):
+             'benchmarks.bench_runner', 'benchmarks.timing',
+             'benchmarks.tree_compare', 'benchmarks.split_variants',
+             'benchmarks.sass_counts'):
     assert 'distributions_tpu_torch.' + name in names, name
 '''
 

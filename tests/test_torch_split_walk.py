@@ -1,0 +1,69 @@
+"""The slot-split walk of the fused kernels K1, K2, K3 and B5
+(csrc/fused_split.cuh): its constants against the source's #defines, the
+build of its compile-time variants, and the K1 tiles that
+benchmarks/tree_compare.py times off the main path."""
+
+import os
+import re
+
+import pytest
+import torch
+
+from distributions_tpu_torch import config
+from distributions_tpu_torch.ops import fused_kernels as fk
+
+torch.set_num_threads(1)
+config.set_default_device('cpu')
+
+
+def test_constants_match_the_source():
+    with open(os.path.join(fk._CSRC, 'fused_split.cuh')) as f:
+        defines = dict(re.findall(r'^#define (\w+) (\d+)\b', f.read(), re.M))
+    assert int(defines['SPLIT_SLICES']) == fk.SPLIT_SLICES
+    assert int(defines['SPLIT_ROWS']) == fk.SPLIT_ROWS
+    assert int(defines['SPLIT_THREADS']) == fk.SPLIT_THREADS
+    assert int(defines['SPLIT_PACK']) == fk.SPLIT_PACK
+    # a warp walks one slice (the lane variant: a row's slices sit in one
+    # warp); a record is whole 16-byte loads
+    assert fk.SPLIT_THREADS == 32 * fk.SPLIT_SLICES
+    assert 32 % fk.SPLIT_SLICES == 0
+    assert fk.SPLIT_PACK * 4 == 16
+    assert 'fused_split.cuh' in fk._HEADERS
+    for name in ('fused_v2.cu', 'fused_v3.cu'):
+        with open(os.path.join(fk._CSRC, name)) as f:
+            assert '#include "fused_split.cuh"' in f.read()
+
+
+def test_build_keeps_compile_time_variants_apart(tmp_path, monkeypatch):
+    """`build(name, defines)` gives nvcc the -D flags and a library of its
+    own; the wrappers' default library is built without them."""
+    started = []
+
+    class Proc:
+        def __init__(self, cmd, **kwargs):
+            started.append(cmd)
+
+    monkeypatch.setattr(fk, 'BUILD_DIR', str(tmp_path))
+    monkeypatch.setattr(fk, '_nvcc', lambda: 'nvcc')
+    monkeypatch.setattr(fk.subprocess, 'Popen', Proc)
+    default = fk._start_build('fused_v3')
+    variant = fk._start_build('fused_v3', ('SPLIT_ROWS=4',))
+    assert default[1] != variant[1]
+    assert '-DSPLIT_ROWS=4' in started[1]
+    assert not any(a.startswith('-D') for a in started[0])
+
+
+@pytest.mark.parametrize('groups', [(2,), (3,), (2, 3)])
+def test_tree_compare_nich_tiles(groups):
+    """The K1 tiles that benchmarks/tree_compare.py times off the main
+    path: one nich block of coefficients per group, in the wrapper's
+    layout."""
+    from distributions_tpu_torch.benchmarks import tree_compare
+    t = tree_compare.nich_tile_inputs(groups, rows=500, slots=32)
+    assert t['col_groups'] == groups
+    assert t['values'].shape == (500, sum(groups))
+    assert t['coeffs'].shape == (sum(2 + 2 * c for c in groups), 32)
+    a, s = fk.fused_score_sample_stats(5, t['values'], t['cl_scores'],
+                                       t['coeffs'], groups,
+                                       sampling='argmax')
+    assert a.shape == (500,) and int(a.min()) >= 0 and int(a.max()) < 32
