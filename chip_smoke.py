@@ -7,8 +7,8 @@ Phases, each printing one JSON line; any failure raises and the script
 exits non-zero:
 
 1. build      -- compile the kernels K1 and B5 (csrc/fused_v2.cu), K2 and
-                 K3 (csrc/fused_v3.cu; both with the slot-split walk of
-                 csrc/fused_split.cuh), K4 and K5 (csrc/score_sample_v1.cu),
+                 K3 (csrc/fused_v3.cu), K4 and K5 (csrc/score_sample_v1.cu;
+                 all three with the slot-split walk of csrc/fused_split.cuh),
                  B2, B3 and B4 (csrc/roofline.cu) and B1
                  (csrc/sampler_bench.cu) with nvcc from the sources in this
                  checkout, the compilers started together; print the card's
@@ -86,12 +86,18 @@ exits non-zero:
                  Philox check on each shard at its slot offset, and the
                  split kernel's report.
 3b. kernel_k4, kernel_k5 -- the v1 score + sample kernels (no stat
-                 outputs) against their twins: K4 at B=131072 x C=1024 x 2
-                 nich, K5 at B=65536 x C=1024 on nich + bb + dd + gp and on
-                 bb + dd + gp without a nich column, each with a ragged
-                 C=1000 x B=3000 case: equal draws in 'argmax' and
-                 'gumbel_host', z-test in 'gumbel', bitwise repeatability,
-                 milliseconds of kernel and twin.
+                 outputs; the slot-split walk in its v1 form) against their
+                 twins: K4 at B=131072 x C=1024 x 2 nich, K5 at B=65536 x
+                 C=1024 on nich + bb + dd + gp and on bb + dd + gp without
+                 a nich column, each with ragged C=1000 x B=3000 cases (K4
+                 on 2 and on 5 nich columns, K5 on nich + gp + bb, dd + bb
+                 and random inputs of 3 nich and 5 table columns; 5
+                 columns and 3 + 5 take the wide shape): equal draws in
+                 'argmax' and 'gumbel_host', z-test in 'gumbel', bitwise
+                 repeatability, milliseconds of kernel and twin; 'gumbel'
+                 equal to 'gumbel_host' on fused_kernels.philox_gumbel_noise
+                 at every one of those inputs, and the split kernel's
+                 report and -Xptxas -v as for K1.
 4. small_reference, small_reference_mixed -- the kernel path on the card
                  against the twin path on the CPU, draw for draw in a
                  3-sweep 'argmax' run of a small problem.
@@ -111,7 +117,9 @@ exits non-zero:
                  plain 'xla' backend) on nich + bb + dd + gp, both at
                  1,048,576 rows x 1024 slots: launches = tiles x sweeps,
                  counts equal to a bincount of the assignments, score_data
-                 equal to a fresh recompute, ms per sweep.
+                 equal to a fresh recompute, ms per sweep, and the profile
+                 of one K4 and one K5 sweep (device ms, the kernel's
+                 share, busy share).
 6c. main_resume -- run_gibbs with checkpoint_path in a temporary
                  directory: an uninterrupted run against an interrupted
                  and resumed one, bitwise, on the fused path at full width
@@ -149,8 +157,9 @@ exits non-zero:
 7. kernels    -- one line listing each ported kernel (K1-K5, B1-B5) with
                  its launches on its main path, its time, its twin's time,
                  its nominal bound (data-sheet rates, a log as one
-                 operation) and its measured bound (the roofline phase's
-                 rates, each op kind at its own rate).
+                 operation), its measured bound (the roofline phase's
+                 rates, each op kind at its own rate) and, for a kernel
+                 redesigned after its port, the design it has now.
 
 The entry points are called without a device, so they run on the package's
 default device, the card.  The last line is {"ok": true, "device": {...}}.
@@ -526,16 +535,18 @@ def check_case(port, case, ref_scores, noise):
     return modes, max_err, timing
 
 
-def philox_exact(port, name, launch, scores, B, C, slot_offset=0, seed=21):
+def philox_exact(port, name, launch, scores, B, C, slot_offset=0, seed=21,
+                 fast_modes=True):
     """The kernel's own Philox noise, exactly: 'gumbel' draws against
     'gumbel_host' draws on fused_kernels.philox_gumbel_noise at the same
     seed (counter (row, g / 4), word g % 4, g = slot_offset + slot), and
-    the same for their '_fast' forms.  Only near-ties may differ (torch.log
-    against the kernel's logf).  `launch(sampling, noise, seed)` returns
-    the draws; `scores(fast)` the [B, C] scores."""
+    the same for their '_fast' forms unless `fast_modes` is false (K4 and
+    K5 have none).  Only near-ties may differ (torch.log against the
+    kernel's logf).  `launch(sampling, noise, seed)` returns the draws;
+    `scores(fast)` the [B, C] scores."""
     fk, testing = port['fk'], port['testing']
     out = {}
-    for fast in (False, True):
+    for fast in (False, True) if fast_modes else (False,):
         noise = fk.philox_gumbel_noise(seed, B, C, slot_offset=slot_offset,
                                        fast=fast)
         suffix = '_fast' if fast else ''
@@ -765,6 +776,13 @@ def v1_case(port, name, nich_vals, idx, cl_scores, coeffs, tables):
                   lambda draws: (), ())
 
 
+def v1_philox_exact(port, case):
+    """philox_exact of K4 or K5 at one set of inputs (`v1_case`)."""
+    return philox_exact(
+        port, case.name, lambda mode, nz, seed: case.launch(mode, nz, seed)[0],
+        lambda fast: case.scores(), case.B, case.C, fast_modes=False)
+
+
 def v1_mixed_inputs(port, m):
     """K5's per-slot inputs (coeffs, tables) for the problem `mixed_inputs`
     built."""
@@ -799,13 +817,31 @@ def phase_kernel_k4(port, X, labels):
     _, sh_r, _, st_r, cl_r, _ = nich_inputs(port, ragged_vals,
                                             labels[:Br] % 900, Cr)
     co_r = fk.nich_coeffs(sh_r[0], st_r.groups[0]).contiguous()
-    ragged, _ = check_ragged(
-        port, v1_case(port, 'K4', ragged_vals, None, cl_r, co_r, None),
-        host_noise(port, Br, Cr, 5))
+    ragged_case = v1_case(port, 'K4', ragged_vals, None, cl_r, co_r, None)
+    ragged, _ = check_ragged(port, ragged_case, host_noise(port, Br, Cr, 5))
+    # the same rows in one block of 5 columns: the split walk's wide shape
+    wide_vals = torch.cat([ragged_vals, 0.5 * ragged_vals + 1.0,
+                           ragged_vals[:, :1] - 1.0], 1).contiguous()
+    wide_cols = wide_vals.shape[1]
+    _, sh_w, _, st_w, cl_w, _ = nich_inputs(port, wide_vals,
+                                            labels[:Br] % 900, Cr)
+    co_w = fk.nich_coeffs(sh_w[0], st_w.groups[0]).contiguous()
+    wide_case = v1_case(port, 'K4', wide_vals, None, cl_w, co_w, None)
+    ragged_wide, _ = check_ragged(port, wide_case,
+                                  host_noise(port, Br, Cr, 6))
+    philox = {'main': v1_philox_exact(port, case),
+              'ragged': v1_philox_exact(port, ragged_case),
+              'ragged_wide': v1_philox_exact(port, wide_case)}
     bd = v1_bounds(port, (values, cl_scores, coeffs), FEATURES, 0, B, SLOTS)
     emit(dict({'phase': 'kernel_k4', 'B': B, 'C': SLOTS, 'cols': FEATURES,
                'modes': modes, 'bitwise_repeatable': True, 'ragged': ragged,
-               'timing': timing}, **bd))
+               'ragged_wide': ragged_wide, 'philox_exact': philox,
+               'timing': timing,
+               'split': split_report(port, 'score_sample_v1', B, SLOTS,
+                                     (FEATURES,)),
+               'split_wide': split_report(port, 'score_sample_v1', Br, Cr,
+                                          (wide_cols,)),
+               'split_ptxas': split_ptxas(port, 'score_sample_v1')}, **bd))
     # draws only: the error against the twin is the count of draws that
     # differ, 0 or the check above has raised
     return dict(bd, max_abs_err=float(max(r['mismatched_draws']
@@ -835,30 +871,44 @@ def phase_kernel_k5(port):
         worst = max([worst] + [r['mismatched_draws'] for r in modes.values()
                                if 'mismatched_draws' in r])
         cols = 0 if lay.nich_vals is None else lay.nich_vals.shape[1]
+        philox = v1_philox_exact(port, case)
         bd = v1_bounds(
             port,
             (lay.nich_vals, lay.table_idx, m['cl_scores'], coeffs, tables),
             cols, len(lay.table_vs), B, C)
         result['layouts'][kind] = dict(
             {'modes': modes, 'timing': timing, 'bitwise_repeatable': True,
-             'tables': list(tables.shape)}, **bd)
+             'tables': list(tables.shape), 'philox_exact': philox,
+             'split': split_report(port, 'score_sample_v1', B, C,
+                                   (cols,) if cols else (), (),
+                                   lay.table_vs)}, **bd)
         if kind == 'nichbbddgp':
             summary = dict(bd, ms=timing['gumbel']['ms'],
                            plain_ms=timing['gumbel']['plain_ms'])
         del m, case
 
-    # ragged slots and rows, on nich + gp + bb and on dd + bb
+    # ragged slots and rows, on nich + gp + bb and on dd + bb, and on
+    # random inputs of 3 nich and 5 table columns (the wide shape)
     Br, Cr = 3000, 1000
-    result['ragged'] = {}
-    for kind in ('nich_gp_bb', 'dd_bb'):
-        m = mixed_inputs(port, kind, Br, Cr, 40, seed=4)
-        coeffs, tables = v1_mixed_inputs(port, m)
-        result['ragged'][kind], _ = check_ragged(
-            port, v1_case(port, 'K5', m['lay'].nich_vals, m['lay'].table_idx,
-                          m['cl_scores'], coeffs, tables),
-            host_noise(port, Br, Cr, 5))
+    result['ragged'], result['philox_exact_ragged'] = {}, {}
+    wide = (3, 5, 6)
+    for kind in ('nich_gp_bb', 'dd_bb', 'wide'):
+        if kind == 'wide':
+            case = v1_case(port, 'K5', *port['testing'].v1_random_inputs(
+                Br, Cr, *wide, seed=8,
+                device=port['config'].default_device()))
+        else:
+            m = mixed_inputs(port, kind, Br, Cr, 40, seed=4)
+            coeffs, tables = v1_mixed_inputs(port, m)
+            case = v1_case(port, 'K5', m['lay'].nich_vals,
+                           m['lay'].table_idx, m['cl_scores'], coeffs, tables)
+        result['ragged'][kind], _ = check_ragged(port, case,
+                                                 host_noise(port, Br, Cr, 5))
+        result['philox_exact_ragged'][kind] = v1_philox_exact(port, case)
         worst = max([worst] + [r['mismatched_draws']
                                for r in result['ragged'][kind].values()])
+    result['split_wide'] = split_report(port, 'score_sample_v1', Br, Cr,
+                                        wide[:1], (), (wide[2],) * wide[1])
     summary['max_abs_err'] = float(worst)
     emit(result)
     return summary
@@ -1717,8 +1767,10 @@ def run_main(port, wrapper, spec, py, shareds, values_np, labels, block):
 def profile_sweep(sweep, kernel_names):
     """Device time of one fused sweep by kernel name (`kernel_device_ms`:
     the kernels whose names hold one of `kernel_names`), and the device's
-    share of the sweep's wall time."""
+    share of the sweep's wall time.  Only the device's own events count:
+    an operator's row repeats the time of the kernels it launched."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1729,6 +1781,8 @@ def profile_sweep(sweep, kernel_names):
         wall_ms = 1e3 * (time.time() - t0)
     rows = []
     for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            continue
         dev_us = getattr(e, 'self_device_time_total',
                          getattr(e, 'self_cuda_time_total', 0))
         if dev_us > 0:
@@ -1902,7 +1956,9 @@ def phase_paths_v1(port, X, labels):
                              % (k4_launches, tiles * n))
     out['nich2'] = dict(check_sweep(port, spec, py, shareds, values, st, an),
                         block=BLOCK, tiles=tiles, launches=k4_launches,
-                        sweep_blocked_pallas_ms_per_sweep=ms)
+                        sweep_blocked_pallas_ms_per_sweep=ms,
+                        profile=profile_sweep(lambda: k4_sweep(st0, a0),
+                                              ('split_score_sample',)))
     del values, st0, st, an
 
     # nich + bb + dd + gp through sweep_blocked_pallas_mixed (K5, 'xla')
@@ -1936,6 +1992,9 @@ def phase_paths_v1(port, X, labels):
             launches=launches, ms_per_sweep=ms)
         if backend == 'pallas':
             k5_launches = launches
+            mixed[backend]['profile'] = profile_sweep(
+                lambda: mixed_sweep(backend)(st0, a0),
+                ('split_score_sample',))
 
     # the same problem on the fused path (K2) and the plain path
     cache = gibbs.build_stat_cache(spec, shareds, values, BLOCK_MIXED, a0)
@@ -2549,24 +2608,28 @@ def main():
     phase_main_hypers(port, X, labels)
     del X
     pk = 'distributions_tpu/ops/pallas_kernels.py:%d'
+    split = 'the slot-split walk (csrc/fused_split.cuh)'
+    split_v1 = split + ', v1 form'
     kernels = []
-    for name, source, replaces, k in (
-            ('fused_v2 (K1)', 'fused_v2.cu', pk % 535, k1),
-            ('fused_v3 (K2)', 'fused_v3.cu', pk % 749, k2),
-            ('fused_v3_pair (K3)', 'fused_v3.cu', pk % 1061, k3),
-            ('score_sample_v1_nich (K4)', 'score_sample_v1.cu', pk % 137, k4),
+    for name, source, replaces, k, design in (
+            ('fused_v2 (K1)', 'fused_v2.cu', pk % 535, k1, split),
+            ('fused_v3 (K2)', 'fused_v3.cu', pk % 749, k2, split),
+            ('fused_v3_pair (K3)', 'fused_v3.cu', pk % 1061, k3, split),
+            ('score_sample_v1_nich (K4)', 'score_sample_v1.cu', pk % 137, k4,
+             split_v1),
             ('score_sample_v1_mixed (K5)', 'score_sample_v1.cu', pk % 247,
-             k5),
+             k5, split_v1),
             ('sampler_gumbel (B1)', 'sampler_bench.cu',
-             'benchmarks/suite.py:481', b1),
+             'benchmarks/suite.py:481', b1, None),
             ('roofline_chain (B2)', 'roofline.cu',
-             'benchmarks/roofline.py:79', b2),
+             'benchmarks/roofline.py:79', b2, None),
             ('roofline_mma (B3)', 'roofline.cu',
-             'benchmarks/roofline.py:124', b3),
+             'benchmarks/roofline.py:124', b3,
+             'persistent wgmma on TMA tiles, one cooperative launch'),
             ('roofline_copy (B4)', 'roofline.cu',
-             'benchmarks/roofline.py:166', b4),
+             'benchmarks/roofline.py:166', b4, 'a TMA bulk-copy ring'),
             ('fused_v2 phases (B5)', 'fused_v2.cu',
-             'profile_kernel_phases.py:64', b5)):
+             'profile_kernel_phases.py:64', b5, split)):
         if not k['launches'] > 0:
             raise AssertionError('%s was not launched on its main path'
                                  % name)
@@ -2581,7 +2644,8 @@ def main():
             'measured_bound_by': k['measured_bound_by'],
             # no single PyTorch call computes score + draw (+ sums), a
             # dependent chain or a resident sampler; B3 and B4 have one
-            'library_ms': k.get('library_ms')})
+            'library_ms': k.get('library_ms'),
+            'redesigned': design})
     emit({'kernels': kernels})
     print('nvidia-smi: %s' % card, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',

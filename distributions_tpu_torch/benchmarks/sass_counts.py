@@ -1,9 +1,10 @@
 """Static SASS instruction counts of the main path's split kernels: the
 instantiations of `split_score_sample` (csrc/fused_split.cuh) that K1 (one
 block of two nich columns) and K2 / K3 (niw2mix) launch in 'gumbel' and
-'argmax', B5's 'score_max' and 'bits' phases, and the wide shape that
-every other layout takes in 'gumbel', disassembled with the
-toolkit's `cuobjdump -sass` from the libraries this checkout builds.
+'argmax', B5's 'score_max' and 'bits' phases, K4 (two nich columns) and
+K5 (nichbbddgp, bbddgp) in 'gumbel' and 'argmax' (the v1 form), and the
+wide shapes that every other layout takes in 'gumbel', disassembled with
+the toolkit's `cuobjdump -sass` from the libraries this checkout builds.
 
     python -m distributions_tpu_torch.benchmarks.sass_counts
 
@@ -25,7 +26,9 @@ import subprocess
 import sys
 
 # Itanium-mangled template arguments of split_score_sample<MODE, FAST,
-# PHASE, Shape<NC, NQC, D, NT>> (an exact shape) or <..., WideShape>
+# PHASE, Shape<NC, NQC, D, NT>> (an exact shape), <..., ShapeV1<NC, NT>>
+# (an exact shape of the v1 form) or <..., WideShape> / <...,
+# WideShapeV1>
 KERNELS = {
     'K1 gumbel': ('fused_v2', 'ILi1ELb0ELi0E5ShapeILi2ELi0ELi1ELi0EEE'),
     'K1 argmax': ('fused_v2', 'ILi0ELb0ELi0E5ShapeILi2ELi0ELi1ELi0EEE'),
@@ -39,6 +42,15 @@ KERNELS = {
                              'ILi0ELb0ELi0E5ShapeILi1ELi1ELi2ELi1EEE'),
     'K1 wide gumbel': ('fused_v2', 'ILi1ELb0ELi0E9WideShapeE'),
     'K2/K3 wide gumbel': ('fused_v3', 'ILi1ELb0ELi0E9WideShapeE'),
+    'K4 gumbel': ('score_sample_v1', 'ILi1ELb0ELi0E7ShapeV1ILi2ELi0EEE'),
+    'K4 argmax': ('score_sample_v1', 'ILi0ELb0ELi0E7ShapeV1ILi2ELi0EEE'),
+    'K5 nichbbddgp gumbel': ('score_sample_v1',
+                             'ILi1ELb0ELi0E7ShapeV1ILi1ELi3EEE'),
+    'K5 nichbbddgp argmax': ('score_sample_v1',
+                             'ILi0ELb0ELi0E7ShapeV1ILi1ELi3EEE'),
+    'K5 bbddgp gumbel': ('score_sample_v1',
+                         'ILi1ELb0ELi0E7ShapeV1ILi0ELi3EEE'),
+    'K4/K5 wide gumbel': ('score_sample_v1', 'ILi1ELb0ELi0E11WideShapeV1E'),
 }
 CLASSES = {
     'MUFU': ('MUFU',),
@@ -79,7 +91,7 @@ def functions(so):
 def main():
     from distributions_tpu_torch.ops import fused_kernels as fk
     libs = {name: functions(fk.build(name)['path'])
-            for name in ('fused_v2', 'fused_v3')}
+            for name in ('fused_v2', 'fused_v3', 'score_sample_v1')}
     for label, (lib, tag) in KERNELS.items():
         names = [n for n in libs[lib]
                  if 'split_score_sample' in n and tag in n]

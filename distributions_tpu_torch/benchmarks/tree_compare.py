@@ -1,17 +1,21 @@
-"""Two trees of this repository on one card: the fused kernels K1, K2, K3
-and K1's phases B5 at the main path's shapes in every sampling mode, held
-to each other bit for bit, with their times and the runner's ms per sweep.
+"""Two trees of this repository on one card: the fused kernels K1, K2, K3,
+K1's phases B5 and the v1 kernels K4 and K5 at the main path's shapes in
+every sampling mode, held to each other bit for bit, with their times,
+the runner's ms per sweep and the v1 sweeps' ms per sweep.
 
     python -m distributions_tpu_torch.benchmarks.tree_compare OLD [NEW]
 
 OLD and NEW are checkouts (a `git archive` of a commit unpacked somewhere
 will do); NEW defaults to this one.  The inputs are made once, on the CPU,
-by this checkout: one nich2 tile of 131,072 rows x 1024 slots (K1, B5) and
-one niw2mix tile of 65,536 x 1024 (K2, and K3 on its four shards of 256
-slots), and the same sizes off the main path (WIDE_K1: nich tiles of one
-block of 3 or 4 columns and of blocks (2, 3); WIDE_K2: niw d = 3 + nich +
-bb and niw d = 4); the '_host' noise is drawn on the card from a seeded
-generator.
+by this checkout: one nich2 tile of 131,072 rows x 1024 slots (K1, B5,
+K4), one niw2mix tile of 65,536 x 1024 (K2, and K3 on its four shards of
+256 slots), nichbbddgp and bbddgp tiles of 65,536 x 1024 (K5), and the
+same sizes off the main path (WIDE_K1: nich tiles of one block of 3 or 4
+columns and of blocks (2, 3); WIDE_K2: niw d = 3 + nich + bb and niw d =
+4; WIDE_K4: nich tiles of one block of 1, 3, 4 and 8 columns, the last on
+the wide shape; WIDE_K5: the mixed layouts nich_gp_bb, dd_bb, dpd_nich and
+bnb; K5_RANDOM: random inputs of 3 nich and 5 table columns, on the wide
+shape); the '_host' noise is drawn on the card from a seeded generator.
 Then four processes run in turn, OLD, NEW, NEW, OLD, each importing the
 package of its own tree and building its kernels from its own sources:
 
@@ -19,16 +23,20 @@ package of its own tree and building its kernels from its own sources:
   'cdf_host' and their '_fast' forms (draws and every stat sum), of K3 in
   'argmax', 'gumbel', 'gumbel_host' and their '_fast' forms on each shard
   (draws and best scores), of B5's 'noop', 'score_max', 'score_bits' and
-  'score_<mode>' phases, and of K4 (the nich2 tile), K5 (a nichbbddgp tile
-  of 65,536 x 1024) and B1 (2048 rows of random scores, 4 iterations) in
-  'argmax', 'gumbel' and 'gumbel_host', each as a SHA-256 of its bytes;
-  off the main path, K1 and K2 in WIDE_MODES, B5's phases and K3's
-  'argmax', 'gumbel' and 'gumbel_host' on each shard;
-- median CUDA-event milliseconds of K1, K2, K3 (shard 0) in 'gumbel' and of
-  every B5 phase named above in 'gumbel'; of K1, K2 and K3 (shard 0) in
-  'gumbel' off the main path;
-- benchmarks.bench_runner at RUNNER_MODEL=nich and niw2mix (the `main` and
-  `main_mixed` runner configurations; RUNNER_* from the environment).
+  'score_<mode>' phases, and of K4, K5 and B1 (2048 rows of random
+  scores, 4 iterations) in 'argmax', 'gumbel' and 'gumbel_host', each as a
+  SHA-256 of its bytes; off the main path, K1 and K2 in WIDE_MODES, B5's
+  phases, K3's 'argmax', 'gumbel' and 'gumbel_host' on each shard, and K4
+  and K5 in those three modes;
+- median CUDA-event milliseconds of K1, K2, K3 (shard 0), K4 and K5 in
+  'gumbel' and of every B5 phase named above in 'gumbel', on the main
+  path's layouts and off them;
+- benchmarks.bench_runner at each model of TREE_COMPARE_RUNNER (a comma
+  list, default 'nich,niw2mix': the `main` and `main_mixed` runner
+  configurations; RUNNER_* from the environment; empty for none), and the
+  v1 sweeps of chip_smoke.py's `paths_v1` (gibbs.sweep_blocked_pallas on
+  nich2 and sweep_blocked_pallas_mixed on nichbbddgp, 1,048,576 rows x
+  1024 slots, V1_SWEEPS sweeps after one to warm up).
 
 Prints one JSON line per process, then one with the verdict: for each
 output whether all four runs agree, each tree's times (two runs each) and
@@ -58,6 +66,15 @@ TIMED_PHASES = PHASES + ('score_gumbel', 'full_gumbel')
 WIDE_K1 = ((3,), (4,), (2, 3))
 WIDE_K2 = ('niw3_nich_bb', 'niw4')
 WIDE_MODES = ('argmax', 'gumbel', 'gumbel_host', 'cdf')
+# K4 on one nich block of 1, 3, 4 (exact shapes) and 8 columns (the wide
+# shape); K5 on the mixed layouts beside the main path's, and on random
+# inputs of (nich columns, table columns, V) = K5_RANDOM (the wide shape)
+WIDE_K4 = ((1,), (3,), (4,), (8,))
+WIDE_K5 = ('nich_gp_bb', 'dd_bb', 'dpd_nich', 'bnb')
+K5_RANDOM = (3, 5, 6)
+V1_KINDS = ('nichbbddgp', 'bbddgp')
+V1_ROWS = 1048576
+V1_SWEEPS = 3
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
@@ -66,9 +83,14 @@ def make_inputs(path):
     """The kernels' inputs, made on the CPU by this checkout's package,
     saved to `path`."""
     import torch
-    d = main_path_inputs(kinds=('niw2mix', 'nichbbddgp') + WIDE_K2)
-    for groups in WIDE_K1:
-        d['k1 %s' % (groups,)] = nich_tile_inputs(groups)
+    from distributions_tpu_torch import testing
+    d = main_path_inputs(kinds=('niw2mix',) + V1_KINDS + WIDE_K2 + WIDE_K5)
+    for groups in WIDE_K1 + WIDE_K4:
+        if 'k1 %s' % (groups,) not in d:
+            d['k1 %s' % (groups,)] = nich_tile_inputs(groups)
+    d['k5 random'] = dict(zip(
+        ('values', 'table_idx', 'cl_scores', 'v1_coeffs', 'v1_tables'),
+        testing.v1_random_inputs(K2_ROWS, SLOTS, *K5_RANDOM, seed=3)))
     torch.save(d, path)
 
 
@@ -116,8 +138,9 @@ def nich_tile_inputs(groups=(2,), rows=K1_ROWS, slots=SLOTS):
 
 def main_path_inputs(kinds=('niw2mix',)):
     """K1's nich2 tile ('k1': values, cl_scores, coeffs, v1_coeffs) and
-    K2's tile of each mixed layout in `kinds` (its arguments by name), on
-    the CPU."""
+    K2's tile of each mixed layout in `kinds` (its arguments by name; K5's
+    v1_coeffs and v1_tables too where it has no niw block), on the
+    CPU."""
     import torch
     from distributions_tpu_torch import clustering as cl, mixture as mx
     from distributions_tpu_torch import testing
@@ -147,7 +170,7 @@ def main_path_inputs(kinds=('niw2mix',)):
             col_groups=tuple(spec.blocks[i].cols for i in lay.nich_blocks),
             quad_groups=tuple(lay.quad_groups),
             table_vs=tuple(lay.table_vs))
-        if kind == 'nichbbddgp':
+        if not lay.quad_groups:
             out[kind]['v1_coeffs'], out[kind]['v1_tables'] = \
                 gibbs._build_v1_inputs(spec, lay, shareds, state)
     return out
@@ -158,6 +181,60 @@ def digest(*tensors):
     for t in tensors:
         h.update(t.detach().contiguous().cpu().numpy().tobytes())
     return h.hexdigest()[:24]
+
+
+def v1_sweeps(dev):
+    """ms per sweep (CUDA events over V1_SWEEPS sweeps, after one to warm
+    up) of gibbs.sweep_blocked_pallas (K4) on nich2 and
+    gibbs.sweep_blocked_pallas_mixed (K5) on nichbbddgp, V1_ROWS rows x
+    SLOTS slots from the generating labels: chip_smoke.py's `paths_v1`."""
+    import numpy as np
+    import torch
+    from distributions_tpu_torch import clustering as cl, mixture as mx
+    from distributions_tpu_torch import testing
+    from distributions_tpu_torch.models import MODULES, nich
+    from distributions_tpu_torch.ops import gibbs
+
+    def ms_per_sweep(sweep, state, assignments):
+        sweep(state, assignments)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(V1_SWEEPS):
+            state, assignments = sweep(state, assignments)
+        b.record()
+        torch.cuda.synchronize(dev)
+        return a.elapsed_time(b) / V1_SWEEPS
+
+    n_true = SLOTS // 8 * 7
+    rng = np.random.RandomState(0)
+    labels = rng.randint(0, n_true, V1_ROWS)
+    centers = rng.randn(n_true, 2).astype(np.float32)
+    X = centers[labels] + 0.1 * rng.randn(V1_ROWS, 2).astype(np.float32)
+    spec = mx.make_spec([(nich, 2)], capacity=SLOTS)
+    shareds = (nich.shared_from_dict(
+        {'mu': 0., 'kappa': 0.1, 'sigmasq': 0.01, 'nu': 1.}, device=dev),)
+    py = cl.PitmanYor.from_dict({'alpha': 1.0, 'd': 0.1}, device=dev)
+    values = (torch.as_tensor(X, device=dev),)
+    a0 = torch.as_tensor(labels, device=dev)
+    gen = torch.Generator().manual_seed(2)
+    out = {'nich2': ms_per_sweep(
+        lambda st, an: gibbs.sweep_blocked_pallas(
+            spec, py, shareds, st, values, an, K1_ROWS, generator=gen),
+        mx.state_from_assignments(spec, py, shareds, values, a0), a0)}
+    problem = testing.mixed_problem(V1_ROWS, SLOTS, seed=0,
+                                    kind='nichbbddgp', n_clusters=n_true)
+    spec, py, shareds = testing.build_problem(
+        problem, MODULES, mx.make_spec, cl.PitmanYor.from_dict, device=dev)
+    values = tuple(torch.as_tensor(v, device=dev) for v in problem['values'])
+    a0 = torch.as_tensor(problem['labels'], device=dev)
+    supports = gibbs._block_supports(spec, values)
+    out['nichbbddgp'] = ms_per_sweep(
+        lambda st, an: gibbs.sweep_blocked_pallas_mixed(
+            spec, py, shareds, st, values, an, K2_ROWS, gen,
+            supports=supports),
+        mx.state_from_assignments(spec, py, shareds, values, a0), a0)
+    return out
 
 
 def worker(tree, inputs, out):
@@ -239,21 +316,36 @@ def worker(tree, inputs, out):
         return bk.fused_phase(phase, 5, *k1_args(t),
                               noise=None if mode is None else nz(n1, mode))
 
-    k5 = on_card(d['nichbbddgp'])
-    k5_args = (k5['values'], k5['table_idx'], k5['cl_scores'],
-               k5['v1_coeffs'], torch.clamp(k5['v1_tables'], min=-1e30))
+    # K4's tiles ('' the main path's) and K5's ('' nichbbddgp)
+    k4_tiles = {'': k1}
+    k4_tiles.update({' %s' % (groups,): on_card(d['k1 %s' % (groups,)])
+                     for groups in WIDE_K4})
+    k5_tiles = {'': on_card(d[V1_KINDS[0]])}
+    k5_tiles.update({' ' + kind: on_card(d[kind])
+                     for kind in V1_KINDS[1:] + WIDE_K5})
+    k5_tiles[' random'] = on_card(d['k5 random'])
+
+    def k4_call(mode, t):
+        return fk.nich_score_sample(
+            5, t['values'], t['cl_scores'], t['v1_coeffs'], sampling=mode,
+            noise=n1['gumbel_host'] if mode == 'gumbel_host' else None)
+
+    def k5_call(mode, t):
+        tables = t['v1_tables']
+        return fk.mixed_score_sample(
+            5, t['values'], t['table_idx'], t['cl_scores'], t['v1_coeffs'],
+            None if tables is None else torch.clamp(tables, min=-1e30),
+            sampling=mode,
+            noise=n2['gumbel_host'] if mode == 'gumbel_host' else None)
     b1_scores = torch.randn((B1_ROWS, SLOTS), generator=gen, device=dev)
     b1_noise = n1['gumbel_host'][:B1_ROWS].contiguous()
 
     hashes = {}
     for mode in V1_MODES:
-        nz1 = n1['gumbel_host'] if mode == 'gumbel_host' else None
-        nz2 = n2['gumbel_host'] if mode == 'gumbel_host' else None
-        hashes['K4 ' + mode] = digest(fk.nich_score_sample(
-            5, k1['values'], k1['cl_scores'], k1['v1_coeffs'], sampling=mode,
-            noise=nz1))
-        hashes['K5 ' + mode] = digest(fk.mixed_score_sample(
-            5, *k5_args, sampling=mode, noise=nz2))
+        for name, t in k4_tiles.items():
+            hashes['K4%s %s' % (name, mode)] = digest(k4_call(mode, t))
+        for name, t in k5_tiles.items():
+            hashes['K5%s %s' % (name, mode)] = digest(k5_call(mode, t))
         hashes['B1 ' + mode] = digest(*bk.sampler_gumbel(
             5, b1_scores, 4, mode,
             b1_noise if mode == 'gumbel_host' else None, all_draws=True))
@@ -291,8 +383,15 @@ def worker(tree, inputs, out):
             lambda: k2_call('gumbel', kind), 7, dev)
         ms['K3 %s gumbel' % kind] = median_ms(
             lambda: k3_call('gumbel', 0, kind), 7, dev)
+    for name, t in k4_tiles.items():
+        ms['K4%s gumbel' % name] = median_ms(lambda: k4_call('gumbel', t), 7,
+                                             dev)
+    for name, t in k5_tiles.items():
+        ms['K5%s gumbel' % name] = median_ms(lambda: k5_call('gumbel', t), 7,
+                                             dev)
     runner = {}
-    for model in ('nich', 'niw2mix'):
+    models = os.environ.get('TREE_COMPARE_RUNNER', 'nich,niw2mix')
+    for model in filter(None, models.split(',')):
         os.environ['RUNNER_MODEL'] = model
         r = bench_runner.run(dev)
         runner[model] = {'ms_per_sweep': r['ms_per_sweep'],
@@ -300,7 +399,7 @@ def worker(tree, inputs, out):
                              r['ms_per_sweep_of_each_run']}
     with open(out, 'w') as f:
         json.dump({'tree': tree, 'build_seconds': build_s, 'hashes': hashes,
-                   'ms': ms, 'runner': runner,
+                   'ms': ms, 'runner': runner, 'v1_sweeps': v1_sweeps(dev),
                    'device': bench_runner.device_name(dev)}, f)
 
 
@@ -342,6 +441,10 @@ def main(argv=None):
                 'new': [runs[1]['runner'][m]['ms_per_sweep'],
                         runs[2]['runner'][m]['ms_per_sweep']]}
             for m in runs[0]['runner']},
+        'v1_ms_per_sweep': {
+            m: {'old': [runs[0]['v1_sweeps'][m], runs[3]['v1_sweeps'][m]],
+                'new': [runs[1]['v1_sweeps'][m], runs[2]['v1_sweeps'][m]]}
+            for m in runs[0]['v1_sweeps']},
         'device': runs[0]['device'], 'trees': trees}
     print(json.dumps(verdict), flush=True)
     return 1 if differ else 0

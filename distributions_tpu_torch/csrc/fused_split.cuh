@@ -1,8 +1,9 @@
-// The slot-split walk of the fused score + sample kernels for NVIDIA
-// Hopper (sm_90a), for the argmax family of draws ('argmax', 'gumbel',
+// The slot-split walk of the score + sample kernels for NVIDIA Hopper
+// (sm_90a), for the argmax family of draws ('argmax', 'gumbel',
 // 'gumbel_host', and the phase profiler's 'bits', 'score_max' and 'noop'):
-// K1 and its phases B5 (fused_v2.cu), K2 and K3 (fused_v3.cu).  'cdf'
-// keeps the sequential one-row-per-thread walk of those files (see there).
+// K1 and its phases B5 (fused_v2.cu), K2 and K3 (fused_v3.cu), K4 and K5
+// (score_sample_v1.cu).  'cdf' keeps the sequential one-row-per-thread
+// walk of fused_v2.cu and fused_v3.cu (see there).
 //
 // Geometry.  SPLIT_SLICES threads share each row: thread s scores its rows
 // against slice s of the slot axis, a contiguous run of whole Philox blocks
@@ -18,33 +19,58 @@
 // time a row's slices sit instead on lanes of one warp, SPLIT_LANES lanes
 // apart: the first version of this walk, kept as a variant to time.)
 //
+// Two score forms.  The product form (K1, K2, K3): cst, then per block of
+// <= 4 nich (or niw) columns lc * log(prod of (1 + ...)), then the table
+// columns.  The v1 form (K4, K5: Shape V1 below): s = cl, then per nich
+// column, in column order, s = (s + score) + log_coeff * log1pf((prec * t)
+// * t) with t = v - mean, then the table columns.  Its per-column
+// constants enter the sum one by one, so they cannot be folded into one
+// constant as the product form folds its bases: each cell repeats the
+// sequential v1 kernel's operations exactly.
+//
 // Coefficients.  The per-slot coefficients are staged in shared memory
 // slot-major, one record of P floats per slot, P a multiple of SPLIT_PACK
-// (4: a record is P / 4 16-byte loads); a record is [cst | per nich column
-// prec, mean, lc | per niw column mu[D], lam[D (D + 1) / 2], lc], with
-// cst = cl + every block's base, and the block's lc repeated per column so
-// that every field sits at a compile-time offset.  A thread reads a slot's
-// record once for all SPLIT_ROWS rows.  In the lane variant each slice's
-// records lie SPLIT_PAD floats past the previous slice's, so that its eight
+// (4: a record is P / 4 16-byte loads).  A product-form record is [cst |
+// per nich column prec, mean, lc | per niw column mu[D], lam[D (D + 1) /
+// 2], lc], with cst = cl + every block's base, and the block's lc repeated
+// per column so that every field sits at a compile-time offset.  A v1
+// record is [per nich column score, log_coeff, prec, mean | cl, pad]: each
+// column one aligned 16-byte load.  A thread reads a slot's record once
+// for all SPLIT_ROWS rows.  In the lane variant each slice's records lie
+// SPLIT_PAD floats past the previous slice's, so that its eight
 // slices in a warp read eight distinct banks (no pad otherwise: a warp's
 // lanes all read one slot).  Where the slices' records do not fit in
 // SPLIT_SMEM_FLOATS, the slot axis is staged in turns, each turn a run of
 // every slice's next slots.
 //
 // Shapes.  An exact shape (Shape<NC, NQC, D, NT>: one block of NC nich
-// columns, one block of NQC niw columns of dimension D, NT table columns)
+// columns, one block of NQC niw columns of dimension D, NT table columns;
+// ShapeV1<NC, NT>: NC nich columns and NT table columns in the v1 form)
 // fixes the layout's sizes and its products at compile time, so that the
 // record and the row values are register arrays and every loop unrolls.
-// The wide shape takes every other layout the wrappers accept: its loops
-// run to the run-time layout's counts, so the rows' values (and table
-// rows) are staged in shared memory beside the records, column by column,
-// SPLIT_BLOCK_ROWS apart, and indexed there; the record is packed to the
-// layout (each niw column at its own dimension) and read field by field,
-// once for all SPLIT_ROWS rows; the niw form unrolls to D <= 4 with the
-// column's d as a guard, so the centred differences stay in registers.
-// The wrappers pick the shape by layout (fused_v2.cu, fused_v3.cu);
-// SPLIT_WIDE_ONLY=1 at compile time sends every layout to the wide shape,
-// a variant that times one shape against the other.
+// The wide shape (WideShape, WideShapeV1) takes every other layout the
+// wrappers accept: its loops run to the run-time layout's counts, so the
+// rows' values (and table rows) are staged in shared memory beside the
+// records, column by column, SPLIT_BLOCK_ROWS apart, and indexed there;
+// the record is packed to the layout (each niw column at its own
+// dimension) and read field by field, once for all SPLIT_ROWS rows; the
+// niw form unrolls to D <= 4 with the column's d as a guard, so the
+// centred differences stay in registers.  The wrappers pick the shape by
+// layout (fused_v2.cu, fused_v3.cu, score_sample_v1.cu); SPLIT_WIDE_ONLY=1
+// at compile time sends every layout to the wide shape, a variant that
+// times one shape against the other.
+//
+// Table columns.  A table entry is a gather: the lanes of a warp read one
+// slot of as many table rows as their rows hold distinct values, each on
+// its own cache line.  An exact shape of the v1 form with table columns
+// (K5) therefore takes a row at a time through each block of four slots:
+// one 16-byte load per table column gives the row's entries of all four
+// (where C % 4 == 0, the slot offset % 4 == 0 and the tables are 16-byte
+// aligned; else one load a slot), a quarter of the load instructions for
+// the same cache lines, and the slot's record is read again from shared
+// memory for each row.  The product form's shapes (K2, K3) read one slot
+// a load, their rows side by side.  SPLIT_TABLE_VEC=0 at compile time
+// makes K5 read one slot a load too, a variant to time.
 //
 // Philox.  In 'gumbel' and 'bits' a thread draws, per block of four slots,
 // one Philox4x32-10 block per row: SPLIT_ROWS independent chains (the rows
@@ -75,6 +101,9 @@
 #endif
 #ifndef SPLIT_WIDE_ONLY
 #define SPLIT_WIDE_ONLY 0           // 1: every layout on the wide shape
+#endif
+#ifndef SPLIT_TABLE_VEC
+#define SPLIT_TABLE_VEC 1           // 0: K5's table rows one slot a load
 #endif
 #ifndef SPLIT_MIN_BLOCKS
 #define SPLIT_MIN_BLOCKS 0          // > 0: __launch_bounds__' minimum of
@@ -115,7 +144,7 @@ constexpr unsigned chunk_last(int n, int c = 0) {
 template <int NC, int NQC, int D, int NT>
 struct Shape {
   static constexpr int kNC = NC, kNQC = NQC, kD = D, kNT = NT;
-  static constexpr bool kExact = true;
+  static constexpr bool kExact = true, kV1 = false;
   static constexpr unsigned kNFirst = chunk_first(NC), kNLast = chunk_last(NC);
   static constexpr unsigned kQFirst = chunk_first(NQC),
                             kQLast = chunk_last(NQC);
@@ -129,12 +158,26 @@ struct Shape {
 
 // the shape that takes every layout
 struct WideShape {
-  static constexpr bool kExact = false;
+  static constexpr bool kExact = false, kV1 = false;
+};
+
+// The v1 form's exact shapes: NC nich columns, NT table columns.
+template <int NC, int NT>
+struct ShapeV1 {
+  static constexpr int kNC = NC, kNQC = 0, kD = 1, kNT = NT;
+  static constexpr bool kExact = true, kV1 = true;
+  static constexpr int kP = 4 * NC + SPLIT_PACK;   // [4 a column | cl, pad]
+};
+
+// the v1 form's shape that takes every layout
+struct WideShapeV1 {
+  static constexpr bool kExact = false, kV1 = true;
 };
 
 // What varies at run time: the groups, and per column where a product of
 // <= 4 factors starts (bit set in *first) and ends (bit set in *last).
 struct SplitLayout {
+  bool v1;                   // the v1 score form (split_layout_v1)
   int n_nich, nich_cols[SPLIT_MAX_GROUPS];
   int n_quad, quad_cols[SPLIT_MAX_GROUPS], quad_d[SPLIT_MAX_GROUPS];
   int n_tab, tab_off[SPLIT_MAX_TAB], vtot;
@@ -150,7 +193,7 @@ struct SplitArgs {
   const float* qvalues;     // [B, qvals]
   const int* table_idx;     // [B, n_tab]
   const float* cl;          // [C]
-  const float* coeffs;      // nich_coeffs_v2 rows [., C]
+  const float* coeffs;      // nich_coeffs_v2 rows [., C] (v1: nich_coeffs)
   const float* qcoeffs;     // niw_coeffs_v4 rows [., C]
   const float* tables;      // packed [Vtot, C]
   const float* noise;       // 'gumbel_host': [B, C]
@@ -166,6 +209,8 @@ struct SplitArgs {
   int P;                    // record floats
   int row_floats;           // the wide shape's staged rows, before the
                             // records in shared memory
+  int vec_tables;           // table rows read four slots a load: lead 0,
+                            // C % 4 == 0 and the tables 16-byte aligned
 };
 
 // Fill the geometry of `a` for records of P floats after row_floats of
@@ -183,6 +228,8 @@ static inline bool split_geometry(int P, int row_floats, SplitArgs* a,
   if (fit < 1) fit = 1;
   a->turns = (per_slice + fit - 1) / fit;
   a->L = 4 * ((per_slice + a->turns - 1) / a->turns);
+  a->vec_tables = SPLIT_TABLE_VEC && a->lead == 0 && a->C % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(a->tables) % 16 == 0;
   *smem = ((size_t)SPLIT_SLICES * ((size_t)a->L * P + SPLIT_PAD) +
            row_floats) *
           sizeof(float);
@@ -270,18 +317,43 @@ static inline bool split_layout(int n_nich, const int* nich_cols, int n_quad,
   return true;
 }
 
-// True when layout L runs on shape SH: the wide shape takes any layout,
-// an exact one its counts, dimension and chunk masks.
+// The layout of the v1 form: ncols nich columns, n_tab table columns of
+// a [n_tab, V, C] table, which is the packed [n_tab * V, C] table with
+// column j's rows from j * V.  False when it exceeds the caps.
+static inline bool split_layout_v1(int ncols, int n_tab, int V,
+                                   SplitLayout* L) {
+  if (ncols < 0 || ncols > SPLIT_MAX_NICH || n_tab < 0 ||
+      n_tab > SPLIT_MAX_TAB)
+    return false;
+  *L = SplitLayout();
+  L->v1 = true;
+  L->ncols = ncols;
+  L->n_tab = n_tab;
+  for (int j = 0; j < n_tab; ++j) L->tab_off[j] = j * V;
+  L->vtot = n_tab * V;
+  L->P = 4 * ncols + SPLIT_PACK;
+  return true;
+}
+
+// True when layout L runs on shape SH: a shape of its form, the wide one
+// for any layout, an exact one for its counts (and dimension and chunk
+// masks).
 template <class SH>
 static bool split_fits(const SplitLayout& L) {
+  if (L.v1 != SH::kV1) return false;
   if (!SH::kExact) return true;
-  if (SPLIT_WIDE_ONLY || L.ncols != SH::kNC || L.nqc != SH::kNQC ||
-      L.n_tab != SH::kNT || L.nfirst != SH::kNFirst || L.nlast != SH::kNLast ||
-      L.qfirst != SH::kQFirst || L.qlast != SH::kQLast)
-    return false;
-  for (int j = 0; j < L.nqc; ++j)
-    if (L.qd[j] != SH::kD) return false;
-  return true;
+  if (SPLIT_WIDE_ONLY) return false;
+  if constexpr (SH::kV1) {
+    return L.ncols == SH::kNC && L.n_tab == SH::kNT;
+  } else {
+    if (L.ncols != SH::kNC || L.nqc != SH::kNQC || L.n_tab != SH::kNT ||
+        L.nfirst != SH::kNFirst || L.nlast != SH::kNLast ||
+        L.qfirst != SH::kQFirst || L.qlast != SH::kQLast)
+      return false;
+    for (int j = 0; j < L.nqc; ++j)
+      if (L.qd[j] != SH::kD) return false;
+    return true;
+  }
 }
 
 // -- one slot's record -------------------------------------------------------
@@ -332,6 +404,16 @@ __device__ __forceinline__ void split_stage(const SplitArgs& a,
   rec[0] = cst;
 }
 
+// Stage slot k's v1 record at rec: nich_coeffs' four rows of each column
+// (score, log_coeff, prec, mean), then cl.
+__device__ __forceinline__ void split_stage_v1(const SplitArgs& a,
+                                               const SplitLayout& L, int k,
+                                               float* rec) {
+  const size_t C = a.C;
+  for (int x = 0; x < 4 * L.ncols; ++x) rec[x] = a.coeffs[x * C + k];
+  rec[4 * L.ncols] = a.cl[k];
+}
+
 // An exact shape's record, loaded from shared memory into registers with
 // 16-byte loads.
 template <class SH>
@@ -349,6 +431,10 @@ struct RegRecord {
   }
   __device__ __forceinline__ float operator[](int i) const { return x[i]; }
 };
+
+__device__ __forceinline__ float float4_get(float4 v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
 
 // -- the rows of a thread ----------------------------------------------------
 
@@ -375,7 +461,7 @@ struct SplitRow {
     for (int t = 0; t < SH::kNT; ++t) {
       const int v =
           active ? L.tab_off[t] + a.table_idx[(size_t)row * SH::kNT + t] : 0;
-#ifdef FUSED_V3_DEBUG
+#if defined(FUSED_V3_DEBUG) || defined(SCORE_SAMPLE_V1_DEBUG)
       if (v < 0 || v >= L.vtot) __trap();
 #endif
       trow[t] = a.tables + (size_t)v * a.C;
@@ -391,10 +477,60 @@ struct SplitRow {
   }
 
   // The score of slot k with record f, in the sequential walk's order:
-  // cst, nich products, niw products, table columns.
+  // its base, then the table columns.
   template <bool FAST>
   __device__ __forceinline__ float score(const RegRecord<SH>& f,
                                          int k) const {
+    float s = base<FAST>(f);
+#pragma unroll
+    for (int t = 0; t < SH::kNT; ++t) s = __fadd_rn(s, __ldg(trow[t] + k));
+    return s;
+  }
+
+  // The table columns' entries of slots k0 .. k0 + 3: one 16-byte load a
+  // column where SplitArgs::vec_tables (then k0 % 4 == 0 and every slot
+  // lies in [0, C)), else one load a slot in [0, C).
+  __device__ __forceinline__ void tables4(
+      const SplitArgs& a, int k0,
+      float4 (&tv)[SH::kNT > 0 ? SH::kNT : 1]) const {
+#pragma unroll
+    for (int t = 0; t < SH::kNT; ++t) {
+      if (a.vec_tables) {
+        tv[t] = __ldg(reinterpret_cast<const float4*>(trow[t] + k0));
+      } else {
+        float e[4];
+#pragma unroll
+        for (int w = 0; w < 4; ++w)
+          e[w] = k0 + w >= 0 && k0 + w < a.C ? __ldg(trow[t] + k0 + w)
+                                               : F(0.0);
+        tv[t] = make_float4(e[0], e[1], e[2], e[3]);
+      }
+    }
+  }
+
+  // The score of a slot without its table columns, in the sequential
+  // walk's order: the v1 form's cl and nich columns, or the product form's
+  // cst, nich products and niw products.
+  template <bool FAST>
+  __device__ __forceinline__ float base(const RegRecord<SH>& f) const {
+    if constexpr (SH::kV1) {
+      float s = f[4 * SH::kNC];
+#pragma unroll
+      for (int c = 0; c < SH::kNC; ++c) {
+        const float t = __fsub_rn(nv[c], f[4 * c + 3]);
+        const float x = __fmul_rn(__fmul_rn(f[4 * c + 2], t), t);
+        s = __fadd_rn(__fadd_rn(s, f[4 * c]),
+                      __fmul_rn(f[4 * c + 1], log1pf(x)));
+      }
+      return s;
+    } else {
+      return product_base<FAST>(f);
+    }
+  }
+
+  template <bool FAST>
+  __device__ __forceinline__ float product_base(
+      const RegRecord<SH>& f) const {
     float s = f[0];
     float prod = F(1.0);
 #pragma unroll
@@ -431,8 +567,6 @@ struct SplitRow {
         s = __fadd_rn(
             s, __fmul_rn(f[base + SH::kD + SH::kTri], log_<FAST>(prod)));
     }
-#pragma unroll
-    for (int t = 0; t < SH::kNT; ++t) s = __fadd_rn(s, __ldg(trow[t] + k));
     return s;
   }
 };
@@ -496,7 +630,7 @@ struct WideRows {
         const int t = c - nq;
         const int v =
             active ? L.tab_off[t] + a.table_idx[row * L.n_tab + t] : 0;
-#ifdef FUSED_V3_DEBUG
+#if defined(FUSED_V3_DEBUG) || defined(SCORE_SAMPLE_V1_DEBUG)
         if (v < 0 || v >= L.vtot) __trap();
 #endif
         reinterpret_cast<int*>(smem)[i] = v;
@@ -592,8 +726,37 @@ struct WideRows {
           s[i] = __fadd_rn(s[i], __fmul_rn(lc, log_<FAST>(prod[i])));
       }
     }
-    const int* tv = reinterpret_cast<const int*>(qv) +
-                    L.qvals * SPLIT_BLOCK_ROWS;
+    add_tables(L, a, k, s);
+  }
+
+  // The v1 form's scores of slot k, its record at p (shared memory): a
+  // column's four fields in one 16-byte load for all rows; per row the
+  // exact shape's operations in its order.
+  __device__ __forceinline__ void scores_v1(const float* __restrict__ f,
+                                            const SplitLayout& L,
+                                            const SplitArgs& a, int k,
+                                            float (&s)[SPLIT_ROWS]) const {
+#pragma unroll
+    for (int i = 0; i < SPLIT_ROWS; ++i) s[i] = f[4 * L.ncols];
+    for (int c = 0; c < L.ncols; ++c) {
+      const float4 co = reinterpret_cast<const float4*>(f)[c];
+      const float* v = sv + c * SPLIT_BLOCK_ROWS;
+#pragma unroll
+      for (int i = 0; i < SPLIT_ROWS; ++i) {
+        const float t = __fsub_rn(v[rb[i]], co.w);
+        const float x = __fmul_rn(__fmul_rn(co.z, t), t);
+        s[i] = __fadd_rn(__fadd_rn(s[i], co.x), __fmul_rn(co.y, log1pf(x)));
+      }
+    }
+    add_tables(L, a, k, s);
+  }
+
+  // the table columns of slot k added in column order
+  __device__ __forceinline__ void add_tables(const SplitLayout& L,
+                                             const SplitArgs& a, int k,
+                                             float (&s)[SPLIT_ROWS]) const {
+    const int* tv = reinterpret_cast<const int*>(sv) +
+                    (L.ncols + L.qvals) * SPLIT_BLOCK_ROWS;
     for (int c = 0; c < L.n_tab; ++c) {
 #pragma unroll
       for (int i = 0; i < SPLIT_ROWS; ++i)
@@ -637,10 +800,11 @@ __device__ __forceinline__ void split_visit(float s, unsigned m, int k,
 // One turn of a thread's slice: slots [v0, v0 + L) of the slice (virtual
 // ids), read from the thread's slice of the staged records, `mine`, P
 // floats a record.
-template <int MODE, bool FAST, int PHASE, class Rows>
+template <int MODE, bool FAST, int PHASE, class SH>
 __device__ __forceinline__ void split_turn(
     const SplitArgs& a, const SplitLayout& L, const float* __restrict__ mine,
-    int P, int slice, int v0, const Rows& rows, const int (&row)[SPLIT_ROWS],
+    int P, int slice, int v0, const SplitRows<SH>& rows,
+    const int (&row)[SPLIT_ROWS],
     const bool (&active)[SPLIT_ROWS], uint2 key, float (&best)[SPLIT_ROWS],
     int (&idx)[SPLIT_ROWS]) {
   constexpr bool kBits = MODE == MODE_GUMBEL || MODE == MODE_BITS;
@@ -657,12 +821,37 @@ __device__ __forceinline__ void split_turn(
             make_uint4((unsigned)row[r], q0 + (unsigned)(vq >> 2), 0u, 0u),
             key);
     }
+    if constexpr (SH::kExact) {
+      if constexpr (SH::kV1 && SH::kNT > 0) {
+        // per row: its table entries of the block's four slots, then its
+        // scores of the four in slot order (the record read per row)
+#pragma unroll
+        for (int r = 0; r < SPLIT_ROWS; ++r) {
+          float4 tv[SH::kNT];
+          rows.r[r].tables4(a, vq - a.lead, tv);
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            const int k = vq + w - a.lead;
+            if (k < 0 || k >= a.C) continue;
+            float s = rows.r[r].template base<FAST>(
+                rows.record(mine + (size_t)(o + w) * P));
+#pragma unroll
+            for (int t = 0; t < SH::kNT; ++t)
+              s = __fadd_rn(s, float4_get(tv[t], w));
+            split_visit<MODE, FAST, PHASE>(
+                s, kBits ? uint4_get(bits[r], w) & 0x00FFFFFFu : 0u, k, a,
+                row[r], active[r], best[r], idx[r]);
+          }
+        }
+        continue;
+      }
+    }
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
       const int k = vq + w - a.lead;
       if (k < 0 || k >= a.C) continue;
       const float* p = mine + (size_t)(o + w) * P;
-      if constexpr (Rows::kExact) {
+      if constexpr (SH::kExact) {
         // each row scored and offered in turn, the record in registers
         const auto f = rows.record(p);
 #pragma unroll
@@ -673,7 +862,10 @@ __device__ __forceinline__ void split_turn(
               active[r], best[r], idx[r]);
       } else {
         float s[SPLIT_ROWS];
-        rows.template scores<FAST>(p, L, a, k, s);
+        if constexpr (SH::kV1)
+          rows.scores_v1(p, L, a, k, s);
+        else
+          rows.template scores<FAST>(p, L, a, k, s);
 #pragma unroll
         for (int r = 0; r < SPLIT_ROWS; ++r)
           split_visit<MODE, FAST, PHASE>(
@@ -741,12 +933,17 @@ __global__ void SPLIT_BOUNDS split_score_sample(SplitArgs a, SplitLayout L) {
     for (int i = tid; i < SPLIT_SLICES * a.L; i += SPLIT_THREADS) {
       const int s = i / a.L, o = i - s * a.L;
       const int k = s * a.SL + v0 + o - a.lead;
-      if (v0 + o < a.SL && k >= 0 && k < a.C)
-        split_stage<SH>(a, L, k, recs + (size_t)s * stride + o * P);
+      if (v0 + o < a.SL && k >= 0 && k < a.C) {
+        float* rec = recs + (size_t)s * stride + o * P;
+        if constexpr (SH::kV1)
+          split_stage_v1(a, L, k, rec);
+        else
+          split_stage<SH>(a, L, k, rec);
+      }
     }
     __syncthreads();
-    split_turn<MODE, FAST, PHASE>(a, L, mine, P, slice, v0, rows, row,
-                                  active, key, best, idx);
+    split_turn<MODE, FAST, PHASE, SH>(a, L, mine, P, slice, v0, rows, row,
+                                      active, key, best, idx);
   }
   // merge the slices of each row, earlier slice on the left
 #if SPLIT_LANE_SLICES

@@ -703,6 +703,7 @@ _LAUNCHERS = {
 _QUERIES = {
     'fused_v2': {'fused_v2_occupancy': [_I, _I, _IP, _I, _I, _I, _IP]},
     'fused_v3': {'fused_v3_occupancy': [_I] + _LAYOUT + [_I, _I, _IP]},
+    'score_sample_v1': {'score_sample_v1_occupancy': [_I, _I, _I, _I, _IP]},
 }
 
 # (name, -D definitions) -> the loaded library
@@ -856,22 +857,30 @@ def _raise_on(name, lib, err):
 def split_occupancy(name, C, col_groups, quad_groups=(), table_vs=(),
                     sampling='gumbel', phase=0):
     """What the split kernel that a launch of library `name` ('fused_v2':
-    K1 and B5, `phase` as B5's codes; 'fused_v3': K2 and K3) takes for this
-    layout and draw at C slots: its registers, local (spill) bytes,
-    dynamic shared memory, record floats, turns of the slot axis, threads
-    and resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-    Needs the card; 'cdf' draws take the sequential walk and raise."""
-    mode, fast = _parse_sampling(sampling)
+    K1 and B5, `phase` as B5's codes; 'fused_v3': K2 and K3;
+    'score_sample_v1': K4 and K5, with sum(col_groups) nich columns and
+    len(table_vs) table columns) takes for this layout and draw at C
+    slots: its registers, local (spill) bytes, dynamic shared memory,
+    record floats, turns of the slot axis, threads and resident blocks per
+    SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Needs the card;
+    'cdf' draws take the sequential walk and raise."""
     lib = build(name)['lib']
     info = (ctypes.c_int * 7)()
-    if name == 'fused_v2':
-        err = lib.fused_v2_occupancy(C, len(col_groups),
-                                     _int_array(col_groups), phase,
-                                     SAMPLING_MODES[mode], int(fast), info)
+    if name == 'score_sample_v1':
+        err = lib.score_sample_v1_occupancy(
+            C, sum(col_groups), len(table_vs),
+            SAMPLING_MODES[_parse_v1_sampling(sampling)], info)
     else:
-        err = lib.fused_v3_occupancy(
-            C, *_layout_args(col_groups, quad_groups, table_vs),
-            SAMPLING_MODES[mode], int(fast), info)
+        mode, fast = _parse_sampling(sampling)
+        if name == 'fused_v2':
+            err = lib.fused_v2_occupancy(C, len(col_groups),
+                                         _int_array(col_groups), phase,
+                                         SAMPLING_MODES[mode], int(fast),
+                                         info)
+        else:
+            err = lib.fused_v3_occupancy(
+                C, *_layout_args(col_groups, quad_groups, table_vs),
+                SAMPLING_MODES[mode], int(fast), info)
     _raise_on(name, lib, err)
     return dict(zip(('blocks_per_sm', 'threads_per_block', 'smem_bytes',
                      'record_floats', 'turns', 'registers', 'local_bytes'),

@@ -133,6 +133,34 @@ def build_problem(problem, models, make_spec, cl_from_dict, **kwargs):
     return spec, cl_from_dict(PY, **kwargs), shareds
 
 
+def v1_random_inputs(B, C, cols, n_tab, V=6, seed=0, device=None):
+    """Random inputs of the v1 score + sample kernels, made with numpy from
+    `seed`: (values [B, cols], table_idx [B, n_tab] int32, cl_scores [C],
+    coeffs [4 * cols, C], tables [n_tab, V, C]) as float32 tensors on
+    `device`, None for a kind of column the layout lacks.  The `nich_coeffs`
+    rows have negative log coefficients and positive precisions; table
+    column j has support max(1, V - j % 3); every tenth slot is dead."""
+    rng = np.random.RandomState(seed)
+    values = coeffs = idx = tables = None
+    if cols:
+        values = rng.randn(B, cols)
+        coeffs = np.concatenate([
+            [rng.randn(C), -np.abs(rng.randn(C)) - 0.1,
+             np.abs(rng.randn(C)) + 0.1, rng.randn(C)] for _ in range(cols)])
+    if n_tab:
+        idx = np.stack([rng.randint(0, max(1, V - j % 3), B)
+                        for j in range(n_tab)], 1)
+        tables = rng.randn(n_tab, V, C)
+    cl_scores = rng.randn(C)
+    cl_scores[::10] = -np.inf
+
+    def put(x, dtype=torch.float32):
+        return None if x is None else torch.as_tensor(
+            np.ascontiguousarray(x), dtype=dtype, device=device)
+    return (put(values), put(idx, torch.int32), put(cl_scores), put(coeffs),
+            put(tables))
+
+
 def mismatches(scores, got, want):
     """(number of rows whose draws differ, largest score gap between the
     two drawn slots over those rows).  A gap at f32 rounding level marks

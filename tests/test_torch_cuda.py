@@ -7,7 +7,8 @@ with a GPU and no JAX, run them with
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 (`-k pair` picks the tests of K3, `-k bench` those of B1-B5, `-k fused`
-the edge tests of the slot-split walk of K1, B5, K2 and K3.)
+the edge tests of the slot-split walk of K1, B5, K2 and K3, `-k v1_split`
+those of its v1 form in K4 and K5.)
 """
 
 import pytest
@@ -981,3 +982,122 @@ def test_fused_split_occupancy_report(dev):
         assert r['record_floats'] % fk.SPLIT_PACK == 0
     with pytest.raises(RuntimeError):
         fk.split_occupancy('fused_v2', 1024, (2,), sampling='cdf')
+
+
+# -- the split walk of K4 and K5 (its v1 form): edge geometry -----------------
+
+V1_SPLIT_B = (1, 63, 64, 65, 3000)
+V1_SPLIT_C = (1, 3, 5, 1000, 1025)
+# K4's nich columns: exact shapes for 1-4, the wide shape beyond; K5's
+# (nich columns, table columns): exact shapes for 0-2 nich and 1-3 table
+# columns, the wide shape for (3, 16)
+V1_K4_COLS = (1, 3, 4, 5, 32)
+V1_K5_LAYOUTS = ((0, 1), (0, 3), (1, 3), (2, 2), (3, 16))
+
+
+def _v1_launch(kernel, args, sampling, noise, seed=3, plain=False):
+    """K4 (nich columns only) or K5, or with plain=True its twin."""
+    values, idx, cls, coeffs, tables = args
+    if kernel == 'K4':
+        f = fk.nich_score_sample_plain if plain else fk.nich_score_sample
+        return f(seed, values, cls, coeffs, sampling=sampling, noise=noise)
+    f = fk.mixed_score_sample_plain if plain else fk.mixed_score_sample
+    return f(seed, values, idx, cls, coeffs, tables, sampling=sampling,
+             noise=noise)
+
+
+def _check_v1(dev, kernel, B, C, cols, n_tab):
+    """K4 or K5 against its twin in 'argmax' and 'gumbel_host', and its
+    'gumbel' against its own Philox noise, on random inputs."""
+    args = testing.v1_random_inputs(B, C, cols, n_tab,
+                                    seed=B * C + cols + n_tab, device=dev)
+    noise = _noise(dev, 'gumbel_host', B, C)
+    for sampling, nz in (('argmax', None), ('gumbel_host', noise)):
+        got = _v1_launch(kernel, args, sampling, nz)
+        assert torch.equal(got, _v1_launch(kernel, args, sampling, nz,
+                                           plain=True)), sampling
+    _gumbel_is_philox(
+        lambda m, nz: _v1_launch(kernel, args, m, nz, seed=9),
+        fk._score_v1(B, *args), 9, B, C)
+
+
+@pytest.mark.parametrize('C', V1_SPLIT_C)
+@pytest.mark.parametrize('B', V1_SPLIT_B)
+@pytest.mark.parametrize('kernel', ['K4', 'K5'])
+def test_v1_split_edges(dev, kernel, B, C):
+    """The main path's layouts (K4: 2 nich columns; K5: nichbbddgp's 1 nich
+    and 3 table columns) at edge rows and slots."""
+    _check_v1(dev, kernel, B, C, *((2, 0) if kernel == 'K4' else (1, 3)))
+
+
+@pytest.mark.parametrize('C', (5, 1025))
+@pytest.mark.parametrize('B', (65, 3000))
+@pytest.mark.parametrize('layout', [('K4', c, 0) for c in V1_K4_COLS]
+                         + [('K5',) + lay for lay in V1_K5_LAYOUTS], ids=str)
+def test_v1_split_layouts(dev, layout, B, C):
+    _check_v1(dev, layout[0], B, C, *layout[1:])
+
+
+@pytest.mark.parametrize('rows', ['tied', 'dead', 'nan', 'nan_slot'])
+@pytest.mark.parametrize('layout', [('K4', 2, 0), ('K4', 5, 0),
+                                    ('K5', 1, 3), ('K5', 3, 16)], ids=str)
+def test_v1_split_special_rows(dev, layout, rows):
+    """Rows whose scores all tie or are all -inf draw slot 0; NaN counts as
+    maximal, so a NaN row draws slot 0 and a NaN slot wins every row (an
+    exact and a wide shape of each kernel)."""
+    kernel, cols, n_tab = layout
+    B, C = 3000, 1025
+    values, idx, cls, coeffs, tables = testing.v1_random_inputs(
+        B, C, cols, n_tab, seed=5, device=dev)
+    want = torch.zeros(B, dtype=torch.int32, device=dev)
+    if rows == 'tied':
+        cls = torch.zeros_like(cls)
+        coeffs = coeffs[:, :1].expand(-1, C).contiguous()
+        if tables is not None:
+            tables = tables[:, :, :1].expand(-1, -1, C).contiguous()
+    elif rows == 'dead':
+        cls = torch.full_like(cls, float('-inf'))
+    elif rows == 'nan':
+        values = values.clone()
+        values[:, 0] = float('nan')
+    else:
+        cls = cls.clone()
+        cls[C - 2] = float('nan')
+        want.fill_(C - 2)
+    args = (values, idx, cls, coeffs, tables)
+    for sampling in ('argmax', 'gumbel_host'):
+        nz = (torch.zeros(B, C, device=dev) if sampling == 'gumbel_host'
+              else None)
+        got = _v1_launch(kernel, args, sampling, nz)
+        assert torch.equal(got, want), (sampling, got[:8])
+
+
+def test_v1_split_k5_nich_only_equals_k4(dev):
+    """K5 without table columns takes K4's shapes: the same draws, on an
+    exact and on the wide shape."""
+    for cols in (2, 5):
+        args = testing.v1_random_inputs(3000, 1025, cols, 0, seed=cols,
+                                        device=dev)
+        for sampling in ('argmax', 'gumbel'):
+            assert torch.equal(_v1_launch('K4', args, sampling, None),
+                               _v1_launch('K5', args, sampling, None))
+
+
+def test_v1_split_occupancy_report(dev):
+    """The occupancy entry point reports the split kernel of K4 and K5 on
+    the main path's layouts and on the wide shape."""
+    reports = [fk.split_occupancy('score_sample_v1', 1024, (2,)),
+               fk.split_occupancy('score_sample_v1', 1024, (1,), (),
+                                  (2, 4, 9)),
+               fk.split_occupancy('score_sample_v1', 1024, (), (), (2, 4, 9)),
+               fk.split_occupancy('score_sample_v1', 1024, (5,)),
+               fk.split_occupancy('score_sample_v1', 1024, (3,), (),
+                                  (6,) * 16)]
+    for r in reports:
+        assert r['threads_per_block'] == fk.SPLIT_THREADS
+        assert r['blocks_per_sm'] >= 1 and r['registers'] > 0
+        assert r['record_floats'] % fk.SPLIT_PACK == 0
+    # [4 floats a nich column | cl, pad]
+    assert [r['record_floats'] for r in reports] == [12, 8, 4, 24, 16]
+    with pytest.raises(ValueError):
+        fk.split_occupancy('score_sample_v1', 1024, (2,), sampling='cdf')

@@ -1,6 +1,6 @@
-"""The slot-split walk of the fused kernels K1, K2, K3 and B5
-(csrc/fused_split.cuh): its constants against the source's #defines, the
-build of its compile-time variants, and the K1 tiles that
+"""The slot-split walk of the kernels K1, K2, K3, B5, K4 and K5
+(csrc/fused_split.cuh): its constants against the sources' #defines, the
+build of its compile-time variants, and the K1, K4 and K5 tiles that
 benchmarks/tree_compare.py times off the main path."""
 
 import os
@@ -29,9 +29,21 @@ def test_constants_match_the_source():
     assert 32 % fk.SPLIT_SLICES == 0
     assert fk.SPLIT_PACK * 4 == 16
     assert 'fused_split.cuh' in fk._HEADERS
-    for name in ('fused_v2.cu', 'fused_v3.cu'):
+    for name in ('fused_v2.cu', 'fused_v3.cu', 'score_sample_v1.cu'):
         with open(os.path.join(fk._CSRC, name)) as f:
             assert '#include "fused_split.cuh"' in f.read()
+
+
+def test_v1_caps_match_the_source():
+    """K4 and K5 take the wrappers' caps of nich and table columns, and
+    launch only the split walk."""
+    with open(os.path.join(fk._CSRC, 'score_sample_v1.cu')) as f:
+        src = f.read()
+    defines = dict(re.findall(r'^#define (\w+) (\d+)\b', src, re.M))
+    assert int(defines['MAX_COLS']) == fk.MAX_COLS
+    assert int(defines['MAX_TABLE_COLS']) == fk.MAX_TABLE_COLS
+    assert re.findall(r'(\w+)\s*<<<', src) == ['kern']
+    assert '__global__' not in src
 
 
 def test_build_keeps_compile_time_variants_apart(tmp_path, monkeypatch):
@@ -67,3 +79,25 @@ def test_tree_compare_nich_tiles(groups):
                                        t['coeffs'], groups,
                                        sampling='argmax')
     assert a.shape == (500,) and int(a.min()) >= 0 and int(a.max()) < 32
+
+
+@pytest.mark.parametrize('cols,n_tab', [(2, 0), (0, 3), (3, 5)])
+def test_v1_random_inputs(cols, n_tab):
+    """The random K4 / K5 inputs of the card tests and tree_compare: the
+    wrapper's layout, supports within V, and the twin draws live slots."""
+    from distributions_tpu_torch import testing
+    B, C, V = 300, 40, 6
+    values, idx, cls, coeffs, tables = testing.v1_random_inputs(
+        B, C, cols, n_tab, V, seed=1)
+    if cols:
+        assert values.shape == (B, cols) and coeffs.shape == (4 * cols, C)
+        assert bool((coeffs[1::4] < 0).all() and (coeffs[2::4] > 0).all())
+    else:
+        assert values is None and coeffs is None
+    if n_tab:
+        assert idx.dtype == torch.int32 and tables.shape == (n_tab, V, C)
+        assert int(idx.min()) >= 0 and int(idx.max()) < V
+    assert bool(torch.isinf(cls[::10]).all())
+    a = fk.mixed_score_sample(3, values, idx, cls, coeffs, tables,
+                              sampling='argmax')
+    assert a.shape == (B,) and bool((a % 10 != 0).all())
