@@ -154,12 +154,34 @@ exits non-zero:
                  shareds equal to the logged grid points, score_data equal
                  to a fresh recompute under the hyperparameters in force,
                  ms per hyper step beside ms per sweep.
+6i. main_le   -- run_gibbs(use_pallas=True) with the LowEntropy prior
+                 {dataset_size=1,048,576} on nich2 (K1) and niw2mix (K2) at
+                 1,048,576 rows x 1024 slots from the generating labels, 2
+                 steps of 5 sweeps: launches = tiles x sweeps, the state
+                 equal to state_from_assignments, score_data equal to a
+                 recompute, tile 0 in 'argmax' against the plain path's
+                 argmax (near-ties only); ms per sweep and the profile of
+                 one fused sweep.
+6j. moves     -- on the nich2 state at full width: one sweep_mh (tiles of
+                 131,072, 4 steps), 20 split_merge_move and 3
+                 split_merge_restricted (no depth cut), sweep_sequential at
+                 4096 rows x 1024 slots and sweep_blocked_chains on 4 chains
+                 of 65,536 rows; every state equal to state_from_assignments
+                 of its assignments; ms per move or sweep, the acceptance.
+6k. samplers  -- every random.py sampler at 1,048,576 draws (the Wishart
+                 family at 65,536 of d = 2-4), z-tested against closed forms
+                 (|z| < 5); the stick sampler at 1M rows x 1024 against the
+                 host-seated sequential law by the table count over 16
+                 draws each; le_sample_assignments at 300 items; each
+                 model's sample_group(65,536) against its own predictive
+                 (testing.sample_group_z); draws/s of each.
 7. kernels    -- one line listing each ported kernel (K1-K5, B1-B5) with
                  its launches on its main path, its time, its twin's time,
                  its nominal bound (data-sheet rates, a log as one
                  operation), its measured bound (the roofline phase's
                  rates, each op kind at its own rate) and, for a kernel
-                 redesigned after its port, the design it has now.
+                 redesigned after its port, the design it has now; K1 and
+                 K2 also give their launches in main_le.
 
 The entry points are called without a device, so they run on the package's
 default device, the card.  The last line is {"ok": true, "device": {...}}.
@@ -2495,6 +2517,561 @@ def tile_bookkeeping_ms(port, spec, py, shareds, state, values, cache):
     }
 
 
+# -- samplers, the LowEntropy prior, the other moves -------------------------
+
+SAMPLER_DRAWS = ROWS
+WISHART_DRAWS = 65536
+GROUP_DRAWS = 65536
+# the last values of a sample_group held against the predictive of a group
+# of its first values (testing.sample_group_z)
+GROUP_FIT = 4096
+GROUP_TEST = 512
+LE = {'dataset_size': ROWS}
+LE_STEPS = 2
+LE_SWEEPS_PER_STEP = 5
+MH_BLOCK = 131072
+MH_STEPS = 4
+SPLIT_MERGE_MOVES = 20
+RESTRICTED_MOVES = 3
+# restricted moves from random labels stop at the first accepted one
+RESTRICTED_TRIES = 24
+SEQUENTIAL_ROWS = 4096
+CHAINS = 4
+CHAIN_ROWS = 65536
+CHAIN_BLOCK = 16384
+
+
+def ztest(x, mean, var):
+    """|z| of the mean of the draws `x` against `mean`, per-draw variance
+    `var`."""
+    x = x.double()
+    return abs(float(x.mean()) - mean) / (var / x.numel()) ** 0.5
+
+
+def draws_per_sec(fn, n):
+    return n / (cuda_ms(fn, 3) / 1e3)
+
+
+def phase_samplers(port):
+    """Every random.py sampler at 1,048,576 draws (the Wishart family at
+    65,536 draws of d = 2-4), z-tested against closed forms and timed;
+    the clustering samplers; each model's sample_group at 65,536 values
+    held against its own predictive score."""
+    import numpy as np
+    import torch
+    rnd, cl, testing, models = (port['random'], port['cl'], port['testing'],
+                                port['models'])
+    dev = port['config'].default_device()
+    n = SAMPLER_DRAWS
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def t(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+    # (name, draw, checks as (draws -> statistic, mean, variance), draws a
+    # call)
+    cases = [
+        ('unif01', lambda: rnd.sample_unif01(gen, (n,), device=dev),
+         [(lambda x: x, 0.5, 1 / 12)], n),
+        ('int', lambda: rnd.sample_int(gen, 3, 9, (n,), device=dev),
+         [(lambda x: x, 5.5, 35 / 12)], n),
+        ('bernoulli', lambda: rnd.sample_bernoulli(gen, t(0.3), (n,)),
+         [(lambda x: x, 0.3, 0.21)], n),
+        ('normal', lambda: rnd.sample_normal(gen, t(1.5), 2.0, (n,)),
+         [(lambda x: x, 1.5, 4.0), (lambda x: (x - 1.5) ** 2, 4.0, 32.0)],
+         n),
+        ('std_normal', lambda: rnd.sample_std_normal(gen, (n,), device=dev),
+         [(lambda x: x, 0.0, 1.0)], n),
+        ('chisq', lambda: rnd.sample_chisq(gen, t(3.7), (n,)),
+         [(lambda x: x, 3.7, 7.4)], n),
+        ('gamma', lambda: rnd.sample_gamma(gen, t(2.5), 1.7, (n,)),
+         [(lambda x: x, 4.25, 2.5 * 1.7 ** 2)], n),
+        ('gamma_small_shape', lambda: rnd.sample_gamma(gen, t(0.3), 1.0,
+                                                       (n,)),
+         [(lambda x: x, 0.3, 0.3)], n),
+        ('beta', lambda: rnd.sample_beta(gen, t(2.0), 5.0, (n,)),
+         [(lambda x: x, 2 / 7, 10 / (49 * 8))], n),
+        ('beta_small_shapes', lambda: rnd.sample_beta(gen, t(0.2), 0.3,
+                                                      (n,)),
+         [(lambda x: x, 0.4, 0.06 / (0.25 * 1.5))], n),
+        ('beta_safe', lambda: rnd.sample_beta_safe(gen, t(2.0), 5.0,
+                                                   shape=(n,)),
+         [(lambda x: x, 2 / 7, 10 / (49 * 8))], n),
+        ('poisson', lambda: rnd.sample_poisson(gen, t(3.3), (n,)),
+         [(lambda x: x, 3.3, 3.3)], n),
+        ('negative_binomial',
+         lambda: rnd.sample_negative_binomial(gen, t(0.4), 3, (n,)),
+         [(lambda x: x, 4.5, 3 * 0.6 / 0.16)], n),
+        ('dirichlet', lambda: rnd.sample_dirichlet(
+            gen, t([0.5, 2.0, 3.5]), (n,)),
+         [(lambda x: x[:, 0], 0.5 / 6, (0.5 / 6) * (5.5 / 6) / 7),
+          (lambda x: x[:, 2], 3.5 / 6, (3.5 / 6) * (2.5 / 6) / 7)], n),
+        ('discrete', lambda: rnd.sample_discrete(
+            gen, t([0.1, 0.3, 0.05, 0.55]), (n,)),
+         [(lambda x: x == 3, 0.55, 0.55 * 0.45),
+          (lambda x: x == 2, 0.05, 0.05 * 0.95)], n),
+        ('from_scores', lambda: rnd.sample_from_scores(
+            gen, torch.log(t([0.1, 0.3, 0.05, 0.55])), (n,)),
+         [(lambda x: x == 1, 0.3, 0.21)], n),
+        ('student_t', lambda: rnd.sample_student_t(
+            gen, 5.0, t([0.5]), t([[1.5]]), (n,)),
+         [(lambda x: x[:, 0], 0.5, 1.5 * 5 / 3)], n),
+        ('multivariate_normal', lambda: rnd.sample_multivariate_normal(
+            gen, t([0.5, -1.0, 0.0]), t([[1.0, 0.6, 0.0], [0.6, 2.0, 0.0],
+                                         [0.0, 0.0, 0.5]]), (n,)),
+         [(lambda x: x[:, 1], -1.0, 2.0),
+          (lambda x: x[:, 0] * x[:, 1], 0.6 - 0.5, None)], n),
+    ]
+    for d in (2, 3, 4):
+        lam = np.eye(d) + 0.2
+        var = 7.0 * (lam ** 2 + np.outer(np.diag(lam), np.diag(lam)))
+        cases.append((
+            'wishart_d%d' % d,
+            lambda d=d, lam=lam: rnd.sample_wishart(
+                gen, 7.0, t(lam.tolist()), (WISHART_DRAWS,)),
+            [(lambda x: x[:, 0, 0], 7.0 * lam[0, 0], var[0, 0]),
+             (lambda x, d=d: x[:, 0, d - 1], 7.0 * lam[0, d - 1],
+              var[0, d - 1])],
+            WISHART_DRAWS))
+        nu = d + 8.0
+        p = nu - d
+        S = 2 * np.eye(d)
+        iw_var = 2 * 4 / ((p - 1) ** 2 * (p - 3))
+        cases.append((
+            'inverse_wishart_d%d' % d,
+            lambda d=d, nu=nu, S=S: rnd.sample_inverse_wishart(
+                gen, nu, t(S.tolist()), (WISHART_DRAWS,)),
+            [(lambda x: x[:, 0, 0], 2 / (p - 1), iw_var)], WISHART_DRAWS))
+        cases.append((
+            'normal_inverse_wishart_d%d' % d,
+            lambda d=d, nu=nu, S=S: torch.cat([
+                m.reshape(WISHART_DRAWS, -1) for m in
+                rnd.sample_normal_inverse_wishart(
+                    gen, t([1.0] * d), 2.0, t(S.tolist()), nu,
+                    (WISHART_DRAWS,))], 1),
+            [(lambda x: x[:, 0], 1.0, (2 / (p - 1)) / 2.0),
+             (lambda x, d=d: x[:, d], 2 / (p - 1), iw_var)],
+            WISHART_DRAWS))
+    results = {}
+    worst = 0.0
+    for name, draw, checks, count in cases:
+        x = draw()
+        if x.device.type != dev.type or not bool(torch.isfinite(
+                x.to(torch.float32)).all()):
+            raise AssertionError('sampler %s: not finite draws on the card'
+                                 % name)
+        zs = []
+        for stat, mean, var in checks:
+            s = stat(x.to(torch.float64))
+            zs.append(ztest(s, mean, var if var is not None
+                            else float(s.var())))
+        worst = max(worst, max(zs))
+        if max(zs) >= Z_MAX:
+            raise AssertionError('sampler %s: |z| %s' % (name, zs))
+        results[name] = {'draws': count, 'z': max(zs),
+                         'draws_per_sec': draws_per_sec(draw, count)}
+
+    # the clustering samplers: the stick sampler against the host-seated
+    # sequential law by the occupied-table count, over repeated draws
+    py = cl.PitmanYor.from_dict(PY)
+    reps = 16
+    k_stick, k_seq = [], []
+    for _ in range(reps):
+        k_stick.append(int(torch.unique(cl.py_sample_assignments_stick(
+            gen, py, ROWS, SLOTS)).numel()))
+        k_seq.append(int(torch.unique(cl.py_sample_assignments(
+            gen, py, ROWS, SLOTS)).numel()))
+    a, b = np.array(k_stick, float), np.array(k_seq, float)
+    z_tables = abs(a.mean() - b.mean()) / np.sqrt(
+        (a.var(ddof=1) + b.var(ddof=1)) / reps)
+    if z_tables >= Z_MAX:
+        raise AssertionError('stick and sequential seating disagree on the '
+                             'table count: %s vs %s' % (k_stick, k_seq))
+    le = cl.LowEntropy.from_dict({'dataset_size': 300})
+    le_a = cl.le_sample_assignments(gen, le, 300, 64)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    seq_a = cl.py_sample_assignments(gen, py, ROWS, SLOTS)
+    torch.cuda.synchronize()
+    seq_s = time.time() - t0
+    clustering = {
+        'stick_tables': k_stick, 'sequential_tables': k_seq,
+        'table_count_z': float(z_tables),
+        'stick_draws_per_sec': draws_per_sec(
+            lambda: cl.py_sample_assignments_stick(gen, py, ROWS, SLOTS),
+            ROWS),
+        'sequential_host_draws_per_sec': ROWS / seq_s,
+        'sequential_on_the_card': seq_a.device.type == dev.type,
+        'le_items': 300, 'le_groups': int(torch.unique(le_a).numel()),
+        'le_draws_per_sec': draws_per_sec(
+            lambda: cl.le_sample_assignments(gen, le, 300, 64), 300)}
+
+    # each model's sample_group against its own predictive
+    groups = {}
+    for name, module in sorted(models.items()):
+        raw = module.EXAMPLES[-1]['shared']
+        shared = module.shared_from_dict(raw)
+        if name == 'dpd':
+            shared = module.shared_realize(gen, shared)
+        values = module.sample_group(gen, shared, GROUP_DRAWS)
+        z = testing.sample_group_z(module, shared, values, GROUP_TEST,
+                                   GROUP_FIT)
+        if values.device.type != dev.type or z >= Z_MAX:
+            raise AssertionError('%s.sample_group: |z| %r' % (name, z))
+        groups[name] = {'z': z, 'draws_per_sec': draws_per_sec(
+            lambda m=module, s=shared: m.sample_group(gen, s, GROUP_DRAWS),
+            GROUP_DRAWS)}
+    emit({'phase': 'samplers', 'z_max': Z_MAX, 'worst_z': worst,
+          'samplers': results, 'clustering': clustering,
+          'sample_group': groups})
+
+
+def additive_leaves(module, group):
+    """A Group's leaves in additive form, as the stat cache carries them:
+    nich's (count, mean, count_times_variance) as (count, sum, sum of
+    squares); every other model's Group is additive already."""
+    if module.__name__.endswith('.nich'):
+        n = group.count.to(group.mean.dtype)
+        return (group.count, group.mean * n,
+                group.count_times_variance + n * group.mean * group.mean)
+    return tuple(group)
+
+
+def check_state(port, spec, cl_model, shareds, values, state, assignments,
+                what):
+    """The state equals state_from_assignments of its assignments: counts,
+    the alive mask and integer stats exactly, float stats in their
+    additive form within rtol 1e-5 / atol 1e-3 (nich's count_times_variance
+    is a difference of two such sums, ~1e4 each at this data's means, and
+    carries their rounding); score_data within 1e-4 of a fresh recompute.
+    Returns (fresh score, the largest float difference of each form)."""
+    import torch
+    mx = port['mx']
+    fresh = mx.state_from_assignments(spec, cl_model, shareds, values,
+                                      assignments)
+    ok = torch.equal(state.counts, fresh.counts) and torch.equal(
+        state.alive, fresh.alive)
+    worst = {'additive': 0.0, 'group': 0.0}
+    for block, g, f in zip(spec.blocks, state.groups, fresh.groups):
+        for form, a_leaves, b_leaves in (
+                ('additive', additive_leaves(block.module, g),
+                 additive_leaves(block.module, f)), ('group', g, f)):
+            for a, b in zip(a_leaves, b_leaves):
+                if not a.dtype.is_floating_point:
+                    ok = ok and torch.equal(a, b)
+                    continue
+                worst[form] = max(worst[form],
+                                  float((a - b).abs().max()))
+                if form == 'additive':
+                    ok = ok and torch.allclose(a, b, rtol=SUM_RTOL,
+                                               atol=SUM_ATOL)
+    score = float(mx.score_data(spec, cl_model, shareds, state))
+    want = float(mx.score_data(spec, cl_model, shareds, fresh))
+    if not (ok and abs(score - want) <= 1e-4 * abs(want)):
+        raise AssertionError('%s: the state is not state_from_assignments '
+                             'of its assignments (stats ok %s, largest '
+                             'differences %s, score %r, fresh %r)'
+                             % (what, ok, worst, score, want))
+    return want, worst
+
+
+def le_tile_argmax(port, spec, le, shareds, values, assignments, block):
+    """Tile 0 of a fused sweep in 'argmax' against the plain path's
+    argmax of mixture.score_batch on the same tile-removed state: equal
+    draws but at near-ties."""
+    import torch
+    mx, gibbs, testing = port['mx'], port['gibbs'], port['testing']
+    state = mx.state_from_assignments(spec, le, shareds, values,
+                                      assignments)
+    cd, sums = gibbs.build_stat_cache(spec, shareds, tuple(
+        v[:block] for v in values), block, assignments[:block])
+    tiles = mx.sums_to_tiles(spec, shareds, tuple(s[0] for s in sums))
+    state = mx.apply_stat_tiles(spec, shareds, state, cd[0], tiles, -1,
+                                block)
+    lay = gibbs._mixed_static_layout(spec, values)
+    got, _, _ = gibbs._fused_tile_core(
+        spec, lay, gibbs._stat_matrices(spec, lay, shareds), 2048, 'argmax',
+        le, shareds, state, *gibbs._slice_rows(lay, 0, block), 0)
+    scores = mx.score_batch(spec, le, shareds, state,
+                            tuple(v[:block] for v in values))
+    n_bad, gap = testing.mismatches(scores, got, torch.argmax(scores, 1))
+    if gap > TIE_GAP or n_bad > block // 1000:
+        raise AssertionError('LowEntropy tile: %d draws differ from the '
+                             'plain argmax, gap %r' % (n_bad, gap))
+    return {'rows': block, 'mismatches': n_bad, 'max_gap': gap}
+
+
+def phase_main_le(port, X, labels, mixed):
+    """run_gibbs(use_pallas=True) with LowEntropy{dataset_size=1,048,576}
+    on nich2 (K1) and niw2mix (K2) at 1,048,576 rows x 1024 slots from the
+    generating labels, 2 steps of 5 sweeps; each kernel's count set to 0
+    just before its run and read just after.  Returns the launches of K1
+    and K2."""
+    import torch
+    fk, mx, gibbs, testing = (port['fk'], port['mx'], port['gibbs'],
+                              port['testing'])
+    le = port['cl'].LowEntropy.from_dict(LE)
+    py = port['cl'].PitmanYor.from_dict(PY)
+    passes = LE_STEPS * LE_SWEEPS_PER_STEP
+    launches = []
+    for layout, kernel, block in (('nich2', fk.fused_score_sample_stats,
+                                   BLOCK),
+                                  ('niw2mix',
+                                   fk.fused_mixed_score_sample_stats,
+                                   BLOCK_MIXED)):
+        if layout == 'nich2':
+            spec = mx.make_spec([(port['nich'], FEATURES)], capacity=SLOTS)
+            shareds = (port['nich'].shared_from_dict(SHARED),)
+            values_np, labels_np = (X,), labels
+        else:
+            spec, _, shareds = testing.build_problem(
+                mixed, port['models'], mx.make_spec,
+                port['cl'].PitmanYor.from_dict)
+            values_np, labels_np = mixed['values'], mixed['labels']
+        torch.cuda.synchronize()
+        kernel.launches = 0
+        t0 = time.time()
+        state, an, log = port['runner'].run_gibbs(
+            spec, LE, shareds, values_np, torch.Generator().manual_seed(0),
+            passes, block=block, use_pallas=True, sampling='gumbel',
+            initial_assignments=labels_np, grow_headroom=0.0,
+            sweeps_per_step=LE_SWEEPS_PER_STEP)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        n = kernel.launches
+        if n != ROWS // block * passes:
+            raise AssertionError('main_le %s: %d launches, expected tiles x '
+                                 'sweeps = %d' % (layout, n,
+                                                  ROWS // block * passes))
+        launches.append(n)
+        values = tuple(torch.as_tensor(v, device=an.device)
+                       for v in values_np)
+        fresh, worst = check_state(port, spec, le, shareds, values, state,
+                                   an, 'main_le ' + layout)
+        score = log.rows[-1]['score_data']
+        if not abs(score - fresh) <= 1e-4 * abs(fresh):
+            raise AssertionError('main_le %s: logged score %r, fresh %r'
+                                 % (layout, score, fresh))
+        steps = [r['seconds'] for r in log.rows]
+        cache = gibbs.build_stat_cache(spec, shareds, values, block, an)
+        gen = torch.Generator().manual_seed(1)
+
+        def sweep(cl_model):
+            return gibbs.sweep_blocked_pallas_fused_mixed(
+                spec, cl_model, shareds, state, values, an, block, 2048, gen,
+                cache, sampling='gumbel')
+        profile = profile_sweep(
+            lambda: sweep(le), ('split_score_sample', 'fused_v2'
+                                if layout == 'nich2' else 'fused_v3'))
+        # one fused sweep under each prior on this state, in turns (PY,
+        # LE, LE, PY, ...): what the prior alone costs a sweep
+        by_prior = {'PitmanYor': [], 'LowEntropy': []}
+        for model in (py, le, le, py) * 3:
+            by_prior[type(model).__name__].append(
+                timed(lambda: sweep(model))[1])
+        emit({'phase': 'main_le', 'layout': layout, 'rows': ROWS,
+              'slots': SLOTS, 'block': block, 'prior': LE,
+              'sweeps': passes, 'sweeps_per_step': LE_SWEEPS_PER_STEP,
+              'launches': n, 'step_seconds': steps,
+              'wall_seconds': round(wall, 3),
+              'ms_per_sweep': 1e3 * steps[-1] / LE_SWEEPS_PER_STEP,
+              'nonempty_groups': log.rows[-1]['nonempty_groups'],
+              'score_data': score, 'fresh_score_data': fresh,
+              'state_largest_differences': worst,
+              'tile_argmax': le_tile_argmax(port, spec, le, shareds, values,
+                                            an, block),
+              'fused_sweep_profile': profile,
+              'one_sweep_wall_ms_by_prior': {
+                  k: sorted(v)[len(v) // 2] for k, v in by_prior.items()},
+              'one_sweep_wall_ms_turns': by_prior})
+    return launches
+
+
+def timed(fn):
+    """(result, milliseconds) of fn() on the host clock, synchronised."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.time() - t0)
+
+
+def check_move(port, spec, st0, st1, a0, a1, accepted, what):
+    """A refused move returns its inputs.  An accepted one moves rows of
+    one slot s to one other slot t: all of them (a merge) or some of them
+    into a slot that was empty (a split).  The two slots' counts and
+    additive stats sum to what they summed to before (rtol 1e-5 / atol
+    1e-3), and every other slot keeps its own.  Returns 'merge', 'split'
+    or None (refused)."""
+    import torch
+    if not accepted:
+        if not (st1 is st0 and torch.equal(a0, a1)):
+            raise AssertionError('%s: a refused move changed the state'
+                                 % what)
+        return None
+    moved = a0 != a1
+    src, dst = torch.unique(a0[moved]), torch.unique(a1[moved])
+    if src.numel() != 1 or dst.numel() != 1:
+        raise AssertionError('%s: an accepted move took rows from slots %s '
+                             'to slots %s' % (what, src.tolist(),
+                                              dst.tolist()))
+    s, t = int(src), int(dst)
+    kind = 'merge' if int(st1.counts[s]) == 0 else 'split'
+    if kind == 'split' and int(st0.counts[t]) != 0:
+        raise AssertionError('%s: rows moved from slot %d into occupied slot '
+                             '%d without emptying it' % (what, s, t))
+    pair = torch.zeros(spec.capacity, dtype=torch.bool,
+                       device=st0.counts.device)
+    pair[[s, t]] = True
+    ok = (torch.equal(st0.counts[~pair], st1.counts[~pair])
+          and int(st0.counts[pair].sum()) == int(st1.counts[pair].sum()))
+    for block, g0, g1 in zip(spec.blocks, st0.groups, st1.groups):
+        for x0, x1 in zip(additive_leaves(block.module, g0),
+                          additive_leaves(block.module, g1)):
+            x0, x1 = x0.to(torch.float64), x1.to(torch.float64)
+            ok = ok and torch.allclose(x0[~pair], x1[~pair], rtol=SUM_RTOL,
+                                       atol=SUM_ATOL)
+            ok = ok and torch.allclose(x0[pair].sum(0), x1[pair].sum(0),
+                                       rtol=SUM_RTOL, atol=SUM_ATOL)
+    if not ok:
+        raise AssertionError('%s: the accepted %s of slots %d and %d does '
+                             'not conserve their counts and stats'
+                             % (what, kind, s, t))
+    return kind
+
+
+def moves_from_random_labels(port, spec, py, shareds, values, gen):
+    """Split-merge moves of both kinds from uniform random labels, where
+    every slot holds a sample of the same mixture and merges raise the
+    posterior: the accepted path (the proposal's state rebuilt at full
+    width) runs here, each move held by `check_move`.  The restricted
+    moves stop at the first accepted one."""
+    import torch
+    mx = port['mx']
+    from distributions_tpu_torch.ops import splitmerge
+    dev = values[0].device
+    ra = torch.randint(0, SLOTS, (ROWS,),
+                       generator=torch.Generator().manual_seed(1)).to(
+        device=dev, dtype=torch.int32)
+    out = {}
+    for name, move, tries in (
+            ('split_merge_move', splitmerge.split_merge_move,
+             SPLIT_MERGE_MOVES),
+            ('split_merge_restricted', splitmerge.split_merge_restricted,
+             RESTRICTED_TRIES)):
+        st, a = mx.state_from_assignments(spec, py, shareds, values, ra), ra
+        kinds, times = [], []
+        for _ in range(tries):
+            (st1, a1, acc), ms = timed(lambda: move(spec, py, shareds, st,
+                                                    values, a, gen))
+            times.append(ms)
+            kinds.append(check_move(port, spec, st, st1, a, a1, acc, name))
+            st, a = st1, a1
+            if acc and name == 'split_merge_restricted':
+                break
+        check_state(port, spec, py, shareds, values, st, a,
+                    name + ' (random labels)')
+        accepted = len(kinds) - kinds.count(None)
+        out[name + '_random_labels'] = {
+            'moves': len(kinds), 'accepted': accepted,
+            'merges': kinds.count('merge'), 'splits': kinds.count('split'),
+            'ms_per_move_median': sorted(times)[len(times) // 2]}
+        if not accepted:
+            raise AssertionError('%s: no move accepted from random labels in '
+                                 '%d; the accepted path did not run'
+                                 % (name, len(kinds)))
+    return out
+
+
+def phase_moves(port, X, labels):
+    """The other moves on the nich2 state at 1,048,576 rows x 1024 slots
+    (Pitman-Yor, from the generating labels): one MH sweep, split-merge
+    moves of both kinds, the sequential sweep at 4096 rows and 4 chains at
+    65,536 rows; then split-merge moves from random labels, where they are
+    accepted.  Every move must leave the state equal to
+    state_from_assignments of its assignments."""
+    import torch
+    mx, gibbs = port['mx'], port['gibbs']
+    from distributions_tpu_torch.ops import mh, splitmerge
+    dev = port['config'].default_device()
+    spec = mx.make_spec([(port['nich'], FEATURES)], capacity=SLOTS)
+    shareds = (port['nich'].shared_from_dict(SHARED),)
+    py = port['cl'].PitmanYor.from_dict(PY)
+    values = (torch.as_tensor(X, device=dev),)
+    an = torch.as_tensor(labels, device=dev)
+    state = mx.state_from_assignments(spec, py, shareds, values, an)
+    gen = torch.Generator().manual_seed(0)
+    out = {'phase': 'moves', 'rows': ROWS, 'slots': SLOTS}
+
+    (st, a), ms = timed(lambda: mh.sweep_mh(
+        spec, py, shareds, state, values, an, MH_BLOCK, MH_STEPS, gen))
+    changed = int((a != an).sum())
+    out['sweep_mh'] = {'block': MH_BLOCK, 'mh_steps': MH_STEPS,
+                       'ms_per_sweep': ms, 'rows_moved': changed,
+                       'state_largest_differences': check_state(
+                           port, spec, py, shareds, values, st, a,
+                           'sweep_mh')[1]}
+
+    st, a = state, an
+    accepted, times = 0, []
+    for _ in range(SPLIT_MERGE_MOVES):
+        (st1, a1, acc), ms = timed(lambda: splitmerge.split_merge_move(
+            spec, py, shareds, st, values, a, gen))
+        check_move(port, spec, st, st1, a, a1, acc, 'split_merge_move')
+        st, a = st1, a1
+        accepted += acc
+        times.append(ms)
+    check_state(port, spec, py, shareds, values, st, a, 'split_merge_move')
+    out['split_merge_move'] = {
+        'moves': SPLIT_MERGE_MOVES, 'accepted': accepted,
+        'acceptance_rate': accepted / SPLIT_MERGE_MOVES,
+        'ms_per_move_median': sorted(times)[len(times) // 2]}
+
+    accepted, times = 0, []
+    for _ in range(RESTRICTED_MOVES):
+        (st1, a1, acc), ms = timed(lambda: splitmerge.split_merge_restricted(
+            spec, py, shareds, st, values, a, gen))
+        check_move(port, spec, st, st1, a, a1, acc, 'split_merge_restricted')
+        st, a = st1, a1
+        accepted += acc
+        times.append(ms)
+    check_state(port, spec, py, shareds, values, st, a,
+                'split_merge_restricted')
+    # every move walks all the rows in play of two clusters at full width:
+    # no depth was cut
+    out['split_merge_restricted'] = {
+        'moves': RESTRICTED_MOVES, 'rows': ROWS, 'depth_cut': None,
+        'accepted': accepted, 'ms_per_move': times}
+
+    n = SEQUENTIAL_ROWS
+    small = (values[0][:n].contiguous(),)
+    sa = an[:n].contiguous()
+    sst = mx.state_from_assignments(spec, py, shareds, small, sa)
+    (sst, sa), ms = timed(lambda: gibbs.sweep_sequential(
+        spec, py, shareds, sst, small, sa, gen))
+    check_state(port, spec, py, shareds, small, sst, sa, 'sweep_sequential')
+    out['sweep_sequential'] = {'rows': n, 'slots': SLOTS,
+                               'ms_per_sweep': ms, 'ms_per_row': ms / n}
+
+    cv = (values[0][:CHAIN_ROWS].contiguous(),)
+    A = torch.stack([an[:CHAIN_ROWS]] + [
+        torch.randint(0, SLOTS // 2, (CHAIN_ROWS,), generator=gen).to(
+            device=dev, dtype=torch.int32) for _ in range(CHAINS - 1)])
+    states = gibbs.init_chains(spec, py, shareds, cv, A)
+    gens = [torch.Generator().manual_seed(10 + c) for c in range(CHAINS)]
+    (states, A), ms = timed(lambda: gibbs.sweep_blocked_chains(
+        spec, py, shareds, states, cv, A, CHAIN_BLOCK, gens))
+    for c in range(CHAINS):
+        check_state(port, spec, py, shareds, cv, gibbs._chain_take(states, c),
+                    A[c], 'sweep_blocked_chains')
+    out['sweep_blocked_chains'] = {'chains': CHAINS, 'rows': CHAIN_ROWS,
+                                   'block': CHAIN_BLOCK,
+                                   'ms_per_sweep_of_all_chains': ms}
+    out.update(moves_from_random_labels(port, spec, py, shareds, values,
+                                        gen))
+    emit(out)
+
+
 def small_run(port, spec_of, values_np, labels, device):
     """3 'argmax' sweeps of a small problem on `device` (None: the
     default, the card)."""
@@ -2604,9 +3181,13 @@ def main():
                                   n_clusters=TRUE_CLUSTERS)
     k2['launches'] = phase_main_mixed(port, mixed)
     k3['launches'] = phase_sharded(port, X, labels, mixed)
+    k1['launches_main_le'], k2['launches_main_le'] = phase_main_le(
+        port, X, labels, mixed)
     del mixed
     phase_main_hypers(port, X, labels)
+    phase_moves(port, X, labels)
     del X
+    phase_samplers(port)
     pk = 'distributions_tpu/ops/pallas_kernels.py:%d'
     split = 'the slot-split walk (csrc/fused_split.cuh)'
     split_v1 = split + ', v1 form'
@@ -2642,6 +3223,8 @@ def main():
             'bound_ms': k['bound_ms'], 'bound_by': k['bound_by'],
             'measured_bound_ms': k['measured_bound_ms'],
             'measured_bound_by': k['measured_bound_by'],
+            # K1 and K2 also carry the LowEntropy runs of main_le
+            'launches_main_le': k.get('launches_main_le'),
             # no single PyTorch call computes score + draw (+ sums), a
             # dependent chain or a resident sampler; B3 and B4 have one
             'library_ms': k.get('library_ms'),

@@ -5,9 +5,10 @@ section prints one JSON line per result:
   python -m distributions_tpu_torch.benchmarks.suite kernel_sampler  # one
 
 Ported sections: `kernel_sampler` (B1, the production sampler alone),
-`hyper_grid` (the runner's grid step) and `mixture` (the cell-scoring rate
-per model and K).  The others need modules that are not ported yet and
-raise NotImplementedError naming the ROADMAP item.
+`hyper_grid` (the runner's grid step), `mixture` (the cell-scoring rate
+per model and K), `sample_from_scores`, `score_counts`,
+`sample_assignments` and `special`.  `backends` needs modules that are not
+ported yet and raises NotImplementedError naming the ROADMAP item.
 """
 
 import argparse
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from distributions_tpu_torch import clustering, config, mixture as mx
+from distributions_tpu_torch import random as _random, special
 from distributions_tpu_torch.benchmarks.timing import (device_name, int_env,
                                                        median_ms)
 from distributions_tpu_torch.inference import hypers
@@ -176,6 +178,144 @@ def bench_mixture(device=None, rows=None, block=None, Ks=None, models=None,
     return results
 
 
+# the reference's sizes for the sampler, score-count and special sections
+SFS_ROWS, SFS_ITERS = 4096, 16
+SFS_SIZES = (16, 64, 256, 1024, 4096, 16384)
+SC_BATCH, SC_ITERS = 4096, 64
+SC_SIZES = (1000, 10000, 100000, 1000000, 10000000)
+SA_SIZES = (1000, 10000)
+SA_STICK_SIZES = (10000, 1048576)
+SPECIAL_N, SPECIAL_ITERS = 1 << 20, 64
+
+
+def bench_sample_from_scores(device=None):
+    """Categorical draws from [SFS_ROWS, size] log-scores
+    (`random.sample_from_scores`, gumbel-argmax), SFS_ITERS draws a timed
+    call.  draws/s counts samples, elems/s the score elements consumed."""
+    device = config.resolve_device(device)
+    B, T = SFS_ROWS, SFS_ITERS
+    rng = np.random.RandomState(0)
+    gen = torch.Generator(device=device).manual_seed(0)
+    results = []
+    for size in SFS_SIZES:
+        scores = torch.from_numpy(rng.randn(B, size).astype(
+            np.float32)).to(device)
+
+        def run():
+            for _ in range(T):
+                _random.sample_from_scores(gen, scores)
+        ms = median_ms(run, 3, device) / T
+        results.append(_emit({
+            'metric': 'sample_from_scores_choices_per_sec', 'size': size,
+            'value': B / (ms / 1e3), 'unit': 'draws/s',
+            'elems_per_sec': float(B) * size / (ms / 1e3), 'rows': B,
+            'iters': T, 'device': device_name(device)}))
+    return results
+
+
+def _py_counts(rng, n, alpha, d):
+    """Counts of a Pitman-Yor prior draw of n items: GEM stick-breaking,
+    truncated when the remaining mass cannot hold another expected item,
+    then a multinomial."""
+    sticks = []
+    log_rest = 0.0
+    k = 0
+    while log_rest > -np.log(4.0 * n) and k < 1 << 20:
+        v = rng.beta(1 - d, alpha + (k + 1) * d)
+        sticks.append(np.exp(log_rest) * v)
+        log_rest += np.log1p(-v)
+        k += 1
+    w = np.asarray(sticks)
+    counts = rng.multinomial(n, w / w.sum())
+    return counts[counts > 0].astype(np.float32)
+
+
+def bench_score_counts(device=None):
+    """Pitman-Yor `score_counts` of a prior draw's counts vector against
+    the dataset size: SC_ITERS dependent single scores one after another
+    (each adds one to the first count), and SC_BATCH count vectors in one
+    call."""
+    device = config.resolve_device(device)
+    B, T = SC_BATCH, SC_ITERS
+    alpha, d = 1.0, 0.2
+    model = clustering.PitmanYor.from_dict({'alpha': alpha, 'd': d},
+                                           device=device)
+    rng = np.random.RandomState(0)
+    results = []
+    for size in SC_SIZES:
+        counts = torch.from_numpy(_py_counts(rng, size, alpha, d)).to(device)
+        one = torch.zeros_like(counts)
+        one[0] = 1.0
+
+        def run_seq():
+            c = counts
+            for _ in range(T):
+                c = c + one
+                clustering.py_score_counts(model, c)
+        ms = median_ms(run_seq, 3, device) / T
+        cb = counts[None, :] + torch.arange(
+            B, dtype=torch.float32, device=device)[:, None]
+        ms_b = median_ms(lambda: clustering.py_score_counts(model, cb), 3,
+                         device) / B
+        results.append(_emit({
+            'metric': 'py_score_counts_per_sec', 'dataset_size': size,
+            'n_groups': int(counts.shape[0]), 'value': 1e3 / ms,
+            'unit': 'scores/s', 'batched_scores_per_sec': 1e3 / ms_b,
+            'iters': T, 'device': device_name(device)}))
+    return results
+
+
+def bench_sample_assignments(device=None):
+    """Pitman-Yor assignment sampling: `py_sample_assignments` (the
+    sequential law, seated on the host) and `py_sample_assignments_stick`
+    (stick-breaking, capacity 1024), samples/s."""
+    device = config.resolve_device(device)
+    model = clustering.PitmanYor.from_dict({'alpha': 1.0, 'd': 0.2},
+                                           device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    results = []
+    for size in SA_SIZES:
+        ms = median_ms(lambda: clustering.py_sample_assignments(
+            gen, model, size, capacity=256), 3, device)
+        results.append(_emit({
+            'metric': 'py_sample_assignments_per_sec', 'size': size,
+            'value': size / (ms / 1e3), 'unit': 'samples/s',
+            'device': device_name(device)}))
+    for size in SA_STICK_SIZES:
+        ms = median_ms(lambda: clustering.py_sample_assignments_stick(
+            gen, model, size, capacity=1024), 3, device)
+        results.append(_emit({
+            'metric': 'py_sample_assignments_stick_per_sec', 'size': size,
+            'value': size / (ms / 1e3), 'unit': 'samples/s',
+            'device': device_name(device)}))
+    return results
+
+
+def bench_special(device=None):
+    """Special-function calls/s over SPECIAL_N elements: each timed call
+    accumulates f(x + 1e-6 i) for i < SPECIAL_ITERS."""
+    device = config.resolve_device(device)
+    n, T = SPECIAL_N, SPECIAL_ITERS
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy((np.abs(rng.randn(n)) * 10 + 0.1).astype(
+        np.float32)).to(device)
+    results = []
+    for name, fn in (('exp', torch.exp), ('log', torch.log),
+                     ('lgamma', special.gammaln),
+                     ('lgamma_nu', special.lgamma_nu)):
+        def run(f=fn):
+            acc = torch.zeros_like(x)
+            for i in range(T):
+                acc = acc + f(x + 1e-6 * i)
+            return acc
+        ms = median_ms(run, 3, device) / T
+        results.append(_emit({
+            'metric': 'special_calls_per_sec', 'fn': name,
+            'value': n / (ms / 1e3), 'unit': 'calls/s', 'iters': T,
+            'device': device_name(device)}))
+    return results
+
+
 def _not_ported(section, item):
     def bench(device=None):
         raise NotImplementedError(
@@ -188,15 +328,15 @@ SECTIONS = {
     'mixture': bench_mixture,
     'hyper_grid': bench_hyper_grid,
     'kernel_sampler': bench_kernel_sampler,
-    # the rest of random.py, the clustering samplers and special.py
-    'sample_from_scores': _not_ported('sample_from_scores', 12),
-    'score_counts': _not_ported('score_counts', 12),
-    'sample_assignments': _not_ported('sample_assignments', 12),
-    'special': _not_ported('special', 12),
+    'sample_from_scores': bench_sample_from_scores,
+    'score_counts': bench_score_counts,
+    'sample_assignments': bench_sample_assignments,
+    'special': bench_special,
     # the gradient and particle backends
     'backends': _not_ported('backends', 15),
 }
-PORTED = ('mixture', 'hyper_grid', 'kernel_sampler')
+PORTED = ('mixture', 'hyper_grid', 'kernel_sampler', 'sample_from_scores',
+          'score_counts', 'sample_assignments', 'special')
 
 
 def main(argv=None):

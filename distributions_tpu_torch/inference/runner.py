@@ -167,7 +167,9 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
     dict of `slice.slice_step_feature` keywords with 'params'}) by slice
     sampling; the clustering prior from `cl_grid` (a model with leaves
     [G], e.g. `hypers.make_py_grid`) or, with `cl_slice` (True or a dict
-    of `slice.slice_step_clustering` keywords), by slice sampling.  Steps
+    of `slice.slice_step_clustering` keywords), by slice sampling.  The
+    clustering moves take a Pitman-Yor prior only: with a LowEntropy
+    prior, `cl_grid` or `cl_slice` raises ValueError.  Steps
     are clamped to `hyper_every` edges, the logger row of such a step
     gains `hyper_<block>`, `hyper_slice_<block>`, `hyper_cl`,
     `hyper_cl_alpha` and `hyper_cl_d`, the fused stat cache is rebuilt
@@ -210,6 +212,12 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
     dev, cl_model, shareds, values, initial_assignments = _place(
         spec, cl_model, shareds, values, initial_assignments, device)
     R = int(values[0].shape[0])
+    if (cl_grid is not None or cl_slice) and not isinstance(
+            cl_model, clustering.PitmanYor):
+        # the clustering moves resample Pitman-Yor {alpha, d}; the feature
+        # moves (hyper_grids, hyper_slice) do not read the prior
+        raise ValueError('cl_grid and cl_slice resample a Pitman-Yor '
+                         'prior; got %s' % type(cl_model).__name__)
 
     start_pass = 0
     if resume and checkpoint_path and os.path.exists(checkpoint_path):

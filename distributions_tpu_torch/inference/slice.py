@@ -75,7 +75,11 @@ def slice_step_clustering(generator, model, state, n_steps=2,
     in log space on [-10, 12], d in logit space (d in [0, d_max));
     sample_d=False holds d fixed.
 
-    Returns (new model, (log_alpha, logit_d) final coordinates)."""
+    Returns (new model, (log_alpha, logit_d) final coordinates).  A
+    LowEntropy model has no hyperparameter and raises ValueError."""
+    if not isinstance(model, _cl.PitmanYor):
+        raise ValueError('slice_step_clustering resamples Pitman-Yor '
+                         '{alpha, d}; got %s' % type(model).__name__)
     counts = state.counts
     dev = counts.device
 

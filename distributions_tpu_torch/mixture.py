@@ -78,6 +78,15 @@ def _recompute_alive(counts, empties):
     return (~is_zero) | (is_zero & (rank <= empties))
 
 
+def group_count(state):
+    """Number of present groups, the reserved empties included."""
+    return state.alive.to(torch.int32).sum()
+
+
+def nonempty_group_count(state):
+    return (state.counts > 0).to(torch.int32).sum()
+
+
 def _block_score_batch(block, shared, group, values):
     """Score [B, cols] values ([B, cols, d] for niw) against all C slots
     -> [B, C]."""
@@ -344,8 +353,10 @@ def tile_deltas_fast(spec, shareds, row_stats, assignments):
 
 
 def apply_stat_tiles(spec, shareds, state, counts_delta, tiles, sign, nrows):
-    """Apply additive stat tiles: sign=+1 merges, sign=-1 unmerges and
-    re-zeroes the slots that emptied (cancels float drift)."""
+    """Apply additive stat tiles (of `tile_deltas_fast` or `tile_deltas`,
+    possibly summed over row shards): sign=+1 merges, sign=-1 unmerges
+    and re-zeroes the slots that emptied (cancels float drift).  The JAX
+    package's `apply_tile_deltas` is this update."""
     counts = state.counts + sign * counts_delta
     groups = []
     for block, shared, group, tile in zip(
@@ -362,6 +373,29 @@ def apply_stat_tiles(spec, shareds, state, counts_delta, tiles, sign, nrows):
                         alive=_recompute_alive(counts, spec.empties),
                         sample_size=state.sample_size + sign * nrows,
                         groups=tuple(groups))
+
+
+def _block_tile_stats(block, shared, values, assignments, C):
+    """Additive tile statistics [C, cols] of one block: the model's
+    `tile_stats` where it has one (nich, gp: raw moments), else its
+    `from_values_grouped` (a Group that is already additive)."""
+    fn = getattr(block.module, 'tile_stats', block.module.from_values_grouped)
+    per_col = [fn(shared, values[:, j], assignments, C)
+               for j in range(block.cols)]
+    return _map_group(lambda *leaves: torch.stack(leaves, dim=1), *per_col)
+
+
+def tile_deltas(spec, shareds, values, assignments):
+    """(counts_delta [C], per-block additive tile stats [C, cols]) of a
+    tile of rows, from the values themselves (the slow branch; the fast
+    one, `tile_deltas_fast`, sums precomputed row-stat columns).  Every
+    leaf is additive, so the deltas of row shards sum to the tile's."""
+    C = spec.capacity
+    counts_delta = _clustering.count_assignments(assignments, C)
+    tiles = tuple(
+        _block_tile_stats(block, shared, torch.as_tensor(v), assignments, C)
+        for block, shared, v in zip(spec.blocks, shareds, values))
+    return counts_delta, tiles
 
 
 def state_from_assignments(spec, cl_model, shareds, values, assignments):

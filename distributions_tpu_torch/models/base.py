@@ -72,3 +72,11 @@ def segment_sum(data, segment_ids, num_segments):
     if not out_dtype.is_floating_point:
         acc = torch.round(acc)
     return acc.to(out_dtype)
+
+
+def generic_sample_group(sampler_init, sampler_eval, generator, shared,
+                         size):
+    """Draw the group's parameters once, then `size` iid values given
+    them (the `sample_group` contract of every model)."""
+    params = sampler_init(generator, shared)
+    return sampler_eval(generator, shared, params, (size,))

@@ -9,6 +9,7 @@ import torch
 
 from distributions_tpu_torch.config import resolve_device
 from distributions_tpu_torch.models import base
+from distributions_tpu_torch.random import sample_bernoulli, sample_beta
 from distributions_tpu_torch.special import lgamma_ratio
 
 NAME = 'BetaBernoulli'
@@ -43,6 +44,17 @@ def shared_from_dict(raw, device=None):
 
 def shared_to_dict(shared):
     return {'alpha': float(shared.alpha), 'beta': float(shared.beta)}
+
+
+
+def group_from_dict(raw, device=None):
+    device = resolve_device(device)
+    return Group(heads=base.scalar(raw['heads'], torch.int32, device),
+                 tails=base.scalar(raw['tails'], torch.int32, device))
+
+
+def group_to_dict(group):
+    return {'heads': int(group.heads), 'tails': int(group.tails)}
 
 
 def group_init(shared, shape=()):
@@ -130,3 +142,27 @@ def row_stat_columns(shared, values):
 def row_stats_to_tile(shared, sums):
     return Group(heads=torch.round(sums[..., 0]).to(torch.int32),
                  tails=torch.round(sums[..., 1]).to(torch.int32))
+
+
+# -- samplers ---------------------------------------------------------------
+
+def sampler_init(generator, shared, group=None):
+    """p ~ Beta(alpha + heads, beta + tails) (the prior without a group)."""
+    if group is None:
+        return sample_beta(generator, shared.alpha, shared.beta)
+    return sample_beta(generator, shared.alpha + group.heads,
+                       shared.beta + group.tails)
+
+
+def sampler_eval(generator, shared, p, shape=()):
+    return sample_bernoulli(generator, p, shape)
+
+
+def sample_value(generator, shared, group):
+    return sampler_eval(generator, shared,
+                        sampler_init(generator, shared, group))
+
+
+def sample_group(generator, shared, size):
+    return base.generic_sample_group(sampler_init, sampler_eval, generator,
+                                     shared, size)

@@ -9,6 +9,8 @@ import torch
 
 from distributions_tpu_torch.config import resolve_device
 from distributions_tpu_torch.models import base
+from distributions_tpu_torch.random import (sample_beta,
+                                            sample_negative_binomial)
 from distributions_tpu_torch.special import gammaln, lgamma_ratio
 
 NAME = 'BetaNegativeBinomial'
@@ -42,6 +44,17 @@ def shared_from_dict(raw, device=None):
 def shared_to_dict(shared):
     return {'alpha': float(shared.alpha), 'beta': float(shared.beta),
             'r': int(shared.r)}
+
+
+
+def group_from_dict(raw, device=None):
+    device = resolve_device(device)
+    return Group(count=base.scalar(raw['count'], torch.int32, device),
+                 sum=base.scalar(raw['sum'], torch.int32, device))
+
+
+def group_to_dict(group):
+    return {'count': int(group.count), 'sum': int(group.sum)}
 
 
 def group_init(shared, shape=()):
@@ -136,3 +149,26 @@ def row_stat_columns(shared, values):
 def row_stats_to_tile(shared, sums):
     return Group(count=torch.round(sums[..., 0]).to(torch.int32),
                  sum=torch.round(sums[..., 1]).to(torch.int32))
+
+
+# -- samplers ---------------------------------------------------------------
+
+def sampler_init(generator, shared, group=None):
+    """p ~ Beta of the (posterior) hyperparameters."""
+    post = shared if group is None else plus_group(shared, group)
+    return sample_beta(generator, post.alpha.to(torch.float32),
+                       post.beta.to(torch.float32))
+
+
+def sampler_eval(generator, shared, p, shape=()):
+    return sample_negative_binomial(generator, p, shared.r, shape)
+
+
+def sample_value(generator, shared, group):
+    return sampler_eval(generator, shared,
+                        sampler_init(generator, shared, group))
+
+
+def sample_group(generator, shared, size):
+    return base.generic_sample_group(sampler_init, sampler_eval, generator,
+                                     shared, size)

@@ -7,6 +7,8 @@ import torch
 
 from distributions_tpu_torch.config import resolve_device
 from distributions_tpu_torch.models import base
+from distributions_tpu_torch.random import (sample_dirichlet,
+                                            sample_discrete)
 from distributions_tpu_torch.special import lgamma_ratio
 
 NAME = 'DirichletDiscrete'
@@ -47,6 +49,17 @@ def shared_from_dict(raw, device=None):
 
 def shared_to_dict(shared):
     return {'alphas': [float(a) for a in shared.alphas]}
+
+
+
+def group_from_dict(raw, device=None):
+    return Group(counts=torch.tensor([int(c) for c in raw['counts']],
+                                     dtype=torch.int32,
+                                     device=resolve_device(device)))
+
+
+def group_to_dict(group):
+    return {'counts': [int(c) for c in group.counts]}
 
 
 def group_init(shared, shape=()):
@@ -133,3 +146,28 @@ def row_stat_columns(shared, values):
 
 def row_stats_to_tile(shared, sums):
     return Group(counts=torch.round(sums).to(torch.int32))
+
+
+# -- samplers ---------------------------------------------------------------
+
+def sampler_init(generator, shared, group=None):
+    """ps ~ Dirichlet(alphas + counts)."""
+    if group is None:
+        return sample_dirichlet(generator, shared.alphas)
+    return sample_dirichlet(generator,
+                            group.counts.to(torch.float32) + shared.alphas)
+
+
+def sampler_eval(generator, shared, ps, shape=()):
+    return sample_discrete(generator, ps,
+                           shape=tuple(shape) if shape else None)
+
+
+def sample_value(generator, shared, group):
+    return sampler_eval(generator, shared,
+                        sampler_init(generator, shared, group))
+
+
+def sample_group(generator, shared, size):
+    return base.generic_sample_group(sampler_init, sampler_eval, generator,
+                                     shared, size)

@@ -13,11 +13,11 @@ dense value table of static size V:
 Raw values are looked up by an equality scan over the V slots.  `OTHER`
 (-1) names every value that has no stick yet.
 
-The functions that change the Shared (`shared_add_value`,
-`shared_remove_value`, `shared_realize`) draw from a beta sampler; they
-wait for the scalar samplers (ROADMAP Queue 1 item 12) and raise
-`NotImplementedError` until then.  Build a Shared with explicit `betas`
-instead.
+The Shared changes as values are observed: `shared_add_value` breaks a
+new stick beta0 * Beta(1, gamma) off on a value's first sight,
+`shared_remove_value` returns a value's mass to beta0 when its shared
+count reaches zero, and `shared_realize` breaks sticks until beta0 is
+spent.  Each takes a `torch.Generator` and returns a new Shared.
 """
 
 from typing import NamedTuple
@@ -27,11 +27,14 @@ import torch
 
 from distributions_tpu_torch.config import resolve_device
 from distributions_tpu_torch.models import base
+from distributions_tpu_torch.random import (sample_beta, sample_dirichlet,
+                                            sample_discrete)
 from distributions_tpu_torch.special import gammaln
 
 NAME = 'DirichletProcessDiscrete'
 OTHER = -1
 DEFAULT_CAPACITY = 64
+MIN_BETA0 = 1e-4
 
 EXAMPLES = [
     {
@@ -118,6 +121,30 @@ def shared_to_dict(shared):
     }
 
 
+def group_from_dict(raw, shared):
+    """A Group from {'counts': {value: count}}; every value must be one of
+    the Shared's."""
+    counts = torch.zeros(capacity(shared), dtype=torch.int32)
+    total = 0
+    vals = shared.values.cpu().numpy()
+    for v, c in raw['counts'].items():
+        if c:
+            hit = np.flatnonzero(vals == int(v))
+            if not hit.size:
+                raise ValueError('dpd value %r has no slot' % (v,))
+            counts[int(hit[0])] = int(c)
+            total += int(c)
+    dev = shared.values.device
+    return Group(counts=counts.to(dev),
+                 total=base.scalar(total, torch.int32, dev))
+
+
+def group_to_dict(group, shared):
+    vals = shared.values.cpu().numpy()
+    cs = group.counts.cpu().numpy()
+    return {'counts': {int(v): int(c) for v, c in zip(vals, cs) if c != 0}}
+
+
 def group_init(shared, shape=()):
     dev = shared.values.device
     return Group(counts=torch.zeros(tuple(shape) + (capacity(shared),),
@@ -136,23 +163,74 @@ def value_to_slot(shared, value):
     return torch.where(found, slot, torch.full_like(slot, capacity(shared)))
 
 
-def _samplers_not_ported(name):
-    return NotImplementedError(
-        'dpd.%s draws from a beta sampler, which is not ported yet '
-        '(ROADMAP Queue 1 item 12); build the Shared with explicit betas'
-        % name)
-
-
 def shared_add_value(generator, shared, value):
-    raise _samplers_not_ported('shared_add_value')
+    """Observe one instance of `value`: on its first sight a new stick
+    beta = beta0 * Beta(1, gamma) breaks off beta0 into the first
+    inactive slot.  One beta is drawn on every call."""
+    value = torch.as_tensor(value, device=shared.values.device).to(
+        torch.int32)
+    slot = value_to_slot(shared, value)
+    found = slot < capacity(shared)
+    free = torch.argmin(active_mask(shared).to(torch.int8))
+    target = torch.where(found, slot, free)
+    frac = sample_beta(generator, 1.0, shared.gamma)
+    new_beta = shared.beta0 * frac
+    values = shared.values.clone()
+    betas = shared.betas.clone()
+    counts = shared.counts.clone()
+    values[target] = value
+    betas[target] = torch.where(found, shared.betas[target], new_beta)
+    counts[target] += 1
+    return Shared(
+        gamma=shared.gamma, alpha=shared.alpha,
+        beta0=torch.where(found, shared.beta0,
+                          torch.clamp(shared.beta0 - new_beta, min=0.0)),
+        values=values, betas=betas, counts=counts)
 
 
 def shared_remove_value(generator, shared, value):
-    raise _samplers_not_ported('shared_remove_value')
+    """Un-observe one instance of a known `value`; when its shared count
+    reaches zero its stick mass returns to beta0 and its slot frees.
+    Draws nothing."""
+    slot = value_to_slot(shared, value)
+    count = shared.counts[slot] - 1
+    dead = count == 0
+    values = shared.values.clone()
+    betas = shared.betas.clone()
+    counts = shared.counts.clone()
+    values[slot] = torch.where(dead, torch.full_like(values[slot], OTHER),
+                               values[slot])
+    betas[slot] = torch.where(dead, torch.zeros_like(betas[slot]),
+                              betas[slot])
+    counts[slot] = count
+    return Shared(
+        gamma=shared.gamma, alpha=shared.alpha,
+        beta0=torch.where(dead, shared.beta0 + shared.betas[slot],
+                          shared.beta0),
+        values=values, betas=betas, counts=counts)
 
 
 def shared_realize(generator, shared):
-    raise _samplers_not_ported('shared_realize')
+    """Break sticks for new values until beta0 falls below MIN_BETA0 or
+    one slot is left, then give what remains of beta0 to one more value.
+    A host loop: realizing is set-up, not a hot path."""
+    cap = capacity(shared)
+    n_active = int(active_mask(shared).sum())
+    vals = shared.values.cpu().numpy()
+    new_value = int(vals.max()) + 1 if n_active else 0
+    while n_active < cap - 1 and float(shared.beta0) > MIN_BETA0:
+        shared = shared_add_value(generator, shared, new_value)
+        new_value += 1
+        n_active += 1
+    if float(shared.beta0) > 0 and n_active < cap:
+        shared = shared_add_value(generator, shared, new_value)
+        slot = int(torch.argmax((shared.values == new_value).to(
+            torch.int32)))
+        betas = shared.betas.clone()
+        betas[slot] += shared.beta0
+        shared = shared._replace(betas=betas,
+                                 beta0=torch.zeros_like(shared.beta0))
+    return shared
 
 
 def shared_to_state_dict(shared):
@@ -285,3 +363,37 @@ def row_stat_columns(shared, values):
 def row_stats_to_tile(shared, sums):
     return Group(counts=torch.round(sums[..., :-1]).to(torch.int32),
                  total=torch.round(sums[..., -1]).to(torch.int32))
+
+
+# -- samplers ---------------------------------------------------------------
+
+def sampler_init(generator, shared, group=None):
+    """Probabilities [V + 1] ~ Dirichlet over the active slots
+    (betas * alpha + counts) and the unbroken remainder OTHER (beta0 *
+    alpha)."""
+    act = active_mask(shared)
+    cnt = (torch.zeros(capacity(shared), dtype=torch.float32,
+                       device=act.device) if group is None
+           else group.counts.to(torch.float32))
+    post = torch.where(act, shared.betas * shared.alpha + cnt,
+                       torch.zeros_like(cnt))
+    post = torch.cat([post, (shared.beta0 * shared.alpha)[None]])
+    return sample_dirichlet(generator, post)
+
+
+def sampler_eval(generator, shared, probs, shape=()):
+    idx = sample_discrete(generator, probs,
+                          shape=tuple(shape) if shape else None)
+    vals = torch.cat([shared.values, torch.full(
+        (1,), OTHER, dtype=torch.int32, device=shared.values.device)])
+    return vals[idx]
+
+
+def sample_value(generator, shared, group):
+    return sampler_eval(generator, shared,
+                        sampler_init(generator, shared, group))
+
+
+def sample_group(generator, shared, size):
+    return base.generic_sample_group(sampler_init, sampler_eval, generator,
+                                     shared, size)

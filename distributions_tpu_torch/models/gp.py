@@ -8,6 +8,7 @@ import torch
 
 from distributions_tpu_torch.config import resolve_device
 from distributions_tpu_torch.models import base
+from distributions_tpu_torch.random import sample_gamma, sample_poisson
 from distributions_tpu_torch.special import (gammaln, lgamma_ratio,
                                              log_factorial)
 
@@ -41,6 +42,20 @@ def shared_from_dict(raw, device=None):
 
 def shared_to_dict(shared):
     return {'alpha': float(shared.alpha), 'inv_beta': float(shared.inv_beta)}
+
+
+
+def group_from_dict(raw, device=None):
+    device = resolve_device(device)
+    return Group(count=base.scalar(raw['count'], torch.int32, device),
+                 sum=base.scalar(raw['sum'], torch.int32, device),
+                 log_prod=base.scalar(raw['log_prod'], torch.float32,
+                                      device))
+
+
+def group_to_dict(group):
+    return {'count': int(group.count), 'sum': int(group.sum),
+            'log_prod': float(group.log_prod)}
 
 
 def group_init(shared, shape=()):
@@ -156,3 +171,27 @@ def tile_stats(shared, values, assignments, num_groups):
 
 def tile_to_group(shared, tile):
     return tile
+
+
+# -- samplers ---------------------------------------------------------------
+
+def sampler_init(generator, shared, group=None):
+    """lambda ~ Gamma(alpha, scale 1 / inv_beta) of the (posterior)
+    hyperparameters."""
+    post = shared if group is None else plus_group(shared, group)
+    return sample_gamma(generator, post.alpha.to(torch.float32),
+                        1.0 / post.inv_beta.to(torch.float32))
+
+
+def sampler_eval(generator, shared, lam, shape=()):
+    return sample_poisson(generator, lam, shape)
+
+
+def sample_value(generator, shared, group):
+    return sampler_eval(generator, shared,
+                        sampler_init(generator, shared, group))
+
+
+def sample_group(generator, shared, size):
+    return base.generic_sample_group(sampler_init, sampler_eval, generator,
+                                     shared, size)

@@ -14,6 +14,7 @@ import torch
 from distributions_tpu_torch.config import resolve_device
 from distributions_tpu_torch.special import gammaln, lgamma_nu
 from distributions_tpu_torch.models import base
+from distributions_tpu_torch.random import sample_chisq, sample_normal
 
 NAME = 'NormalInverseChiSq'
 EXAMPLES = [
@@ -59,6 +60,20 @@ def shared_from_dict(raw, device=None):
 def shared_to_dict(shared):
     return {'mu': float(shared.mu), 'kappa': float(shared.kappa),
             'sigmasq': float(shared.sigmasq), 'nu': float(shared.nu)}
+
+
+
+def group_from_dict(raw, device=None):
+    device = resolve_device(device)
+    return Group(count=base.scalar(raw['count'], torch.int32, device),
+                 mean=base.scalar(raw['mean'], torch.float32, device),
+                 count_times_variance=base.scalar(
+                     raw['count_times_variance'], torch.float32, device))
+
+
+def group_to_dict(group):
+    return {'count': int(group.count), 'mean': float(group.mean),
+            'count_times_variance': float(group.count_times_variance)}
 
 
 def group_init(shared, shape=()):
@@ -238,3 +253,31 @@ def row_stats_to_tile(shared, sums):
     """sums [..., 3] (one-hot contracted) -> additive TileStats."""
     return TileStats(count=torch.round(sums[..., 0]).to(torch.int32),
                      sum=sums[..., 1], sumsq=sums[..., 2])
+
+
+# -- samplers ---------------------------------------------------------------
+
+def sampler_init(generator, shared, group=None):
+    """(mu, sigma) from the (posterior) NIX marginals, Murphy Eqs. 156 and
+    167: sigma^2 = nu sigmasq / chisq(nu), mu ~ N(mu_n, sigma^2 /
+    kappa_n)."""
+    post = shared if group is None else plus_group(shared, group)
+    sigmasq_star = post.nu * post.sigmasq / sample_chisq(generator, post.nu)
+    mu = sample_normal(generator, post.mu,
+                       torch.sqrt(sigmasq_star / post.kappa))
+    return mu, torch.sqrt(sigmasq_star)
+
+
+def sampler_eval(generator, shared, params, shape=()):
+    mu, sigma = params
+    return sample_normal(generator, mu, sigma, shape)
+
+
+def sample_value(generator, shared, group):
+    return sampler_eval(generator, shared,
+                        sampler_init(generator, shared, group))
+
+
+def sample_group(generator, shared, size):
+    return base.generic_sample_group(sampler_init, sampler_eval, generator,
+                                     shared, size)

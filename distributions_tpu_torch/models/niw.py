@@ -13,6 +13,8 @@ import torch
 
 from distributions_tpu_torch.config import resolve_device
 from distributions_tpu_torch.models import base
+from distributions_tpu_torch.random import (
+    sample_multivariate_normal, sample_normal_inverse_wishart)
 from distributions_tpu_torch.special import lgamma_nu, lmultigamma
 
 NAME = 'NormalInverseWishart'
@@ -87,6 +89,22 @@ def shared_to_dict(shared):
             'kappa': float(shared.kappa),
             'psi': shared.psi.cpu().numpy().astype(np.float64),
             'nu': float(shared.nu)}
+
+
+
+def group_from_dict(raw, device=None):
+    device = resolve_device(device)
+
+    def arr(x):
+        return torch.from_numpy(np.asarray(x, np.float32).copy()).to(device)
+    return Group(count=base.scalar(raw['count'], torch.int32, device),
+                 sum_x=arr(raw['sum_x']), sum_xxT=arr(raw['sum_xxT']))
+
+
+def group_to_dict(group):
+    return {'count': int(group.count),
+            'sum_x': group.sum_x.cpu().numpy().astype(np.float64),
+            'sum_xxT': group.sum_xxT.cpu().numpy().astype(np.float64)}
 
 
 def group_init(shared, shape=()):
@@ -245,3 +263,27 @@ def row_stats_to_tile(shared, sums):
     return Group(count=torch.round(sums[..., 0]).to(torch.int32),
                  sum_x=sums[..., 1:1 + d],
                  sum_xxT=sums[..., 1 + d:].reshape(sums.shape[:-1] + (d, d)))
+
+
+# -- samplers ---------------------------------------------------------------
+
+def sampler_init(generator, shared, group=None):
+    """(mu, Sigma) ~ NIW of the (posterior) hyperparameters."""
+    post = shared if group is None else plus_group(shared, group)
+    return sample_normal_inverse_wishart(generator, post.mu, post.kappa,
+                                         post.psi, post.nu)
+
+
+def sampler_eval(generator, shared, params, shape=()):
+    mu, cov = params
+    return sample_multivariate_normal(generator, mu, cov, shape)
+
+
+def sample_value(generator, shared, group):
+    return sampler_eval(generator, shared,
+                        sampler_init(generator, shared, group))
+
+
+def sample_group(generator, shared, size):
+    return base.generic_sample_group(sampler_init, sampler_eval, generator,
+                                     shared, size)

@@ -17,6 +17,10 @@
   with backend='xla', plain PyTorch tables) are the v1 sweeps: the remove
   and add sides are `tile_deltas_fast` of the row stats, and the kernel
   only scores and draws.
+- `sweep_sequential` is exact collapsed Gibbs, one row after another
+  (meant for small R); `sweep_blocked_chains` runs `sweep_blocked` on N
+  chains at once, their states stacked on a leading chain axis
+  (`init_chains`).
 - `prior_init` and `sequential_init` assign the rows one after another,
   from the clustering prior alone or from the running predictive.
 
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from distributions_tpu_torch import clustering as _cl, mixture as mx
+from distributions_tpu_torch.clustering import _crp_seating, _le_seating
 from distributions_tpu_torch.models import nich as nich_mod, niw as niw_mod
 from distributions_tpu_torch.ops import fused_kernels as fk
 from distributions_tpu_torch.random import (device_generator, draw_seed,
@@ -64,16 +69,58 @@ def build_stat_cache(spec, shareds, values, block, assignments):
     return torch.stack(cds), tuple(torch.stack(s) for s in sums)
 
 
+def sweep_sequential(spec, cl_model, shareds, state, values, assignments,
+                     generator):
+    """One pass of exact collapsed Gibbs: row i is removed, scored against
+    the state of every other row (rows 0..i-1 already moved in this
+    pass) and added back at its draw.  A loop of R single-row steps
+    (`mixture.remove_value`, `score_value`, a gumbel-argmax draw,
+    `add_value`), each a few dozen [C]-sized ops: meant for small R.
+    Returns (state, assignments)."""
+    values = tuple(torch.as_tensor(v) for v in values)
+    dev = state.counts.device
+    gen = device_generator(draw_seed(generator), dev)
+    assignments = assignments.clone()
+    for i in range(values[0].shape[0]):
+        row = tuple(v[i] for v in values)
+        state, _ = mx.remove_value(spec, cl_model, shareds, state,
+                                   assignments[i], row)
+        scores = mx.score_value(spec, cl_model, shareds, state, row)
+        k = sample_from_scores(gen, scores)
+        state, _ = mx.add_value(spec, cl_model, shareds, state, k, row)
+        assignments[i] = k
+    return state, assignments
+
+
 def sweep_blocked(spec, cl_model, shareds, state, values, assignments, block,
                   generator=None):
-    """One full pass of blocked collapsed Gibbs with tile size `block`
-    (the fast row-stat branch).  Returns (state, assignments)."""
-    if not mx.supports_row_stats(spec):
-        raise NotImplementedError('sweep_blocked needs row-stat columns '
-                                  'for every block')
+    """One full pass of blocked collapsed Gibbs with tile size `block`:
+    the tile's rows are scored against the state with the tile removed,
+    drawn at once, and added back.  With row-stat columns for every block
+    (all seven models) the tile's stats are one contraction of
+    precomputed columns; otherwise the slow branch takes the tile's stats
+    from its values (`mixture.tile_deltas`).  Returns (state,
+    assignments)."""
     n_blocks = _n_tiles(assignments, block)
     dev = assignments.device
     gen = device_generator(draw_seed(generator), dev)
+    if not mx.supports_row_stats(spec):
+        out = []
+        for t in range(n_blocks):
+            sl = slice(t * block, (t + 1) * block)
+            tile_vals = tuple(torch.as_tensor(v)[sl] for v in values)
+            cd, tiles = mx.tile_deltas(spec, shareds, tile_vals,
+                                       assignments[sl])
+            state = mx.apply_stat_tiles(spec, shareds, state, cd, tiles, -1,
+                                        block)
+            scores = mx.score_batch(spec, cl_model, shareds, state,
+                                    tile_vals)
+            new_assign = sample_from_scores(gen, scores).to(torch.int32)
+            cd, tiles = mx.tile_deltas(spec, shareds, tile_vals, new_assign)
+            state = mx.apply_stat_tiles(spec, shareds, state, cd, tiles, +1,
+                                        block)
+            out.append(new_assign)
+        return state, torch.cat(out)
     row_stats = mx.precompute_row_stats(spec, shareds, values)
     out = []
     for t in range(n_blocks):
@@ -608,91 +655,77 @@ def sequential_init(spec, cl_model, shareds, state, values, generator):
     return state, assignments
 
 
-def _uniforms(generator, n):
-    """n float64 uniforms on [0, 1) from `generator`, on the host."""
-    return torch.rand(n, generator=generator, device=generator.device,
-                      dtype=torch.float64).cpu().numpy()
-
-
-def _crp_seating(alpha, d, counts, alive, R, generator):
-    """Slots for R rows seated one after another by the Pitman-Yor prior
-    on top of `counts` [C] (host int array; `alive` marks the slots that
-    may be taken), as `clustering.score_value` would seat them: an
-    occupied slot k with probability (n_k - d) / (n + alpha), a new table
-    with (alpha + d K) / (n + alpha) on one of the alive empty slots, the
-    first dead slot coming alive when an empty one is taken.
-
-    It depends on counts only, so it needs no scan over [C]-sized scores:
-    whether row i opens a table depends on K alone (one scalar chain over
-    the rows); a row that joins a table copies the slot of an earlier
-    customer picked uniformly, a table's first customer being accepted
-    with probability 1 - d (table k is then picked with n_k - d); the
-    chains of copies are resolved by pointer doubling."""
-    counts = np.asarray(counts, np.int64)
-    C = counts.shape[0]
-    n0 = int(counts.sum())
-    # earlier customers 0..n0-1 stand for the rows already in `counts`
-    slot_of = np.full(n0 + R, -1, np.int64)
-    slot_of[:n0] = np.repeat(np.arange(C), counts)
-    first = np.zeros(n0 + R, bool)
-    first[np.cumsum(counts)[counts > 0] - counts[counts > 0]] = True
-    empties = [int(k) for k in np.flatnonzero(np.asarray(alive)
-                                              & (counts == 0))]
-    dead = [int(k) for k in np.flatnonzero(~np.asarray(alive))][::-1]
-    K = int((counts > 0).sum())
-
-    # the scalar chain: which rows open a table, and on which slot
-    u_new = _uniforms(generator, R).tolist()
-    u_slot = _uniforms(generator, min(R, C)).tolist()
-    opened = 0
-    for i in range(R):
-        if empties and u_new[i] * (n0 + i + alpha) < alpha + d * K:
-            e = int(u_slot[opened] * len(empties))
-            slot_of[n0 + i] = empties[e]
-            first[n0 + i] = True
-            if dead:
-                empties[e] = dead.pop()
-            else:
-                del empties[e]
-            opened += 1
-            K += 1
-    if n0 == 0 and R > 0 and slot_of[0] < 0:
-        raise ValueError('prior_init needs an alive empty slot to start in')
-
-    # the other rows: a parent among the earlier customers
-    parent = np.arange(n0 + R)
-    pending = n0 + np.flatnonzero(slot_of[n0:] < 0)
-    while pending.size:
-        j = np.minimum(
-            (_uniforms(generator, pending.size) * pending).astype(np.int64),
-            pending - 1)
-        ok = ~first[j] | (_uniforms(generator, pending.size) < 1.0 - d)
-        parent[pending[ok]] = j[ok]
-        pending = pending[~ok]
-    while True:
-        up = parent[parent]
-        if np.array_equal(up, parent):
-            break
-        parent = up
-    return slot_of[parent][n0:]
-
-
 def prior_init(spec, cl_model, shareds, state, values, generator):
     """Prior-predictive initialization: assign each row from the
     clustering prior only, ignoring the likelihoods, as if by adding the
-    rows one at a time.  The seating depends on the counts alone, so it is
-    drawn on the host (`_crp_seating`) and the rows' statistics are added
-    in one `mixture.add_tile`.  Returns (state, assignments)."""
-    if not isinstance(cl_model, _cl.PitmanYor):
-        # raises for the clustering priors whose scorers are not ported
-        _cl.score_value(cl_model, state.counts, state.alive,
-                        state.sample_size)
+    rows one at a time.  Pitman-Yor's seating depends on the counts alone,
+    so it is drawn on the host at once (`clustering._crp_seating`); the
+    low-entropy prior is not exchangeable, and its rows are seated one by
+    one on the host (`clustering._le_seating`, meant for small R).  The rows'
+    statistics are then added in one `mixture.add_tile`.  Returns (state,
+    assignments)."""
     values = tuple(torch.as_tensor(v) for v in values)
     R = values[0].shape[0]
-    slots = _crp_seating(float(cl_model.alpha), float(cl_model.d),
-                         state.counts.cpu().numpy(),
-                         state.alive.cpu().numpy(), R, generator)
+    if isinstance(cl_model, _cl.PitmanYor):
+        slots = _crp_seating(float(cl_model.alpha), float(cl_model.d),
+                             state.counts.cpu().numpy(),
+                             state.alive.cpu().numpy(), R, generator)
+    else:
+        slots = _le_seating(cl_model, state.counts, state.alive,
+                            state.sample_size, R, generator)
     assignments = torch.from_numpy(slots.astype(np.int32)).to(
         state.counts.device)
     state = mx.add_tile(spec, cl_model, shareds, state, values, assignments)
     return state, assignments
+
+
+# -- chains -----------------------------------------------------------------
+
+def _chain_take(states, c):
+    """Chain `c` of a MixtureState whose leaves lead with a chain axis."""
+    return mx.MixtureState(
+        counts=states.counts[c], alive=states.alive[c],
+        sample_size=states.sample_size[c],
+        groups=tuple(mx._map_group(lambda a: a[c], g)
+                     for g in states.groups))
+
+
+def _chain_stack(states):
+    """One MixtureState with a leading chain axis from a list of them."""
+    first = states[0]
+    return mx.MixtureState(
+        counts=torch.stack([s.counts for s in states]),
+        alive=torch.stack([s.alive for s in states]),
+        sample_size=torch.stack([s.sample_size for s in states]),
+        groups=tuple(
+            mx._map_group(lambda *leaves: torch.stack(leaves),
+                          *[s.groups[b] for s in states])
+            for b in range(len(first.groups))))
+
+
+def sweep_blocked_chains(spec, cl_model, shareds, states, values,
+                         assignments, block, generators):
+    """One blocked sweep on each of N independent chains: `states` and
+    `assignments` [N, R] lead with the chain axis, `values` are shared,
+    and `generators` holds one `torch.Generator` per chain (the JAX
+    package's [N] keys), so chain c equals `sweep_blocked` of its own
+    state with generators[c].  The chains run one after another.
+    Returns (states, assignments)."""
+    if len(generators) != assignments.shape[0]:
+        raise ValueError('one generator per chain: %d generators for %d '
+                         'chains' % (len(generators), assignments.shape[0]))
+    out_states, out_assign = [], []
+    for c, gen in enumerate(generators):
+        st, an = sweep_blocked(spec, cl_model, shareds,
+                               _chain_take(states, c), values,
+                               assignments[c], block, generator=gen)
+        out_states.append(st)
+        out_assign.append(an)
+    return _chain_stack(out_states), torch.stack(out_assign)
+
+
+def init_chains(spec, cl_model, shareds, values, assignments_per_chain):
+    """[N]-chain states from an [N, R] assignment matrix."""
+    return _chain_stack([
+        mx.state_from_assignments(spec, cl_model, shareds, values, an)
+        for an in assignments_per_chain])

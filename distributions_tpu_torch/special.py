@@ -1,6 +1,6 @@
-"""Special numerical functions: the part of distributions_tpu.special that
-the collapsed-Gibbs path uses.  Everything is batched over tensors of any
-shape and computes in float32 on the device of its input.
+"""Special numerical functions (distributions_tpu.special).  Everything is
+batched over tensors of any shape and computes in float32 on the device of
+its input; `log_stirling1_row` builds its row on the host and moves it.
 """
 
 import torch
@@ -95,3 +95,108 @@ def lmultigamma(d, a):
     log_pi = 1.1447298858494002
     return (0.25 * d * (d - 1) * log_pi
             + torch.lgamma(a + 0.5 * (1.0 - j)).sum(-1))
+
+
+def log_sum_exp(x, y):
+    """Pairwise logsumexp log(exp(x) + exp(y))."""
+    return torch.logaddexp(_f32(x), _f32(y))
+
+
+def factorial(n):
+    return torch.exp(log_factorial(n))
+
+
+# -- Stirling numbers of the first kind -------------------------------------
+
+_STIRLING1_EXACT_MAX = 32
+
+
+def _log_stirling1_row_exact(n):
+    """Exact unsigned Stirling-1 row [log s(n, 0), ..., log s(n, n)] by the
+    log-space recurrence s(n, k) = (n - 1) s(n - 1, k) + s(n - 1, k - 1),
+    in float64 numpy (n is a small Python int), returned as float32 on
+    the CPU."""
+    import numpy as np
+    prev = np.array([0.0])   # log s(0, 0) = 0
+    for m in range(1, n + 1):
+        cur = np.full(m + 1, -np.inf)
+        cur[m] = 0.0
+        if m > 1:
+            cur[1:m] = np.logaddexp(np.log(m - 1) + prev[1:m], prev[0:m - 1])
+        prev = cur
+    return torch.from_numpy(prev.astype(np.float32))
+
+
+def _log_stirling1_row_approx(n):
+    """Softmin blend of DLMF 26.8.40 (small k) and Gruenberg's asymptotic
+    (large k), on the CPU in float32."""
+    import numpy as np
+    k = torch.arange(n + 1, dtype=torch.float32)
+    nf = float(n)
+    log_factorial_n_minus_1 = float(torch.lgamma(torch.tensor(
+        nf, dtype=torch.float32)))
+    log_n_sq_over_two = float(np.log(nf * nf / 2.0))
+    euler_gamma = 0.57721566490153286060
+    log_stuff = float(np.log(euler_gamma + np.log(nf - 1.0)))
+    softness = nf / 3.0
+    approx1 = (log_factorial_n_minus_1 - torch.lgamma(k)
+               + (k - 1.0) * log_stuff)
+    approx2 = (nf - k) * log_n_sq_over_two - torch.lgamma(nf - k + 1.0)
+    row = -softness * torch.logaddexp(-approx1 / softness,
+                                      -approx2 / softness)
+    row[0] = float('-inf')
+    row[n] = 0.0
+    return row
+
+
+def log_stirling1_row(n, device=None):
+    """[log s(n, 0), ..., log s(n, n)] as float32 on `device` (default:
+    the package's default device): exact for n < 32, approximate above."""
+    from distributions_tpu_torch.config import resolve_device
+    n = int(n)
+    row = (_log_stirling1_row_exact(n) if n < _STIRLING1_EXACT_MAX
+           else _log_stirling1_row_approx(n))
+    return row.to(resolve_device(device))
+
+
+# -- misc -------------------------------------------------------------------
+
+def log1p_exp(x):
+    """log(1 + exp(x)), stable."""
+    x = _f32(x)
+    return torch.logaddexp(torch.zeros_like(x), x)
+
+
+def scores_to_likelihoods(scores, axis=-1):
+    """Max-subtracted exp: (likelihoods, their sum over `axis`)."""
+    scores = _f32(scores)
+    m = torch.amax(scores, dim=axis, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    likes = torch.exp(scores - m)
+    return likes, likes.sum(axis)
+
+
+def stick(betas):
+    """Normalize a stick of masses to sum to one."""
+    return betas / betas.sum()
+
+
+def clip_finite(x, minval=-3.4e38, maxval=3.4e38):
+    return torch.clamp(_f32(x), minval, maxval)
+
+
+def poly_eval(coeffs, x):
+    """Horner evaluation of a polynomial, highest degree first."""
+    acc = torch.zeros_like(x) + coeffs[0]
+    for c in coeffs[1:]:
+        acc = acc * x + c
+    return acc
+
+
+def lax_cumlogsumexp(x, axis=0):
+    """Cumulative logsumexp along `axis` (the name is the JAX package's):
+    max-subtracted, so a finite maximum keeps every prefix finite."""
+    x = _f32(x)
+    m = torch.amax(x, dim=axis, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    return torch.log(torch.cumsum(torch.exp(x - m), dim=axis)) + m

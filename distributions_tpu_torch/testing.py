@@ -191,3 +191,98 @@ def softmax_ztest(draws, scores, min_expected=20.0):
     z = (counts - expected) / var.sqrt()
     big = expected > min_expected
     return float(z[big].abs().max())
+
+
+def _bin_z(counts, probs, n, min_expected=20.0):
+    """Largest |z| of bin counts against bin probabilities over n draws;
+    bins expected to hold fewer than `min_expected` draws are pooled."""
+    counts = np.asarray(counts, np.float64)
+    probs = np.asarray(probs, np.float64)
+    small = probs * n < min_expected
+    if small.any():
+        counts = np.append(counts[~small], counts[small].sum())
+        probs = np.append(probs[~small], probs[small].sum())
+    keep = (probs > 0) & (probs < 1)
+    z = (counts[keep] - n * probs[keep]) / np.sqrt(
+        n * probs[keep] * (1 - probs[keep]))
+    return float(np.abs(z).max()) if z.size else 0.0
+
+
+def sample_group_z(module, shared, values, n_test, n_fit):
+    """Holds `sample_group` draws against the model's own predictive
+    score.  The draws are exchangeable, so given the first n_fit values
+    each of the last n_test follows the posterior predictive of a group
+    built from the first ones; with n_test small beside n_fit the last
+    ones are nearly independent given the first.  n_fit stays modest
+    because the f32 predictive of the count models (gp, bnb) differences
+    lgammas of the group's sums, which lose accuracy as the sums grow.
+    Returns the
+    largest |z| of their bin counts against the predictive's bin
+    probabilities: the support values of a discrete model (its tail
+    pooled) from `score_value_batch`; for nich 8 bins around the
+    predictive's centre, integrated from exp(score_value_batch) on a fine
+    grid; for niw the probability integral transform of the Mahalanobis
+    distance, an F(d, dof) variable (tests/test_models.py's check), in 10
+    bins."""
+    name = module.__name__.rsplit('.', 1)[-1]
+    fit, test = values[:n_fit], values[-n_test:]
+    dev = values.device
+    group = module.from_values_grouped(
+        shared, fit, torch.zeros(fit.shape[0], dtype=torch.int32,
+                                 device=dev), 1)
+    if name == 'niw':
+        import scipy.stats
+        post = module.plus_group(shared, group)
+        d = values.shape[-1]
+        dof = float(post.nu[0]) - d + 1.0
+        kappa = float(post.kappa[0])
+        mu = post.mu[0].double().cpu().numpy()
+        sigma = (post.psi[0].double().cpu().numpy() * (kappa + 1.0)
+                 / (kappa * dof))
+        diff = test.double().cpu().numpy() - mu
+        maha = np.einsum('nd,de,ne->n', diff, np.linalg.inv(sigma), diff)
+        u = scipy.stats.f.cdf(maha / d, d, dof)
+        counts = np.bincount(np.minimum((u * 10).astype(int), 9),
+                             minlength=10)
+        return _bin_z(counts, np.full(10, 0.1), n_test)
+    if name == 'nich':
+        post = module.plus_group(shared, group)
+        mu = float(post.mu[0])
+        scale = float(torch.sqrt((1 + post.kappa[0]) / post.kappa[0]
+                                 * post.sigmasq[0]))
+        edges = mu + scale * np.array([-2.0, -1.0, -0.5, 0.0, 0.5, 1.0, 2.0])
+        probs = []
+        for lo, hi in zip(edges[:-1], edges[1:]):
+            grid = torch.linspace(lo, hi, 4001, dtype=torch.float32,
+                                  device=dev)
+            dens = torch.exp(module.score_value_batch(shared, group, grid)[
+                :, 0]).double().cpu().numpy()
+            x = grid.double().cpu().numpy()
+            probs.append(float(((dens[1:] + dens[:-1]) / 2
+                                * np.diff(x)).sum()))
+        inner = np.array(probs)
+        probs = np.concatenate([[0.0], inner, [0.0]])
+        probs[0] = probs[-1] = (1.0 - inner.sum()) / 2   # t is symmetric
+        idx = np.searchsorted(edges, test.double().cpu().numpy())
+        return _bin_z(np.bincount(idx, minlength=8), probs, n_test)
+    # discrete: every support value, the tail pooled
+    t = test.to(torch.int64).cpu().numpy()
+    if name == 'bb':
+        support = np.array([0, 1])
+    elif name == 'dd':
+        support = np.arange(module.dim(shared))
+    elif name == 'dpd':
+        support = module.shared_to_dict(shared)['betas']
+        support = np.array(sorted(support) + (
+            [module.OTHER] if float(shared.beta0) > 0 else []))
+    else:
+        support = np.arange(int(t.max()) + 1)
+    sup = torch.as_tensor(support, device=dev)
+    if name == 'bb':
+        sup = sup.to(torch.bool)
+    probs = torch.exp(module.score_value_batch(shared, group, sup)[:, 0]
+                      ).double().cpu().numpy()
+    counts = np.array([(t == v).sum() for v in support])
+    tail = max(0.0, 1.0 - probs.sum())
+    return _bin_z(np.append(counts, n_test - counts.sum()),
+                  np.append(probs, tail), n_test)

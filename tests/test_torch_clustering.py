@@ -63,9 +63,22 @@ def test_count_assignments():
 
 
 def test_low_entropy_not_ported():
-    model = tcl.LowEntropy.from_dict({'dataset_size': 5})
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tcl.score_value(model, torch.zeros(4, dtype=torch.int32),
-                        torch.ones(4, dtype=torch.bool), 0)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tcl.score_counts(model, torch.zeros(4, dtype=torch.int32))
+    """The low-entropy prior, once refused by every scorer, is ported:
+    `score_value` and `score_counts` dispatch to it and equal the JAX
+    functions (tests/test_torch_le_clustering.py holds the rest)."""
+    for raw in jcl.LowEntropy.EXAMPLES:
+        counts, alive = _counts(len(raw))
+        n = int(counts.sum())
+        jmodel = jcl.LowEntropy.from_dict(raw)
+        tmodel = tcl.LowEntropy.from_dict(raw)
+        want = np.asarray(jcl.score_value(jmodel, counts, alive, n))
+        got = tcl.score_value(tmodel, torch.from_numpy(counts),
+                              torch.from_numpy(alive), n).numpy()
+        np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+        fin = np.isfinite(want)
+        np.testing.assert_allclose(got[fin], want[fin], rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(
+            tcl.score_counts(tmodel, torch.from_numpy(counts)).numpy(),
+            np.asarray(jcl.score_counts(jmodel, counts)), rtol=RTOL,
+            atol=ATOL)

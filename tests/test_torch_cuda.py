@@ -8,7 +8,8 @@ with a GPU and no JAX, run them with
 
 (`-k pair` picks the tests of K3, `-k bench` those of B1-B5, `-k fused`
 the edge tests of the slot-split walk of K1, B5, K2 and K3, `-k v1_split`
-those of its v1 form in K4 and K5.)
+those of its v1 form in K4 and K5, `-k on_the_card` the samplers, the
+LowEntropy prior and the other moves.)
 """
 
 import pytest
@@ -1101,3 +1102,125 @@ def test_v1_split_occupancy_report(dev):
     assert [r['record_floats'] for r in reports] == [12, 8, 4, 24, 16]
     with pytest.raises(ValueError):
         fk.split_occupancy('score_sample_v1', 1024, (2,), sampling='cdf')
+
+
+# -- samplers, the LowEntropy prior and the other moves ----------------------
+
+def _z(x, mean, var):
+    x = x.double()
+    return abs(float(x.mean()) - mean) / (var / x.numel()) ** 0.5
+
+
+@pytest.mark.parametrize('generator_on', ['cpu', 'cuda'])
+def test_samplers_on_the_card(dev, generator_on):
+    """Every sampler draws on the card from parameters on the card, with a
+    generator on the CPU (one seed drawn from it) or on the card; moments
+    z-tested against their closed forms, the same generator state giving
+    the same draws."""
+    from distributions_tpu_torch import random as rnd
+    gen_dev = dev if generator_on == 'cuda' else 'cpu'
+
+    def gen(seed=0):
+        return torch.Generator(device=gen_dev).manual_seed(seed)
+    n = 1 << 20
+    t = lambda x: torch.tensor(x, device=dev)    # noqa: E731
+    x = rnd.sample_gamma(gen(), t(2.5), 1.7, (n,))
+    assert x.device.type == 'cuda' and _z(x, 4.25, 2.5 * 1.7 ** 2) < 5
+    assert torch.equal(x, rnd.sample_gamma(gen(), t(2.5), 1.7, (n,)))
+    assert _z(rnd.sample_beta(gen(1), t(0.5), 2.0, (n,)), 0.2,
+              0.5 * 2 / (2.5 ** 2 * 3.5)) < 5
+    assert _z(rnd.sample_chisq(gen(2), t(3.7), (n,)), 3.7, 7.4) < 5
+    assert _z(rnd.sample_poisson(gen(3), t(3.3), (n,)), 3.3, 3.3) < 5
+    nb = rnd.sample_negative_binomial(gen(4), t(0.4), 3, (n,))
+    assert _z(nb, 4.5, 3 * 0.6 / 0.16) < 5
+    dirich = rnd.sample_dirichlet(gen(5), t([0.5, 2.0, 3.5]), (n,))
+    assert _z(dirich[:, 0], 0.5 / 6, (0.5 / 6) * (5.5 / 6) / 7) < 5
+    w = rnd.sample_wishart(gen(6), 7.0, torch.eye(3, device=dev), (65536,))
+    assert w.device.type == 'cuda' and _z(w[:, 0, 0], 7.0, 14.0) < 5
+    iw = rnd.sample_inverse_wishart(gen(7), 10.0, 2 * torch.eye(2,
+                                                               device=dev),
+                                    (65536,))
+    # E[X_00] = S_00 / (nu - d - 1), Var = 2 S_00^2 / ((nu - d - 1)^2
+    # (nu - d - 3)) for the inverse Wishart's diagonal
+    assert _z(iw[:, 0, 0], 2 / 7, 2 * 4 / (7 ** 2 * 5)) < 5
+    k = rnd.sample_discrete(gen(8), t([0.1, 0.3, 0.05, 0.55]), (n,))
+    assert _z(k == 3, 0.55, 0.55 * 0.45) < 5
+
+
+def _card_problem(dev, R=512, C=32, kind='nich_gp_bb'):
+    p = testing.mixed_problem(R, C, seed=2, kind=kind)
+    spec, py, sh = testing.build_problem(p, MODULES, mx.make_spec,
+                                         cl.PitmanYor.from_dict, device=dev)
+    values = tuple(torch.from_numpy(v).to(dev) for v in p['values'])
+    an = torch.from_numpy(p['labels']).to(dev)
+    return spec, py, sh, values, an
+
+
+def _consistent(spec, py, sh, values, st, an):
+    fresh = mx.state_from_assignments(spec, py, sh, values, an)
+    assert st.counts.device.type == 'cuda' and torch.equal(st.counts,
+                                                           fresh.counts)
+    s, f = float(mx.score_data(spec, py, sh, st)), float(
+        mx.score_data(spec, py, sh, fresh))
+    assert abs(s - f) <= 1e-4 * abs(f)
+
+
+def test_moves_on_the_card(dev):
+    """MH, split-merge (both), the sequential sweep and chains on the
+    card: every move leaves the state equal to state_from_assignments of
+    its assignments."""
+    from distributions_tpu_torch.ops import mh, splitmerge
+    spec, py, sh, values, an = _card_problem(dev)
+    st = mx.state_from_assignments(spec, py, sh, values, an)
+    g = torch.Generator().manual_seed(0)
+    st, an = mh.sweep_mh(spec, py, sh, st, values, an, 128, 4, g)
+    _consistent(spec, py, sh, values, st, an)
+    for _ in range(5):
+        st, an, _ = splitmerge.split_merge_move(spec, py, sh, st, values, an,
+                                                g)
+        st, an, _ = splitmerge.split_merge_restricted(spec, py, sh, st,
+                                                      values, an, g)
+    _consistent(spec, py, sh, values, st, an)
+    st, an = gibbs.sweep_sequential(spec, py, sh, st, values, an, g)
+    _consistent(spec, py, sh, values, st, an)
+    A = torch.stack([an, torch.zeros_like(an)])
+    states = gibbs.init_chains(spec, py, sh, values, A)
+    states, A = gibbs.sweep_blocked_chains(
+        spec, py, sh, states, values, A, 128,
+        [torch.Generator().manual_seed(c) for c in range(2)])
+    for c in range(2):
+        _consistent(spec, py, sh, values, gibbs._chain_take(states, c), A[c])
+
+
+def test_low_entropy_on_the_card(dev):
+    """The LowEntropy prior through the fused sweep on the card (K2 on
+    nich_gp_bb) equals the CPU twin path draw for draw in 'argmax';
+    prior_init and the samplers of both priors run on the card."""
+    spec, _, sh, values, an = _card_problem(dev)
+    le = cl.LowEntropy.from_dict({'dataset_size': 512}, device=dev)
+    outs = []
+    for device in (dev, torch.device('cpu')):
+        shd = tuple(type(s)(*(x.to(device) for x in s)) for s in sh)
+        led = cl.LowEntropy(*(x.to(device) for x in le))
+        v = tuple(x.to(device) for x in values)
+        a = an.to(device)
+        st = mx.state_from_assignments(spec, led, shd, v, a)
+        cache = gibbs.build_stat_cache(spec, shd, v, 256, a)
+        before = fk.fused_mixed_score_sample_stats.launches
+        st, a, _ = gibbs.sweep_blocked_pallas_fused_mixed(
+            spec, led, shd, st, v, a, 256, 256, torch.Generator(), cache,
+            sampling='argmax')
+        if device == dev:
+            assert fk.fused_mixed_score_sample_stats.launches == before + 2
+        outs.append(a.cpu())
+    assert torch.equal(outs[0], outs[1])
+    st, a = gibbs.prior_init(spec, le, sh, mx.init(spec, sh),
+                             tuple(v[:64] for v in values),
+                             torch.Generator().manual_seed(0))
+    assert a.device.type == 'cuda' and int(st.counts.sum()) == 64
+    py = cl.PitmanYor.from_dict(testing.PY, device=dev)
+    g = torch.Generator().manual_seed(1)
+    for sample in (cl.sample_assignments(g, le, 100, 16),
+                   cl.sample_assignments(g, py, 4096, 64),
+                   cl.py_sample_assignments_stick(g, py, 1 << 20, 1024)):
+        assert sample.device.type == 'cuda' and sample.dtype == torch.int32

@@ -229,12 +229,39 @@ def test_dpd_value_to_slot_and_unknown_values():
 @pytest.mark.parametrize('fn', ['shared_add_value', 'shared_remove_value',
                                 'shared_realize'])
 def test_dpd_shared_mutation_waits_for_the_samplers(fn):
-    tm = MODULES['dpd']
-    tsh = tm.shared_from_dict(tm.EXAMPLES[0]['shared'], cap=8)
-    args = (torch.Generator(), tsh) + ((3,) if fn != 'shared_realize'
-                                       else ())
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1'):
-        getattr(tm, fn)(*args)
+    """The Shared's mutations, once waiting for the beta sampler, now run:
+    each equals the JAX function wherever no beta is drawn (a known value
+    added or removed), and a drawn stick conserves the mass beta0 + sum
+    of betas = 1."""
+    tm, jm = MODULES['dpd'], JAX['dpd']
+    raw = {'gamma': 1.0, 'alpha': 1.0, 'betas': {0: 0.25, 7: 0.5},
+           'counts': {0: 1, 7: 2}}
+    tsh = tm.shared_from_dict(raw, cap=8)
+    jsh = jm.shared_from_dict(raw, cap=8)
+    gen = torch.Generator().manual_seed(0)
+    key = jax.random.PRNGKey(0)
+
+    def same(t, j):
+        for a, b in zip(t, j):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+
+    if fn == 'shared_add_value':
+        same(tm.shared_add_value(gen, tsh, 7),
+             jm.shared_add_value(key, jsh, 7))
+        new = tm.shared_add_value(gen, tsh, 3)
+        assert int(tm.value_to_slot(new, 3)) == 2
+        assert int(new.counts[2]) == 1 and 0 < float(new.betas[2]) < 0.25
+        np.testing.assert_allclose(
+            float(new.beta0) + float(new.betas.sum()), 1.0, rtol=1e-6)
+    elif fn == 'shared_remove_value':
+        for v in (7, 0):
+            same(tm.shared_remove_value(gen, tsh, v),
+                 jm.shared_remove_value(key, jsh, v))
+    else:
+        real = tm.shared_realize(gen, tsh)
+        assert float(real.beta0) == 0.0
+        np.testing.assert_allclose(float(real.betas.sum()), 1.0, rtol=1e-5)
+        assert int(tm.active_mask(real).sum()) > 2
 
 
 @pytest.mark.parametrize('kind', ['niw3_nich_bb', 'dpd_nich', 'bbddgp',

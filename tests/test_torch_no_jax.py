@@ -36,7 +36,7 @@ for name in ('models.bb', 'models.dd', 'models.dpd', 'models.gp',
              'benchmarks.kernel_phases', 'benchmarks.bench',
              'benchmarks.bench_runner', 'benchmarks.timing',
              'benchmarks.tree_compare', 'benchmarks.split_variants',
-             'benchmarks.sass_counts'):
+             'benchmarks.sass_counts', 'ops.mh', 'ops.splitmerge'):
     assert 'distributions_tpu_torch.' + name in names, name
 '''
 
