@@ -198,6 +198,27 @@ exits non-zero:
                  anneal at 1,048,576 rows x 1024 slots (tile 65,536, passes
                  4: every row assigned, counts equal the bincount); then the
                  suite's backends section at its defaults.
+6n. facades  -- the rest of the public surface, as a user drives it:
+                 each model's EXAMPLES[0] through the compat facade on the
+                 card (scores equal to the CPU facade's within 1e-5, gp and
+                 bnb at atol 2e-3 / 5e-4; 1000 Sampler.evals; ms of an
+                 add_value + score_value row op); tests/test_compat.py's
+                 per-row driver loop on 2000 rows x 2 nich of 80 blobs, at
+                 most 64 groups, PitmanYor {2, 0.1} (counts equal the
+                 bincount; ms a row); FeatureMixture.score_value over 1024 nich groups
+                 against nich.score_value on the CPU within 1e-4 (256
+                 values; ms a call); the protobuf codec on every model and
+                 both priors (bytes equal to the CPU objects', loads back
+                 onto the card equal; us a dump and a load);
+                 examples/mixture/main_torch.py at its own scale (10,000
+                 points, capacity 768, 10 passes, all five strategies; the
+                 row-by-row sequential, seq-gibbs and smc cut to 2,000
+                 points for time: counts sum to the rows, 64 x 64 uint8
+                 images; seconds and components each);
+                 examples/gmm_backends_torch.py at 512 rows, its chains cut
+                 (HMC 100 + 100, NUTS 40 + 40, ADVI 300; seconds and
+                 purity per backend, purity above 0.9 for collapsed
+                 gibbs, mh, smc and advi, above 0.6 for hmc and nuts).
 7. kernels    -- one line listing each ported kernel (K1-K5, B1-B5) with
                  its launches on its main path, its time, its twin's time,
                  its nominal bound (data-sheet rates, a log as one
@@ -3400,6 +3421,333 @@ def phase_backends(port, X):
     port['suite'].bench_backends(reps=1)
 
 
+# the facades phase (compat, the protobuf codec, the two examples)
+FACADE_EVALS = 1000
+FACADE_ATOL = {'gp': 2e-3, 'bnb': 5e-4}
+FACADE_ROW_OPS = 200
+DRIVER_ROWS = 2000
+DRIVER_GROUPS = 64
+DRIVER_BLOBS = 80
+DRIVER_PY = {'alpha': 2.0, 'd': 0.1}
+# light tails (nu 10), so that a row of another blob opens a group
+DRIVER_SHARED = {'mu': 0., 'kappa': 0.01, 'sigmasq': 0.0025, 'nu': 10.}
+FEATURE_GROUPS = 1024
+FEATURE_VALUES = 256
+DEMO_SAMPLES = 10000
+DEMO_PASSES = 10
+# the row-by-row strategies (1.3-2.8 ms a row on the card) at 2,000 points
+DEMO_ROW_STRATEGIES = ('sequential', 'seq-gibbs', 'smc')
+DEMO_ROW_SAMPLES = 2000
+GMM_ROWS = 512
+# the example's lengths cut for time (it takes ~170 s at its own on the
+# card): HMC 100 + 100 iterations, NUTS 40 + 40, ADVI 300 steps
+GMM_LENGTHS = {
+    'gibbs_sweeps': 15, 'mh_sweeps': 40,
+    'hmc': {'num_samples': 100, 'num_warmup': 100, 'num_leapfrog': 24},
+    'nuts': {'num_samples': 40, 'num_warmup': 40, 'max_depth': 6},
+    'advi': {'num_steps': 300},
+}
+# purity floors: the collapsed backends, the MH sweep, SMC and ADVI find
+# the three blobs; HMC and NUTS report one chain's last draw, which may
+# sit in a mode where two blobs share a component (purity ~2/3), so they
+# are held only above what a labelling blind to the data reaches (~0.4)
+GMM_PURITY = {'collapsed gibbs': 0.9, 'mh sweep': 0.9, 'smc': 0.9,
+              'advi': 0.9, 'hmc': 0.6, 'nuts': 0.6}
+
+
+def load_example(relpath, name):
+    """An example script of this checkout as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, relpath))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def compat_on_the_card(port):
+    """Each model's EXAMPLES[0] through the compat facade on the card and
+    on the CPU: scores equal within 1e-5 (gp, bnb at their atol), the
+    leaves on the card, ms of 1000 Sampler.evals and of an add_value +
+    score_value row op."""
+    import numpy as np
+    import torch
+    config, cm = port['config'], port['compat_models']
+    out = {}
+    for name in sorted(cm.MODULES):
+        mod = cm.MODULES[name]
+        ex = mod.EXAMPLES[0]
+        sides = []
+        for device in ('cpu', None):
+            config.set_default_device(device)
+            try:
+                shared = mod.Shared.from_dict(ex['shared'])
+                group = mod.Group.from_values(shared, ex['values'])
+                scores = [group.score_value(shared, v)
+                          for v in ex['values'][:3]]
+                scores.append(group.score_data(shared))
+            finally:
+                config.set_default_device(None)
+            sides.append((shared, group, scores))
+        (_, _, want), (shared, group, got) = sides
+        leaves = list(shared._data) + list(group._data)
+        on_card = all(x.device.type == 'cuda' for x in leaves)
+        err = float(np.max(np.abs(np.asarray(got) - np.asarray(want))))
+        bound = 1e-5 * max(1.0, float(np.max(np.abs(want))))
+        atol = max(FACADE_ATOL.get(name, 0.0), bound)
+        sampler = mod.Sampler()
+        sampler.init(shared, group)
+        draws, ms = timed(lambda: [sampler.eval(shared)
+                                   for _ in range(FACADE_EVALS)])
+        value = ex['values'][0]
+        scratch = mod.Group.from_values(shared, ex['values'])
+
+        def row_ops():
+            for _ in range(FACADE_ROW_OPS):
+                scratch.add_value(shared, value)
+                scratch.score_value(shared, value)
+        row_ops()
+        _, row_ms = timed(row_ops)
+        out[name] = {'on_the_card': on_card, 'max_abs_err': err,
+                     'atol': atol, 'eval_ms': ms / FACADE_EVALS,
+                     'draws': len(draws),
+                     'ms_per_row_op': row_ms / FACADE_ROW_OPS}
+        if not (on_card and err <= atol and len(draws) == FACADE_EVALS):
+            raise AssertionError('facades: compat %s %s' % (name, out[name]))
+    return out
+
+
+def facade_driver_loop(port):
+    """tests/test_compat.py's per-row loop (remove_value, score_value over
+    all groups, a draw, add_value) through the facade on the card: a
+    PitmanYor driver and two nich feature mixtures on 2000 rows of 80
+    blobs, at most 64 groups (a full driver's empty group scores -inf);
+    a seating pass, then one Gibbs pass, timed."""
+    import numpy as np
+    cm = port['compat_models']
+    from distributions_tpu_torch.compat.clustering import PitmanYor
+    from distributions_tpu_torch.compat.mixture import MixtureIdTracker
+    rng = np.random.RandomState(0)
+    centers = 2.0 * rng.randn(DRIVER_BLOBS, 2)
+    X = centers[rng.randint(0, DRIVER_BLOBS, DRIVER_ROWS)] + 0.03 * rng.randn(
+        DRIVER_ROWS, 2)
+    cl = PitmanYor.from_dict(DRIVER_PY)
+    feature = cm.nich.Shared.from_dict(DRIVER_SHARED)
+    cmix = cl.Mixture()
+    fmixes = [cm.nich.Mixture(), cm.nich.Mixture()]
+    tracker = MixtureIdTracker()
+    cmix.init(cl, [0])
+    tracker.init(1)
+    for fmix in fmixes:
+        fmix.add_group(feature)
+    assignments = np.zeros(DRIVER_ROWS, np.int64)
+
+    def seat(i):
+        scores = np.zeros(len(cmix), np.float32)
+        cmix.score_value(cl, scores)
+        for j, fmix in enumerate(fmixes):
+            fmix.score_value(feature, float(X[i, j]), scores)
+        if len(cmix) >= DRIVER_GROUPS:
+            scores[np.asarray(cmix.counts) == 0] = -np.inf
+        gid = int(np.argmax(scores + rng.gumbel(size=len(scores))))
+        if cmix.add_value(cl, gid):
+            tracker.add_group()
+            for fmix in fmixes:
+                fmix.add_group(feature)
+        for j, fmix in enumerate(fmixes):
+            fmix.add_value(feature, gid, float(X[i, j]))
+        assignments[i] = tracker.packed_to_global(gid)
+
+    def unseat(i):
+        gid = tracker.global_to_packed(int(assignments[i]))
+        removed = cmix.remove_value(cl, gid)
+        for j, fmix in enumerate(fmixes):
+            fmix.remove_value(feature, gid, float(X[i, j]))
+            if removed:
+                fmix.remove_group(feature, gid)
+        if removed:
+            tracker.remove_group(gid)
+
+    _, seat_ms = timed(lambda: [seat(i) for i in range(DRIVER_ROWS)])
+
+    def gibbs_pass():
+        for i in range(DRIVER_ROWS):
+            unseat(i)
+            seat(i)
+    _, pass_ms = timed(gibbs_pass)
+    packed = np.asarray([tracker.global_to_packed(int(g))
+                         for g in assignments])
+    want = np.bincount(packed, minlength=len(cmix)).tolist()
+    out = {'rows': DRIVER_ROWS, 'groups': len(cmix),
+           'nonempty': int(sum(c > 0 for c in cmix.counts)),
+           'counts_equal_bincount': cmix.counts == want,
+           'sizes_agree': len(cmix) == len(tracker) == len(fmixes[0]),
+           'seat_ms_per_row': seat_ms / DRIVER_ROWS,
+           'gibbs_ms_per_row': pass_ms / DRIVER_ROWS}
+    if not (out['counts_equal_bincount'] and out['sizes_agree']
+            and len(cmix) <= DRIVER_GROUPS):
+        raise AssertionError('facades: driver loop %s' % out)
+    return out
+
+
+def feature_mixture_scores(port):
+    """FeatureMixture.score_value over 1024 nich groups on the card against
+    the per-group scores of nich.score_value on the CPU, 256 values."""
+    import numpy as np
+    import torch
+    cm, nich = port['compat_models'], port['nich']
+    rng = np.random.RandomState(1)
+    shared = cm.nich.Shared.from_dict(SHARED)
+    mixture = cm.nich.Mixture()
+    for k in range(FEATURE_GROUPS):
+        mixture.append(cm.nich.Group.from_values(
+            shared, rng.randn(1 + k % 4).tolist()))
+    values = rng.randn(FEATURE_VALUES).tolist()
+    accum = np.zeros((FEATURE_VALUES, FEATURE_GROUPS), np.float32)
+
+    def score_all():
+        for v, row in zip(values, accum):
+            mixture.score_value(shared, v, row)
+    score_all()
+    accum[:] = 0
+    _, ms = timed(score_all)
+    cpu_shared = type(shared._data)(*(x.cpu() for x in shared._data))
+    cpu_groups = type(mixture._stack)(*(x.cpu() for x in mixture._stack))
+    want = np.stack([nich.score_value(cpu_shared, cpu_groups, v).numpy()
+                     for v in values])
+    err = float(np.max(np.abs(accum - want)))
+    out = {'groups': FEATURE_GROUPS, 'values': FEATURE_VALUES,
+           'max_abs_err': err, 'ms_per_call': ms / FEATURE_VALUES,
+           'on_the_card': mixture._stack[0].device.type == 'cuda'}
+    if not (err < 1e-4 and out['on_the_card']):
+        raise AssertionError('facades: FeatureMixture %s' % out)
+    return out
+
+
+def protobuf_on_the_card(port):
+    """Every model's Shared and Group built on the card (EXAMPLES[0]) and
+    the clustering priors: bytes equal to those of the same objects on the
+    CPU, and loaded back onto the card equal."""
+    import torch
+    pb, models, cl = port['protobuf'], port['models'], port['cl']
+    out = {}
+    for name in sorted(models):
+        mod = models[name]
+        ex = mod.EXAMPLES[0]
+        shared = mod.shared_from_dict(ex['shared'])
+        if name == 'dpd':
+            gen = torch.Generator().manual_seed(0)
+            for v in ex['values']:
+                shared = mod.shared_add_value(gen, shared, v)
+        group = mod.group_init(shared)
+        for v in ex['values']:
+            group = mod.add_value(shared, group, v)
+        cpu_shared = type(shared)(*(x.cpu() for x in shared))
+        cpu_group = type(group)(*(x.cpu() for x in group))
+        t0 = time.time()
+        sbytes = pb.shared_dump(name, shared).SerializeToString()
+        gbytes = pb.group_dump(name, group, shared=shared).SerializeToString()
+        dump_us = 1e6 * (time.time() - t0)
+        same = (sbytes == pb.shared_dump(name, cpu_shared).SerializeToString()
+                and gbytes == pb.group_dump(
+                    name, cpu_group, shared=cpu_shared).SerializeToString())
+        t0 = time.time()
+        shared2 = pb.shared_load(name, pb.MESSAGES[name].Shared.FromString(
+            sbytes))
+        group2 = pb.group_load(name, pb.MESSAGES[name].Group.FromString(
+            gbytes), shared=shared2)
+        load_us = 1e6 * (time.time() - t0)
+        loaded = all(a.device.type == 'cuda' and torch.equal(a, b)
+                     for a, b in zip(list(shared2) + list(group2),
+                                     list(shared) + list(group)))
+        out[name] = {'bytes': len(sbytes) + len(gbytes),
+                     'bytes_equal_cpu': same, 'loads_equal': loaded,
+                     'dump_us': dump_us, 'load_us': load_us}
+        if not (same and loaded):
+            raise AssertionError('facades: protobuf %s %s'
+                                 % (name, out[name]))
+    for model in (cl.PitmanYor.from_dict(DRIVER_PY),
+                  cl.LowEntropy.from_dict({'dataset_size': 1000})):
+        data = pb.clustering_dump(model).SerializeToString()
+        cpu = type(model)(*(x.cpu() for x in model))
+        back = pb.clustering_load(pb.Clustering.FromString(data))
+        ok = (data == pb.clustering_dump(cpu).SerializeToString()
+              and type(back) is type(model)
+              and back.to_dict() == model.to_dict()
+              and all(x.device.type == 'cuda' for x in back))
+        out[type(model).__name__] = {'bytes': len(data), 'ok': ok}
+        if not ok:
+            raise AssertionError('facades: protobuf %s' % type(model))
+    return out
+
+
+def mixture_example(port):
+    """examples/mixture/main_torch.py at its own scale: the tracked 10,000
+    points (the first 2,000 for the row-by-row strategies), capacity 768,
+    10 passes, all five strategies on the card, images into a temporary
+    directory."""
+    import tempfile
+    import numpy as np
+    import torch
+    demo = load_example(os.path.join('examples', 'mixture', 'main_torch.py'),
+                        'mixture_main_torch')
+    generator = torch.Generator().manual_seed(0)
+    image, X = demo.create_dataset(generator, DEMO_SAMPLES)
+    model = demo.ImageModel()
+    out = {'samples': DEMO_SAMPLES, 'passes': DEMO_PASSES,
+           'capacity': model.spec.capacity}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in demo.STRATEGIES:
+            rows = (DEMO_ROW_SAMPLES if name in DEMO_ROW_STRATEGIES
+                    else DEMO_SAMPLES)
+            state, assignments, seconds, img = demo.run_strategy(
+                name, model, X[:rows], generator, image.shape, DEMO_PASSES,
+                tmp)
+            counts = state.counts
+            row = {'rows': rows, 'seconds': seconds,
+                   'components': int((counts > 0).sum()),
+                   'count_sum': int(counts.sum()),
+                   'on_the_card': counts.device.type == 'cuda',
+                   'image': [list(img.shape), str(img.dtype)]}
+            out[name] = row
+            if not (row['count_sum'] >= rows and row['on_the_card']
+                    and img.shape == (64, 64) and img.dtype == np.uint8):
+                raise AssertionError('facades: mixture example %s %s'
+                                     % (name, row))
+    return out
+
+
+def gmm_example(port):
+    """examples/gmm_backends_torch.py at --rows 512 on the card, its
+    chains cut to GMM_LENGTHS; every backend's purity above its floor in
+    GMM_PURITY."""
+    gmm = load_example(os.path.join('examples', 'gmm_backends_torch.py'),
+                       'gmm_backends_torch')
+    results = gmm.run(GMM_ROWS, GMM_LENGTHS)
+    out = {name: {'seconds': s, 'purity': p}
+           for name, (s, p) in results.items()}
+    out['lengths'] = GMM_LENGTHS
+    if sorted(results) != sorted(GMM_PURITY) or not all(
+            GMM_PURITY[name] < p <= 1.0 for name, (_, p) in results.items()):
+        raise AssertionError('facades: gmm example %s' % out)
+    return out
+
+
+def phase_facades(port):
+    """The class facade, the codec and the two examples on the card: the
+    rest of the JAX package's public surface, driven as a user would."""
+    t0 = time.time()
+    out = {'phase': 'facades'}
+    out['compat'] = compat_on_the_card(port)
+    out['driver_loop'] = facade_driver_loop(port)
+    out['feature_mixture'] = feature_mixture_scores(port)
+    out['protobuf'] = protobuf_on_the_card(port)
+    out['mixture_example'] = mixture_example(port)
+    out['gmm_example'] = gmm_example(port)
+    out['seconds'] = time.time() - t0
+    emit(out)
+
+
 def phase_main_orbax(port, X, labels):
     """run_gibbs(use_pallas=True, checkpoint_format='orbax') on the
     flagship nich2 problem: an interrupted and resumed run against the
@@ -3547,7 +3895,9 @@ def main():
                                                     suite)
     from distributions_tpu_torch.inference import (annealing, hmc, hypers,
                                                    logprob, runner, smc, vi)
-    from distributions_tpu_torch.io import checkpoint, checkpoint_orbax
+    from distributions_tpu_torch.compat import models as compat_models
+    from distributions_tpu_torch.io import (checkpoint, checkpoint_orbax,
+                                            protobuf)
     from distributions_tpu_torch.models import MODULES, base, nich
     from distributions_tpu_torch.ops import bench_kernels, fused_kernels, gibbs
     from distributions_tpu_torch.parallel import distributed, sharding
@@ -3559,7 +3909,8 @@ def main():
             'bk': bench_kernels, 'roofline': roofline, 'suite': suite,
             'kernel_phases': kernel_phases, 'hypers': hypers,
             'hmc': hmc, 'logprob': logprob, 'vi': vi, 'smc': smc,
-            'annealing': annealing, 'checkpoint_orbax': checkpoint_orbax}
+            'annealing': annealing, 'checkpoint_orbax': checkpoint_orbax,
+            'compat_models': compat_models, 'protobuf': protobuf}
     fk = fused_kernels
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError('TF32 matmuls must stay off on this path')
@@ -3623,6 +3974,7 @@ def main():
     phase_backends(port, X)
     del X
     phase_samplers(port)
+    phase_facades(port)
     pk = 'distributions_tpu/ops/pallas_kernels.py:%d'
     split = 'the slot-split walk (csrc/fused_split.cuh)'
     split_v1 = split + ', v1 form'

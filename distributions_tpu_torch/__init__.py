@@ -20,3 +20,7 @@ The package imports torch and never jax.
 """
 
 __version__ = '0.1.0'
+
+from distributions_tpu_torch import special  # noqa: F401
+from distributions_tpu_torch import random  # noqa: F401
+from distributions_tpu_torch import util  # noqa: F401

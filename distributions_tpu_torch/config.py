@@ -22,6 +22,11 @@ def _int_env(name, default):
 
 
 DEBUG_LEVEL = _int_env('DISTRIBUTIONS_TPU_DEBUG', 0)
+# dpd's dense value capacity when a caller names none; the same number as
+# models/dpd.DEFAULT_CAPACITY, which the loaders use.  The JAX package reads
+# it from DISTRIBUTIONS_TPU_DPD_CAP, but nothing there reads the result, so
+# here it is a plain constant.
+DPD_CAPACITY = 64
 DEFAULT_BLOCK = _int_env('DISTRIBUTIONS_TPU_BLOCK', 8192)
 
 

@@ -39,3 +39,16 @@ def validate_assignments(spec, state, assignments):
     bc = np.bincount(a, minlength=spec.capacity)
     assert bc.tolist() == counts.tolist(), \
         'assignments inconsistent with counts'
+
+
+def validate_dpd_shared(shared):
+    """dpd stick invariants: beta0 and every stick non-negative, the
+    sticks and beta0 summing to 1."""
+    if config.DEBUG_LEVEL < 1:
+        return
+    betas = _np(shared.betas)
+    beta0 = float(shared.beta0)
+    assert beta0 >= -1e-5, 'negative beta0'
+    assert betas.min() >= 0, 'negative stick'
+    total = betas.sum() + beta0
+    assert abs(total - 1.0) < 1e-3, 'sticks do not sum to 1: %f' % total

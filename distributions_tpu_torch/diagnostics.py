@@ -1,7 +1,9 @@
 """Observability (distributions_tpu.diagnostics): per-sweep summaries of a
-mixture state, cross-chain convergence statistics, and a structured sweep
-logger."""
+mixture state, cross-chain convergence statistics, a profiler trace
+context, and a structured sweep logger."""
 
+import contextlib
+import os
 import time
 
 import numpy as np
@@ -61,6 +63,25 @@ def ess(chain):
             break
         total += pair
     return float(n / (1.0 + 2.0 * total))
+
+
+@contextlib.contextmanager
+def trace(logdir):
+    """Profile everything inside the context with `torch.profiler` (CPU
+    activity, and CUDA activity when a card is there) and write a Chrome
+    trace JSON, `trace.json`, into `logdir` (view it in Perfetto or
+    chrome://tracing)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    t0 = time.time()
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, 'trace.json'))
+    print('trace written to {} ({:.2f}s)'.format(logdir, time.time() - t0))
 
 
 class SweepLogger(object):

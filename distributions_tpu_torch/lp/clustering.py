@@ -1,0 +1,2 @@
+from distributions_tpu_torch.compat.clustering import (  # noqa: F401
+    PitmanYor, LowEntropy, count_assignments)

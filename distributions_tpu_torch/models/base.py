@@ -26,6 +26,11 @@ def group_set(group, idx, sub):
     return type(group)(*out)
 
 
+def group_stack(groups):
+    """Stack a Python list of scalar Groups into a [K]-batched Group."""
+    return type(groups[0])(*(torch.stack(leaves) for leaves in zip(*groups)))
+
+
 def exact_onehot_matmul(onehot_t, flat):
     """onehot_t [K, B] (exact 0/1) @ flat [B, S] -> [K, S] in float32.
 

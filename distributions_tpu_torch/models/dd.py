@@ -125,6 +125,15 @@ def score_data(shared, group):
             - lgamma_ratio(a.sum(), m.sum(-1)))
 
 
+def score_data_grid(shareds, group):
+    """[G] scores of one group under a grid of Shareds (leaves with a
+    leading [G] axis), one grid point at a time as
+    `mixture.block_score_data_grid` does for dd blocks."""
+    return torch.stack([score_data(Shared(*(leaf[g] for leaf in shareds)),
+                                   group)
+                        for g in range(shareds[0].shape[0])])
+
+
 def _onehot(shared, values):
     v = _as_index(values, shared.alphas.device)
     d = torch.arange(dim(shared), device=v.device)

@@ -34,6 +34,7 @@ from distributions_tpu_torch.special import gammaln
 NAME = 'DirichletProcessDiscrete'
 OTHER = -1
 DEFAULT_CAPACITY = 64
+REALIZE_MAX = 10000   # reference dbg/models/dpd.py:156
 MIN_BETA0 = 1e-4
 
 EXAMPLES = [

@@ -16,6 +16,7 @@ from distributions_tpu_torch.models import base
 from distributions_tpu_torch.random import (
     sample_multivariate_normal, sample_normal_inverse_wishart,
     sample_std_normal)
+from distributions_tpu_torch.random import score_student_t  # noqa: F401
 from distributions_tpu_torch.special import lgamma_nu, lmultigamma
 
 NAME = 'NormalInverseWishart'

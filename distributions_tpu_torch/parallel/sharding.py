@@ -45,6 +45,9 @@ from distributions_tpu_torch.ops import fused_kernels as fk
 from distributions_tpu_torch.ops import gibbs as _g
 from distributions_tpu_torch.random import (device_generator, draw_seed,
                                             fold_seed, gumbel_noise)
+# the JAX module's names for these two, reachable from this module there
+from distributions_tpu_torch.models import base as model_base  # noqa: F401
+from distributions_tpu_torch.random import sample_from_scores  # noqa: F401
 
 ROWS = 'rows'
 COMPONENTS = 'components'

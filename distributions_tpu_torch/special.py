@@ -3,6 +3,8 @@ batched over tensors of any shape and computes in float32 on the device of
 its input; `log_stirling1_row` builds its row on the host and moves it.
 """
 
+import math
+
 import torch
 
 
@@ -200,3 +202,32 @@ def lax_cumlogsumexp(x, axis=0):
     m = torch.amax(x, dim=axis, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     return torch.log(torch.cumsum(torch.exp(x - m), dim=axis)) + m
+
+
+# -- the JAX module's elementwise names and `fast_*` aliases ----------------
+# Each aliases the exact function (as in distributions_tpu.special), never
+# the polynomial approximations of ops/fused_kernels.
+
+log = torch.log
+exp = torch.exp
+sqrt = torch.sqrt
+pi = math.pi
+lgamma = gammaln
+fast_log = torch.log
+fast_exp = torch.exp
+fast_lgamma = gammaln
+fast_log_beta = log_beta
+fast_log_binom = log_binom
+fast_log_factorial = log_factorial
+fast_lgamma_nu = lgamma_nu
+fast_log_sum_exp = log_sum_exp
+
+__all__ = [
+    'log', 'exp', 'sqrt', 'pi', 'lgamma', 'gammaln',
+    'fast_log', 'fast_exp', 'fast_lgamma',
+    'log_sum_exp', 'fast_log_sum_exp', 'logsumexp', 'log_beta',
+    'fast_log_beta',
+    'log_binom', 'fast_log_binom', 'log_factorial', 'fast_log_factorial',
+    'factorial', 'lgamma_nu', 'fast_lgamma_nu', 'lmultigamma',
+    'log_stirling1_row', 'log1p_exp', 'scores_to_likelihoods',
+]

@@ -30,7 +30,8 @@ setup(
     packages=find_packages(include=['distributions_tpu*']),
     # the PyTorch/CUDA port builds its kernels from these sources with nvcc
     # at first use
-    package_data={'distributions_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh']},
+    package_data={'distributions_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh',
+                                             'io/schema.proto']},
     ext_modules=ext_modules,
     python_requires='>=3.10',
     install_requires=['jax', 'numpy', 'scipy'],

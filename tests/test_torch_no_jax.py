@@ -36,7 +36,14 @@ for name in ('models.bb', 'models.dd', 'models.dpd', 'models.gp',
              'benchmarks.kernel_phases', 'benchmarks.bench',
              'benchmarks.bench_runner', 'benchmarks.timing',
              'benchmarks.tree_compare', 'benchmarks.split_variants',
-             'benchmarks.sass_counts', 'ops.mh', 'ops.splitmerge'):
+             'benchmarks.sass_counts', 'ops.mh', 'ops.splitmerge',
+             'compat', 'compat.rng', 'compat.models', 'compat.clustering',
+             'compat.mixture', 'dbg', 'dbg.models', 'dbg.clustering', 'lp',
+             'lp.models', 'lp.clustering', 'hp', 'hp.special', 'hp.random',
+             'hp.clustering', 'hp.models', 'hp.models.bb', 'hp.models.bnb',
+             'hp.models.dd', 'hp.models.dpd', 'hp.models.gp',
+             'hp.models.nich', 'hp.models.niw', 'io.protobuf', 'util',
+             'fileutil', '__main__'):
     assert 'distributions_tpu_torch.' + name in names, name
 '''
 
