@@ -59,9 +59,12 @@ exits non-zero:
                  mixture.score_batch for the in-kernel-RNG modes, bitwise
                  repeatability, a ragged C=1000 x B=3000 case (also in
                  two nich blocks of (2, 3) columns: the split walk's wide
-                 shape), median
-                 kernel and twin milliseconds per mode; 'gumbel' and
-                 'gumbel_fast' equal to 'gumbel_host' on
+                 shape), median kernel and twin milliseconds per mode (in
+                 'gumbel' and 'cdf' also with the seed read from device
+                 memory, the main path's launch, which must equal the
+                 by-value launch bitwise in 'gumbel', 'gumbel_fast',
+                 'cdf' and 'argmax'); 'gumbel' and 'gumbel_fast' equal to
+                 'gumbel_host' on
                  fused_kernels.philox_gumbel_noise (the Philox counter
                  and word exactly; near-ties only may differ); the split
                  kernel's registers, local bytes, shared memory,
@@ -104,13 +107,19 @@ exits non-zero:
 5. main       -- run_gibbs(use_pallas=True, sampling='gumbel') in the
                  flagship runner configuration (1,048,576 rows x 1024
                  slots x 2 nich, Pitman-Yor, tiles of 131072 rows, warm
-                 start from the generating labels); K1's launch count must
-                 equal tiles x sweeps.  Then one run_sweeps_pallas_fused
+                 start from the generating labels; 3 steps of 10 sweeps);
+                 K1's launch count must equal tiles x sweeps, and in the
+                 last step, run under torch.profiler, the kernels the
+                 device ran must equal the launches the wrapper counted
+                 (replays included) and tiles x sweeps; that step also
+                 gives the device's busy share of a steady step.  Then one
+                 run_sweeps_pallas_fused
                  call and one plain sweep_blocked sweep at the same size,
                  and a profile of one fused sweep.
 6. main_mixed -- the same runner on niw2mix at 1,048,576 rows x 1024
                  slots, tiles of 65536 rows; K2's launch count must equal
-                 tiles x sweeps.  Then one plain sweep and the profile of
+                 tiles x sweeps, in the run and in its profiled last
+                 step, as for main.  Then one plain sweep and the profile of
                  one fused sweep.
 6b. paths_v1  -- gibbs.sweep_blocked_pallas (K4) on the flagship nich
                  data and gibbs.sweep_blocked_pallas_mixed (K5, and its
@@ -120,6 +129,34 @@ exits non-zero:
                  equal to a fresh recompute, ms per sweep, and the profile
                  of one K4 and one K5 sweep (device ms, the kernel's
                  share, busy share).
+6a. graphs    -- each sweep of run_gibbs(use_pallas=True) as the replay of
+                 one CUDA graph of all its tiles (gibbs._SweepGraph, K1 and
+                 K2 reading their seed from device memory) against the
+                 eager loop with the seeds passed by value
+                 (gibbs._eager_sweeps), at 1,048,576 rows x 1024 slots on
+                 nich2 (8 tiles) and niw2mix (16 tiles): 10 sweeps with
+                 the step's score in 'gumbel', 'argmax' and 'cdf', bitwise
+                 equal (assignments, counts, float stat sums, cache,
+                 score), one capture and 9 replays each (after the key's
+                 first call, which runs eagerly), launches = tiles x
+                 sweeps; two consecutive replays with other seeds (the
+                 seed table of random.sweep_seeds) and other draws, each
+                 equal to the eager sweep; what a call returned unchanged
+                 by the next call and not the graph's buffers; the
+                 profile of one replayed sweep (the score + sample kernel
+                 once a tile, required) beside one eager sweep; a call made
+                 once (a fresh copy of the values) taking the eager loop
+                 and capturing nothing, timed against the eager loop in
+                 turns; a run that grows
+                 its capacity mid-run (65,536 rows, capacity 32)
+                 recapturing and equal to the eager run; main_hypers' run
+                 and LowEntropy on both layouts (2 steps of 3 sweeps),
+                 graph against eager, bitwise; ms per sweep of run_gibbs,
+                 graph and eager in turns, with the device ms and busy
+                 share of a sweep, capture seconds and pool bytes.  The
+                 runner phases (main, main_mixed, main_le, main_hypers)
+                 also check that every sweep but a graph's first came
+                 from its replay (gibbs.GRAPH_STATS).
 6c. main_resume -- run_gibbs with checkpoint_path in a temporary
                  directory: an uninterrupted run against an interrupted
                  and resumed one, bitwise, on the fused path at full width
@@ -254,7 +291,9 @@ BLOCK_MIXED = 65536
 TRUE_CLUSTERS = SLOTS // 8 * 7
 SHARED = {'mu': 0., 'kappa': 0.1, 'sigmasq': 0.01, 'nu': 1.}
 PY = {'alpha': 1.0, 'd': 0.1}
-STEPS = 2
+# run_gibbs on the main path: the first step captures the sweep graph,
+# the second is timed, the last is profiled
+STEPS = 3
 SWEEPS_PER_STEP = 10
 # stat sums: f32 sums of up to a few hundred rows per slot, summed in
 # another order than the twin's matmul
@@ -279,7 +318,14 @@ SAMPLER_SIZES = (256, 1024, 4096)
 SAMPLER_TIMED = 1024
 
 
+T0 = time.time()
+
+
 def emit(obj):
+    """Print a result line; a phase's line also gives the seconds since
+    the script started."""
+    if 'phase' in obj:
+        obj = dict(obj, script_seconds=round(time.time() - T0, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -411,6 +457,12 @@ class Case:
     time_modes = ('gumbel', 'gumbel_fast', 'cdf', 'argmax', 'gumbel_host',
                   'cdf_host')
     ragged_modes = ('argmax', 'gumbel_host', 'cdf_host')
+    # K1 and K2 take their seed from device memory too (the form a CUDA
+    # graph of the runner's sweep replays): held bitwise to the by-value
+    # launch in these modes (the split walk and the sequential 'cdf' walk)
+    # and timed in the timed ones
+    pointer_modes = ('gumbel', 'gumbel_fast', 'cdf', 'argmax')
+    pointer_timed = ('gumbel', 'cdf')
 
     def __init__(self, name, B, C, launch, plain, scores, sums_of, exact):
         self.name, self.B, self.C = name, B, C
@@ -427,6 +479,7 @@ class V1Case(Case):
     rng_modes = ('gumbel',)
     repeat_modes = ('gumbel', 'argmax')
     time_modes = ('gumbel', 'argmax', 'gumbel_host')
+    pointer_modes = pointer_timed = ()
 
 
 def k1_case(port, values, cl_scores, coeffs, groups=None):
@@ -591,13 +644,36 @@ def check_case(port, case, ref_scores, noise):
             raise AssertionError('%s %s is not bitwise repeatable'
                                  % (case.name, mode))
 
-    # median milliseconds, kernel against twin, per mode
+    # the seed read from device memory gives the by-value launch's outputs
+    dev = ref_scores.device
+    for mode in case.pointer_modes:
+        one = case.launch(mode, None, 99)
+        two = case.launch(mode, None, torch.tensor([99], device=dev))
+        if not all(torch.equal(x, y) for x, y in zip(one, two)):
+            raise AssertionError('%s %s: the seed pointer changes the '
+                                 'outputs' % (case.name, mode))
+        modes.setdefault(mode, {})['seed_pointer_bitwise'] = True
+
+    # median milliseconds, kernel against twin, per mode; K1 and K2 also
+    # with the seed in device memory
     timing = {}
+    seed_t = torch.tensor([3], device=dev)
     for mode in case.time_modes:
         nz = noise.get(mode)
         timing[mode] = {
             'ms': cuda_ms(lambda: case.launch(mode, nz, 3), 7),
             'plain_ms': cuda_ms(lambda: case.plain(mode, nz, 3), 3)}
+        if mode in case.pointer_timed:
+            # in turns with the by-value launch: value, pointer, pointer,
+            # value
+            ptr = [cuda_ms(lambda: case.launch(mode, nz, seed_t), 7)
+                   for _ in range(2)]
+            val = [timing[mode]['ms'],
+                   cuda_ms(lambda: case.launch(mode, nz, 3), 7)]
+            timing[mode].update(ms_seed_pointer=sum(ptr) / 2,
+                                ms_by_value=sum(val) / 2,
+                                turns_ms={'by_value': val,
+                                          'seed_pointer': ptr})
     return modes, max_err, timing
 
 
@@ -750,7 +826,10 @@ def phase_kernel(port, X, labels):
                'split_ptxas': split_ptxas(port, 'fused_v2'),
                'gumbel_fast_measured_bound_ms': bd_fast['measured_bound_ms']},
               **bd))
-    return dict(bd, max_abs_err=max_err, ms=timing['gumbel']['ms'],
+    # the main path's launch takes its seed from device memory
+    return dict(bd, max_abs_err=max_err,
+                ms=timing['gumbel']['ms_seed_pointer'],
+                ms_by_value=timing['gumbel']['ms_by_value'],
                 plain_ms=timing['gumbel']['plain_ms'])
 
 
@@ -796,7 +875,8 @@ def phase_kernel_k2(port):
              'split': split_report(port, 'fused_v3', B, C, m['col_groups'],
                                    lay.quad_groups, lay.table_vs)}, **bd)
         if kind == 'niw2mix':
-            summary = dict(bd, ms=timing['gumbel']['ms'],
+            summary = dict(bd, ms=timing['gumbel']['ms_seed_pointer'],
+                           ms_by_value=timing['gumbel']['ms_by_value'],
                            plain_ms=timing['gumbel']['plain_ms'])
         del m, case
 
@@ -1693,6 +1773,7 @@ def phase_main_hypers(port, X, labels):
     passes, every = 10, 5
     torch.cuda.synchronize()
     fk.fused_score_sample_stats.launches = 0
+    stats = graph_counts(port)
     t0 = time.time()
     state, an, log = port['runner'].run_gibbs(
         spec, py, shareds, (X,), torch.Generator().manual_seed(0), passes,
@@ -1704,6 +1785,9 @@ def phase_main_hypers(port, X, labels):
     launches = expect_launches('run_gibbs(hyper_grids)',
                                fk.fused_score_sample_stats,
                                ROWS // BLOCK * passes)
+    # the moves' new shareds and prior are copied into the graph's buffers
+    graphs = expect_graph('run_gibbs(hyper_grids)', stats, passes,
+                          passes // every)
 
     def point(g, i):
         return type(g)(*(leaf[i] for leaf in g))
@@ -1754,6 +1838,7 @@ def phase_main_hypers(port, X, labels):
     steps = [r['seconds'] for r in log.rows]
     emit({'phase': 'main_hypers', 'rows': ROWS, 'slots': SLOTS,
           'sweeps': passes, 'hyper_every': every, 'launches': launches,
+          'graphs': graphs,
           'moves': [{'sweep': m[0], 'hyper_0': m[1], 'hyper_cl': m[2],
                      'sigmasq': float(grid.sigmasq[m[1]]),
                      'alpha': float(cl_grid.alpha[m[2]]),
@@ -1798,54 +1883,110 @@ def check_run(port, spec, py, shareds, values, state, assignments, log):
     return checks, score
 
 
+def graph_counts(port):
+    """The graph path's counters (gibbs.GRAPH_STATS), set to 0."""
+    return port['gibbs'].reset_graph_stats()
+
+
+def expect_graph(what, stats, sweeps, steps, captures=1):
+    """Every sweep of a run took the graph: the first sweep of each
+    captured graph runs eagerly as its warm-up, every other one is a
+    replay; likewise for the step's joint score."""
+    want = {'captures': captures, 'replays': sweeps - captures,
+            'score_captures': captures, 'score_replays': steps - captures}
+    got = {k: stats[k] for k in want}
+    if got != want:
+        raise AssertionError('%s did not run every sweep from its CUDA '
+                             'graph: %s, expected %s' % (what, got, want))
+    return dict(got, capture_seconds=stats['capture_seconds'],
+                pool_bytes=stats['pool_bytes'])
+
+
 def run_main(port, wrapper, spec, py, shareds, values_np, labels, block):
     """run_gibbs on numpy rows and labels with no device named, with the
-    launch count of `wrapper` set to 0 just before and read just after."""
+    launch count of `wrapper` and the graph counters set to 0 just before
+    and read just after."""
     import torch
     tiles = ROWS // block
     passes = STEPS * SWEEPS_PER_STEP
     torch.cuda.synchronize()
     wrapper.launches = 0
+    stats = graph_counts(port)
+    log = last_step_profiler(port, STEPS, wrapper)
     t0 = time.time()
     state, assignments, log = port['runner'].run_gibbs(
         spec, py, shareds, values_np, torch.Generator().manual_seed(0),
         passes, block=block, use_pallas=True, sampling='gumbel',
         initial_assignments=labels, grow_headroom=0.0,
-        sweeps_per_step=SWEEPS_PER_STEP)
+        sweeps_per_step=SWEEPS_PER_STEP, log=log)
     torch.cuda.synchronize()
     wall = time.time() - t0
+    last = log.stop()
     launches = wrapper.launches
     if launches != tiles * passes:
         raise AssertionError('%d kernel launches, expected tiles x sweeps '
                              '= %d' % (launches, tiles * passes))
+    graphs = expect_graph('run_gibbs', stats, passes, STEPS)
+    # the launches the wrapper counted in the last step, replays included,
+    # against the kernels the device ran in it
+    want = tiles * SWEEPS_PER_STEP
+    seen = last.get('kernel_calls', {}).get('split_score_sample')
+    if not seen == last['launches_counted'] == want:
+        raise AssertionError(
+            'run_gibbs: in its last step the device ran %r score + sample '
+            'kernels and the wrapper counted %d launches, expected tiles x '
+            'sweeps = %d (profile: %s)' % (seen, last['launches_counted'],
+                                           want, last))
     steps = [r['seconds'] for r in log.rows]
-    # steady steps: the first step also builds the stat cache
-    steady = steps[1:] if len(steps) > 1 else steps
+    # steady steps: the first also builds the stat cache and captures the
+    # graph, the last is profiled
+    steady = steps[1:-1]
     ms_sweep = 1e3 * sum(steady) / (SWEEPS_PER_STEP * len(steady))
     return state, assignments, log, {
         'rows': ROWS, 'slots': SLOTS, 'block': block, 'sampling': 'gumbel',
         'sweeps': passes, 'sweeps_per_step': SWEEPS_PER_STEP,
         'step_seconds': steps, 'wall_seconds': round(wall, 3),
-        'ms_per_sweep': ms_sweep, 'launches': launches,
+        'ms_per_sweep': ms_sweep, 'launches': launches, 'graphs': graphs,
+        'last_step_profile': last,
+        'busy_share_steady_step': last['device_busy_share'],
         'nonempty_groups': log.rows[-1]['nonempty_groups']}
+
+
+# torch.profiler keeps only the device events it places inside its window.
+# Closed as soon as the card has synchronised, it lost the last tiles of 1
+# of 80 profiles of 5 replayed niw2mix sweeps on an H100; opened and closed
+# this long away from the profiled work, card idle, 0 of 80 lost any
+# (chip_profile_window.py).
+PROFILE_PAD_SECONDS = 0.1
 
 
 def profile_sweep(sweep, kernel_names):
     """Device time of one fused sweep by kernel name (`kernel_device_ms`:
-    the kernels whose names hold one of `kernel_names`), and the device's
-    share of the sweep's wall time.  Only the device's own events count:
-    an operator's row repeats the time of the kernels it launched."""
+    the kernels whose names hold one of `kernel_names`; `kernel_calls`:
+    how many of them ran, by name), and the device's share of the sweep's
+    wall time.  Only the device's own events count: an operator's row
+    repeats the time of the kernels it launched.  Kernels replayed from a
+    CUDA graph are the device's events too."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_SECONDS)
         t0 = time.time()
         sweep()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.time() - t0)
+        time.sleep(PROFILE_PAD_SECONDS)
+    return device_profile(prof, wall_ms, kernel_names)
+
+
+def device_profile(prof, wall_ms, kernel_names):
+    """profile_sweep's reading of a finished torch.profiler profile that
+    spans `wall_ms` of the host clock."""
+    from torch.autograd import DeviceType
     rows = []
+    calls = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CPU:
             continue
@@ -1853,6 +1994,9 @@ def profile_sweep(sweep, kernel_names):
                          getattr(e, 'self_cuda_time_total', 0))
         if dev_us > 0:
             rows.append((dev_us, e.key))
+            for name in kernel_names:
+                if name in e.key:
+                    calls[name] = calls.get(name, 0) + e.count
     rows.sort(reverse=True)
     total_ms = sum(us for us, _ in rows) / 1e3
     if not rows:
@@ -1860,9 +2004,51 @@ def profile_sweep(sweep, kernel_names):
     kernel_ms = sum(us for us, k in rows
                     if any(name in k for name in kernel_names)) / 1e3
     return {'wall_ms': wall_ms, 'device_ms': total_ms,
-            'kernel_device_ms': kernel_ms,
+            'kernel_device_ms': kernel_ms, 'kernel_calls': calls,
             'device_busy_share': total_ms / wall_ms,
             'top': [[k[:60], us / 1e3] for us, k in rows[:8]]}
+
+
+def last_step_profiler(port, steps, wrapper):
+    """A run_gibbs logger (diagnostics.SweepLogger) that starts the
+    profiler when step `steps - 1` is logged, so that the last of `steps`
+    steps runs under it.  Its `stop()`, called after the run, ends the
+    profile and returns device_profile's reading of that step (its
+    'kernel_calls' count split_score_sample, K1 and K2 on the slot-split
+    walk), with 'launches_counted': what `wrapper.launches` rose by in the
+    step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    class Logger(port['diagnostics'].SweepLogger):
+        def log(self, sweep, **fields):
+            row = super().log(sweep, **fields)
+            if len(self.rows) == steps - 1:
+                torch.cuda.synchronize()
+                t = time.time()
+                self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                self.prof.start()
+                time.sleep(PROFILE_PAD_SECONDS)
+                self.launches = wrapper.launches
+                self.t0 = time.time()
+                self.start_seconds = self.t0 - t
+            return row
+
+        def stop(self):
+            torch.cuda.synchronize()
+            t = time.time()
+            wall_ms = 1e3 * (t - self.t0)
+            time.sleep(PROFILE_PAD_SECONDS)
+            self.prof.stop()
+            out = device_profile(self.prof, wall_ms, ('split_score_sample',))
+            out.pop('top', None)
+            # what the profiler cost the script besides the profiled step
+            return dict(out, launches_counted=wrapper.launches
+                        - self.launches, profiler_seconds={
+                            'start': self.start_seconds,
+                            'stop_and_read': time.time() - t})
+    return Logger()
 
 
 def phase_main(port, X, labels):
@@ -1892,6 +2078,9 @@ def phase_main(port, X, labels):
         return gibbs.run_sweeps_pallas_fused(
             spec, py, shareds, state, values, assignments, BLOCK, 2048, gen,
             cache, n_fused, sampling='gumbel')
+    # a key's first call runs eagerly and its second captures the graph
+    # (cuda_ms's warm-up): the timed calls are replays
+    fused()
     fused_ms = cuda_ms(fused, 3) / n_fused
 
     def plain():
@@ -1940,6 +2129,7 @@ def phase_main_mixed(port, problem):
         return gibbs.sweep_blocked_pallas_fused_mixed(
             spec, py, shareds, state, values, assignments, BLOCK_MIXED, 2048,
             gen, cache, sampling='gumbel')
+    fused()     # the key's first call: eager; cuda_ms's warm-up captures
     fused_ms = cuda_ms(fused, 3)
 
     def plain():
@@ -1954,6 +2144,372 @@ def phase_main_mixed(port, problem):
           'fused_sweep_profile': profile_sweep(
               fused, ('split_score_sample', 'fused_v3'))})
     return main['launches']
+
+
+# -- the runner's sweeps as CUDA graphs --------------------------------------
+
+GRAPH_SWEEPS = 10
+GRAPH_MODES = ('gumbel', 'argmax', 'cdf')
+GROW_ROWS = 65536
+GROW_BLOCK = 16384
+GROW_CAPACITY = 32
+GRAPH_LE_SWEEPS = (2, 3)        # steps, sweeps a step
+GRAPH_TIMED_STEPS = (2, 10)
+GRAPH_PROFILED = 5              # replayed sweeps in one profiled call
+
+
+def bits_equal(a, b):
+    """Every tensor of two results (tensors in nested tuples) equal bit for
+    bit, in the same nesting (compared as bytes: a NaN equals itself, -0
+    differs from 0)."""
+    import torch
+    from distributions_tpu_torch.ops.gibbs import _tensors
+    ta, tb = list(_tensors(a)), list(_tensors(b))
+    return len(ta) == len(tb) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(
+            x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+        for x, y in zip(ta, tb))
+
+
+def graph_problems(port, X, labels, mixed):
+    """nich2 and niw2mix at full width, values and labels on the card:
+    (spec, prior, shareds, values, labels, block, K wrapper, kernel name)."""
+    import torch
+    mx, testing, nich = port['mx'], port['testing'], port['nich']
+    fk = port['fk']
+    dev = port['config'].default_device()
+    py = port['cl'].PitmanYor.from_dict(PY)
+    spec2, _, sh2 = testing.build_problem(
+        mixed, port['models'], mx.make_spec, port['cl'].PitmanYor.from_dict)
+    return {
+        'nich2': (mx.make_spec([(nich, FEATURES)], capacity=SLOTS), py,
+                  (nich.shared_from_dict(SHARED),),
+                  (torch.as_tensor(X, device=dev),),
+                  torch.as_tensor(labels, device=dev), BLOCK,
+                  fk.fused_score_sample_stats, 'fused_v2'),
+        'niw2mix': (spec2, py, sh2,
+                    tuple(torch.as_tensor(v, device=dev)
+                          for v in mixed['values']),
+                    torch.as_tensor(mixed['labels'], device=dev),
+                    BLOCK_MIXED, fk.fused_mixed_score_sample_stats,
+                    'fused_v3')}
+
+
+def run_graph_and_eager(port, fn):
+    """fn() on the graph path, then under gibbs._eager_sweeps(): (graph
+    result, eager result, graph counters of the first, wall ms of each)."""
+    gibbs = port['gibbs']
+    stats = graph_counts(port)
+    g, g_ms = timed(fn)
+    counts = dict(stats)
+    with gibbs._eager_sweeps():
+        e, e_ms = timed(fn)
+    return g, e, counts, g_ms, e_ms
+
+
+def runs_equal(what, a, b, log_a=None, log_b=None):
+    """Two (state, assignments, ...) results bitwise equal, and their
+    logger rows alike but for the clock ('time', 'seconds')."""
+    ok = bits_equal(a, b)
+    if log_a is not None:
+        def rows(log):
+            return [{k: v for k, v in r.items()
+                     if k not in ('time', 'seconds')} for r in log.rows]
+        ok = ok and rows(log_a) == rows(log_b)
+    if not ok:
+        raise AssertionError('%s: the graph path and the eager loop differ'
+                             % what)
+    return True
+
+
+def phase_graphs(port, X, labels, mixed):
+    """Each sweep of run_gibbs(use_pallas=True) as the replay of one CUDA
+    graph (gibbs._SweepGraph) against the eager loop with the seeds passed
+    by value (gibbs._eager_sweeps), bitwise, at 1,048,576 rows x 1024
+    slots: nich2 (K1, 8 tiles) and niw2mix (K2, 16 tiles)."""
+    import numpy as np
+    import torch
+    mx, gibbs, rnd, runner = (port['mx'], port['gibbs'], port['random'],
+                              port['runner'])
+    out = {'phase': 'graphs', 'rows': ROWS, 'slots': SLOTS, 'seconds': {}}
+    t0 = time.time()
+
+    def lap(name):
+        out['seconds'][name] = round(time.time() - t0 - sum(
+            out['seconds'].values()), 2)
+    problems = graph_problems(port, X, labels, mixed)
+    for layout, (spec, py, shareds, values, an, block, kernel,
+                 kname) in problems.items():
+        tiles = ROWS // block
+        state = mx.state_from_assignments(spec, py, shareds, values, an)
+        cache = gibbs.build_stat_cache(spec, shareds, values, block, an)
+        res = {'tiles': tiles, 'block': block}
+
+        def call(st, a, c, gen, mode='gumbel', n=1, score=False):
+            return gibbs.sweep_blocked_pallas_fused_mixed(
+                spec, py, shareds, st, values, a, block, 2048, gen, c,
+                sampling=mode, n_sweeps=n, with_score=score)
+
+        def capture(mode='gumbel'):
+            # a key's first call runs eagerly, its second captures the
+            # graph, and the calls after it replay
+            for seed in (20, 21):
+                call(state, an, cache, torch.Generator().manual_seed(seed),
+                     mode)
+
+        # graph against eager, bitwise: 10 sweeps from one seed per mode
+        for mode in GRAPH_MODES:
+            # the key's first call (eager): the run below captures
+            call(state, an, cache, torch.Generator().manual_seed(20), mode)
+            kernel.launches = 0
+            g, e, counts, g_ms, e_ms = run_graph_and_eager(
+                port, lambda: call(state, an, cache,
+                                   torch.Generator().manual_seed(7), mode,
+                                   GRAPH_SWEEPS, True))
+            want = {'captures': 1, 'replays': GRAPH_SWEEPS - 1,
+                    'score_captures': 1, 'score_replays': 0}
+            if {k: counts[k] for k in want} != want:
+                raise AssertionError('graphs %s %s: counters %s, expected '
+                                     '%s' % (layout, mode, counts, want))
+            if kernel.launches != 2 * tiles * GRAPH_SWEEPS:
+                raise AssertionError('graphs %s %s: %d launches, expected '
+                                     'tiles x sweeps x 2 runs = %d'
+                                     % (layout, mode, kernel.launches,
+                                        2 * tiles * GRAPH_SWEEPS))
+            res[mode] = {
+                'equal': {
+                    'assignments': bits_equal(g[1], e[1]),
+                    'counts': bits_equal(g[0].counts, e[0].counts),
+                    'stat_sums': bits_equal(g[0].groups, e[0].groups),
+                    'state': bits_equal(g[0], e[0]),
+                    'cache': bits_equal(g[2], e[2]),
+                    'score': bits_equal(g[3], e[3])},
+                'graph_ms': g_ms, 'eager_ms': e_ms,
+                'capture_seconds': counts['capture_seconds'],
+                'pool_bytes': counts['pool_bytes']}
+            if not all(res[mode]['equal'].values()):
+                raise AssertionError('graphs %s %s: graph and eager differ: '
+                                     '%s' % (layout, mode, res[mode]))
+
+        # fresh seeds every replay: two single-sweep calls from one state
+        # and one generator replay one graph with other seeds and other
+        # draws, each equal to the eager sweep from the same generator
+        gen, gen_e = (torch.Generator().manual_seed(11),
+                      torch.Generator().manual_seed(11))
+        capture()
+        stats = graph_counts(port)
+        g1 = call(state, an, cache, gen)
+        graph = gibbs._GRAPH['graph']
+        seeds1 = graph.seeds.to('cpu', copy=True)
+        g2 = call(state, an, cache, gen)
+        seeds2 = graph.seeds.to('cpu', copy=True)
+        with gibbs._eager_sweeps():
+            e1 = call(state, an, cache, gen_e)
+            e2 = call(state, an, cache, gen_e)
+        want_seeds = rnd.sweep_seeds(torch.Generator().manual_seed(11),
+                                     tiles)
+        fresh = {
+            'replays': stats['replays'] == 2 and stats['captures'] == 0,
+            'seeds_differ': bool((seeds1 != seeds2).all()),
+            'seeds_are_the_generators': bool(torch.equal(seeds1,
+                                                         want_seeds)),
+            'draws_differ': not bool(torch.equal(g1[1], g2[1])),
+            'first_equals_eager': bits_equal(g1, e1),
+            'second_equals_eager': bits_equal(g2, e2)}
+        res['fresh_seeds'] = dict(
+            fresh, rows_moved_between_replays=int((g1[1] != g2[1]).sum()))
+        if not all(fresh.values()):
+            raise AssertionError('graphs %s: fresh seeds: %s'
+                                 % (layout, res['fresh_seeds']))
+
+        # no aliasing: what step s returned is untouched by step s + 1
+        s1 = call(state, an, cache, gen)
+        kept = gibbs._map_tensors(torch.clone, s1)
+        s2 = call(*s1, gen)
+        statics = {t.data_ptr() for t in gibbs._tensors(graph.static)}
+        ptrs1 = {t.data_ptr() for t in gibbs._tensors(s1)}
+        alias = {
+            'unchanged': bits_equal(s1, kept),
+            'not_the_next_result': not ptrs1 & {t.data_ptr()
+                                                for t in gibbs._tensors(s2)},
+            'not_the_graph_buffers': not ptrs1 & statics}
+        res['no_aliasing'] = alias
+        if not all(alias.values()):
+            raise AssertionError('graphs %s: aliasing: %s' % (layout, alias))
+
+        # the profiler sees the kernels inside the replayed sweeps of one
+        # call: K1 or K2 once a tile; device ms and busy share a sweep of a
+        # 5-sweep call on the graph, of one sweep eagerly
+        gen = torch.Generator().manual_seed(3)
+        n = GRAPH_PROFILED
+        prof = profile_sweep(
+            lambda: call(state, an, cache, gen, n=n),
+            ('split_score_sample', kname))
+        res['profile_graph'] = dict(prof, sweeps=n)
+        for k in ('wall_ms', 'device_ms', 'kernel_device_ms'):
+            if isinstance(prof.get(k), float):
+                res['profile_graph'][k + '_per_sweep'] = prof[k] / n
+        with gibbs._eager_sweeps():
+            res['profile_eager'] = profile_sweep(
+                lambda: call(state, an, cache, gen), ('split_score_sample',
+                                                      kname))
+        calls = prof.get('kernel_calls', {})
+        if calls.get('split_score_sample') != n * tiles:
+            raise AssertionError('graphs %s: the profile of %d replays '
+                                 'shows %s score + sample launches, '
+                                 'expected %d (profile: %s)'
+                                 % (layout, n, calls, n * tiles, prof))
+
+        # a call made once (values new to the graph path, here a fresh
+        # copy for each call) runs eagerly and captures nothing: its time
+        # against the eager loop's, in turns
+        stats = graph_counts(port)
+        one = {'graph_path': [], 'eager': []}
+        for kind in ('graph_path', 'eager', 'eager', 'graph_path'):
+            fresh = tuple(v.clone() for v in values)
+
+            def once():
+                return gibbs.sweep_blocked_pallas_fused_mixed(
+                    spec, py, shareds, state, fresh, an, block, 2048,
+                    torch.Generator().manual_seed(9), cache,
+                    sampling='gumbel')
+            if kind == 'eager':
+                with gibbs._eager_sweeps():
+                    one[kind].append(timed(once)[1])
+            else:
+                one[kind].append(timed(once)[1])
+        res['one_shot_ms'] = dict(one, first_uses=stats['first_uses'],
+                                  captures=stats['captures'])
+        if stats['captures'] or stats['first_uses'] != 2:
+            raise AssertionError('graphs %s: a call made once captured a '
+                                 'graph: %s' % (layout, res['one_shot_ms']))
+        out[layout] = res
+        del state, cache
+        lap(layout)
+
+    # capacity growth mid-run recaptures, and equals the eager run
+    spec = mx.make_spec([(port['nich'], FEATURES)], capacity=GROW_CAPACITY)
+    shareds = (port['nich'].shared_from_dict(SHARED),)
+    py = port['cl'].PitmanYor.from_dict(PY)
+
+    def grow_run():
+        return runner.run_gibbs(
+            spec, py, shareds, (X[:GROW_ROWS],),
+            torch.Generator().manual_seed(2), 6, block=GROW_BLOCK,
+            use_pallas=True, sampling='gumbel', grow_headroom=0.5,
+            sweeps_per_step=2, initial_assignments=labels[:GROW_ROWS] % 16)
+    g, e, counts, g_ms, e_ms = run_graph_and_eager(port, grow_run)
+    capacity = int(g[0].counts.shape[0])
+    grown = int(np.log2(capacity // GROW_CAPACITY))
+    out['growth'] = {'final_capacity': capacity, 'captures':
+                     counts['captures'], 'replays': counts['replays'],
+                     'equal': runs_equal('growth', g[:2], e[:2], g[2], e[2])}
+    if not (grown >= 1 and counts['captures'] == 1 + grown
+            and counts['replays'] == 6 - counts['captures']):
+        raise AssertionError('graphs: growth %s' % out['growth'])
+    lap('growth')
+
+    # the hyper moves of main_hypers: new shareds and prior copied into the
+    # graph's buffers
+    out['hypers'] = graph_hypers(port, X, labels)
+    lap('hypers')
+
+    # LowEntropy, both layouts
+    le = port['cl'].LowEntropy.from_dict(LE)
+    steps, per_step = GRAPH_LE_SWEEPS
+    out['low_entropy'] = {}
+    for layout, (spec, _, shareds, values, an, block, _,
+                 _) in problems.items():
+        g, e, counts, g_ms, e_ms = run_graph_and_eager(
+            port, lambda: runner.run_gibbs(
+                spec, le, shareds, values, torch.Generator().manual_seed(4),
+                steps * per_step, block=block, use_pallas=True,
+                sampling='gumbel', initial_assignments=an, grow_headroom=0.0,
+                sweeps_per_step=per_step))
+        expect_graph('graphs LowEntropy ' + layout, counts,
+                     steps * per_step, steps)
+        out['low_entropy'][layout] = {
+            'equal': runs_equal('LowEntropy ' + layout, g[:2], e[:2], g[2],
+                                e[2]),
+            'graph_wall_ms': g_ms, 'eager_wall_ms': e_ms}
+    lap('low_entropy')
+
+    # ms/sweep of run_gibbs, graph and eager in turns (graph, eager, eager,
+    # graph), steady steps only
+    steps, per_step = GRAPH_TIMED_STEPS
+    out['timing'] = {}
+    for layout, (spec, py, shareds, values, an, block, _,
+                 _) in problems.items():
+        by = {'graph': [], 'eager': []}
+        capture = []
+        for kind in ('graph', 'eager', 'eager', 'graph'):
+            # each graph run captures its graph in its first step, and
+            # frees it at its end
+            stats = graph_counts(port)
+
+            def run():
+                return runner.run_gibbs(
+                    spec, py, shareds, values,
+                    torch.Generator().manual_seed(0), steps * per_step,
+                    block=block, use_pallas=True, sampling='gumbel',
+                    initial_assignments=an, grow_headroom=0.0,
+                    sweeps_per_step=per_step)
+            if kind == 'eager':
+                with gibbs._eager_sweeps():
+                    _, _, log = run()
+            else:
+                _, _, log = run()
+                capture.append({'capture_seconds': stats['capture_seconds'],
+                                'pool_bytes': stats['pool_bytes']})
+            by[kind].append(1e3 * sum(r['seconds'] for r in log.rows[1:])
+                            / (per_step * (steps - 1)))
+        graph_prof = out[layout]['profile_graph']
+        eager_prof = out[layout]['profile_eager']
+        out['timing'][layout] = {
+            'ms_per_sweep_graph': by['graph'],
+            'ms_per_sweep_eager': by['eager'], 'graph_capture': capture,
+            'device_ms_per_sweep_graph': graph_prof.get(
+                'device_ms_per_sweep'),
+            'busy_share_graph': graph_prof.get('device_busy_share'),
+            'device_ms_per_sweep_eager': eager_prof.get('device_ms'),
+            'busy_share_eager': eager_prof.get('device_busy_share')}
+    lap('timing')
+    emit(out)
+
+
+def graph_hypers(port, X, labels):
+    """phase_main_hypers' run (nich2, a 64-point sigmasq grid and an 8 x 8
+    Pitman-Yor grid every 5 of 10 sweeps) on the graph path and on the
+    eager loop: bitwise equal, with one capture for the whole run."""
+    import numpy as np
+    import torch
+    mx, hypers, nich = port['mx'], port['hypers'], port['nich']
+    dev = port['config'].default_device()
+    spec = mx.make_spec([(nich, FEATURES)], capacity=SLOTS)
+    G = 64
+    grid = nich.Shared(
+        mu=torch.zeros(G, device=dev),
+        kappa=torch.full((G,), SHARED['kappa'], device=dev),
+        sigmasq=torch.as_tensor(np.logspace(-4, 0, G).astype(np.float32),
+                                device=dev),
+        nu=torch.ones(G, device=dev))
+    cl_grid = hypers.make_py_grid(np.logspace(-1, 2, 8).astype(np.float32),
+                                  np.linspace(0.0, 0.7, 8).astype(np.float32))
+    passes, every = 10, 5
+    g, e, counts, g_ms, e_ms = run_graph_and_eager(
+        port, lambda: port['runner'].run_gibbs(
+            spec, port['cl'].PitmanYor.from_dict(PY),
+            (nich.shared_from_dict(SHARED),), (X,),
+            torch.Generator().manual_seed(0), passes, block=BLOCK,
+            use_pallas=True, sampling='gumbel', initial_assignments=labels,
+            grow_headroom=0.0, sweeps_per_step=every,
+            hyper_grids={0: grid}, cl_grid=cl_grid, hyper_every=every))
+    expect_graph('graphs hypers', counts, passes, passes // every)
+    moves = [(r.get('hyper_0'), r.get('hyper_cl')) for r in g[2].rows]
+    return {'equal': runs_equal('hypers', g[:2], e[:2], g[2], e[2]),
+            'final_shareds_equal': bits_equal(g[2].final_shareds,
+                                              e[2].final_shareds),
+            'moves': moves, 'graph_wall_ms': g_ms, 'eager_wall_ms': e_ms}
 
 
 def check_sweep(port, spec, py, shareds, values, state, assignments):
@@ -2069,6 +2625,7 @@ def phase_paths_v1(port, X, labels):
         return gibbs.sweep_blocked_pallas_fused_mixed(
             spec, py, shareds, st0, values, a0, BLOCK_MIXED, 2048, gen, cache,
             sampling='gumbel', supports=supports)
+    fused()     # the key's first call: eager; cuda_ms's warm-up captures
     mixed['fused_mixed_ms_per_sweep'] = cuda_ms(fused, 2)
 
     def plain():
@@ -2290,7 +2847,8 @@ def phase_sharded(port, X, labels, mixed):
             return gibbs.sweep_blocked_pallas_fused_mixed(
                 spec, py, shareds, st0, values, a0, block, 2048, gen, cache1,
                 sampling='gumbel', n_sweeps=n)
-        single()
+        single()    # the key's first call runs eagerly,
+        single()    # its second captures the graph: the timed one replays
         _, ms1 = events_ms(single)
         return dict(checks, shards=ROW_SHARDS, local_block=local,
                     tiles_per_shard=tiles, launches=launches, sweeps=n,
@@ -2873,6 +3431,7 @@ def phase_main_le(port, X, labels, mixed):
             values_np, labels_np = mixed['values'], mixed['labels']
         torch.cuda.synchronize()
         kernel.launches = 0
+        stats = graph_counts(port)
         t0 = time.time()
         state, an, log = port['runner'].run_gibbs(
             spec, LE, shareds, values_np, torch.Generator().manual_seed(0),
@@ -2887,6 +3446,7 @@ def phase_main_le(port, X, labels, mixed):
                                  'sweeps = %d' % (layout, n,
                                                   ROWS // block * passes))
         launches.append(n)
+        graphs = expect_graph('main_le ' + layout, stats, passes, LE_STEPS)
         values = tuple(torch.as_tensor(v, device=an.device)
                        for v in values_np)
         fresh, worst = check_state(port, spec, le, shareds, values, state,
@@ -2903,19 +3463,28 @@ def phase_main_le(port, X, labels, mixed):
             return gibbs.sweep_blocked_pallas_fused_mixed(
                 spec, cl_model, shareds, state, values, an, block, 2048, gen,
                 cache, sampling='gumbel')
+        # a key's first call runs eagerly and its second captures the
+        # graph: the profile sees a replay
+        sweep(le)
+        sweep(le)
         profile = profile_sweep(
             lambda: sweep(le), ('split_score_sample', 'fused_v2'
                                 if layout == 'nich2' else 'fused_v3'))
         # one fused sweep under each prior on this state, in turns (PY,
-        # LE, LE, PY, ...): what the prior alone costs a sweep
+        # LE, LE, PY), three replays a turn: what the prior alone costs a
+        # sweep.  The prior's type is part of the graph's key, so a turn
+        # first captures its own graph (two calls)
         by_prior = {'PitmanYor': [], 'LowEntropy': []}
-        for model in (py, le, le, py) * 3:
-            by_prior[type(model).__name__].append(
-                timed(lambda: sweep(model))[1])
+        for model in (py, le, le, py):
+            sweep(model)
+            sweep(model)
+            for _ in range(3):
+                by_prior[type(model).__name__].append(
+                    timed(lambda: sweep(model))[1])
         emit({'phase': 'main_le', 'layout': layout, 'rows': ROWS,
               'slots': SLOTS, 'block': block, 'prior': LE,
               'sweeps': passes, 'sweeps_per_step': LE_SWEEPS_PER_STEP,
-              'launches': n, 'step_seconds': steps,
+              'launches': n, 'graphs': graphs, 'step_seconds': steps,
               'wall_seconds': round(wall, 3),
               'ms_per_sweep': 1e3 * steps[-1] / LE_SWEEPS_PER_STEP,
               'nonempty_groups': log.rows[-1]['nonempty_groups'],
@@ -3889,8 +4458,8 @@ def main():
               'GPU', file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from distributions_tpu_torch import (clustering, config, mixture, random,
-                                         testing)
+    from distributions_tpu_torch import (clustering, config, diagnostics,
+                                         mixture, random, testing)
     from distributions_tpu_torch.benchmarks import (kernel_phases, roofline,
                                                     suite)
     from distributions_tpu_torch.inference import (annealing, hmc, hypers,
@@ -3901,7 +4470,8 @@ def main():
     from distributions_tpu_torch.models import MODULES, base, nich
     from distributions_tpu_torch.ops import bench_kernels, fused_kernels, gibbs
     from distributions_tpu_torch.parallel import distributed, sharding
-    port = {'cl': clustering, 'config': config, 'mx': mixture,
+    port = {'cl': clustering, 'config': config, 'diagnostics': diagnostics,
+            'mx': mixture,
             'random': random, 'testing': testing, 'runner': runner,
             'base': base, 'nich': nich, 'models': MODULES,
             'fk': fused_kernels, 'gibbs': gibbs, 'checkpoint': checkpoint,
@@ -3964,6 +4534,7 @@ def main():
     mixed = testing.mixed_problem(ROWS, SLOTS, seed=0, kind='niw2mix',
                                   n_clusters=TRUE_CLUSTERS)
     k2['launches'] = phase_main_mixed(port, mixed)
+    phase_graphs(port, X, labels, mixed)
     k3['launches'] = phase_sharded(port, X, labels, mixed)
     k1['launches_main_le'], k2['launches_main_le'] = phase_main_le(
         port, X, labels, mixed)
@@ -4010,8 +4581,11 @@ def main():
             'bound_ms': k['bound_ms'], 'bound_by': k['bound_by'],
             'measured_bound_ms': k['measured_bound_ms'],
             'measured_bound_by': k['measured_bound_by'],
-            # K1 and K2 also carry the LowEntropy runs of main_le
+            # K1 and K2 also carry the LowEntropy runs of main_le, and
+            # their time with the seed passed by value (`ms` is the main
+            # path's launch, the seed read from device memory)
             'launches_main_le': k.get('launches_main_le'),
+            'ms_by_value': k.get('ms_by_value'),
             # no single PyTorch call computes score + draw (+ sums), a
             # dependent chain or a resident sampler; B3 and B4 have one
             'library_ms': k.get('library_ms'),

@@ -10,7 +10,12 @@ versions are compared only inside one run of one machine.
 
     python -m distributions_tpu_torch.benchmarks.bench
 
-Prints one JSON line {"metric", "value", "unit", "ms_per_sweep", ...}.
+Prints one JSON line {"metric", "value", "unit", "ms_per_sweep", ...},
+after a line '# graphs: ...': on the card the fused sweeps are replayed
+from CUDA graphs (ops/gibbs.py), and that line gives how many graphs the
+run captured and the seconds the captures took (the warm-up call, the
+key's first, runs eagerly; the first timed call captures, and the median
+call is a replay).
 Sizes: BENCH_ROWS (1048576), BENCH_COMPONENTS (1024), BENCH_BLOCK
 (131072), BENCH_FEATURES (2), BENCH_SWEEPS (30), BENCH_REPEATS (5),
 BENCH_SAMPLING (gumbel), BENCH_KERNEL (v2: the fused sweep on K1 | v1: K4's
@@ -27,7 +32,8 @@ import numpy as np
 import torch
 
 from distributions_tpu_torch import clustering, config, mixture as mx
-from distributions_tpu_torch.benchmarks.timing import device_name, int_env
+from distributions_tpu_torch.benchmarks.timing import (
+    device_name, graphs_line, int_env)
 from distributions_tpu_torch.models import nich
 from distributions_tpu_torch.ops import gibbs
 
@@ -100,6 +106,8 @@ def run(device=None):
                              'got %r' % (kernel,))
         carry[:] = [st, an, cache]
 
+    gibbs.release_sweep_graphs()
+    graphs = gibbs.reset_graph_stats()
     times = timed_calls(call, REPEATS, device)
     ms_sweep = sorted(times)[len(times) // 2] / SWEEPS
     cells = float(R) * C * FEATURES
@@ -109,7 +117,8 @@ def run(device=None):
             'ms_per_sweep_of_each_call': [t / SWEEPS for t in times],
             'rows': R, 'components': C, 'block': BLOCK, 'features': FEATURES,
             'sweeps_per_call': SWEEPS, 'kernel': kernel,
-            'sampling': sampling, 'device': device_name(device)}
+            'sampling': sampling, 'graphs': dict(graphs),
+            'device': device_name(device)}
 
 
 def main(argv=None):
@@ -117,6 +126,7 @@ def main(argv=None):
     ap.add_argument('--device', default=None,
                     help="default: the package's default device, the card")
     out = run(ap.parse_args(argv).device)
+    print(graphs_line(out['graphs']))
     print(json.dumps(out))
     print('# R=%d C=%d block=%d kernel=%s sweep=%.3f ms device=%s'
           % (out['rows'], out['components'], out['block'], out['kernel'],

@@ -18,10 +18,14 @@ reported; two versions are compared only inside one run of one machine.
     python -m distributions_tpu_torch.benchmarks.bench_runner
 
 Prints one JSON line {"metric": "runner_gibbs_cells_per_sec", "value",
-"unit", "ms_per_sweep", "sweeps_per_step", ...}.  Sizes: RUNNER_ROWS,
-RUNNER_COMPONENTS, RUNNER_CLUSTERS, RUNNER_BLOCK, RUNNER_FEATURES,
-RUNNER_SPS (10), RUNNER_PASSES (3 x RUNNER_SPS), RUNNER_REPEATS (3),
-RUNNER_SAMPLING.
+"unit", "ms_per_sweep", "sweeps_per_step", ...}, after a line
+'# graphs: ...': on the card each sweep is replayed from a CUDA graph
+(ops/gibbs.py), which each run captures in its first step and frees at
+its end, as a user's run does (the capture is part of its time); that
+line gives the graphs captured and the seconds the captures took.
+Sizes: RUNNER_ROWS, RUNNER_COMPONENTS, RUNNER_CLUSTERS, RUNNER_BLOCK,
+RUNNER_FEATURES, RUNNER_SPS (10), RUNNER_PASSES (3 x RUNNER_SPS),
+RUNNER_REPEATS (3), RUNNER_SAMPLING.
 """
 
 import argparse
@@ -34,9 +38,11 @@ import numpy as np
 import torch
 
 from distributions_tpu_torch import clustering, config, mixture as mx, testing
-from distributions_tpu_torch.benchmarks.timing import device_name, int_env
+from distributions_tpu_torch.benchmarks.timing import (
+    device_name, graphs_line, int_env)
 from distributions_tpu_torch.inference import runner
 from distributions_tpu_torch.models import MODULES, nich
+from distributions_tpu_torch.ops import gibbs
 
 
 def run(device=None):
@@ -90,6 +96,7 @@ def run(device=None):
             torch.cuda.synchronize(device)
         return time.perf_counter() - t0, state, log
 
+    graphs = gibbs.reset_graph_stats()
     one(1, SPS)                                             # warm-up
     runs = [one(seed, PASSES) for seed in range(REPEATS)]
     seconds, state, log = sorted(runs, key=lambda r: r[0])[len(runs) // 2]
@@ -105,7 +112,7 @@ def run(device=None):
             'step_seconds': [r['seconds'] for r in log.rows],
             'final_capacity': int(state.counts.shape[0]),
             'nonempty_groups': log.rows[-1]['nonempty_groups'],
-            'device': device_name(device)}
+            'graphs': dict(graphs), 'device': device_name(device)}
 
 
 def main(argv=None):
@@ -113,6 +120,7 @@ def main(argv=None):
     ap.add_argument('--device', default=None,
                     help="default: the package's default device, the card")
     out = run(ap.parse_args(argv).device)
+    print(graphs_line(out['graphs']))
     print(json.dumps(out))
     print('# model=%s R=%d C=%d block=%d passes=%d final capacity %d '
           'device=%s' % (out['model'], out['rows'], out['components'],

@@ -41,6 +41,16 @@ def median_ms(fn, reps, device, batch=1):
     return times[len(times) // 2]
 
 
+def graphs_line(graphs):
+    """The '# graphs: ...' line the sweep benchmarks print before their
+    result."""
+    return ('# graphs: %d captured in %.3f s (%d sweep replays, %d score '
+            'graphs, pools %d bytes, %d first calls of a key eager)' % (
+                graphs['captures'], graphs['capture_seconds'],
+                graphs['replays'], graphs['score_captures'],
+                graphs['pool_bytes'], graphs['first_uses']))
+
+
 def device_name(device):
     """The device a result was measured on: for a card its name and power
     limit as nvidia-smi gives them."""
@@ -55,3 +65,24 @@ def device_name(device):
         return out.stdout.strip().splitlines()[device.index or 0]
     except (OSError, subprocess.SubprocessError, IndexError):
         return torch.cuda.get_device_name(device)
+
+
+def stamp_lines(argv):
+    """Run the command `argv` and print each line of its standard output
+    after the seconds since the command started, as '[12.3] line': the
+    time at which each phase of a script that prints a line a phase
+    ended.  Returns the command's exit code.
+
+        python3 distributions_tpu_torch/benchmarks/timing.py \\
+            python3 -u chip_smoke.py
+    """
+    t0 = time.time()
+    with subprocess.Popen(argv, stdout=subprocess.PIPE, text=True) as proc:
+        for line in proc.stdout:
+            print('[%.1f] %s' % (time.time() - t0, line), end='', flush=True)
+    return proc.returncode
+
+
+if __name__ == '__main__':
+    import sys
+    sys.exit(stamp_lines(sys.argv[1:]))

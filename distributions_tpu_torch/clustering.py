@@ -325,15 +325,26 @@ _LOG_PARTITION_TABLE = np.array([
     174.08517319, 178.93531914, 183.80678238], np.float32)
 
 
+# device -> _LOG_PARTITION_TABLE on it: copied once, so that scoring a
+# partition on the card copies nothing from the host (and can be captured
+# into a CUDA graph)
+_LOG_PARTITION_TABLES = {}
+
+
 def le_log_partition_function(model, sample_size):
     """log Z(n): the table for n < 48, the asymptotic
     n log n (1 + 0.28269584 n^-0.75) above."""
     dev = model.dataset_size.device
     n = _f32(sample_size, dev)
-    table = torch.from_numpy(_LOG_PARTITION_TABLE).to(dev)
+    table = _LOG_PARTITION_TABLES.get(dev)
+    if table is None:
+        table = _LOG_PARTITION_TABLES[dev] = torch.from_numpy(
+            _LOG_PARTITION_TABLE).to(dev)
     idx = torch.clamp(torch.as_tensor(sample_size, device=dev).to(
         torch.int64), 0, 47)
-    exact = table[idx]
+    # take, not table[idx]: a 0-dim index tensor would be read back to the
+    # host
+    exact = torch.take(table, idx)
     coeff = 0.28269584
     n1 = torch.clamp(n, min=1.0)
     log_z_max = n * torch.log(n1)

@@ -202,6 +202,10 @@ struct SplitArgs {
                             // the row maximum), or null
   int B, C, slot_offset;
   unsigned long long seed;
+  // K1 and K2 under a CUDA graph: the seed in device memory, read when the
+  // kernel runs (null: `seed` above).  A replayed graph keeps its launch
+  // arguments, so a seed passed by value would repeat every replay.
+  const unsigned long long* seed_ptr;
   int lead;                 // slot_offset % 4: virtual slot v = slot + lead
   int SL;                   // virtual slots per slice, a multiple of 4
   int L;                    // virtual slots per slice per turn, ditto
@@ -917,7 +921,8 @@ __global__ void SPLIT_BOUNDS split_score_sample(SplitArgs a, SplitLayout L) {
     best[r] = -INFINITY;
     idx[r] = 0;
   }
-  const uint2 key = make_uint2((unsigned)a.seed, (unsigned)(a.seed >> 32));
+  const unsigned long long seed = a.seed_ptr ? *a.seed_ptr : a.seed;
+  const uint2 key = make_uint2((unsigned)seed, (unsigned)(seed >> 32));
   int P;
   if constexpr (SH::kExact)
     P = SH::kP;

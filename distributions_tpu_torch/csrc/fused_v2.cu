@@ -54,6 +54,13 @@
 // cudaGetLastError().  fused_v2_occupancy() reports the split kernel's
 // registers, shared memory and resident blocks for a layout.
 //
+// The seed.  fused_v2_launch takes the tile's 64-bit seed by value or, with
+// seed_ptr non-null, from device memory, read by every thread of the score
+// + sample kernel when it runs (both walks).  The runner's sweeps are
+// replayed from a CUDA graph (ops/gibbs.py), whose launch arguments are
+// frozen at capture: the seed then lives in a buffer the host refills
+// before each replay.  Both forms give the same draws for the same seed.
+//
 // The same score + sample kernel is also instantiated over a compile-time
 // PHASE, for the phase profiler (replaces profile_kernel_phases.py::
 // _variant_kernel of the JAX package; entry point fused_v2_phase_launch):
@@ -95,7 +102,8 @@ fused_v2_score_sample(const float* __restrict__ values,
                       const float* __restrict__ coeffs,
                       const float* __restrict__ noise,
                       int* __restrict__ out, int B, int C, ColGroups cg,
-                      int total_cols, int CK, unsigned long long seed) {
+                      int total_cols, int CK, unsigned long long seed,
+                      const unsigned long long* __restrict__ seed_ptr) {
   extern __shared__ float smem[];
   const int G = cg.n;
   const int W = 1 + G + 2 * total_cols;
@@ -109,7 +117,7 @@ fused_v2_score_sample(const float* __restrict__ values,
       sval[c * SCORE_THREADS + tid] = values[(size_t)row * total_cols + c];
   }
   Draw<MODE, FAST> dr;
-  dr.init(row, active, seed, noise);
+  dr.init(row, active, seed_ptr ? *seed_ptr : seed, noise);
 
   for (int pass = 0; pass < Draw<MODE, FAST>::kPasses; ++pass) {
     dr.begin_pass(pass);
@@ -301,6 +309,7 @@ static int launch_score_phase(const float* values, const float* cl,
                               int* out, float* best, int B, int C,
                               int n_groups, const int* col_groups, int phase,
                               int mode, int fast, unsigned long long seed,
+                              const unsigned long long* seed_ptr,
                               cudaStream_t st, int* total_cols_out) {
   ColGroups cg;
   SplitLayout L;
@@ -319,7 +328,8 @@ static int launch_score_phase(const float* values, const float* cl,
     const dim3 grid((B + SCORE_THREADS - 1) / SCORE_THREADS);
 #define SEQ(MODE, FAST)                                                   \
   fused_v2_score_sample<MODE, FAST><<<grid, SCORE_THREADS, smem, st>>>(   \
-      values, cl, coeffs, noise, out, B, C, cg, total_cols, CK, seed)
+      values, cl, coeffs, noise, out, B, C, cg, total_cols, CK, seed,       \
+      seed_ptr)
     if (mode == MODE_CDF) {
       if (fast) SEQ(MODE_CDF, true); else SEQ(MODE_CDF, false);
     } else {
@@ -340,6 +350,7 @@ static int launch_score_phase(const float* values, const float* cl,
   a.C = C;
   a.slot_offset = 0;
   a.seed = seed;
+  a.seed_ptr = seed_ptr;
   const dim3 grid((B + SPLIT_BLOCK_ROWS - 1) / SPLIT_BLOCK_ROWS);
   size_t smem = 0;
   bool fits = true;
@@ -364,7 +375,7 @@ extern "C" int fused_v2_phase_launch(const float* values, const float* cl,
   int total_cols = 0;
   return launch_score_phase(values, cl, coeffs, noise, out, best, B, C,
                             n_groups, col_groups, phase, mode, fast, seed,
-                            (cudaStream_t)stream, &total_cols);
+                            nullptr, (cudaStream_t)stream, &total_cols);
 }
 
 // The split kernel that a launch with these arguments takes, at C slots:
@@ -403,6 +414,7 @@ extern "C" int fused_v2_launch(const float* values, const float* cl,
                                int* out, float* partials, float* sums, int B,
                                int C, int n_groups, const int* col_groups,
                                int mode, int fast, unsigned long long seed,
+                               const unsigned long long* seed_ptr,
                                int stat_rows, void* stream) {
   if (stat_rows < 1 || mode > MODE_CDF_HOST)
     return (int)cudaErrorInvalidValue;
@@ -410,7 +422,7 @@ extern "C" int fused_v2_launch(const float* values, const float* cl,
   int total_cols = 0;
   int rc = launch_score_phase(values, cl, coeffs, noise, out, nullptr, B, C,
                               n_groups, col_groups, PHASE_FULL, mode, fast,
-                              seed, st, &total_cols);
+                              seed, seed_ptr, st, &total_cols);
   if (rc != 0) return rc;
   cudaError_t err;
 

@@ -72,6 +72,11 @@
 // plain C entry points that launch on the caller's stream, allocate
 // nothing, and return cudaGetLastError(); fused_v3_occupancy() reports the
 // split kernel's registers, shared memory and resident blocks.
+//
+// fused_v3_launch takes the tile's seed by value or, with seed_ptr
+// non-null, from device memory, read when the kernel runs (both walks),
+// as fused_v2_launch does: a CUDA graph of the runner's sweep refills that
+// buffer before each replay.  The pair kernel keeps its by-value seed.
 
 #include <string.h>
 
@@ -275,10 +280,12 @@ fused_v3_score_sample(const float* __restrict__ values,
                       const float* __restrict__ tables,
                       const float* __restrict__ noise,
                       int* __restrict__ out, int B, int C, Layout L, int CK,
-                      unsigned long long seed) {
+                      unsigned long long seed,
+                      const unsigned long long* __restrict__ seed_ptr) {
   Draw<MODE, FAST> dr;
   score_and_draw<MODE, FAST>(values, qvalues, table_idx, cl, coeffs, qcoeffs,
-                             tables, noise, B, C, L, CK, seed, dr);
+                             tables, noise, B, C, L, CK,
+                             seed_ptr ? *seed_ptr : seed, dr);
   const int row = blockIdx.x * SCORE_THREADS + threadIdx.x;
   if (row < B) out[row] = dr.result();
 }
@@ -403,15 +410,16 @@ static void launch_score(bool fast, dim3 grid, size_t smem, cudaStream_t st,
                          const float* coeffs, const float* qcoeffs,
                          const float* tables, const float* noise, int* out,
                          int B, int C, const Layout& L, int CK,
-                         unsigned long long seed) {
+                         unsigned long long seed,
+                         const unsigned long long* seed_ptr) {
   if (fast)
     fused_v3_score_sample<MODE, true><<<grid, SCORE_THREADS, smem, st>>>(
         values, qvalues, table_idx, cl, coeffs, qcoeffs, tables, noise, out,
-        B, C, L, CK, seed);
+        B, C, L, CK, seed, seed_ptr);
   else
     fused_v3_score_sample<MODE, false><<<grid, SCORE_THREADS, smem, st>>>(
         values, qvalues, table_idx, cl, coeffs, qcoeffs, tables, noise, out,
-        B, C, L, CK, seed);
+        B, C, L, CK, seed, seed_ptr);
 }
 
 extern "C" const char* fused_v3_error_string(int err) {
@@ -516,7 +524,8 @@ static int launch_split(const float* values, const float* qvalues,
                         const float* tables, const float* noise, int* out,
                         float* best, int B, int C, const SplitLayout& S,
                         int mode, int fast, unsigned long long seed,
-                        int slot_offset, cudaStream_t st) {
+                        const unsigned long long* seed_ptr, int slot_offset,
+                        cudaStream_t st) {
   SplitArgs a = SplitArgs();
   a.values = values;
   a.qvalues = qvalues;
@@ -532,6 +541,7 @@ static int launch_split(const float* values, const float* qvalues,
   a.C = C;
   a.slot_offset = slot_offset;
   a.seed = seed;
+  a.seed_ptr = seed_ptr;
   const dim3 grid((B + SPLIT_BLOCK_ROWS - 1) / SPLIT_BLOCK_ROWS);
   bool fits = true;
   with_split_kernel(S, mode, fast != 0, [&](auto kern, int P, int rows) {
@@ -547,6 +557,7 @@ static int launch_split(const float* values, const float* qvalues,
 // describe the layout; values / qvalues / table_idx and their coefficient
 // arrays may be null when their count is 0.  partials is scratch of
 // [ceil(B / stat_rows), C, S] floats and tcounts_i of [C, Vtot] ints.
+// seed_ptr: null, or the seed in device memory in place of `seed`.
 extern "C" int fused_v3_launch(
     const float* values, const float* qvalues, const int* table_idx,
     const float* cl, const float* coeffs, const float* qcoeffs,
@@ -554,7 +565,8 @@ extern "C" int fused_v3_launch(
     float* sums, float* qsums, int* tcounts_i, float* tcounts, int B, int C,
     int n_nich, const int* nich_cols, int n_quad, const int* quad_cols,
     const int* quad_d, int n_tab, const int* table_vs, int mode, int fast,
-    unsigned long long seed, int stat_rows, void* stream) {
+    unsigned long long seed, const unsigned long long* seed_ptr,
+    int stat_rows, void* stream) {
   if (B < 1 || C < 1 || stat_rows < 1 || mode < MODE_ARGMAX ||
       mode > MODE_CDF_HOST)
     return (int)cudaErrorInvalidValue;
@@ -572,16 +584,16 @@ extern "C" int fused_v3_launch(
     if (mode == MODE_CDF)
       launch_score<MODE_CDF>(fast, grid1, smem1, st, values, qvalues,
                              table_idx, cl, coeffs, qcoeffs, tables, noise,
-                             out, B, C, L, CK, seed);
+                             out, B, C, L, CK, seed, seed_ptr);
     else
       launch_score<MODE_CDF_HOST>(fast, grid1, smem1, st, values, qvalues,
                                   table_idx, cl, coeffs, qcoeffs, tables,
-                                  noise, out, B, C, L, CK, seed);
+                                  noise, out, B, C, L, CK, seed, seed_ptr);
   } else {
     const int rc = launch_split(
         values, qvalues, table_idx, cl, coeffs, qcoeffs, tables, noise, out,
         nullptr, B, C, split_of(L, nich_cols, quad_cols, quad_d), mode, fast,
-        seed, 0, st);
+        seed, seed_ptr, 0, st);
     if (rc != 0) return rc;
   }
   cudaError_t err = cudaGetLastError();
@@ -632,7 +644,7 @@ extern "C" int fused_v3_pair_launch(
   return launch_split(values, qvalues, table_idx, cl, coeffs, qcoeffs,
                       tables, noise, out, best, B, C,
                       split_of(L, nich_cols, quad_cols, quad_d), mode, fast,
-                      seed, slot_offset, (cudaStream_t)stream);
+                      seed, nullptr, slot_offset, (cudaStream_t)stream);
 }
 
 // The split kernel that fused_v3_launch takes for this layout and draw at

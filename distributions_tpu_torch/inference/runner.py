@@ -188,7 +188,14 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
     (`gibbs.sweep_blocked_pallas_fused_mixed`: K2, or K1 for a nich-only
     spec) when every block is nich, niw or a discrete model with score
     tables (`fused_kernels.supports_mixed_pallas`) and R is a multiple of
-    `block`.  A spec that fails that gate takes the v1 score + sample
+    `block`.  On the card each of its sweeps is the replay of one CUDA
+    graph of all the tiles, and the step's joint score another; the
+    '_host' sampling modes run eagerly.  The graph is captured at the
+    first step and kept from step to step: a step copies the state, the
+    stat cache and, after a hyper move, the new shareds and clustering
+    model into its buffers; a grown capacity captures it anew; the run
+    frees it when it ends (`gibbs.GRAPH_STATS` counts captures and
+    replays).  A spec that fails that gate takes the v1 score + sample
     sweeps where they serve it: `gibbs.sweep_blocked_pallas` (K4) for a
     nich-only spec, `gibbs.sweep_blocked_pallas_mixed` (K5) for a spec
     without niw blocks, else the plain `gibbs.sweep_blocked`.
@@ -368,121 +375,130 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
             # no rank goes on (or resumes) before the file is whole
             distributed.barrier()
 
-    cache = None
-    counts_host = None
-    sweep = start_pass
-    while sweep < passes:
-        if counts_host is None:
-            counts_host = state.counts.cpu().numpy()
-        if mx.needs_growth(spec, state, grow_headroom, counts=counts_host):
-            spec, state = mx.grow_capacity(spec, state, 2 * spec.capacity)
-            cache = None
-        # the fused gate keeps what the algorithm needs; the JAX runner's
-        # TPU-only conditions (capacity % 128, block % 512, the VMEM cap of
-        # auto_block_rows) do not apply to the CUDA kernel
-        fused_ok = (use_pallas and fk.supports_mixed_pallas(spec)
-                    and R % block == 0)
-        if mesh is not None:
-            fused_ok = (fused_ok and mesh.axis_names == (sharding.ROWS,)
-                        and R % (mesh.size * block) == 0)
-        # every hyper and checkpoint boundary lands on a step edge
-        k = min(sweeps_per_step, passes - sweep)
-        if hyper_active:
-            k = min(k, hyper_every - sweep % hyper_every)
-        if checkpoint_path and checkpoint_every:
-            k = min(k, checkpoint_every - sweep % checkpoint_every)
-
-        step_score = None
-        t0 = time.time()
-        if fused_ok:
-            if cache is None:
-                cache = _stat_cache(spec, shareds, values, block,
-                                    assignments, mesh)
+    # the fused steps reuse one key: capture its sweep graph at the first
+    # step, and free it when the run ends
+    with gibbs.sweep_graph_session():
+        cache = None
+        counts_host = None
+        sweep = start_pass
+        while sweep < passes:
+            if counts_host is None:
+                counts_host = state.counts.cpu().numpy()
+            if mx.needs_growth(spec, state, grow_headroom, counts=counts_host):
+                spec, state = mx.grow_capacity(spec, state, 2 * spec.capacity)
+                cache = None
+                # the sweep graph of the old capacity is of no more use: free
+                # its memory before the next step captures the new one
+                gibbs.release_sweep_graphs()
+            # the fused gate keeps what the algorithm needs; the JAX runner's
+            # TPU-only conditions (capacity % 128, block % 512, the VMEM cap of
+            # auto_block_rows) do not apply to the CUDA kernel
+            fused_ok = (use_pallas and fk.supports_mixed_pallas(spec)
+                        and R % block == 0)
             if mesh is not None:
-                state, assignments, cache, step_score = \
-                    sharding.sharded_sweep_fused(
-                        spec, cl_model, shareds, state, values, assignments,
-                        generator, mesh, block, cache,
-                        block_rows=min(block_rows, block), sampling=sampling,
-                        n_sweeps=k, with_score=True)
-            else:
-                state, assignments, cache, step_score = \
-                    gibbs.sweep_blocked_pallas_fused_mixed(
-                        spec, cl_model, shareds, state, values, assignments,
-                        block, min(block_rows, block), generator, cache,
-                        sampling=sampling, n_sweeps=k, with_score=True)
-        elif mesh is not None:
-            for _ in range(k):
-                state, assignments = sharding.sharded_sweep_blocked(
-                    spec, cl_model, shareds, state, values, assignments,
-                    generator, mesh, block)
-        else:
-            sweep_once = _unfused_sweep(spec, use_pallas)
-            for _ in range(k):
-                state, assignments = sweep_once(
-                    spec, cl_model, shareds, state, values, assignments,
-                    block, generator)
-        # the host copy of the [C] counts is the step's sync point
-        counts_host = state.counts.cpu().numpy()
-        dt = time.time() - t0
-        sweep += k
-        if int((counts_host > 0).sum()) >= spec.capacity:
-            # growth is only checked between steps: a step that ends with
-            # no free slot may have refused new groups along the way
-            raise RuntimeError(
-                'no free slot is left after sweep %d (capacity %d): the '
-                'chain may have been truncated within the step; raise '
-                'grow_headroom or the capacity, or lower sweeps_per_step'
-                % (sweep, spec.capacity))
+                fused_ok = (fused_ok and mesh.axis_names == (sharding.ROWS,)
+                            and R % (mesh.size * block) == 0)
+            # every hyper and checkpoint boundary lands on a step edge
+            k = min(sweeps_per_step, passes - sweep)
+            if hyper_active:
+                k = min(k, hyper_every - sweep % hyper_every)
+            if checkpoint_path and checkpoint_every:
+                k = min(k, checkpoint_every - sweep % checkpoint_every)
 
-        debug.validate_state(spec, state)
-        if config.DEBUG_LEVEL >= 1:
-            debug.validate_assignments(
-                spec, state, torch.from_numpy(distributed.gather_rows(
-                    assignments)) if row_sharded else assignments)
-        stats = diagnostics.sweep_stats(spec, cl_model, shareds, state,
-                                        counts=counts_host, score=step_score)
-        stats['seconds'] = round(dt, 4)
-        if sweeps_per_step > 1:
-            stats['sweeps'] = k
-        if hyper_active and sweep % hyper_every == 0:
-            for block_idx, grid in (hyper_grids or {}).items():
-                shareds, idx, _ = _hypers.grid_step_feature(
-                    generator, spec, block_idx, shareds, state,
-                    _grid_on(grid, dev), sample=hyper_sample)
-                stats['hyper_%d' % block_idx] = int(idx)
-            for block_idx, cfg in (hyper_slice or {}).items():
-                if isinstance(cfg, dict):
-                    kw = dict(cfg)
-                    params = tuple(kw.pop('params'))
+            step_score = None
+            t0 = time.time()
+            if fused_ok:
+                if cache is None:
+                    cache = _stat_cache(spec, shareds, values, block,
+                                        assignments, mesh)
+                if mesh is not None:
+                    state, assignments, cache, step_score = \
+                        sharding.sharded_sweep_fused(
+                            spec, cl_model, shareds, state, values,
+                            assignments, generator, mesh, block, cache,
+                            block_rows=min(block_rows, block),
+                            sampling=sampling, n_sweeps=k, with_score=True)
                 else:
-                    params, width = cfg
-                    params, kw = tuple(params), {'width': width}
-                shareds, _ = _slice.slice_step_feature(
-                    generator, spec, block_idx, shareds, state, params, **kw)
-                stats['hyper_slice_%d' % block_idx] = 1
-            if cl_grid is not None:
-                cl_model, idx, _ = _hypers.grid_step_clustering(
-                    generator, _grid_on(cl_grid, dev), state,
-                    sample=hyper_sample)
-                stats['hyper_cl'] = int(idx)
-            elif cl_slice:
-                kw = cl_slice if isinstance(cl_slice, dict) else {}
-                cl_model, _ = _slice.slice_step_clustering(
-                    generator, cl_model, state, **kw)
-                stats['hyper_cl_alpha'] = float(cl_model.alpha)
-                stats['hyper_cl_d'] = float(cl_model.d)
-            # the cache's raw sums were built under the old shareds (dpd's
-            # value tables depend on them): rebuild it next sweep
-            cache = None
-        logger.log(sweep - 1, **stats)
+                    state, assignments, cache, step_score = \
+                        gibbs.sweep_blocked_pallas_fused_mixed(
+                            spec, cl_model, shareds, state, values,
+                            assignments, block, min(block_rows, block),
+                            generator, cache,
+                            sampling=sampling, n_sweeps=k, with_score=True)
+            elif mesh is not None:
+                for _ in range(k):
+                    state, assignments = sharding.sharded_sweep_blocked(
+                        spec, cl_model, shareds, state, values, assignments,
+                        generator, mesh, block)
+            else:
+                sweep_once = _unfused_sweep(spec, use_pallas)
+                for _ in range(k):
+                    state, assignments = sweep_once(
+                        spec, cl_model, shareds, state, values, assignments,
+                        block, generator)
+            # the host copy of the [C] counts is the step's sync point
+            counts_host = state.counts.cpu().numpy()
+            dt = time.time() - t0
+            sweep += k
+            if int((counts_host > 0).sum()) >= spec.capacity:
+                # growth is only checked between steps: a step that ends with
+                # no free slot may have refused new groups along the way
+                raise RuntimeError(
+                    'no free slot is left after sweep %d (capacity %d): the '
+                    'chain may have been truncated within the step; raise '
+                    'grow_headroom or the capacity, or lower sweeps_per_step'
+                    % (sweep, spec.capacity))
 
-        if checkpoint_path and checkpoint_every \
-                and sweep % checkpoint_every == 0 and sweep < passes:
-            save(sweep)
-            # a run resumed from this file rebuilds the cache from the
-            # assignments; do the same, so that both continue alike
-            cache = None
+            debug.validate_state(spec, state)
+            if config.DEBUG_LEVEL >= 1:
+                debug.validate_assignments(
+                    spec, state, torch.from_numpy(distributed.gather_rows(
+                        assignments)) if row_sharded else assignments)
+            stats = diagnostics.sweep_stats(
+                spec, cl_model, shareds, state, counts=counts_host,
+                score=step_score)
+            stats['seconds'] = round(dt, 4)
+            if sweeps_per_step > 1:
+                stats['sweeps'] = k
+            if hyper_active and sweep % hyper_every == 0:
+                for block_idx, grid in (hyper_grids or {}).items():
+                    shareds, idx, _ = _hypers.grid_step_feature(
+                        generator, spec, block_idx, shareds, state,
+                        _grid_on(grid, dev), sample=hyper_sample)
+                    stats['hyper_%d' % block_idx] = int(idx)
+                for block_idx, cfg in (hyper_slice or {}).items():
+                    if isinstance(cfg, dict):
+                        kw = dict(cfg)
+                        params = tuple(kw.pop('params'))
+                    else:
+                        params, width = cfg
+                        params, kw = tuple(params), {'width': width}
+                    shareds, _ = _slice.slice_step_feature(
+                        generator, spec, block_idx, shareds, state, params,
+                        **kw)
+                    stats['hyper_slice_%d' % block_idx] = 1
+                if cl_grid is not None:
+                    cl_model, idx, _ = _hypers.grid_step_clustering(
+                        generator, _grid_on(cl_grid, dev), state,
+                        sample=hyper_sample)
+                    stats['hyper_cl'] = int(idx)
+                elif cl_slice:
+                    kw = cl_slice if isinstance(cl_slice, dict) else {}
+                    cl_model, _ = _slice.slice_step_clustering(
+                        generator, cl_model, state, **kw)
+                    stats['hyper_cl_alpha'] = float(cl_model.alpha)
+                    stats['hyper_cl_d'] = float(cl_model.d)
+                # the cache's raw sums were built under the old shareds (dpd's
+                # value tables depend on them): rebuild it next sweep
+                cache = None
+            logger.log(sweep - 1, **stats)
+
+            if checkpoint_path and checkpoint_every \
+                    and sweep % checkpoint_every == 0 and sweep < passes:
+                save(sweep)
+                # a run resumed from this file rebuilds the cache from the
+                # assignments; do the same, so that both continue alike
+                cache = None
     if checkpoint_path:
         save(passes)
     logger.final_shareds = shareds

@@ -154,6 +154,14 @@ def nich_coeffs_v2(shared, group):
             'fused nich block requires column-constant nu (got %r); put '
             'columns with distinct nu in separate cols=1 blocks'
             % (nu0.tolist(),))
+    return nich_coeffs_v2_rows(shared, group)
+
+
+def nich_coeffs_v2_rows(shared, group):
+    """`nich_coeffs_v2` without its check of `nu`, which reads the device:
+    the sweeps check once per call (`gibbs._check_constant_nu`) and build
+    the rows of every tile with this, so that a tile never waits on the
+    card and can be captured into a CUDA graph."""
     post = nich_mod.plus_group(shared, group)            # leaves [C, cols]
     lambda_ = ((1.0 + post.kappa) * post.sigmasq) / post.kappa
     score = (lgamma_nu(post.nu)
@@ -679,12 +687,13 @@ _LAYOUT = [_I, _IP, _I, _IP, _IP, _I, _IP]
 # ops/bench_kernels.py)
 _LAUNCHERS = {
     'fused_v2': {
-        'fused_v2_launch': [_P] * 7 + [_I, _I, _I, _IP, _I, _I, _U64, _I, _P],
+        'fused_v2_launch': [_P] * 7 + [_I, _I, _I, _IP, _I, _I, _U64, _P, _I,
+                                       _P],
         'fused_v2_phase_launch': [_P] * 6 + [_I, _I, _I, _IP, _I, _I, _I,
                                              _U64, _P]},
     'fused_v3': {
         'fused_v3_launch': [_P] * 14 + [_I, _I] + _LAYOUT + [_I, _I, _U64,
-                                                             _I, _P],
+                                                             _P, _I, _P],
         'fused_v3_pair_launch': [_P] * 10 + [_I, _I] + _LAYOUT + [
             _I, _I, _U64, _I, _P]},
     'score_sample_v1': {
@@ -827,6 +836,39 @@ def _check_seed(seed):
     return seed
 
 
+def _is_seed_tensor(seed):
+    """K1 and K2 take their seed as an int or as a 1-element int64 tensor
+    (the form a CUDA graph replays: the kernel reads it from device
+    memory when it runs).  True for the tensor form, after checking it."""
+    if not isinstance(seed, torch.Tensor):
+        return False
+    if seed.dtype != torch.int64 or seed.numel() != 1:
+        raise ValueError('a seed tensor must hold one int64, got %s %s'
+                         % (seed.dtype, tuple(seed.shape)))
+    return True
+
+
+def _seed_value(seed):
+    """The seed as a checked int, from either form; the twins' form (on
+    the card this reads the device)."""
+    if _is_seed_tensor(seed):
+        seed = int(seed.reshape(()))
+        # the tensor holds the seed's 64 bits as a signed int64
+        seed &= (1 << 64) - 1
+    return _check_seed(seed)
+
+
+def _seed_args(seed, dev):
+    """(seed, seed_ptr) of a K1 or K2 launch on `dev`: (the int, None), or
+    (0, the tensor's address) for a seed tensor on `dev`."""
+    if not _is_seed_tensor(seed):
+        return _check_seed(seed), None
+    if seed.device != dev:
+        raise ValueError('the seed tensor is on %s, the launch on %s'
+                         % (seed.device, dev))
+    return 0, seed.data_ptr()
+
+
 def _check_col_groups(col_groups, lowest):
     col_groups = tuple(int(c) for c in col_groups)
     if not lowest <= len(col_groups) <= MAX_GROUPS or (
@@ -903,7 +945,7 @@ def _launch(seed, values, cl_scores, coeffs, col_groups, sampling, noise):
     _check('cl_scores', cl_scores, dev, (C,))
     _check('coeffs', coeffs, dev, (sum(2 + 2 * c for c in col_groups), C))
     _check_noise(mode, sampling, noise, dev, B, C)
-    seed = _check_seed(seed)
+    seed, seed_ptr = _seed_args(seed, dev)
 
     lib = build('fused_v2')['lib']
     out = torch.empty(B, dtype=torch.int32, device=dev)
@@ -917,7 +959,8 @@ def _launch(seed, values, cl_scores, coeffs, col_groups, sampling, noise):
             values.data_ptr(), cl_scores.data_ptr(), coeffs.data_ptr(),
             _ptr(noise), out.data_ptr(), partials.data_ptr(),
             sums.data_ptr(), B, C, len(col_groups), _int_array(col_groups),
-            SAMPLING_MODES[mode], int(fast), seed, STAT_ROWS, stream)
+            SAMPLING_MODES[mode], int(fast), seed, seed_ptr, STAT_ROWS,
+            stream)
     _raise_on('fused_v2', lib, err)
     fused_score_sample_stats.launches += 1
     return out, sums
@@ -929,8 +972,10 @@ def fused_score_sample_stats(seed, values, cl_scores, coeffs, col_groups,
     """K1: fused score + sample + stat sums for nich feature blocks.
 
     values: [B, total_cols] f32; cl_scores: [C]; coeffs: [rows, C] in the
-    nich_coeffs_v2 layout; col_groups: per-block ncols.  seed: an int in
-    [0, 2**64), the per-tile seed of 'gumbel' and 'cdf'.  Returns
+    nich_coeffs_v2 layout; col_groups: per-block ncols.  seed: the per-tile
+    seed of 'gumbel' and 'cdf', an int in [0, 2**64) or a 1-element int64
+    tensor on the launch's device holding its bits, which the kernel reads
+    when it runs (the form that a CUDA graph replays).  Returns
     (assignments [B] int32, stat_sums [C, 3*total_cols] f32) with columns
     [ones-block | v-block | v^2-block].
 
@@ -944,7 +989,7 @@ def fused_score_sample_stats(seed, values, cl_scores, coeffs, col_groups,
     interpret mode."""
     if values.device.type == 'cpu':
         return fused_score_sample_stats_plain(
-            seed, values, cl_scores, coeffs, col_groups,
+            _seed_value(seed), values, cl_scores, coeffs, col_groups,
             block_rows=block_rows, sampling=sampling, noise=noise)
     if values.device.type != 'cuda':
         raise ValueError('fused_score_sample_stats runs on CPU or CUDA '
@@ -1033,7 +1078,7 @@ def _launch_mixed(seed, values, table_idx, cl_scores, coeffs, tables,
     ncols = sum(col_groups)
     vtot = sum(table_vs)
     _check_noise(mode, sampling, noise, dev, B, C)
-    seed = _check_seed(seed)
+    seed, seed_ptr = _seed_args(seed, dev)
 
     lib = build('fused_v3')['lib']
     qdim = quad_stat_dim(quad_groups)
@@ -1057,7 +1102,8 @@ def _launch_mixed(seed, values, table_idx, cl_scores, coeffs, tables,
             out.data_ptr(), partials.data_ptr(), sums.data_ptr(),
             qsums.data_ptr(), tcounts_i.data_ptr(), tcounts.data_ptr(), B, C,
             *_layout_args(col_groups, quad_groups, table_vs),
-            SAMPLING_MODES[mode], int(fast), seed, STAT_ROWS, stream)
+            SAMPLING_MODES[mode], int(fast), seed, seed_ptr, STAT_ROWS,
+            stream)
     _raise_on('fused_v3', lib, err)
     fused_mixed_score_sample_stats.launches += 1
     return out, sums, tcounts, qsums
@@ -1081,7 +1127,8 @@ def fused_mixed_score_sample_stats(seed, values, table_idx, cl_scores,
     of table_vs and Vtot = sum(table_vs); qvalues: [B, sum(cols*d)] f32
     niw columns; qcoeffs: rows in the niw_coeffs_v4 layout; quad_groups:
     tuple of (ncols, d).  Table entries are floored at -1e30, so a -inf
-    entry stays unselectable and never makes a NaN.
+    entry stays unselectable and never makes a NaN.  seed: as in
+    `fused_score_sample_stats`, an int or a 1-element int64 tensor.
 
     Returns (assignments [B] int32, nich stat sums [C, 3*ncols] f32,
     PACKED count tables [C, Vtot] f32 (slice per column at the same
@@ -1106,10 +1153,10 @@ def fused_mixed_score_sample_stats(seed, values, table_idx, cl_scores,
         tables = torch.clamp(tables, min=-1e30)
     if cl_scores.device.type == 'cpu':
         return fused_mixed_score_sample_stats_plain(
-            seed, values, table_idx, cl_scores, coeffs, tables, col_groups,
-            block_rows=block_rows, sampling=sampling, qvalues=qvalues,
-            qcoeffs=qcoeffs, quad_groups=quad_groups, noise=noise,
-            table_vs=table_vs)
+            _seed_value(seed), values, table_idx, cl_scores, coeffs, tables,
+            col_groups, block_rows=block_rows, sampling=sampling,
+            qvalues=qvalues, qcoeffs=qcoeffs, quad_groups=quad_groups,
+            noise=noise, table_vs=table_vs)
     if cl_scores.device.type != 'cuda':
         raise ValueError('fused_mixed_score_sample_stats runs on CPU or '
                          'CUDA tensors, got %s' % cl_scores.device)

@@ -30,6 +30,8 @@ Randomness: every sweep draws one seed from the caller's
 (`random.fold_seed`), as the JAX package splits a sweep key per tile.
 """
 
+import contextlib
+import time
 from collections import namedtuple
 
 import numpy as np
@@ -41,7 +43,7 @@ from distributions_tpu_torch.models import nich as nich_mod, niw as niw_mod
 from distributions_tpu_torch.ops import fused_kernels as fk
 from distributions_tpu_torch.random import (device_generator, draw_seed,
                                             fold_seed, gumbel_noise,
-                                            sample_from_scores)
+                                            sample_from_scores, sweep_seeds)
 
 
 def _n_tiles(assignments, block):
@@ -437,7 +439,8 @@ def _build_fused_inputs(spec, lay, shareds, state):
     `score_value_batch` over its support, stacked in column order."""
     coeffs = qcoeffs = tables = None
     if lay.nich_blocks:
-        coeffs = torch.cat([fk.nich_coeffs_v2(shareds[i], state.groups[i])
+        coeffs = torch.cat([fk.nich_coeffs_v2_rows(shareds[i],
+                                                   state.groups[i])
                             for i in lay.nich_blocks], dim=0).contiguous()
     if lay.quad_blocks:
         qcoeffs = torch.cat([fk.niw_coeffs_v4(shareds[i], state.groups[i])
@@ -525,43 +528,354 @@ def _fused_tile_core(spec, lay, W, block_rows, sampling, cl_model, shareds,
     return new_assign, new_cd, tuple(new_sums)
 
 
-def _fused_sweep(spec, lay, W, cl_model, shareds, state, block, block_rows,
-                 sampling, cache, sweep_seed):
-    """One fused sweep over all tiles.  Returns (state, assignments,
-    new_cache)."""
+# -- the fused step: one sweep over static buffers, replayed from a CUDA graph
+
+def _fused_sweep_into(spec, lay, W, block, block_rows, sampling, cl_model,
+                      shareds, state, assignments, cache, seeds):
+    """One fused sweep over all tiles that writes its results into the
+    tensors it reads: the leaves of `state`, `assignments` [R] and those of
+    the stat cache.  Tile t reads its cached entry before it writes its new
+    one, so the cache is updated in place.  Tile t takes seeds[t]: an int,
+    or a view of a [T] int64 tensor that the kernel reads when it runs.
+
+    With a tensor of seeds and a mode without '_host', a sweep reads nothing
+    back from the card and makes no tensor from host data: on the card it
+    is captured into a CUDA graph (`_SweepGraph`); on the CPU it runs on the
+    kernels' twins."""
     cached_cd, cached_sums = cache
-    n_blocks = cached_cd.shape[0]
-    out, out_cd = [], []
-    out_sums = [[] for _ in spec.blocks]
-    for t in range(n_blocks):
+    cur = state
+    for t in range(cached_cd.shape[0]):
         tiles = mx.sums_to_tiles(spec, shareds,
                                  tuple(s[t] for s in cached_sums))
-        state = mx.apply_stat_tiles(spec, shareds, state, cached_cd[t],
-                                    tiles, -1, block)
-        seed = fold_seed(sweep_seed, t)
-        noise = _tile_noise(sampling, seed, block, spec.capacity,
+        cur = mx.apply_stat_tiles(spec, shareds, cur, cached_cd[t], tiles, -1,
+                                  block)
+        noise = _tile_noise(sampling, seeds[t], block, spec.capacity,
                             cached_cd.device)
         new_assign, new_cd, new_sums = _fused_tile_core(
-            spec, lay, W, block_rows, sampling, cl_model, shareds, state,
-            *_slice_rows(lay, t, block), seed, noise=noise)
+            spec, lay, W, block_rows, sampling, cl_model, shareds, cur,
+            *_slice_rows(lay, t, block), seeds[t], noise=noise)
         tiles = mx.sums_to_tiles(spec, shareds, new_sums)
-        state = mx.apply_stat_tiles(spec, shareds, state, new_cd, tiles,
-                                    +1, block)
-        out.append(new_assign)
-        out_cd.append(new_cd)
-        for acc, s in zip(out_sums, new_sums):
-            acc.append(s)
-    return state, torch.cat(out), (torch.stack(out_cd),
-                                   tuple(torch.stack(s) for s in out_sums))
+        cur = mx.apply_stat_tiles(spec, shareds, cur, new_cd, tiles, +1,
+                                  block)
+        assignments[t * block:(t + 1) * block] = new_assign
+        cached_cd[t] = new_cd
+        for buf, s in zip(cached_sums, new_sums):
+            buf[t] = s
+    for dst, src in zip(_tensors(state), _tensors(cur)):
+        dst.copy_(src)
 
 
-def _nich_only_layout(spec, shareds, values):
-    if not fk.supports_pallas(spec):
+def _map_tensors(fn, tree):
+    """`tree` (tensors in nested tuples and NamedTuples) with fn applied to
+    every tensor; other leaves (None, numbers) are kept."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, tuple):
+        items = [_map_tensors(fn, x) for x in tree]
+        return type(tree)(*items) if hasattr(tree, '_fields') else tuple(
+            items)
+    return tree
+
+
+def _tensors(tree):
+    """The tensors of `tree` in a fixed order."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, tuple):
+        for x in tree:
+            yield from _tensors(x)
+
+
+def _signature(tree):
+    """What a captured graph is specialised to in `tree`: the nesting, and
+    the shape and dtype of every tensor or the value of any other leaf."""
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), tree.dtype)
+    if isinstance(tree, tuple):
+        return (type(tree).__name__,) + tuple(_signature(x) for x in tree)
+    return (type(tree).__name__, repr(tree))
+
+
+def _clone_step(state, assignments, cache):
+    """Buffers of a step that its sweeps may write: copies, so that the
+    caller's tensors stay as they were (int32 assignments)."""
+    return (_map_tensors(torch.clone, state),
+            assignments.to(dtype=torch.int32, copy=True),
+            _map_tensors(torch.clone, cache))
+
+
+# fused runs forced onto the eager loop (`_eager_sweeps`)
+_EAGER = [False]
+# fused runs within `sweep_graph_session()`, which capture a key on its
+# first use
+_SESSION = [False]
+# the one captured sweep graph and its key; and the key of the last run on
+# the graph path that was not captured, with the values it names (kept, so
+# that their addresses are not given to other tensors while the key is
+# held).  A key is captured on its second use (or its first within a
+# session), and its graph replaces the one before.
+_GRAPH = {'key': None, 'graph': None, 'seen': None, 'seen_values': None}
+# what the graph path did since the counters were last set to 0: graphs
+# captured, sweeps replayed, seconds spent capturing (the first sweep of a
+# graph, which warms it up, and the capture), the bytes of the captures'
+# memory pools, the joint-score graph's captures and replays, and the runs
+# that took the eager loop because their key was new
+GRAPH_STATS = {'captures': 0, 'replays': 0, 'capture_seconds': 0.0,
+               'pool_bytes': 0, 'score_captures': 0, 'score_replays': 0,
+               'first_uses': 0}
+# the wrappers whose launches a replay repeats
+_COUNTED = (fk.fused_score_sample_stats, fk.fused_mixed_score_sample_stats)
+
+
+@contextlib.contextmanager
+def _eager_sweeps():
+    """Within `with gibbs._eager_sweeps():` every fused run takes the eager
+    loop, seeds passed by value, as a CUDA graph's sweeps would run without
+    the graph: the reference that `chip_smoke.py` and the CUDA tests hold
+    the graph path to, bitwise."""
+    was, _EAGER[0] = _EAGER[0], True
+    try:
+        yield
+    finally:
+        _EAGER[0] = was
+
+
+@contextlib.contextmanager
+def sweep_graph_session():
+    """Within `with gibbs.sweep_graph_session():` a fused run on the graph
+    path captures its key on the first use, not the second: the caller
+    (the runner's steps) will call again with the same key.  On exit the
+    graph is released."""
+    was, _SESSION[0] = _SESSION[0], True
+    try:
+        yield
+    finally:
+        _SESSION[0] = was
+        release_sweep_graphs()
+
+
+def release_sweep_graphs():
+    """Drop the captured sweep graph, its memory pools and the key held
+    for a second use (the runner does so when capacity grows and when its
+    run ends)."""
+    _GRAPH.update(key=None, graph=None, seen=None, seen_values=None)
+
+
+def reset_graph_stats():
+    """Set the counters of GRAPH_STATS to 0; returns GRAPH_STATS, to be
+    read after the run."""
+    for k in GRAPH_STATS:
+        GRAPH_STATS[k] = type(GRAPH_STATS[k])(0)
+    return GRAPH_STATS
+
+
+def _graph_refusal(spec, device, sampling):
+    """Why a fused run on `device` takes the eager loop, or None when its
+    sweeps are replayed from a CUDA graph.  Rules, not failures: a graph
+    that fails to capture raises.
+    - The CPU runs the twins, eagerly.
+    - The '_host' modes draw each tile's noise from a generator seeded from
+      the host (`_tile_noise`): they are the bitwise bridge to the JAX
+      package, not a production mode.
+    - `_eager_sweeps()`."""
+    if device.type != 'cuda':
+        return 'not on the card'
+    if '_host' in sampling:
+        return "a '_host' mode draws its noise from the host"
+    if _EAGER[0]:
+        return '_eager_sweeps()'
+    return None
+
+
+class _SweepGraph:
+    """One fused sweep (`_fused_sweep_into`) captured as a CUDA graph over
+    static buffers, and the joint score (`mixture.score_data`) as a second
+    graph with a memory pool of its own.
+
+    It owns the static inputs (the clustering model's and the shareds'
+    leaves, the table blocks' stat matrices, the state, the assignments,
+    the stat cache and the [T] seed table), the layout built from `values`
+    (whose tensors it keeps, so that their addresses, part of its key, are
+    not reused), the graphs and their pool.  A call loads its inputs into
+    the static buffers (`load`), so new shareds or a new clustering model
+    after a hyper move are copied in, not captured anew.  Each sweep then
+    costs the host one copy of the seed table and one replay; the first
+    sweep runs the eager function on a side stream, which warms up what the
+    capture needs (the kernels' build, cuBLAS), and then captures it.  A
+    replay adds the launches of each kernel wrapper that the capture
+    recorded, as if the wrapper had launched them."""
+
+    def __init__(self, spec, lay, values, block, block_rows, sampling,
+                 inputs):
+        self.spec, self.lay, self.values = spec, lay, values
+        self.block, self.block_rows, self.sampling = (block, block_rows,
+                                                      sampling)
+        self.static = _map_tensors(torch.clone, inputs)
+        self.device = self.static[4].device
+        self.seeds = torch.zeros(self.static[5][0].shape[0],
+                                 dtype=torch.int64, device=self.device)
+        self.stream = torch.cuda.Stream(self.device)
+        self.pools = (torch.cuda.graph_pool_handle(),
+                      torch.cuda.graph_pool_handle())
+        self.graph = self.score_graph = self.score_out = None
+        self.launches = {}
+
+    def load(self, inputs):
+        for dst, src in zip(_tensors(self.static), _tensors(inputs)):
+            dst.copy_(src)
+
+    def _sweep(self):
+        cl_model, shareds, W, state, assignments, cache = self.static
+        _fused_sweep_into(self.spec, self.lay, W, self.block,
+                          self.block_rows, self.sampling, cl_model, shareds,
+                          state, assignments, cache,
+                          self.seeds)
+
+    def _score(self):
+        cl_model, shareds, _, state, _, _ = self.static
+        return mx.score_data(self.spec, cl_model, shareds, state)
+
+    def _capture(self, fn, pool):
+        """Run fn on the side stream (the warm-up, and a real run), then
+        capture it into `pool`.  Returns (fn's result, the graph, the
+        capture's output)."""
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            result = fn()
+        cur.wait_stream(self.stream)
+        if result is not None:
+            result.record_stream(cur)
+        before = [w.launches for w in _COUNTED]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool, stream=self.stream):
+            out = fn()
+        GRAPH_STATS['pool_bytes'] += sum(
+            seg['total_size'] for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get('segment_pool_id', ())) == tuple(pool))
+        # the capture launched nothing: its count is what a replay launches
+        for w, n in zip(_COUNTED, before):
+            self.launches[w] = self.launches.get(w, 0) + w.launches - n
+            w.launches = n
+        return result, graph, out
+
+    def sweep(self, seeds):
+        """One sweep with the [T] int64 host seed table `seeds`."""
+        self.seeds.copy_(seeds.pin_memory(), non_blocking=True)
+        if self.graph is not None:
+            self.graph.replay()
+            GRAPH_STATS['replays'] += 1
+            for w, n in self.launches.items():
+                w.launches += n
+            return
+        t0 = time.time()
+        _, self.graph, _ = self._capture(self._sweep, self.pools[0])
+        GRAPH_STATS['captures'] += 1
+        GRAPH_STATS['capture_seconds'] += time.time() - t0
+
+    def score(self):
+        """The joint score of the static state, a tensor of its own."""
+        if self.score_graph is not None:
+            self.score_graph.replay()
+            GRAPH_STATS['score_replays'] += 1
+            return self.score_out.clone()
+        t0 = time.time()
+        score, self.score_graph, self.score_out = self._capture(
+            self._score, self.pools[1])
+        GRAPH_STATS['score_captures'] += 1
+        GRAPH_STATS['capture_seconds'] += time.time() - t0
+        return score
+
+    def outputs(self):
+        """(state, assignments, cache): copies, which the next replay does
+        not write."""
+        _, _, _, state, assignments, cache = self.static
+        return _map_tensors(torch.clone, (state, assignments, cache))
+
+
+def _tensor_key(t):
+    return (t.data_ptr(), t._version, tuple(t.shape), t.dtype, t.device)
+
+
+def _graph_for(spec, values, supports, nich_only, block, block_rows,
+               sampling, cl_model, shareds, state, assignments, cache):
+    """The `_SweepGraph` of this run (loaded with its inputs), or None when
+    the run takes the eager loop because its key is used for the first
+    time outside a session: a call made once costs what the eager loop
+    costs.  Its key: the spec (capacity included), the rows, block,
+    block_rows, sampling, the device, the clustering model's type, the
+    values' and the supports' addresses and versions, and the signature of
+    every input.  `values` are tensors on the card: values given on the
+    host are copied to new tensors on every call, so their key is never
+    used twice."""
+    key = (spec, block, block_rows, sampling, assignments.device,
+           type(cl_model), tuple(_tensor_key(v) for v in values),
+           None if supports is None else tuple(
+               None if s is None else _tensor_key(torch.as_tensor(s))
+               for s in supports),
+           _signature((cl_model, shareds, state, assignments, cache)))
+    graph = _GRAPH['graph'] if _GRAPH['key'] == key else None
+    if graph is None and not _SESSION[0] and _GRAPH['seen'] != key:
+        _GRAPH.update(seen=key, seen_values=values)
+        GRAPH_STATS['first_uses'] += 1
+        return None
+    lay = _fused_layout(spec, values, supports, nich_only) \
+        if graph is None else graph.lay
+    _check_constant_nu(lay, shareds)
+    inputs = (cl_model, shareds, _stat_matrices(spec, lay, shareds), state,
+              assignments, cache)
+    if graph is None:
+        # the graph before is freed before this one takes its memory
+        release_sweep_graphs()
+        graph = _SweepGraph(spec, lay, values, block, block_rows, sampling,
+                            inputs)
+        _GRAPH.update(key=key, graph=graph)
+    else:
+        graph.load(inputs)
+    return graph
+
+
+def _fused_run(spec, values, supports, nich_only, block, block_rows,
+               sampling, n_sweeps, with_score, cl_model, shareds, state,
+               assignments, generator, cache):
+    """`n_sweeps` fused sweeps from `generator`: replayed from the run's
+    CUDA graph (the seeds in device memory), or eagerly where
+    `_graph_refusal` says so or the key is new (`_graph_for`; the seeds
+    passed by value).  Each sweep draws its tile seeds with
+    `random.sweep_seeds`, so both give the same draws.  Returns (state,
+    assignments, cache) and, with `with_score`, the joint score."""
+    n_tiles = cache[0].shape[0]
+    graph = None
+    if _graph_refusal(spec, assignments.device, sampling) is None:
+        values = tuple(torch.as_tensor(v, device=assignments.device)
+                       for v in values)
+        graph = _graph_for(spec, values, supports, nich_only, block,
+                           block_rows, sampling, cl_model, shareds, state,
+                           assignments, cache)
+    if graph is not None:
+        for _ in range(n_sweeps):
+            graph.sweep(sweep_seeds(generator, n_tiles))
+        out = graph.outputs()
+        return out + (graph.score(),) if with_score else out
+    lay = _fused_layout(spec, values, supports, nich_only)
+    _check_constant_nu(lay, shareds)
+    W = _stat_matrices(spec, lay, shareds)
+    state, assignments, cache = _clone_step(state, assignments, cache)
+    for _ in range(n_sweeps):
+        _fused_sweep_into(spec, lay, W, block, block_rows, sampling,
+                          cl_model, shareds, state, assignments, cache,
+                          sweep_seeds(generator, n_tiles).tolist())
+    if with_score:
+        return state, assignments, cache, mx.score_data(spec, cl_model,
+                                                        shareds, state)
+    return state, assignments, cache
+
+
+def _fused_layout(spec, values, supports, nich_only):
+    if nich_only and not fk.supports_pallas(spec):
         raise ValueError('sweep_blocked_pallas_fused takes nich-only specs; '
                          'use sweep_blocked_pallas_fused_mixed')
-    lay = _mixed_static_layout(spec, values)
-    _check_constant_nu(lay, shareds)
-    return lay
+    return _mixed_static_layout(spec, values, supports)
 
 
 def sweep_blocked_pallas_fused(spec, cl_model, shareds, state, values,
@@ -572,10 +886,10 @@ def sweep_blocked_pallas_fused(spec, cl_model, shareds, state, values,
 
     cache = build_stat_cache(spec, shareds, values, block, assignments) for
     the CURRENT assignments.  Returns (state, assignments, new_cache)."""
-    lay = _nich_only_layout(spec, shareds, values)
     _n_tiles(assignments, block)
-    return _fused_sweep(spec, lay, None, cl_model, shareds, state, block,
-                        block_rows, sampling, cache, draw_seed(generator))
+    return _fused_run(spec, values, None, True, block, block_rows, sampling,
+                      1, False, cl_model, shareds, state, assignments,
+                      generator, cache)
 
 
 def run_sweeps_pallas_fused(spec, cl_model, shareds, state, values,
@@ -583,24 +897,10 @@ def run_sweeps_pallas_fused(spec, cl_model, shareds, state, values,
                             n_sweeps, sampling='cdf'):
     """n_sweeps fused sweeps of a nich-only spec on K1.  Returns (state,
     assignments, cache)."""
-    lay = _nich_only_layout(spec, shareds, values)
     _n_tiles(assignments, block)
-    return _fused_mixed_run(spec, lay, None, block, block_rows, sampling,
-                            n_sweeps, False, cl_model, shareds, state,
-                            assignments, generator, cache)
-
-
-def _fused_mixed_run(spec, lay, W, block, block_rows, sampling, n_sweeps,
-                     with_score, cl_model, shareds, state, assignments,
-                     generator, cache):
-    for _ in range(n_sweeps):
-        state, assignments, cache = _fused_sweep(
-            spec, lay, W, cl_model, shareds, state, block, block_rows,
-            sampling, cache, draw_seed(generator))
-    if with_score:
-        return state, assignments, cache, mx.score_data(
-            spec, cl_model, shareds, state)
-    return state, assignments, cache
+    return _fused_run(spec, values, None, True, block, block_rows, sampling,
+                      n_sweeps, False, cl_model, shareds, state, assignments,
+                      generator, cache)
 
 
 def sweep_blocked_pallas_fused_mixed(spec, cl_model, shareds, state, values,
@@ -624,14 +924,20 @@ def sweep_blocked_pallas_fused_mixed(spec, cl_model, shareds, state, values,
 
     cache = build_stat_cache(...) on the current assignments.  Runs
     `n_sweeps` sweeps and returns (state, assignments, new_cache), plus
-    the joint mx.score_data when with_score=True."""
+    the joint mx.score_data when with_score=True.
+
+    On the card each sweep is the replay of one CUDA graph of all its tiles
+    (`_SweepGraph`), as the JAX package runs a step as one device program;
+    the '_host' modes run eagerly (`_graph_refusal`).  The results are
+    tensors of their own, which later calls do not write.  A key's first
+    call runs eagerly, and its second captures the graph, which is kept
+    until a call with another key captures its own: pass the values as
+    the same tensors on the card to reuse it (`sweep_graph_session`
+    captures on the first call)."""
     _n_tiles(assignments, block)
-    lay = _mixed_static_layout(spec, values, supports)
-    _check_constant_nu(lay, shareds)
-    return _fused_mixed_run(spec, lay, _stat_matrices(spec, lay, shareds),
-                            block, block_rows, sampling, n_sweeps,
-                            with_score, cl_model, shareds, state,
-                            assignments, generator, cache)
+    return _fused_run(spec, values, supports, False, block, block_rows,
+                      sampling, n_sweeps, with_score, cl_model, shareds,
+                      state, assignments, generator, cache)
 
 
 # -- row-by-row initializations ---------------------------------------------

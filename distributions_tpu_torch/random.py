@@ -53,6 +53,16 @@ def fold_seed(seed, index):
     return (z ^ (z >> 31)) >> 2
 
 
+def sweep_seeds(generator, n_tiles):
+    """The seeds of one sweep's tiles, [n_tiles] int64 on the host: one
+    `draw_seed(generator)`, folded with each tile index (`fold_seed`), in
+    the order the fused sweep takes them, so that a sweep consumes the
+    generator alike whether its tiles run eagerly or from a CUDA graph."""
+    seed = draw_seed(generator)
+    return torch.tensor([fold_seed(seed, t) for t in range(n_tiles)],
+                        dtype=torch.int64)
+
+
 def device_generator(seed, device):
     """A `torch.Generator` on `device` seeded with `seed`."""
     g = torch.Generator(device=device)

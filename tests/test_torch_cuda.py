@@ -9,7 +9,9 @@ with a GPU and no JAX, run them with
 (`-k pair` picks the tests of K3, `-k bench` those of B1-B5, `-k fused`
 the edge tests of the slot-split walk of K1, B5, K2 and K3, `-k v1_split`
 those of its v1 form in K4 and K5, `-k on_the_card` the samplers, the
-LowEntropy prior and the other moves.)
+LowEntropy prior and the other moves, `-k "graph or seed_pointer"` the
+fused sweeps replayed from CUDA graphs and K1 / K2 reading their seed
+from device memory.)
 """
 
 import pytest
@@ -1224,3 +1226,218 @@ def test_low_entropy_on_the_card(dev):
                    cl.sample_assignments(g, py, 4096, 64),
                    cl.py_sample_assignments_stick(g, py, 1 << 20, 1024)):
         assert sample.device.type == 'cuda' and sample.dtype == torch.int32
+
+
+# -- the runner's sweeps replayed from CUDA graphs ----------------------------
+
+def _bits_equal(a, b):
+    """Every tensor of two nested results equal as bytes."""
+    ta, tb = list(gibbs._tensors(tuple(a))), list(gibbs._tensors(tuple(b)))
+    return len(ta) == len(tb) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(
+            x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+        for x, y in zip(ta, tb))
+
+
+def _reset_graph_stats():
+    gibbs.reset_graph_stats()
+    gibbs.release_sweep_graphs()
+
+
+@pytest.mark.parametrize('kernel', ['K1', 'K2'])
+@pytest.mark.parametrize('sampling', ['gumbel', 'gumbel_fast', 'cdf',
+                                      'argmax'])
+def test_seed_pointer_is_the_seed(dev, kernel, sampling):
+    """K1 and K2 with the seed in device memory equal the by-value launch
+    bitwise, in the split walk ('gumbel', 'argmax') and the sequential one
+    ('cdf'), for a seed whose top bit is set (the int64 tensor holds its
+    bits)."""
+    seed = 0xF123456789ABCDEF
+    as_tensor = torch.tensor([seed - (1 << 64)], device=dev)
+    if kernel == 'K1':
+        v, cls, co = _inputs(dev, 3000, 1000)
+
+        def launch(s):
+            return fk.fused_score_sample_stats(s, v, cls, co, (2,),
+                                               sampling=sampling)
+    else:
+        args, kwargs, _ = _mixed_inputs(dev, 'niw2mix', 3000, 1000)
+
+        def launch(s):
+            return fk.fused_mixed_score_sample_stats(s, *args,
+                                                     sampling=sampling,
+                                                     **kwargs)
+    assert _bits_equal(launch(seed), launch(as_tensor))
+    if sampling != 'argmax':
+        assert not torch.equal(launch(seed)[0], launch(seed + 1)[0])
+    with pytest.raises(ValueError, match='seed tensor'):
+        launch(as_tensor.cpu())
+
+
+def _graph_problem(dev, kind, R=4096, C=128):
+    if kind == 'nich2':
+        values, labels = testing.nich_problem(R, seed=3, n_clusters=40)
+        spec = mx.make_spec([(nich, 2)], capacity=C)
+        sh = (nich.shared_from_dict(testing.NICH_SHARED, device=dev),)
+        py = cl.PitmanYor.from_dict(testing.PY, device=dev)
+        tv = (torch.from_numpy(values).to(dev),)
+        return spec, py, sh, tv, torch.from_numpy(labels).to(dev)
+    p = testing.mixed_problem(R, C, seed=2, kind=kind, n_clusters=40)
+    spec, py, sh = testing.build_problem(p, MODULES, mx.make_spec,
+                                         cl.PitmanYor.from_dict, device=dev)
+    return (spec, py, sh, tuple(torch.from_numpy(v).to(dev)
+                                for v in p['values']),
+            torch.from_numpy(p['labels']).to(dev))
+
+
+@pytest.mark.parametrize('kind', ['nich2', 'niw2mix', 'niw4', 'bbddgp'])
+@pytest.mark.parametrize('sampling', ['gumbel', 'argmax', 'cdf'])
+def test_graph_sweeps_equal_eager(dev, kind, sampling):
+    """sweep_blocked_pallas_fused_mixed(n_sweeps=3, with_score=True)
+    replayed from its CUDA graph equals the eager loop bitwise (state,
+    assignments, cache, score).  The key's first call runs eagerly and
+    captures nothing; the second runs its first sweep as the capture's
+    warm-up and replays the other two; each counts tiles x sweeps kernel
+    launches; niw4 (d = 4) captures torch.linalg's inverse and slogdet."""
+    spec, py, sh, tv, an = _graph_problem(dev, kind)
+    st = mx.state_from_assignments(spec, py, sh, tv, an)
+    cache = gibbs.build_stat_cache(spec, sh, tv, 1024, an)
+    wrapper = fk.fused_score_sample_stats if kind == 'nich2' \
+        else fk.fused_mixed_score_sample_stats
+
+    def run():
+        return gibbs.sweep_blocked_pallas_fused_mixed(
+            spec, py, sh, st, tv, an, 1024, 256,
+            torch.Generator().manual_seed(5), cache, sampling=sampling,
+            n_sweeps=3, with_score=True)
+    _reset_graph_stats()
+    before = wrapper.launches
+    first = run()
+    assert wrapper.launches == before + 4 * 3
+    assert gibbs.GRAPH_STATS['first_uses'] == 1
+    assert gibbs.GRAPH_STATS['captures'] == 0
+    g = run()
+    assert wrapper.launches == before + 2 * 4 * 3
+    assert {k: gibbs.GRAPH_STATS[k] for k in ('captures', 'replays',
+                                               'score_captures')} == {
+        'captures': 1, 'replays': 2, 'score_captures': 1}
+    g2 = run()
+    assert gibbs.GRAPH_STATS['replays'] == 5
+    assert gibbs.GRAPH_STATS['score_replays'] == 1
+    with gibbs._eager_sweeps():
+        e = run()
+    assert _bits_equal(first, e)
+    assert _bits_equal(g, e) and _bits_equal(g2, e)
+    assert g[1].device.type == 'cuda'
+
+
+def test_graph_fresh_seeds_and_no_aliasing(dev):
+    """Two replays draw other seeds and other slots, each equal to the
+    eager sweep from the same generator; what a call returned is not
+    written by the next call.  (The key's first call runs eagerly, the
+    second captures.)"""
+    spec, py, sh, tv, an = _graph_problem(dev, 'nich2')
+    st = mx.state_from_assignments(spec, py, sh, tv, an)
+    cache = gibbs.build_stat_cache(spec, sh, tv, 1024, an)
+    _reset_graph_stats()
+
+    def call(st, an, cache, gen):
+        return gibbs.sweep_blocked_pallas_fused(
+            spec, py, sh, st, tv, an, 1024, 256, gen, cache,
+            sampling='gumbel')
+    gen, gen_e = torch.Generator().manual_seed(1), \
+        torch.Generator().manual_seed(1)
+    outs, seeds = [call(st, an, cache, gen)], []
+    for _ in range(3):
+        outs.append(call(st, an, cache, gen))
+        seeds.append(gibbs._GRAPH['graph'].seeds.to('cpu', copy=True))
+    assert gibbs.GRAPH_STATS['replays'] == 2
+    assert not torch.equal(seeds[1], seeds[2])
+    assert not torch.equal(outs[2][1], outs[3][1])
+    with gibbs._eager_sweeps():
+        for out in outs:
+            assert _bits_equal(out, call(st, an, cache, gen_e))
+    kept = [x.clone() for x in gibbs._tensors(outs[3])]
+    call(*outs[3], gen)
+    assert all(torch.equal(x, y)
+               for x, y in zip(kept, gibbs._tensors(outs[3])))
+
+
+def test_graph_host_modes_stay_eager(dev):
+    """'gumbel_host' and 'cdf_host' never capture a graph, nor does a
+    caller that passes its values on the host: each call copies them to
+    new tensors, a key used once."""
+    spec, py, sh, tv, an = _graph_problem(dev, 'nich2')
+    st = mx.state_from_assignments(spec, py, sh, tv, an)
+    cache = gibbs.build_stat_cache(spec, sh, tv, 1024, an)
+    _reset_graph_stats()
+    for sampling in ('gumbel_host', 'cdf_host') * 2:
+        gibbs.sweep_blocked_pallas_fused_mixed(
+            spec, py, sh, st, tv, an, 1024, 256,
+            torch.Generator().manual_seed(5), cache, sampling=sampling,
+            n_sweeps=2)
+    assert gibbs.GRAPH_STATS['captures'] == 0
+    assert gibbs.GRAPH_STATS['first_uses'] == 0
+    host = tuple(v.cpu().numpy() for v in tv)
+    for _ in range(3):
+        gibbs.sweep_blocked_pallas_fused_mixed(
+            spec, py, sh, st, host, an, 1024, 256,
+            torch.Generator().manual_seed(5), cache, sampling='gumbel')
+    assert gibbs.GRAPH_STATS['captures'] == 0
+    assert gibbs.GRAPH_STATS['first_uses'] == 3
+    assert gibbs._GRAPH['graph'] is None
+
+
+def _runs(dev, **kw):
+    """run_gibbs on nich2 on the graph path and under _eager_sweeps():
+    both results, and the graph counters of the first."""
+    from distributions_tpu_torch.inference import runner
+    spec, py, sh, tv, an = _graph_problem(dev, 'nich2')
+    kw = dict(dict(block=1024, use_pallas=True, sampling='gumbel',
+                   initial_assignments=an, grow_headroom=0.0,
+                   sweeps_per_step=2), **kw)
+    spec = kw.pop('spec', spec)
+    cl_model = kw.pop('cl_model', py)
+    _reset_graph_stats()
+    g = runner.run_gibbs(spec, cl_model, sh, tv,
+                         torch.Generator().manual_seed(0), 6, **kw)
+    stats = dict(gibbs.GRAPH_STATS)
+    with gibbs._eager_sweeps():
+        e = runner.run_gibbs(spec, cl_model, sh, tv,
+                             torch.Generator().manual_seed(0), 6, **kw)
+    rows = [[{k: v for k, v in r.items() if k not in ('time', 'seconds')}
+             for r in x[2].rows] for x in (g, e)]
+    assert _bits_equal(g[:2], e[:2]) and rows[0] == rows[1]
+    return g, stats
+
+
+def test_graph_runner_recaptures_on_growth(dev):
+    """A run whose capacity doubles at a step edge captures a graph for
+    each capacity and equals the eager run bitwise; the run frees its
+    graph when it ends."""
+    _, stats = _runs(dev, spec=mx.make_spec([(nich, 2)], capacity=32),
+                     grow_headroom=0.5,
+                     initial_assignments=torch.arange(
+                         4096, device=dev).to(torch.int32) % 16)
+    assert stats['captures'] == 2 and stats['replays'] == 4
+    assert stats['first_uses'] == 0 and gibbs._GRAPH['graph'] is None
+
+
+def test_graph_runner_hyper_moves_and_low_entropy(dev):
+    """Hyper moves copy the new shareds and prior into the graph (one
+    capture for the run), and the LowEntropy prior captures too; both
+    equal their eager runs bitwise."""
+    from distributions_tpu_torch.inference import hypers
+    grid = nich.Shared(
+        mu=torch.zeros(8, device=dev), kappa=torch.full((8,), 0.1,
+                                                        device=dev),
+        sigmasq=torch.logspace(-2, 0, 8, device=dev),
+        nu=torch.ones(8, device=dev))
+    cl_grid = hypers.make_py_grid([0.5, 1.0, 4.0], [0.0, 0.1, 0.3])
+    g, stats = _runs(dev, hyper_grids={0: grid}, cl_grid=cl_grid,
+                     hyper_every=2)
+    assert stats['captures'] == 1 and stats['replays'] == 5
+    assert stats['score_replays'] == 2
+    _, stats = _runs(dev, cl_model=cl.LowEntropy.from_dict(
+        {'dataset_size': 4096}, device=dev))
+    assert stats['captures'] == 1 and stats['replays'] == 5

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from distributions_tpu import clustering as jcl, mixture as jmx
+from distributions_tpu import clustering as jcl, mixture as jmx_eager
 from distributions_tpu.models import nich as jnich
 from distributions_tpu_torch import config, convert, mixture as tmx, testing
 from distributions_tpu_torch.models import base as tbase
@@ -22,6 +22,30 @@ R, C = 1024, 128
 # score tolerances: the same f32 formulas with log/lgamma differing by
 # ulps; the stat sums are f32 sums over up to R rows in another order
 RTOL, ATOL = 1e-5, 1e-3
+
+
+class _Traced:
+    """A JAX module whose functions named in `static` (name -> the indices
+    of their static arguments) are jitted: traced and compiled once per
+    spec, where their eager ops would each compile on their own.  Other
+    names are the module's own."""
+
+    def __init__(self, module, static):
+        self._module = module
+        self._jitted = {name: jax.jit(getattr(module, name),
+                                      static_argnums=argnums)
+                        for name, argnums in static.items()}
+
+    def __getattr__(self, name):
+        return self._jitted.get(name) or getattr(self._module, name)
+
+
+jmx = _Traced(jmx_eager, dict(
+    {name: (0,) for name in (
+        'state_from_assignments', 'score_batch', 'score_data', 'remove_tile',
+        'add_tile', 'precompute_row_stats', 'tile_sums_fast',
+        'tile_deltas_fast', 'sums_to_tiles')},
+    apply_stat_tiles=(0, 5, 6)))
 
 
 @pytest.fixture(scope='module')

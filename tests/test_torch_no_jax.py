@@ -64,6 +64,10 @@ def test_chip_smoke_never_imports_jax():
     _assert_no_jax_imports('chip_smoke.py')
 
 
+def test_chip_profile_window_never_imports_jax():
+    _assert_no_jax_imports('chip_profile_window.py')
+
+
 def test_process_group_worker_never_imports_jax():
     _assert_no_jax_imports(os.path.join('tests',
                                         'torch_multiprocess_worker.py'))
