@@ -86,8 +86,11 @@ exits non-zero:
                  z-tests of the reduced draws in 'gumbel' and
                  'gumbel_fast'; bitwise repeatability; a ragged case with
                  odd slot offsets; milliseconds of kernel and twin; the
-                 Philox check on each shard at its slot offset, and the
-                 split kernel's report.
+                 seed read from device memory (the 2-D sweep's CUDA graph)
+                 bitwise the by-value launch in 'argmax', 'gumbel' and
+                 'gumbel_fast', both timed in turns; the Philox check on
+                 each shard at its slot offset, and the split kernel's
+                 report.
 3b. kernel_k4, kernel_k5 -- the v1 score + sample kernels (no stat
                  outputs; the slot-split walk in its v1 form) against their
                  twins: K4 at B=131072 x C=1024 x 2 nich, K5 at B=65536 x
@@ -165,24 +168,38 @@ exits non-zero:
 6d. init      -- run_gibbs with its default init='prior' at full width and
                  with init='sequential' on a few hundred rows; ms per row
                  of both.
-6e. sharded   -- the sharded sweeps on in-process meshes on the one card,
-                 at 1,048,576 rows x 1024 slots: sharded_sweep_fused on 4
-                 row shards (nich2 on K1, niw2mix on K2) and
+6e. sharded   -- the sharded fused sweeps on in-process meshes on the one
+                 card at 1,048,576 rows x 1024 slots, each sweep the
+                 replay of one CUDA graph of all its tiles and local
+                 shards: sharded_sweep_fused on 4 row shards (nich2 on K1,
+                 niw2mix on K2) in 'argmax', 'cdf' and 'gumbel', and
                  sharded_sweep_2d_fused on a 2 x 4 mesh (niw2mix, K3 at
-                 C_local=256); at 262,144 rows sharded_sweep_2d,
-                 sharded_sweep_components and sharded_sweep_blocked, and
-                 'argmax' 2-D fused against 'argmax' 2-D plain (equal but
-                 for near-ties, at most one row in 10,000).  Launches
-                 = tiles x shards x sweeps, counts equal a bincount,
-                 score_data equals a fresh recompute, every component
-                 shard keeps an alive empty slot; ms per sweep beside the
-                 single-device fused sweep.  N shards on one card measure
-                 the sharded code's overhead, not a speed-up.
+                 C_local=256, reading its seed from the table) in 'argmax'
+                 and 'gumbel': 10 sweeps with the graph equal to 10 under
+                 gibbs._eager_sweeps() bitwise, one capture and 9 replays,
+                 launches = tiles x shards x sweeps; two replays with other
+                 seeds and draws, each equal to the eager sweep; a replayed
+                 sweep under the profiler with exactly tiles x shards
+                 score + sample kernels; ms per sweep, graph and eager in
+                 turns, capture seconds and pool bytes, beside the
+                 single-device graph; counts equal a bincount, score_data
+                 equals a fresh recompute, every component shard keeps an
+                 alive empty slot.  At 262,144 rows the plain
+                 sharded_sweep_2d, sharded_sweep_components and
+                 sharded_sweep_blocked (eager by rule), and 'argmax' 2-D
+                 fused against 'argmax' 2-D plain (equal but for
+                 near-ties, at most one row in 10,000).  N shards on one
+                 card measure the sharded code's overhead, not a speed-up.
 6f. main_mesh -- run_gibbs(mesh=make_mesh(4)) on nich2 at full width with
-                 a checkpoint, and an interrupted plus resumed run against
+                 a checkpoint, 3 steps of 3 sweeps: every sweep but the
+                 first replayed from the step's CUDA graph, and in the
+                 profiled last step the device's kernels equal to the
+                 launches counted; an interrupted plus resumed run against
                  it, bitwise.
 6g. process_group -- distributed.initialize with NCCL at world size 1, a
-                 make_global_mesh() sweep equal to the single-device one,
+                 make_global_mesh() sweep of 3 sweeps replayed from its CUDA
+                 graph (the NCCL all_reduce inside it) equal to its eager
+                 loop and to the single-device sweep, bitwise;
                  destroy_process_group.  More than one rank is not run:
                  the machine has one card.
 6h. main_hypers -- run_gibbs with hyperparameter moves on nich2 at full
@@ -1209,12 +1226,13 @@ def phase_kernel_k3(port):
                 port, 'K3 %s [%d, %d)' % (kind, a, b), launch, scores, B,
                 b - a, slot_offset=a)
         timing = {}
+        seed_t = torch.tensor([3], device=m['cl_scores'].device)
         for mode in ('gumbel', 'gumbel_fast', 'argmax', 'gumbel_host'):
             args, kwargs = slot_slice(
                 m, 0, CL, noise if mode == 'gumbel_host' else None)
 
-            def launch():
-                return fk.fused_score_sample_pair(3, *args, sampling=mode,
+            def launch(seed=3):
+                return fk.fused_score_sample_pair(seed, *args, sampling=mode,
                                                   **kwargs)
 
             def plain():
@@ -1222,6 +1240,23 @@ def phase_kernel_k3(port):
                     3, *args, sampling=mode, **kwargs)
             timing[mode] = {'ms': cuda_ms(launch, 7),
                             'plain_ms': cuda_ms(plain, 3)}
+            if mode == 'gumbel_host':
+                continue
+            # the seed read from device memory (the form the 2-D sweep's
+            # CUDA graph replays) gives the by-value launch's outputs
+            if not all(torch.equal(x, y) for x, y in zip(
+                    launch(), launch(seed_t))):
+                raise AssertionError('K3 %s %s: the seed pointer changes '
+                                     'the outputs' % (kind, mode))
+            timing[mode]['seed_pointer_bitwise'] = True
+            # in turns with the by-value launch: value, pointer, pointer,
+            # value
+            ptr = [cuda_ms(lambda: launch(seed_t), 7) for _ in range(2)]
+            val = [timing[mode]['ms'], cuda_ms(launch, 7)]
+            timing[mode].update(ms_seed_pointer=sum(ptr) / 2,
+                                ms_by_value=sum(val) / 2,
+                                turns_ms={'by_value': val,
+                                          'seed_pointer': ptr})
         args, kwargs = slot_slice(m, 0, CL)
         ops = gumbel_ops_per_cell(m['col_groups'], lay.quad_groups,
                                   len(lay.table_vs))
@@ -1250,7 +1285,8 @@ def phase_kernel_k3(port):
                 {'C_local': C, 'modes': one,
                  'gumbel_ms': cuda_ms(lambda: fk.fused_score_sample_pair(
                      3, *w_args, sampling='gumbel', **w_kwargs), 7)}, **w_bd)
-            summary = dict(bd, ms=timing['gumbel']['ms'],
+            summary = dict(bd, ms=timing['gumbel']['ms_seed_pointer'],
+                           ms_by_value=timing['gumbel']['ms_by_value'],
                            plain_ms=timing['gumbel']['plain_ms'])
         result['layouts'][kind] = entry
         del m
@@ -2805,70 +2841,187 @@ def expect_launches(name, wrapper, want):
     return want
 
 
+# the sharded fused sweeps' graph checks: sweeps held bitwise to the eager
+# loop, the draws of each mode in this order (the last one's graph is kept
+# for the fresh-seed, profile and timing checks), and the sweeps (4 row
+# shards) or calls (2-D) of each timed turn
+SHARDED_SWEEPS = 10
+SHARDED_MODES = ('argmax', 'cdf', 'gumbel')
+MESH_2D_MODES = ('argmax', 'gumbel')
+SHARDED_TIMED = 5
+
+
+def sharded_graph_check(port, what, run, wrapper, want_launches, captures,
+                        score_captures):
+    """run() on the graph path, its launches of `wrapper` counted from 0,
+    then under gibbs._eager_sweeps(), and the two held bitwise: (graph
+    result, per-run report)."""
+    gibbs = port['gibbs']
+    stats = graph_counts(port)
+    wrapper.launches = 0
+    g, g_ms = timed(run)
+    counts = dict(stats)
+    launches = wrapper.launches
+    with gibbs._eager_sweeps():
+        e, e_ms = timed(run)
+    want = {'captures': 1, 'replays': captures - 1,
+            'score_captures': score_captures}
+    if {k: counts[k] for k in want} != want or launches != want_launches:
+        raise AssertionError('%s: counters %s and %d launches on the graph '
+                             'path, expected %s and %d'
+                             % (what, counts, launches, want, want_launches))
+    report = {'equal': bits_equal(g, e), 'launches_graph_run': launches,
+              'graph_ms': g_ms, 'eager_ms': e_ms,
+              'capture_seconds': counts['capture_seconds'],
+              'pool_bytes': counts['pool_bytes']}
+    if not report['equal']:
+        raise AssertionError('%s: the graph path and the eager loop differ'
+                             % what)
+    return g, report
+
+
+def sharded_fresh_seeds(port, what, call, n_seeds):
+    """Two one-sweep calls on a captured key with one generator: two
+    replays with other seeds (the generator's table) and other draws,
+    each equal to the eager sweep from the same generator."""
+    import torch
+    gibbs, rnd = port['gibbs'], port['random']
+    gen, gen_e = (torch.Generator().manual_seed(11),
+                  torch.Generator().manual_seed(11))
+    stats = graph_counts(port)
+    g1 = call(gen)
+    graph = gibbs._GRAPH['graph']
+    seeds1 = graph.seeds.to('cpu', copy=True)
+    g2 = call(gen)
+    seeds2 = graph.seeds.to('cpu', copy=True)
+    with gibbs._eager_sweeps():
+        e1, e2 = call(gen_e), call(gen_e)
+    fresh = {
+        'replays': stats['replays'] == 2 and stats['captures'] == 0,
+        'seeds_differ': bool((seeds1 != seeds2).all()),
+        'seeds_are_the_generators': bool(torch.equal(
+            seeds1, rnd.sweep_seeds(torch.Generator().manual_seed(11),
+                                    n_seeds))),
+        'draws_differ': not bool(torch.equal(g1[1], g2[1])),
+        'first_equals_eager': bits_equal(g1, e1),
+        'second_equals_eager': bits_equal(g2, e2)}
+    if not all(fresh.values()):
+        raise AssertionError('%s: fresh seeds: %s' % (what, fresh))
+    return dict(fresh, rows_moved_between_replays=int((g1[1] != g2[1]).sum()))
+
+
+def sharded_profile(port, what, call, want):
+    """One replayed call under the profiler: the device ran exactly `want`
+    split score + sample kernels (K1, K2 or K3) in it."""
+    stats = graph_counts(port)
+    prof = profile_sweep(call, ('split_score_sample',))
+    seen = prof.get('kernel_calls', {}).get('split_score_sample')
+    if seen != want or stats['captures'] or not stats['replays']:
+        raise AssertionError('%s: the profile of a replayed sweep shows %r '
+                             'score + sample kernels, expected %d (graph '
+                             'counters %s, profile: %s)'
+                             % (what, seen, want, dict(stats), prof))
+    return prof
+
+
+def graph_eager_turns(port, run, n):
+    """ms per sweep of run() (n sweeps) on the graph path and eagerly, in
+    turns: graph, eager, eager, graph."""
+    gibbs = port['gibbs']
+    by = {'graph': [], 'eager': []}
+    for kind in ('graph', 'eager', 'eager', 'graph'):
+        if kind == 'eager':
+            with gibbs._eager_sweeps():
+                by[kind].append(timed(run)[1] / n)
+        else:
+            by[kind].append(timed(run)[1] / n)
+    return {'ms_per_sweep_graph': by['graph'],
+            'ms_per_sweep_eager': by['eager']}
+
+
 def phase_sharded(port, X, labels, mixed):
-    """The sharded sweeps on in-process meshes.  Returns K3's launches in
-    the 2-D fused run."""
+    """The sharded fused sweeps on in-process meshes at 1,048,576 rows x
+    1024 slots, each sweep the replay of one CUDA graph of all its tiles
+    and local shards (gibbs._SweepGraph), held bitwise to the eager loop
+    with the seeds passed by value (gibbs._eager_sweeps) for 10 sweeps in
+    every mode: sharded_sweep_fused on 4 row shards (nich2 on K1, niw2mix
+    on K2) and sharded_sweep_2d_fused on 2 x 4 (niw2mix on K3).  Also:
+    fresh seeds every replay, the profiler's exact kernel count in a
+    replayed sweep, and ms/sweep on the graph and eagerly in turns.  Then
+    the plain row-sharded, 2-D and component sweeps (eager by rule) on a
+    quarter of the rows.  Returns K3's launches in the 2-D sweep's graph
+    runs."""
     import torch
     fk, mx, gibbs, sharding = (port['fk'], port['mx'], port['gibbs'],
                                port['sharding'])
-    dev = port['config'].default_device()
     out = {'phase': 'sharded', 'rows': ROWS, 'slots': SLOTS,
-           'rows_small': ROWS_SMALL,
-           'note': 'logical shards on one card: overhead, not speed-up'}
-    n = 2
-    rows_mesh = sharding.make_mesh(ROW_SHARDS)
-    gen = torch.Generator().manual_seed(3)
+           'rows_small': ROWS_SMALL, 'sweeps_checked': SHARDED_SWEEPS,
+           'note': 'logical shards on one card: overhead, not speed-up',
+           'seconds': {}}
+    t0 = time.time()
 
-    def fused_rows(name, wrapper, spec, py, shareds, values, a0, block):
-        """sharded_sweep_fused on 4 row shards beside the single-device
-        fused sweep with the same global tile."""
-        st0 = mx.state_from_assignments(spec, py, shareds, values, a0)
+    def lap(name):
+        out['seconds'][name] = round(time.time() - t0 - sum(
+            out['seconds'].values()), 2)
+    rows_mesh = sharding.make_mesh(ROW_SHARDS)
+    problems = graph_problems(port, X, labels, mixed)
+    for layout in ('nich2', 'niw2mix'):
+        spec, py, shareds, values, a0, block, wrapper, _ = problems[layout]
         local = block // ROW_SHARDS
         tiles = ROWS // ROW_SHARDS // local
+        st0 = mx.state_from_assignments(spec, py, shareds, values, a0)
         cache = gibbs.build_stat_cache(spec, shareds, values, local, a0)
 
-        def sharded(k):
+        def call(mode='gumbel', n=1, gen=None, score=False):
             return sharding.sharded_sweep_fused(
-                spec, py, shareds, st0, values, a0, gen, rows_mesh, local,
-                cache, block_rows=2048, sampling='gumbel', n_sweeps=k,
-                with_score=True)
-        sharded(1)
-        torch.cuda.synchronize()
-        wrapper.launches = 0
-        (st, an, _, score), ms = events_ms(lambda: sharded(n))
-        launches = expect_launches(name, wrapper, tiles * ROW_SHARDS * n)
-        checks = check_sharded(port, spec, py, shareds, values, st, an)
-        if abs(float(score) - checks['score_data']) > 1e-4 * abs(
+                spec, py, shareds, st0, values, a0,
+                gen or torch.Generator().manual_seed(7), rows_mesh, local,
+                cache, block_rows=2048, sampling=mode, n_sweeps=n,
+                with_score=score)
+        res = {'shards': ROW_SHARDS, 'local_block': local,
+               'tiles_per_shard': tiles}
+        for mode in SHARDED_MODES:
+            call(mode)      # the key's first call runs eagerly
+            g, res[mode] = sharded_graph_check(
+                port, 'sharded_sweep_fused %s %s' % (layout, mode),
+                lambda: call(mode, SHARDED_SWEEPS, score=True), wrapper,
+                tiles * ROW_SHARDS * SHARDED_SWEEPS, SHARDED_SWEEPS, 1)
+        # the 'gumbel' graph is kept: its output checked, fresh seeds, a
+        # profiled replay, timing
+        checks = check_sharded(port, spec, py, shareds, values, g[0], g[1])
+        if abs(float(g[3]) - checks['score_data']) > 1e-4 * abs(
                 checks['score_data']):
-            raise AssertionError('%s: with_score disagrees' % name)
+            raise AssertionError('%s: with_score disagrees' % layout)
+        res['checks'] = checks
+        res['fresh_seeds'] = sharded_fresh_seeds(
+            port, 'sharded %s' % layout, lambda gen: call(gen=gen),
+            ROW_SHARDS * tiles)
+        res['profile_replay'] = sharded_profile(
+            port, 'sharded %s' % layout, call, tiles * ROW_SHARDS)
+        res['timing'] = graph_eager_turns(
+            port, lambda: call(n=SHARDED_TIMED), SHARDED_TIMED)
         cache1 = gibbs.build_stat_cache(spec, shareds, values, block, a0)
 
         def single():
             return gibbs.sweep_blocked_pallas_fused_mixed(
-                spec, py, shareds, st0, values, a0, block, 2048, gen, cache1,
-                sampling='gumbel', n_sweeps=n)
+                spec, py, shareds, st0, values, a0, block, 2048,
+                torch.Generator().manual_seed(7), cache1, sampling='gumbel',
+                n_sweeps=SHARDED_TIMED)
         single()    # the key's first call runs eagerly,
         single()    # its second captures the graph: the timed one replays
-        _, ms1 = events_ms(single)
-        return dict(checks, shards=ROW_SHARDS, local_block=local,
-                    tiles_per_shard=tiles, launches=launches, sweeps=n,
-                    ms_per_sweep=ms / n,
-                    single_device_fused_ms_per_sweep=ms1 / n)
-
-    spec = mx.make_spec([(port['nich'], FEATURES)], capacity=SLOTS)
-    shareds = (port['nich'].shared_from_dict(SHARED),)
-    py = port['cl'].PitmanYor.from_dict(PY)
-    values = (torch.as_tensor(X, device=dev),)
-    a0 = torch.as_tensor(labels, device=dev)
-    out['rows_fused_nich2'] = fused_rows(
-        'sharded_sweep_fused nich2', fk.fused_score_sample_stats, spec, py,
-        shareds, values, a0, BLOCK)
+        res['single_device_graph_ms_per_sweep'] = \
+            timed(single)[1] / SHARDED_TIMED
+        out['rows_fused_' + layout] = res
+        del st0, cache, cache1
+        lap('rows_fused_' + layout)
 
     # the un-kernelled row-sharded sweep, a quarter of the rows
+    spec, py, shareds, values, a0, _, _, _ = problems['nich2']
     small = (values[0][:ROWS_SMALL].contiguous(),)
     a_s = a0[:ROWS_SMALL].contiguous()
     st_s = mx.state_from_assignments(spec, py, shareds, small, a_s)
     local = BLOCK_MIXED // ROW_SHARDS
+    gen = torch.Generator().manual_seed(3)
 
     def blocked():
         return sharding.sharded_sweep_blocked(spec, py, shareds, st_s, small,
@@ -2879,53 +3032,76 @@ def phase_sharded(port, X, labels, mixed):
         check_sharded(port, spec, py, shareds, small, st, an),
         rows=ROWS_SMALL, shards=ROW_SHARDS, local_block=local,
         ms_per_sweep=ms)
-    del values, small, st_s, st, an
+    del small, st_s, st, an
 
-    spec, py, shareds = port['testing'].build_problem(
-        mixed, port['models'], mx.make_spec, port['cl'].PitmanYor.from_dict)
-    values = tuple(torch.as_tensor(v, device=dev) for v in mixed['values'])
-    # the generating clusters spread evenly over the component shards'
-    # slot ranges, so that every shard has free slots
+    # 2-D fused (K3) at full width; the generating clusters spread evenly
+    # over the component shards' slot ranges, so that every shard has free
+    # slots
+    spec, py, shareds, values, a0, _, _, _ = problems['niw2mix']
     n_row, n_comp = MESH_2D
     per = -(-TRUE_CLUSTERS // n_comp)
-    a0 = torch.as_tensor(mixed['labels'], device=dev)
     a0 = a0 + (a0 // per) * (SLOTS // n_comp - per)
-    out['rows_fused_niw2mix'] = fused_rows(
-        'sharded_sweep_fused niw2mix', fk.fused_mixed_score_sample_stats,
-        spec, py, shareds, values, a0, BLOCK_MIXED)
-
-    # 2-D fused (K3) at full width
     mesh2 = sharding.make_mesh_2d(n_row, n_comp)
     st0 = mx.state_from_assignments(spec, py, shareds, values, a0)
+    sts0 = sharding.shard_state_components(st0, mesh2)
     local = BLOCK_MIXED // n_row
     tiles = ROWS // n_row // local
+    per_sweep = tiles * n_row * n_comp
 
-    def fused_2d(st, an, sampling='gumbel'):
-        return sharding.sharded_sweep_2d_fused(
-            spec, py, shareds, st, values, an, gen, mesh2, local,
-            sampling=sampling)
-    fused_2d(st0, a0)
-    torch.cuda.synchronize()
-    fk.fused_score_sample_pair.launches = 0
-    st, an, ms = timed_sweeps(fused_2d, st0, a0, n)
-    k3_launches = expect_launches('sharded_sweep_2d_fused',
-                                  fk.fused_score_sample_pair,
-                                  tiles * n_row * n_comp * n)
-    out['fused_2d_niw2mix'] = dict(
-        check_sharded(port, spec, py, shareds, values, st, an, n_comp),
-        mesh=list(MESH_2D), C_local=SLOTS // n_comp, local_block=local,
-        tiles_per_row_shard=tiles, launches=k3_launches, sweeps=n,
-        ms_per_sweep=ms,
-        profile=profile_sweep(lambda: fused_2d(st0, a0),
-                              ('split_score_sample',)))
-    del st, an
+    def fused_2d(st, an, mode='gumbel', gen=None):
+        st, an = sharding.sharded_sweep_2d_fused(
+            spec, py, shareds, list(st), values, an,
+            gen or torch.Generator().manual_seed(7), mesh2, local,
+            sampling=mode)
+        return tuple(st), an
+
+    def chain(mode, n, gen):
+        st, an = sts0, a0
+        for _ in range(n):
+            st, an = fused_2d(st, an, mode, gen)
+        return st, an
+    res = {'mesh': list(MESH_2D), 'C_local': SLOTS // n_comp,
+           'local_block': local, 'tiles_per_row_shard': tiles}
+    k3_launches = 0
+    for mode in MESH_2D_MODES:
+        fused_2d(sts0, a0, mode)    # the key's first call runs eagerly
+        g, res[mode] = sharded_graph_check(
+            port, 'sharded_sweep_2d_fused %s' % mode,
+            lambda: chain(mode, SHARDED_SWEEPS,
+                          torch.Generator().manual_seed(7)),
+            fk.fused_score_sample_pair, per_sweep * SHARDED_SWEEPS,
+            SHARDED_SWEEPS, 0)
+        k3_launches += res[mode]['launches_graph_run']
+    # the output checks on two sweeps from the generating labels, as
+    # before the graph; after the ten above a shard may hold no empty slot
+    # (its slots all taken), so only their count is recorded
+    full = sharding.unshard_state_components(list(g[0]), mesh2)
+    res['empty_slots_per_shard_after_%d' % SHARDED_SWEEPS] = (
+        full.alive & (full.counts == 0)).reshape(n_comp, -1).sum(1).tolist()
+    st2, an2 = chain('gumbel', 2, torch.Generator().manual_seed(7))
+    res['checks'] = check_sharded(
+        port, spec, py, shareds, values,
+        sharding.unshard_state_components(list(st2), mesh2), an2, n_comp)
+    del full, st2, an2
+    res['fresh_seeds'] = sharded_fresh_seeds(
+        port, 'sharded 2-D', lambda gen: fused_2d(sts0, a0, gen=gen),
+        n_row * tiles)
+    res['profile_replay'] = sharded_profile(
+        port, 'sharded 2-D', lambda: fused_2d(sts0, a0), per_sweep)
+    res['timing'] = graph_eager_turns(
+        port, lambda: chain('gumbel', SHARDED_TIMED,
+                            torch.Generator().manual_seed(7)),
+        SHARDED_TIMED)
+    out['fused_2d_niw2mix'] = res
+    del st0, sts0
+    lap('fused_2d_niw2mix')
 
     # the plain 2-D and component sweeps, and 'argmax' fused against plain,
     # on a quarter of the rows
     small = tuple(v[:ROWS_SMALL].contiguous() for v in values)
     a_s = a0[:ROWS_SMALL].contiguous()
     st_s = mx.state_from_assignments(spec, py, shareds, small, a_s)
-    del values, st0
+    del values
 
     def small_sweep(fn, mesh, block, **kw):
         def run():
@@ -2961,6 +3137,7 @@ def phase_sharded(port, X, labels, mixed):
     out['argmax_2d_fused_vs_plain'] = {
         'rows': ROWS_SMALL, 'draws_differ': differ,
         'allowed': ROWS_SMALL // 10000, 'counts_l1_difference': moved}
+    lap('plain')
     emit(out)
     if differ > ROWS_SMALL // 10000 or moved > 2 * differ:
         raise AssertionError("'argmax' 2-D fused differs from 'argmax' 2-D "
@@ -2971,8 +3148,10 @@ def phase_sharded(port, X, labels, mixed):
 
 def phase_main_mesh(port, X, labels):
     """run_gibbs(mesh=...) through the normal entry point on 4 row shards,
-    nich2 at full width, with a checkpoint; then an interrupted and resumed
-    run against it, bitwise."""
+    nich2 at full width, with a checkpoint: every sweep but the first is
+    the replay of the step's CUDA graph, and the device ran exactly the
+    launches counted in the profiled last step; then an interrupted and
+    resumed run against it, bitwise."""
     import shutil
     import tempfile
     import torch
@@ -2983,26 +3162,40 @@ def phase_main_mesh(port, X, labels):
     py = port['cl'].PitmanYor.from_dict(PY)
     mesh = sharding.make_mesh(ROW_SHARDS)
     local = BLOCK // ROW_SHARDS
-    passes, per_step = 6, 3
+    passes, per_step = 9, 3
     tmp = tempfile.mkdtemp(prefix='chip_smoke_')
     try:
-        def run(n, path, seed, resume):
+        def run(n, path, seed, resume, log=None):
             return runner.run_gibbs(
                 spec, py, shareds, (X,), torch.Generator().manual_seed(seed),
                 n, block=local, use_pallas=True, sampling='gumbel',
                 grow_headroom=0.0, checkpoint_every=per_step,
                 sweeps_per_step=per_step, initial_assignments=labels,
                 mesh=mesh, checkpoint_path=os.path.join(tmp, path),
-                resume=resume)
+                resume=resume, log=log)
+        steps = passes // per_step
+        per_sweep = (ROWS // ROW_SHARDS // local) * ROW_SHARDS
         torch.cuda.synchronize()
         fk.fused_score_sample_stats.launches = 0
+        stats = graph_counts(port)
+        log = last_step_profiler(port, steps, fk.fused_score_sample_stats)
         t0 = time.time()
-        st_a, an_a, log_a = run(passes, 'full.ckpt', 5, False)
+        st_a, an_a, log_a = run(passes, 'full.ckpt', 5, False, log)
         torch.cuda.synchronize()
         wall = time.time() - t0
+        last = log.stop()
         launches = expect_launches(
             'run_gibbs(mesh)', fk.fused_score_sample_stats,
-            (ROWS // ROW_SHARDS // local) * ROW_SHARDS * passes)
+            per_sweep * passes)
+        graphs = expect_graph('run_gibbs(mesh)', stats, passes, steps)
+        seen = last.get('kernel_calls', {}).get('split_score_sample')
+        if not seen == last['launches_counted'] == per_sweep * per_step:
+            raise AssertionError(
+                'run_gibbs(mesh): in its last step the device ran %r score '
+                '+ sample kernels and the wrapper counted %d launches, '
+                'expected shards x tiles x sweeps = %d (profile: %s)'
+                % (seen, last['launches_counted'], per_sweep * per_step,
+                   last))
         values = (torch.as_tensor(X, device=an_a.device),)
         checks, score = check_run(port, spec, py, shareds, values, st_a, an_a,
                                   log_a)
@@ -3016,7 +3209,7 @@ def phase_main_mesh(port, X, labels):
             'score_equal': log_a.rows[-1]['score_data']
                 == log_b.rows[-1]['score_data'],
             'sweeps_continuous': [r['sweep'] for r in log_b.rows]
-                == [per_step - 1, passes - 1]}
+                == list(range(per_step - 1, passes, per_step))}
         if not all(resume.values()):
             raise AssertionError('resume under a mesh is not bitwise: %s'
                                  % resume)
@@ -3026,15 +3219,20 @@ def phase_main_mesh(port, X, labels):
     emit({'phase': 'main_mesh', 'rows': ROWS, 'slots': SLOTS,
           'shards': ROW_SHARDS, 'local_block': local, 'sweeps': passes,
           'sweeps_per_step': per_step, 'launches': launches,
+          'graphs': graphs, 'last_step_profile': last,
           'step_seconds': steps, 'wall_seconds': round(wall, 3),
-          'ms_per_sweep_last_step': 1e3 * steps[-1] / per_step,
+          # the first step captures the graph, the last is profiled
+          'ms_per_sweep_steady_step': 1e3 * steps[1] / per_step,
           'score_data': score, 'checks': checks, 'resume': resume})
 
 
 def phase_process_group(port, X, labels):
-    """A torch.distributed group of one rank with NCCL on the card: a
-    row-sharded fused sweep on the global mesh against the single-device
-    fused sweep.  More than one rank needs more than one card."""
+    """A torch.distributed group of one rank with NCCL on the card: the
+    row-sharded fused sweep on the global mesh, its sweeps after the first
+    replayed from a CUDA graph that holds the NCCL all_reduce (the key's
+    eager first call makes the communicator before the capture), against
+    its eager loop and the single-device fused sweep, bitwise.  More than
+    one rank needs more than one card."""
     import socket
     import torch
     import torch.distributed as dist
@@ -3053,30 +3251,45 @@ def phase_process_group(port, X, labels):
     port_no = sock.getsockname()[1]
     sock.close()
     distributed.initialize('localhost:%d' % port_no, 1, 0, timeout=120)
+    n = 3
     try:
         backend = dist.get_backend()
         mesh = distributed.make_global_mesh()
-        st_g, an_g, _ = sharding.sharded_sweep_fused(
-            spec, py, shareds, st0, values, a0,
-            torch.Generator().manual_seed(8), mesh, BLOCK_MIXED, cache,
-            sampling='gumbel', n_sweeps=2)
+
+        def sharded(k):
+            return sharding.sharded_sweep_fused(
+                spec, py, shareds, st0, values, a0,
+                torch.Generator().manual_seed(8), mesh, BLOCK_MIXED, cache,
+                sampling='gumbel', n_sweeps=k, with_score=True)
+        sharded(1)      # the key's first call runs eagerly
+        stats = graph_counts(port)
+        g, g_ms = timed(lambda: sharded(n))
+        counts = dict(stats)
+        with gibbs._eager_sweeps():
+            e, e_ms = timed(lambda: sharded(n))
         # an all_reduce that changes its input, to see that NCCL ran
         probe = mesh.psum([torch.arange(4, device=dev)], sharding.ROWS)[0]
         torch.cuda.synchronize()
     finally:
+        gibbs.release_sweep_graphs()
         distributed.shutdown()
-    st_1, an_1, _ = gibbs.sweep_blocked_pallas_fused_mixed(
+    one = gibbs.sweep_blocked_pallas_fused_mixed(
         spec, py, shareds, st0, values, a0, BLOCK_MIXED, 2048,
         torch.Generator().manual_seed(8), cache, sampling='gumbel',
-        n_sweeps=2)
+        n_sweeps=n, with_score=True)
     checks = {'backend_is_nccl': backend == 'nccl',
               'group_per_axis': sharding.ROWS in mesh.groups,
-              'assignments_equal': bool(torch.equal(an_g, an_1)),
-              'counts_equal': bool(torch.equal(st_g.counts, st_1.counts)),
+              'replayed': counts['captures'] == 1
+              and counts['replays'] == n - 1,
+              'graph_equals_eager': bits_equal(g, e),
+              'graph_equals_single_device': bits_equal(g, one),
               'psum_of_one_rank': probe.tolist() == [0, 1, 2, 3],
               'group_destroyed': not dist.is_initialized()}
     emit({'phase': 'process_group', 'backend': backend, 'world_size': 1,
-          'rows': ROWS_SMALL, 'checks': checks,
+          'rows': ROWS_SMALL, 'sweeps': n, 'checks': checks,
+          'graph': {k: counts[k] for k in ('captures', 'replays',
+                                           'capture_seconds', 'pool_bytes')},
+          'graph_ms': g_ms, 'eager_ms': e_ms,
           'note': 'more than one rank was not run: one card'})
     if not all(checks.values()):
         raise AssertionError('process-group mesh: %s' % checks)
@@ -4581,9 +4794,9 @@ def main():
             'bound_ms': k['bound_ms'], 'bound_by': k['bound_by'],
             'measured_bound_ms': k['measured_bound_ms'],
             'measured_bound_by': k['measured_bound_by'],
-            # K1 and K2 also carry the LowEntropy runs of main_le, and
-            # their time with the seed passed by value (`ms` is the main
-            # path's launch, the seed read from device memory)
+            # K1 and K2 also carry the LowEntropy runs of main_le; K1, K2
+            # and K3 their time with the seed passed by value (`ms` is the
+            # main path's launch, the seed read from device memory)
             'launches_main_le': k.get('launches_main_le'),
             'ms_by_value': k.get('ms_by_value'),
             # no single PyTorch call computes score + draw (+ sums), a

@@ -163,7 +163,10 @@ def py_score_value_sharded(model, counts, alive, sample_size, global_empty,
     """`py_score_value` for a LOCAL slot range of a component-sharded
     state: the same math, with the empty and nonempty slot counts being
     the caller's global values (summed over the component axis), so that
-    the empty-slot mass is split as the unsharded scorer splits it."""
+    the empty-slot mass is split as the unsharded scorer splits it.  Given
+    tensors on one device (the 2-D sweep passes the two scalar sums as
+    0-dim tensors) it reads nothing back and makes no tensor from host
+    data, so a CUDA graph of the sweep captures it."""
     counts = torch.as_tensor(counts).to(torch.float32)
     alive = torch.as_tensor(alive).to(torch.bool)
     dev = counts.device

@@ -73,10 +73,11 @@
 // nothing, and return cudaGetLastError(); fused_v3_occupancy() reports the
 // split kernel's registers, shared memory and resident blocks.
 //
-// fused_v3_launch takes the tile's seed by value or, with seed_ptr
-// non-null, from device memory, read when the kernel runs (both walks),
-// as fused_v2_launch does: a CUDA graph of the runner's sweep refills that
-// buffer before each replay.  The pair kernel keeps its by-value seed.
+// fused_v3_launch and fused_v3_pair_launch take the tile's seed by value
+// or, with seed_ptr non-null, from device memory, read when the kernel
+// runs (both walks), as fused_v2_launch does: a CUDA graph of a fused
+// sweep (the runner's, the row-sharded one, the 2-D one) refills that
+// buffer before each replay.
 
 #include <string.h>
 
@@ -626,13 +627,16 @@ extern "C" int fused_v3_launch(
 // their (perturbed) scores.  The layout arguments are those of
 // fused_v3_launch; mode is MODE_ARGMAX, MODE_GUMBEL or MODE_GUMBEL_HOST
 // (noise [B, C]); slot_offset >= 0 is the global id of the shard's slot 0.
+// seed_ptr: null, or the seed in device memory in place of `seed`, as in
+// fused_v3_launch (a CUDA graph's replays refill it).
 extern "C" int fused_v3_pair_launch(
     const float* values, const float* qvalues, const int* table_idx,
     const float* cl, const float* coeffs, const float* qcoeffs,
     const float* tables, const float* noise, int* out, float* best, int B,
     int C, int n_nich, const int* nich_cols, int n_quad, const int* quad_cols,
     const int* quad_d, int n_tab, const int* table_vs, int mode, int fast,
-    unsigned long long seed, int slot_offset, void* stream) {
+    unsigned long long seed, const unsigned long long* seed_ptr,
+    int slot_offset, void* stream) {
   if (B < 1 || C < 1 || slot_offset < 0 || mode < MODE_ARGMAX ||
       mode > MODE_GUMBEL_HOST)
     return (int)cudaErrorInvalidValue;
@@ -644,7 +648,7 @@ extern "C" int fused_v3_pair_launch(
   return launch_split(values, qvalues, table_idx, cl, coeffs, qcoeffs,
                       tables, noise, out, best, B, C,
                       split_of(L, nich_cols, quad_cols, quad_d), mode, fast,
-                      seed, nullptr, slot_offset, (cudaStream_t)stream);
+                      seed, seed_ptr, slot_offset, (cudaStream_t)stream);
 }
 
 // The split kernel that fused_v3_launch takes for this layout and draw at

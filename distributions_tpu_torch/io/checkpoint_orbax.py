@@ -148,6 +148,14 @@ def save_sharded(path, state, assignments=None, generator=None, sweep=None,
     """Write a sharded checkpoint directory at `path`.  Collective: under
     a process group every rank calls it with the same replicated state.
 
+    state: the replicated MixtureState, or a component-sharded one (the
+    list that `sharding.shard_state_components` and the component-sharded
+    sweeps return, with its `mesh`), which is written whole: joined in
+    one process, gathered over the ranks of 'components' under a process
+    group (`sharding.unshard_state_components`), as the JAX function saves
+    a state of any sharding.  `load_sharded` returns the full state,
+    which `shard_state_components` cuts again.
+
     assignments: a `sharding.RowSharded` (each rank writes its shards), a
     full [R] tensor cut by `mesh` (each rank writes its own row shards), or
     with no mesh a full tensor written whole.  generator: its state goes
@@ -167,6 +175,11 @@ def save_sharded(path, state, assignments=None, generator=None, sweep=None,
     path = os.path.abspath(path)
     if shareds is not None and spec is None:
         raise ValueError('saving the shareds needs the spec')
+    if isinstance(state, list):
+        if mesh is None:
+            raise ValueError('a component-sharded state is saved with its '
+                             'mesh')
+        state = sharding.unshard_state_components(state, mesh)
     rank0 = distributed.process_index() == 0
     exists = os.path.lexists(path)
     if exists and not force:

@@ -604,8 +604,8 @@ def fused_score_sample_pair_plain(
     scores = _score_mixed(B, values, table_idx, cl_scores, coeffs, tables,
                           tuple(col_groups), qvalues, qcoeffs, quad_groups,
                           table_vs, fast_log if fast else torch.log)
-    total = _perturb(scores, mode, fast, seed, noise, int(slot_offset),
-                     total_slots)
+    total = _perturb(scores, mode, fast, _seed_value(seed), noise,
+                     int(slot_offset), total_slots)
     del scores
     idx = torch.argmax(total, dim=1)
     best = total.gather(1, idx[:, None])[:, 0]
@@ -695,7 +695,7 @@ _LAUNCHERS = {
         'fused_v3_launch': [_P] * 14 + [_I, _I] + _LAYOUT + [_I, _I, _U64,
                                                              _P, _I, _P],
         'fused_v3_pair_launch': [_P] * 10 + [_I, _I] + _LAYOUT + [
-            _I, _I, _U64, _I, _P]},
+            _I, _I, _U64, _P, _I, _P]},
     'score_sample_v1': {
         'score_sample_v1_nich_launch': [_P] * 5 + [_I, _I, _I, _I, _U64, _P],
         'score_sample_v1_mixed_launch': [_P] * 7 + [_I] * 6 + [_U64, _P]},
@@ -837,7 +837,7 @@ def _check_seed(seed):
 
 
 def _is_seed_tensor(seed):
-    """K1 and K2 take their seed as an int or as a 1-element int64 tensor
+    """K1, K2 and K3 take their seed as an int or as a 1-element int64 tensor
     (the form a CUDA graph replays: the kernel reads it from device
     memory when it runs).  True for the tensor form, after checking it."""
     if not isinstance(seed, torch.Tensor):
@@ -859,8 +859,8 @@ def _seed_value(seed):
 
 
 def _seed_args(seed, dev):
-    """(seed, seed_ptr) of a K1 or K2 launch on `dev`: (the int, None), or
-    (0, the tensor's address) for a seed tensor on `dev`."""
+    """(seed, seed_ptr) of a K1, K2 or K3 launch on `dev`: (the int,
+    None), or (0, the tensor's address) for a seed tensor on `dev`."""
     if not _is_seed_tensor(seed):
         return _check_seed(seed), None
     if seed.device != dev:
@@ -1176,7 +1176,7 @@ def _launch_pair(seed, values, table_idx, cl_scores, coeffs, tables,
         values, table_idx, cl_scores, coeffs, tables, col_groups, qvalues,
         qcoeffs, quad_groups, table_vs)
     _check_noise(mode, sampling, noise, dev, B, C)
-    seed = _check_seed(seed)
+    seed, seed_ptr = _seed_args(seed, dev)
 
     lib = build('fused_v3')['lib']
     out = torch.empty(B, dtype=torch.int32, device=dev)
@@ -1189,7 +1189,8 @@ def _launch_pair(seed, values, table_idx, cl_scores, coeffs, tables,
                              table_vs, noise),
             out.data_ptr(), best.data_ptr(), B, C,
             *_layout_args(col_groups, quad_groups, table_vs),
-            SAMPLING_MODES[mode], int(fast), seed, slot_offset, stream)
+            SAMPLING_MODES[mode], int(fast), seed, seed_ptr, slot_offset,
+            stream)
     _raise_on('fused_v3', lib, err)
     fused_score_sample_pair.launches += 1
     return out, best
@@ -1213,11 +1214,13 @@ def fused_score_sample_pair(seed, values, table_idx, cl_scores, coeffs,
     global slot.
 
     sampling: 'gumbel' (Philox in the kernel, optionally '_fast') |
-    'argmax' | 'gumbel_host' taking `noise` [B, C_local].  seed: an int in
-    [0, 2**64).  slot_offset (>= 0, any value): the global id of the
-    shard's slot 0.  The 'gumbel' noise of a cell is counted by (row,
-    slot_offset + local slot), so with one seed for all shards of a row
-    block the shards' pairs, reduced, give exactly the slot that
+    'argmax' | 'gumbel_host' taking `noise` [B, C_local].  seed: as in
+    `fused_score_sample_stats`, an int in [0, 2**64) or a 1-element int64
+    tensor that the kernel reads when it runs.  slot_offset (>= 0, any
+    value): the global id of the shard's slot 0.  The 'gumbel' noise of
+    a cell is counted by (row, slot_offset + local slot), so with one
+    seed for all shards of a row block the shards' pairs, reduced, give
+    exactly the slot that
     `fused_mixed_score_sample_stats` draws on the whole slot axis with
     that seed.  total_slots: the width of the whole slot axis; only the
     twin needs it (its generator is not counter-based), to give the same

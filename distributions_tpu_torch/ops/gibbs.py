@@ -596,14 +596,6 @@ def _signature(tree):
     return (type(tree).__name__, repr(tree))
 
 
-def _clone_step(state, assignments, cache):
-    """Buffers of a step that its sweeps may write: copies, so that the
-    caller's tensors stay as they were (int32 assignments)."""
-    return (_map_tensors(torch.clone, state),
-            assignments.to(dtype=torch.int32, copy=True),
-            _map_tensors(torch.clone, cache))
-
-
 # fused runs forced onto the eager loop (`_eager_sweeps`)
 _EAGER = [False]
 # fused runs within `sweep_graph_session()`, which capture a key on its
@@ -624,7 +616,19 @@ GRAPH_STATS = {'captures': 0, 'replays': 0, 'capture_seconds': 0.0,
                'pool_bytes': 0, 'score_captures': 0, 'score_replays': 0,
                'first_uses': 0}
 # the wrappers whose launches a replay repeats
-_COUNTED = (fk.fused_score_sample_stats, fk.fused_mixed_score_sample_stats)
+_COUNTED = (fk.fused_score_sample_stats, fk.fused_mixed_score_sample_stats,
+            fk.fused_score_sample_pair)
+# the sweeps that take the eager loop on the card by rule, and the rule;
+# the fused sweeps ('fused': this module's; 'sharded_fused' and 'fused_2d':
+# parallel/sharding.py's) are replayed from a CUDA graph
+_EAGER_SWEEPS = {
+    'plain': 'the plain sweeps (sweep_blocked and the chains, '
+             'sharded_sweep_blocked, sharded_sweep_components, '
+             'sharded_sweep_2d) draw each tile\'s noise from a generator '
+             'seeded from the host',
+    'v1': 'the v1 sweeps (K4, K5) are not graphed yet: their speed work '
+          'is ROADMAP Queue 3 item 4',
+}
 
 
 @contextlib.contextmanager
@@ -669,17 +673,20 @@ def reset_graph_stats():
     return GRAPH_STATS
 
 
-def _graph_refusal(spec, device, sampling):
-    """Why a fused run on `device` takes the eager loop, or None when its
-    sweeps are replayed from a CUDA graph.  Rules, not failures: a graph
-    that fails to capture raises.
+def _graph_refusal(device, sampling, sweep='fused'):
+    """Why a run of the `sweep` kind on `device` takes the eager loop, or
+    None when its sweeps are replayed from a CUDA graph.  Rules, not
+    failures: a graph that fails to capture raises.
     - The CPU runs the twins, eagerly.
+    - The plain and the v1 sweeps (`_EAGER_SWEEPS`).
     - The '_host' modes draw each tile's noise from a generator seeded from
       the host (`_tile_noise`): they are the bitwise bridge to the JAX
       package, not a production mode.
     - `_eager_sweeps()`."""
     if device.type != 'cuda':
         return 'not on the card'
+    if sweep in _EAGER_SWEEPS:
+        return _EAGER_SWEEPS[sweep]
     if '_host' in sampling:
         return "a '_host' mode draws its noise from the host"
     if _EAGER[0]:
@@ -688,32 +695,34 @@ def _graph_refusal(spec, device, sampling):
 
 
 class _SweepGraph:
-    """One fused sweep (`_fused_sweep_into`) captured as a CUDA graph over
-    static buffers, and the joint score (`mixture.score_data`) as a second
-    graph with a memory pool of its own.
+    """One sweep of a fused run captured as a CUDA graph over static
+    buffers, and the joint score as a second graph with a memory pool of
+    its own.
 
-    It owns the static inputs (the clustering model's and the shareds'
-    leaves, the table blocks' stat matrices, the state, the assignments,
-    the stat cache and the [T] seed table), the layout built from `values`
-    (whose tensors it keeps, so that their addresses, part of its key, are
-    not reused), the graphs and their pool.  A call loads its inputs into
-    the static buffers (`load`), so new shareds or a new clustering model
-    after a hyper move are copied in, not captured anew.  Each sweep then
-    costs the host one copy of the seed table and one replay; the first
-    sweep runs the eager function on a side stream, which warms up what the
-    capture needs (the kernels' build, cuBLAS), and then captures it.  A
-    replay adds the launches of each kernel wrapper that the capture
-    recorded, as if the wrapper had launched them."""
+    sweep(lay, static, seeds) runs one sweep that writes its results into
+    the tensors it reads; score(lay, static) returns the joint score (None:
+    the run has none).  `static` is (params, outs): the buffers that a call
+    loads (`load`), so new shareds or a new clustering model after a hyper
+    move are copied in, not captured anew, and of them `outs`, the ones the
+    sweep writes (state, assignments, stat cache), which `outputs` copies
+    out.  `seeds` is the [n_seeds] int64 seed table on the card.  `lay`
+    (the run's layout) and `keep` (the values its key names by address)
+    are held with the graph.
 
-    def __init__(self, spec, lay, values, block, block_rows, sampling,
-                 inputs):
-        self.spec, self.lay, self.values = spec, lay, values
-        self.block, self.block_rows, self.sampling = (block, block_rows,
-                                                      sampling)
+    Each sweep costs the host one copy of the seed table and one replay;
+    the first sweep runs the eager function on a side stream, which warms
+    up what the capture needs (the kernels' build, cuBLAS, a process
+    group's communicator), and then captures it.  A replay adds the
+    launches of each kernel wrapper that the capture recorded, as if the
+    wrapper had launched them."""
+
+    def __init__(self, lay, sweep, score, inputs, n_seeds, keep):
+        self.lay, self.keep = lay, keep
+        self._sweep_fn, self._score_fn = sweep, score
         self.static = _map_tensors(torch.clone, inputs)
-        self.device = self.static[4].device
-        self.seeds = torch.zeros(self.static[5][0].shape[0],
-                                 dtype=torch.int64, device=self.device)
+        self.device = next(_tensors(self.static[1])).device
+        self.seeds = torch.zeros(n_seeds, dtype=torch.int64,
+                                 device=self.device)
         self.stream = torch.cuda.Stream(self.device)
         self.pools = (torch.cuda.graph_pool_handle(),
                       torch.cuda.graph_pool_handle())
@@ -723,17 +732,6 @@ class _SweepGraph:
     def load(self, inputs):
         for dst, src in zip(_tensors(self.static), _tensors(inputs)):
             dst.copy_(src)
-
-    def _sweep(self):
-        cl_model, shareds, W, state, assignments, cache = self.static
-        _fused_sweep_into(self.spec, self.lay, W, self.block,
-                          self.block_rows, self.sampling, cl_model, shareds,
-                          state, assignments, cache,
-                          self.seeds)
-
-    def _score(self):
-        cl_model, shareds, _, state, _, _ = self.static
-        return mx.score_data(self.spec, cl_model, shareds, state)
 
     def _capture(self, fn, pool):
         """Run fn on the side stream (the warm-up, and a real run), then
@@ -760,7 +758,7 @@ class _SweepGraph:
         return result, graph, out
 
     def sweep(self, seeds):
-        """One sweep with the [T] int64 host seed table `seeds`."""
+        """One sweep with the [n_seeds] int64 host seed table `seeds`."""
         self.seeds.copy_(seeds.pin_memory(), non_blocking=True)
         if self.graph is not None:
             self.graph.replay()
@@ -769,7 +767,9 @@ class _SweepGraph:
                 w.launches += n
             return
         t0 = time.time()
-        _, self.graph, _ = self._capture(self._sweep, self.pools[0])
+        _, self.graph, _ = self._capture(
+            lambda: self._sweep_fn(self.lay, self.static, self.seeds),
+            self.pools[0])
         GRAPH_STATS['captures'] += 1
         GRAPH_STATS['capture_seconds'] += time.time() - t0
 
@@ -781,94 +781,114 @@ class _SweepGraph:
             return self.score_out.clone()
         t0 = time.time()
         score, self.score_graph, self.score_out = self._capture(
-            self._score, self.pools[1])
+            lambda: self._score_fn(self.lay, self.static), self.pools[1])
         GRAPH_STATS['score_captures'] += 1
         GRAPH_STATS['capture_seconds'] += time.time() - t0
         return score
 
     def outputs(self):
-        """(state, assignments, cache): copies, which the next replay does
-        not write."""
-        _, _, _, state, assignments, cache = self.static
-        return _map_tensors(torch.clone, (state, assignments, cache))
+        """Copies of the buffers the sweep writes, which the next replay
+        does not write."""
+        return _map_tensors(torch.clone, self.static[1])
 
 
 def _tensor_key(t):
     return (t.data_ptr(), t._version, tuple(t.shape), t.dtype, t.device)
 
 
-def _graph_for(spec, values, supports, nich_only, block, block_rows,
-               sampling, cl_model, shareds, state, assignments, cache):
-    """The `_SweepGraph` of this run (loaded with its inputs), or None when
-    the run takes the eager loop because its key is used for the first
-    time outside a session: a call made once costs what the eager loop
-    costs.  Its key: the spec (capacity included), the rows, block,
-    block_rows, sampling, the device, the clustering model's type, the
-    values' and the supports' addresses and versions, and the signature of
-    every input.  `values` are tensors on the card: values given on the
-    host are copied to new tensors on every call, so their key is never
-    used twice."""
-    key = (spec, block, block_rows, sampling, assignments.device,
-           type(cl_model), tuple(_tensor_key(v) for v in values),
-           None if supports is None else tuple(
-               None if s is None else _tensor_key(torch.as_tensor(s))
-               for s in supports),
-           _signature((cl_model, shareds, state, assignments, cache)))
+def _graph_for(key, keep, layout, inputs, sweep, score, n_seeds):
+    """The `_SweepGraph` of the run with `key`, loaded with its inputs, or
+    None when the run takes the eager loop because its key is used for the
+    first time outside a session: a call made once costs what the eager
+    loop costs.  The key names the values by address and version
+    (`_tensor_key`), and `keep` holds them while it is held, so that their
+    addresses are not given to other tensors: values given on the host are
+    copied to new tensors on every call, so their key is never used twice.
+
+    layout(): the run's static layout, built when the graph is captured
+    and kept with it; inputs(lay): the (params, outs) that a call loads;
+    sweep, score and n_seeds: as `_SweepGraph` takes them."""
     graph = _GRAPH['graph'] if _GRAPH['key'] == key else None
     if graph is None and not _SESSION[0] and _GRAPH['seen'] != key:
-        _GRAPH.update(seen=key, seen_values=values)
+        _GRAPH.update(seen=key, seen_values=keep)
         GRAPH_STATS['first_uses'] += 1
         return None
-    lay = _fused_layout(spec, values, supports, nich_only) \
-        if graph is None else graph.lay
-    _check_constant_nu(lay, shareds)
-    inputs = (cl_model, shareds, _stat_matrices(spec, lay, shareds), state,
-              assignments, cache)
-    if graph is None:
-        # the graph before is freed before this one takes its memory
-        release_sweep_graphs()
-        graph = _SweepGraph(spec, lay, values, block, block_rows, sampling,
-                            inputs)
-        _GRAPH.update(key=key, graph=graph)
-    else:
-        graph.load(inputs)
+    if graph is not None:
+        graph.load(inputs(graph.lay))
+        return graph
+    lay = layout()
+    loaded = inputs(lay)
+    # the graph before is freed before this one takes its memory
+    release_sweep_graphs()
+    graph = _SweepGraph(lay, sweep, score, loaded, n_seeds, keep)
+    _GRAPH.update(key=key, graph=graph)
     return graph
+
+
+def _run_static(key, keep, layout, inputs, sweep, score, n_seeds,
+                generator, n_sweeps, with_score):
+    """`n_sweeps` sweeps of a static sweep function (`_SweepGraph`'s
+    `sweep`) from `generator`: replayed from the CUDA graph of `key`
+    (`_graph_for`), or eagerly over copies of the inputs with the seeds
+    passed by value where `key` is None (a rule of `_graph_refusal`) or
+    new.  Each sweep draws its seeds with `random.sweep_seeds`, so both
+    give the same draws.  Returns (outs, the joint score or None): tensors
+    of their own, which later calls do not write."""
+    graph = None if key is None else _graph_for(
+        key, keep, layout, inputs, sweep, score, n_seeds)
+    if graph is not None:
+        for _ in range(n_sweeps):
+            graph.sweep(sweep_seeds(generator, n_seeds))
+        return graph.outputs(), graph.score() if with_score else None
+    lay = layout()
+    params, outs = inputs(lay)
+    static = (params, _map_tensors(torch.clone, outs))
+    for _ in range(n_sweeps):
+        sweep(lay, static, sweep_seeds(generator, n_seeds).tolist())
+    return static[1], score(lay, static) if with_score else None
 
 
 def _fused_run(spec, values, supports, nich_only, block, block_rows,
                sampling, n_sweeps, with_score, cl_model, shareds, state,
                assignments, generator, cache):
-    """`n_sweeps` fused sweeps from `generator`: replayed from the run's
-    CUDA graph (the seeds in device memory), or eagerly where
-    `_graph_refusal` says so or the key is new (`_graph_for`; the seeds
-    passed by value).  Each sweep draws its tile seeds with
-    `random.sweep_seeds`, so both give the same draws.  Returns (state,
-    assignments, cache) and, with `with_score`, the joint score."""
-    n_tiles = cache[0].shape[0]
-    graph = None
-    if _graph_refusal(spec, assignments.device, sampling) is None:
+    """`n_sweeps` fused sweeps from `generator` (`_run_static` over
+    `_fused_sweep_into`).  Returns (state, assignments, cache) and, with
+    `with_score`, the joint score."""
+    assignments = assignments.to(torch.int32)
+    key = None
+    if _graph_refusal(assignments.device, sampling) is None:
         values = tuple(torch.as_tensor(v, device=assignments.device)
                        for v in values)
-        graph = _graph_for(spec, values, supports, nich_only, block,
-                           block_rows, sampling, cl_model, shareds, state,
-                           assignments, cache)
-    if graph is not None:
-        for _ in range(n_sweeps):
-            graph.sweep(sweep_seeds(generator, n_tiles))
-        out = graph.outputs()
-        return out + (graph.score(),) if with_score else out
-    lay = _fused_layout(spec, values, supports, nich_only)
-    _check_constant_nu(lay, shareds)
-    W = _stat_matrices(spec, lay, shareds)
-    state, assignments, cache = _clone_step(state, assignments, cache)
-    for _ in range(n_sweeps):
-        _fused_sweep_into(spec, lay, W, block, block_rows, sampling,
-                          cl_model, shareds, state, assignments, cache,
-                          sweep_seeds(generator, n_tiles).tolist())
-    if with_score:
-        return state, assignments, cache, mx.score_data(spec, cl_model,
-                                                        shareds, state)
-    return state, assignments, cache
+        key = ('fused', spec, block, block_rows, sampling,
+               assignments.device, type(cl_model),
+               tuple(_tensor_key(v) for v in values),
+               None if supports is None else tuple(
+                   None if s is None else _tensor_key(torch.as_tensor(s))
+                   for s in supports),
+               _signature((cl_model, shareds, state, assignments, cache)))
+
+    def inputs(lay):
+        _check_constant_nu(lay, shareds)
+        return ((cl_model, shareds, _stat_matrices(spec, lay, shareds)),
+                (state, assignments, cache))
+
+    def sweep(lay, static, seeds):
+        (cl, sh, W), (st, an, ca) = static
+        _fused_sweep_into(spec, lay, W, block, block_rows, sampling, cl, sh,
+                          st, an, ca, seeds)
+    outs, score = _run_static(
+        key, values, lambda: _fused_layout(spec, values, supports, nich_only),
+        inputs, sweep, _static_score(spec), cache[0].shape[0], generator,
+        n_sweeps, with_score)
+    return outs + (score,) if with_score else outs
+
+
+def _static_score(spec):
+    """The `score` of a `_SweepGraph` whose static buffers are ((clustering
+    model, shareds, ...), (replicated state, ...)): the joint score."""
+    def score(lay, static):
+        return mx.score_data(spec, static[0][0], static[0][1], static[1][0])
+    return score
 
 
 def _fused_layout(spec, values, supports, nich_only):

@@ -69,6 +69,29 @@ def _tree_map(fn, *trees):
     raise TypeError('cannot reduce a %s over a mesh' % type(first).__name__)
 
 
+def _all_reduce_packed(tree, op, group):
+    """`tree` reduced across the ranks of `group`: its tensors packed into
+    one flat buffer per dtype, reduced by one `all_reduce` each, and cut
+    back into tensors of their own.  The reduction is elementwise, so this
+    is bitwise what one `all_reduce` per tensor gives, with fewer
+    collectives a tile; it makes no tensor from host data and waits on
+    nothing from the host, so it runs inside a CUDA graph's capture."""
+    leaves = []
+    _tree_map(lambda t: leaves.append(t) or t, tree)
+    by_dtype = {}
+    for i, t in enumerate(leaves):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    out = [None] * len(leaves)
+    for idx in by_dtype.values():
+        flat = torch.cat([leaves[i].reshape(-1) for i in idx])
+        dist.all_reduce(flat, op=op, group=group)
+        parts = torch.split(flat, [leaves[i].numel() for i in idx])
+        for i, part in zip(idx, parts):
+            out[i] = part.view(leaves[i].shape)
+    rest = iter(out)
+    return _tree_map(lambda t: next(rest), tree)
+
+
 class Mesh(object):
     """Named axes, the shards this process holds, and the collectives.
 
@@ -152,11 +175,7 @@ class Mesh(object):
             for pos in line[1:]:
                 acc = _tree_map(local_op, acc, xs[pos])
             if group is not None:
-                def across(t):
-                    t = t.clone()
-                    dist.all_reduce(t, op=dist_op, group=group)
-                    return t
-                acc = _tree_map(across, acc)
+                acc = _all_reduce_packed(acc, dist_op, group)
             for pos in line:
                 out[pos] = acc
         return out
@@ -418,6 +437,87 @@ def _supports_for(spec, values, supports):
     return _g._block_supports(spec, values)
 
 
+def _mesh_key(mesh):
+    """What a captured sharded sweep is specialised to in `mesh`: its axes,
+    their local and process shapes, this process's place, and the
+    identity of each axis's process group (the graph keeps the mesh, and
+    with it the groups)."""
+    return (mesh.axis_names, tuple(mesh.local_shape.items()),
+            tuple(mesh.process_shape.items()),
+            tuple(mesh.process_index.items()),
+            tuple((a, id(g)) for a, g in sorted(mesh.groups.items())))
+
+
+def _on_device(values, device):
+    """Full values as tensors on `device` (values given on the host become
+    new tensors, so a key that names them is never used twice);
+    RowSharded values as they are."""
+    return tuple(v if isinstance(v, RowSharded)
+                 else torch.as_tensor(v, device=device) for v in values)
+
+
+def _values_key(vals, supports):
+    """The addresses and versions of each local shard's values and of the
+    supports: part of a graph's key."""
+    return (tuple(_g._tensor_key(v) for sv in vals for v in sv),
+            None if supports is None else tuple(
+                None if s is None else _g._tensor_key(torch.as_tensor(s))
+                for s in supports))
+
+
+def _sharded_fused_sweep_into(spec, mesh, lays, W, block, block_rows,
+                              sampling, cl_model, shareds, state, assigns,
+                              caches, seeds):
+    """One row-sharded fused sweep that writes its results into the
+    tensors it reads: the leaves of the replicated `state`, and per local
+    shard its assignments (`assigns`, [local R]) and its stat cache
+    (`caches`, (counts [T, C], per-block sums [T, ...])), whose entry of
+    tile t is read before the tile writes its new one.  The shard with
+    'rows' index i takes seeds[i * T + t] at tile t: an int, or a view of
+    the [row shards * T] int64 seed table that the kernel reads when it
+    runs.
+
+    As `gibbs._fused_sweep_into`: with a seed tensor and a mode without
+    '_host', the sweep reads nothing back from the card and makes no
+    tensor from host data (its collectives end in one `all_reduce` per
+    dtype), so on the card it is captured into a CUDA graph; on the CPU it
+    runs on the kernels' twins."""
+    n_tiles = caches[0][0].shape[0]
+    n_removed = block * mesh.axis_size(ROWS)
+    dev = assigns[0].device
+    shard_idx = mesh.axis_index(ROWS)
+    states = [state] * len(mesh.local)
+    for t in range(n_tiles):
+        delta = mesh.psum([(c[0][t], tuple(s[t] for s in c[1]))
+                           for c in caches], ROWS)
+        states = mesh.map_over(
+            ROWS, lambda st, d: _apply_sums(spec, shareds, st, d, -1,
+                                            n_removed), states, delta)
+        inputs = mesh.map_over(
+            ROWS, lambda st, lay: _g._fused_tile_inputs(
+                spec, lay, cl_model, shareds, st), states, lays)
+
+        def tile(lay, st, inp, i):
+            seed = seeds[i * n_tiles + t]
+            return _g._fused_tile_core(
+                spec, lay, W, block_rows, sampling, cl_model, shareds, st,
+                *_g._slice_rows(lay, t, block), seed,
+                noise=_g._tile_noise(sampling, seed, block, spec.capacity,
+                                     dev), inputs=inp)
+        res = mesh.map(tile, lays, states, inputs, shard_idx)
+        delta = mesh.psum([(r[1], r[2]) for r in res], ROWS)
+        states = mesh.map_over(
+            ROWS, lambda st, d: _apply_sums(spec, shareds, st, d, +1,
+                                            n_removed), states, delta)
+        for a, (cd, sums), r in zip(assigns, caches, res):
+            a[t * block:(t + 1) * block] = r[0]
+            cd[t] = r[1]
+            for buf, s in zip(sums, r[2]):
+                buf[t] = s
+    for dst, src in zip(_g._tensors(state), _g._tensors(states[0])):
+        dst.copy_(src)
+
+
 def sharded_sweep_fused(spec, cl_model, shareds, state, values,
                         assignments, generator, mesh, block, cache,
                         block_rows=512, sampling='cdf', supports=None,
@@ -436,76 +536,69 @@ def sharded_sweep_fused(spec, cl_model, shareds, state, values,
     leaves go with RowSharded rows).
 
     Tile seeds are folded from the sweep seed by the GLOBAL tile index
-    shard * tiles per shard + t, which also seeds the noise of the '_host'
-    modes; on a one-shard mesh the sweep equals
-    `gibbs.sweep_blocked_pallas_fused_mixed` bitwise.
+    shard * tiles per shard + t (`random.sweep_seeds` over row shards x
+    tiles), which also seeds the noise of the '_host' modes; on a
+    one-shard mesh the sweep equals `gibbs.sweep_blocked_pallas_fused_mixed`
+    bitwise.
+
+    On the card each sweep is the replay of one CUDA graph of all its
+    tiles and local shards (`gibbs._SweepGraph` over
+    `_sharded_fused_sweep_into`), captured as the single-device fused
+    sweep's is: on a key's second call, or its first within
+    `gibbs.sweep_graph_session()`; the key holds the mesh (its shapes and
+    process groups) and the values' tensors.  '_host' modes run eagerly
+    (`gibbs._graph_refusal`).  The results are tensors of their own.
 
     Returns (state, assignments, cache), plus the joint mx.score_data when
     with_score=True."""
-    n_dev = mesh.axis_size(ROWS)
-    supports = _supports_for(spec, values, supports)
-    vals = _shard_values(mesh, values)
+    n_row = mesh.axis_size(ROWS)
     assign = _shard_rows(mesh, assignments)
     n_tiles = _check_tiling(mesh, assign[0].shape[0], block)
-    n_removed = block * n_dev
     dev = assign[0].device
-    shard_idx = mesh.axis_index(ROWS)
-    lays = mesh.map(lambda v: _g._mixed_static_layout(spec, v, supports),
-                    vals)
-    _g._check_constant_nu(lays[0], shareds)
-    W = _g._stat_matrices(spec, lays[0], shareds)
     cached_cd = _shard_rows(mesh, cache[0])
     cached_sums = [_shard_rows(mesh, s) for s in cache[1]]
-    caches = [(cached_cd[i], tuple(s[i] for s in cached_sums))
-              for i in range(len(mesh.local))]
-    states = [state] * len(mesh.local)
-    new = None
+    caches = tuple((cached_cd[i], tuple(s[i] for s in cached_sums))
+                   for i in range(len(mesh.local)))
+    assigns = tuple(a.to(torch.int32) for a in assign)
 
-    for _ in range(n_sweeps):
-        sweep_seed = draw_seed(generator)
-        out = [[] for _ in mesh.local]
-        for t in range(n_tiles):
-            delta = mesh.psum(mesh.map(
-                lambda c: (c[0][t], tuple(s[t] for s in c[1])), caches),
-                ROWS)
-            states = mesh.map_over(
-                ROWS, lambda st, d: _apply_sums(spec, shareds, st, d, -1,
-                                                n_removed), states, delta)
-            inputs = mesh.map_over(
-                ROWS, lambda st, lay: _g._fused_tile_inputs(
-                    spec, lay, cl_model, shareds, st), states, lays)
+    key = None
+    if _g._graph_refusal(dev, sampling, 'sharded_fused') is None:
+        values = _on_device(values, dev)
+        key = ('sharded_fused', spec, block, block_rows, sampling, dev,
+               type(cl_model), _mesh_key(mesh),
+               _values_key(_shard_values(mesh, values), supports),
+               _g._signature((cl_model, shareds, state, assigns, caches)))
 
-            def tile(lay, st, inp, i):
-                seed = fold_seed(sweep_seed, i * n_tiles + t)
-                return _g._fused_tile_core(
-                    spec, lay, W, block_rows, sampling, cl_model, shareds,
-                    st, *_g._slice_rows(lay, t, block), seed,
-                    noise=_g._tile_noise(sampling, seed, block,
-                                         spec.capacity, dev), inputs=inp)
-            res = mesh.map(tile, lays, states, inputs, shard_idx)
-            delta = mesh.psum([(r[1], r[2]) for r in res], ROWS)
-            states = mesh.map_over(
-                ROWS, lambda st, d: _apply_sums(spec, shareds, st, d, +1,
-                                                n_removed), states, delta)
-            for acc, r in zip(out, res):
-                acc.append(r)
-        new = [torch.cat([r[0] for r in acc]) for acc in out]
-        caches = [(torch.stack([r[1] for r in acc]),
-                   tuple(torch.stack(s)
-                         for s in zip(*(r[2] for r in acc))))
-                  for acc in out]
+    def layout():
+        sup = _supports_for(spec, values, supports)
+        return tuple(mesh.map(
+            lambda v: _g._mixed_static_layout(spec, v, sup),
+            _shard_values(mesh, values)))
+
+    def inputs(lays):
+        _g._check_constant_nu(lays[0], shareds)
+        W = _g._stat_matrices(spec, lays[0], shareds)
+        return (cl_model, shareds, W), (state, assigns, caches)
+
+    def sweep(lays, static, seeds):
+        (cl, sh, W), (st, an, ca) = static
+        _sharded_fused_sweep_into(spec, mesh, lays, W, block, block_rows,
+                                  sampling, cl, sh, st, an, ca, seeds)
+    (st, an, ca), score = _g._run_static(
+        key, (values, mesh), layout, inputs, sweep, _g._static_score(spec),
+        n_row * n_tiles, generator, n_sweeps, with_score)
 
     new_cache = (
-        _unshard_rows(mesh, [c[0] for c in caches], cache[0]),
-        tuple(_unshard_rows(mesh, [c[1][b] for c in caches], cache[1][b])
+        _unshard_rows(mesh, [c[0] for c in ca], cache[0]),
+        tuple(_unshard_rows(mesh, [c[1][b] for c in ca], cache[1][b])
               for b in range(len(spec.blocks))))
-    result = (states[0], _unshard_rows(mesh, new, assignments), new_cache)
+    result = (st, _unshard_rows(mesh, list(an), assignments), new_cache)
     if with_score:
-        result += (mx.score_data(spec, cl_model, shareds, states[0]),)
+        result += (score,)
     return result
 
 
-# -- component-sharded and 2-D sweeps -------------------------------------------
+# -- component-sharded and 2-D sweeps -----------------------------------------
 
 def shard_state_components(state, mesh):
     """Cut a full MixtureState along the mesh's 'components' axis: the
@@ -542,48 +635,48 @@ def unshard_state_components(states, mesh):
                            groups=full[2])
 
 
-def _sweep_2d(spec, cl_model, shareds, state, values, assignments,
-              generator, mesh, block, sampling, fused, block_rows=256,
-              supports=None):
-    """The component-sharded sweep on a mesh with a 'components' axis and,
-    optionally, a 'rows' axis; `fused` scores and draws through K3."""
-    if not isinstance(cl_model, _clustering.PitmanYor):
-        raise ValueError('component-sharded sweeps support the PitmanYor '
-                         'prior')
-    if fused:
-        fk._parse_pair_sampling(sampling)
-    elif sampling not in ('gumbel', 'argmax'):
-        raise ValueError("sampling must be 'gumbel' or 'argmax', got %r"
-                         % (sampling,))
-    n_row = mesh.axis_size(ROWS)
-    n_comp = mesh.axis_size(COMPONENTS)
+def _spread(lines, per_line):
+    """Per local shard, the value of its line (`Mesh._lines`): the shards
+    of a line share one object."""
+    out = [None] * sum(len(line) for line in lines)
+    for line, x in zip(lines, per_line):
+        for pos in line:
+            out[pos] = x
+    return out
+
+
+def _sweep_2d_into(spec, mesh, vals, lays, block, block_rows, sampling,
+                   cl_model, shareds, state_lines, assign_lines, seeds):
+    """One component-sharded sweep that writes its results into the
+    tensors it reads: `state_lines`, the component-sharded state of each
+    line of local shards along 'rows' (`Mesh._lines(ROWS)`: the shards of
+    a line hold the same slots), and `assign_lines`, the assignments of
+    each line along 'components' (the same rows).  `vals`: each local
+    shard's rows of every block's values.  With `lays` (each shard's
+    `gibbs._mixed_static_layout`) K3 scores and draws; with None the plain
+    scorer does.  The row shard r takes seeds[r * T + t] at tile t: an
+    int, or a view of the [row shards * T] int64 seed table that K3 reads
+    when it runs; the plain sweep folds the component index into it.
+
+    With K3, a seed tensor and a mode without '_host', the sweep reads
+    nothing back from the card and makes no tensor from host data, so on
+    the card it is captured into a CUDA graph."""
     C = spec.capacity
-    if C % n_comp != 0:
-        raise ValueError('capacity %d does not divide over %d component '
-                         'shards' % (C, n_comp))
-    C_local = C // n_comp
+    n_row = mesh.axis_size(ROWS)
+    C_local = C // mesh.axis_size(COMPONENTS)
     local_spec = spec._replace(capacity=C_local)
-    full_state = isinstance(state, mx.MixtureState)
-    states = shard_state_components(state, mesh) if full_state \
-        else list(state)
-    vals = _shard_values(mesh, values)
-    assign = _shard_rows(mesh, assignments)
-    n_tiles = _check_tiling(mesh, assign[0].shape[0], block)
+    n_tiles = assign_lines[0].shape[0] // block
     n_removed = block * n_row
-    dev = assign[0].device
-    sweep_seed = draw_seed(generator)
+    dev = assign_lines[0].device
     comp_idx = mesh.axis_index(COMPONENTS)
     row_idx = mesh.axis_index(ROWS)
+    row_lines, comp_lines = mesh._lines(ROWS), mesh._lines(COMPONENTS)
+    states = _spread(row_lines, state_lines)
+    assign = _spread(comp_lines, assign_lines)
     row_stats = mesh.map_over(
         COMPONENTS, lambda v: mx.precompute_row_stats(spec, shareds, v), vals)
-    if fused:
-        supports = _supports_for(spec, values, supports)
-        lays = mesh.map_over(
-            COMPONENTS,
-            lambda v: _g._mixed_static_layout(spec, v, supports), vals)
-        _g._check_constant_nu(lays[0], shareds)
+    if lays is not None:
         col_groups = tuple(spec.blocks[i].cols for i in lays[0].nich_blocks)
-    out = [[] for _ in mesh.local]
 
     def local_sums(stats, a, c):
         # this shard's rows x this shard's slot range: ids outside the
@@ -607,7 +700,7 @@ def _sweep_2d(spec, cl_model, shareds, state, values, assignments,
                 st.alive[None, :],
                 mx._block_score_batch(b, shared, group, x[sl]), zero)
         if sampling != 'argmax':
-            seed = fold_seed(fold_seed(sweep_seed, r * n_tiles + t), c)
+            seed = fold_seed(seeds[r * n_tiles + t], c)
             scores = scores + gumbel_noise(device_generator(seed, dev),
                                            (block, C_local), dev)
         arg = torch.argmax(scores, dim=1)
@@ -617,11 +710,10 @@ def _sweep_2d(spec, cl_model, shareds, state, values, assignments,
         coeffs, qcoeffs, tables = inp
         t_nich, t_quad, t_idx = _g._slice_rows(lay, t, block)
         return fk.fused_score_sample_pair(
-            fold_seed(sweep_seed, r * n_tiles + t), t_nich, t_idx, cl_scores,
-            coeffs, tables, col_groups, block_rows=block_rows,
-            sampling=sampling, qvalues=t_quad, qcoeffs=qcoeffs,
-            quad_groups=lay.quad_groups, table_vs=lay.table_vs,
-            slot_offset=c * C_local, total_slots=C)
+            seeds[r * n_tiles + t], t_nich, t_idx, cl_scores, coeffs, tables,
+            col_groups, block_rows=block_rows, sampling=sampling,
+            qvalues=t_quad, qcoeffs=qcoeffs, quad_groups=lay.quad_groups,
+            table_vs=lay.table_vs, slot_offset=c * C_local, total_slots=C)
 
     for t in range(n_tiles):
         sl = slice(t * block, (t + 1) * block)
@@ -640,7 +732,7 @@ def _sweep_2d(spec, cl_model, shareds, state, values, assignments,
             ROWS, lambda st, k: _clustering.py_score_value_sharded(
                 cl_model, st.counts, st.alive, st.sample_size, k[0], k[1]),
             states, kinds)
-        if fused:
+        if lays is not None:
             inputs = mesh.map_over(
                 ROWS, lambda st, lay: _g._build_fused_inputs(
                     local_spec, lay, shareds, st), states, lays)
@@ -666,10 +758,79 @@ def _sweep_2d(spec, cl_model, shareds, state, values, assignments,
                           ROWS)
         states = mesh.map_over(ROWS, lambda st, d: apply(st, d, +1), states,
                                delta)
-        for acc, a in zip(out, new):
-            acc.append(a)
-    new_assign = _unshard_rows(mesh, [torch.cat(a) for a in out],
-                               assignments)
+        for line, buf in zip(comp_lines, assign_lines):
+            buf[sl] = new[line[0]]
+    for line, buf in zip(row_lines, state_lines):
+        for dst, src in zip(_g._tensors(buf), _g._tensors(states[line[0]])):
+            dst.copy_(src)
+
+
+def _sweep_2d(spec, cl_model, shareds, state, values, assignments,
+              generator, mesh, block, sampling, fused, block_rows=256,
+              supports=None):
+    """The component-sharded sweep on a mesh with a 'components' axis and,
+    optionally, a 'rows' axis; `fused` scores and draws through K3.  On
+    the card a fused sweep is the replay of one CUDA graph
+    (`gibbs._SweepGraph` over `_sweep_2d_into`), captured as
+    `sharded_sweep_fused`'s is; the plain sweeps run eagerly
+    (`gibbs._graph_refusal`).  Full states are cut and joined outside the
+    graph."""
+    if not isinstance(cl_model, _clustering.PitmanYor):
+        raise ValueError('component-sharded sweeps support the PitmanYor '
+                         'prior')
+    if fused:
+        fk._parse_pair_sampling(sampling)
+    elif sampling not in ('gumbel', 'argmax'):
+        raise ValueError("sampling must be 'gumbel' or 'argmax', got %r"
+                         % (sampling,))
+    n_comp = mesh.axis_size(COMPONENTS)
+    C = spec.capacity
+    if C % n_comp != 0:
+        raise ValueError('capacity %d does not divide over %d component '
+                         'shards' % (C, n_comp))
+    full_state = isinstance(state, mx.MixtureState)
+    states = shard_state_components(state, mesh) if full_state \
+        else list(state)
+    assign = _shard_rows(mesh, assignments)
+    n_tiles = _check_tiling(mesh, assign[0].shape[0], block)
+    dev = assign[0].device
+    row_lines, comp_lines = mesh._lines(ROWS), mesh._lines(COMPONENTS)
+    state_lines = tuple(states[line[0]] for line in row_lines)
+    assign_lines = tuple(assign[line[0]].to(torch.int32)
+                         for line in comp_lines)
+    key = None
+    if _g._graph_refusal(dev, sampling,
+                         'fused_2d' if fused else 'plain') is None:
+        values = _on_device(values, dev)
+        key = ('fused_2d', spec, block, block_rows, sampling, dev,
+               _mesh_key(mesh),
+               _values_key(_shard_values(mesh, values), supports),
+               _g._signature((cl_model, shareds, state_lines,
+                              assign_lines)))
+
+    def layout():
+        vals = _shard_values(mesh, values)
+        if not fused:
+            return vals, None
+        sup = _supports_for(spec, values, supports)
+        return vals, tuple(mesh.map_over(
+            COMPONENTS, lambda v: _g._mixed_static_layout(spec, v, sup),
+            vals))
+
+    def inputs(lay):
+        if fused:
+            _g._check_constant_nu(lay[1][0], shareds)
+        return (cl_model, shareds), (state_lines, assign_lines)
+
+    def sweep(lay, static, seeds):
+        (cl, sh), (st, an) = static
+        _sweep_2d_into(spec, mesh, lay[0], lay[1], block, block_rows,
+                       sampling, cl, sh, st, an, seeds)
+    (st, an), _ = _g._run_static(
+        key, (values, mesh), layout, inputs, sweep, None,
+        mesh.axis_size(ROWS) * n_tiles, generator, 1, False)
+    states = _spread(row_lines, st)
+    new_assign = _unshard_rows(mesh, _spread(comp_lines, an), assignments)
     if full_state:
         return unshard_state_components(states, mesh), new_assign
     return states, new_assign

@@ -57,7 +57,11 @@ def sweep_seeds(generator, n_tiles):
     """The seeds of one sweep's tiles, [n_tiles] int64 on the host: one
     `draw_seed(generator)`, folded with each tile index (`fold_seed`), in
     the order the fused sweep takes them, so that a sweep consumes the
-    generator alike whether its tiles run eagerly or from a CUDA graph."""
+    generator alike whether its tiles run eagerly or from a CUDA graph.
+    A sharded sweep takes the table of its global tiles, n_tiles = row
+    shards x tiles per shard: row shard i reads entry i * T + t at its
+    tile t, the fold of the sweep seed by the global tile index that the
+    sharded sweeps have always used."""
     seed = draw_seed(generator)
     return torch.tensor([fold_seed(seed, t) for t in range(n_tiles)],
                         dtype=torch.int64)

@@ -1,10 +1,12 @@
 """Helpers shared by the port's tests and chip_smoke.py: seeded numpy
-problems, and the comparisons the kernel is held to (near-tie accounting
+problems, the comparisons the kernel is held to (near-tie accounting
 for draws that should match, z-tests for draws that should match in
-distribution)."""
+distribution), and the check that a sweep is capturable (`HostReads`)."""
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
 NICH_SHARED = {'mu': 0., 'kappa': 0.1, 'sigmasq': 1.0, 'nu': 1.}
 PY = {'alpha': 1.0, 'd': 0.1}
@@ -286,3 +288,40 @@ def sample_group_z(module, shared, values, n_test, n_fit):
     tail = max(0.0, 1.0 - probs.sum())
     return _bin_z(np.append(counts, n_test - counts.sum()),
                   np.append(probs, tail), n_test)
+
+
+class HostReads(TorchDispatchMode):
+    """Records the ops that would read the device back or copy from the
+    host on the card, which a CUDA graph's capture refuses: `.item()` and
+    friends, data-dependent shapes, and any operand that is neither one of
+    the `known` storages (the run's inputs, by `data_ptr()`) nor made by
+    an earlier op.  `paused` leaves the ops out while it is set (a kernel
+    wrapper's own host work, which differs on the card)."""
+
+    SYNCS = ('_local_scalar_dense', 'nonzero', 'unique', 'masked_select',
+             'lift_fresh')
+
+    def __init__(self, known):
+        super().__init__()
+        self.known = set(known)
+        self.found = []
+        self.paused = False
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not self.paused:
+            name = str(func)
+            if any(s in name for s in self.SYNCS):
+                self.found.append(name)
+            for t in tree_flatten((args, kwargs))[0]:
+                if isinstance(t, torch.Tensor) and t.numel() and (
+                        t.untyped_storage().data_ptr() not in self.known):
+                    self.found.append('%s of a host tensor %s'
+                                      % (name, tuple(t.shape)))
+        self.note(out)
+        return out
+
+    def note(self, out):
+        for t in tree_flatten(out)[0]:
+            if isinstance(t, torch.Tensor):
+                self.known.add(t.untyped_storage().data_ptr())

@@ -10,8 +10,9 @@ with a GPU and no JAX, run them with
 the edge tests of the slot-split walk of K1, B5, K2 and K3, `-k v1_split`
 those of its v1 form in K4 and K5, `-k on_the_card` the samplers, the
 LowEntropy prior and the other moves, `-k "graph or seed_pointer"` the
-fused sweeps replayed from CUDA graphs and K1 / K2 reading their seed
-from device memory.)
+fused sweeps replayed from CUDA graphs, single-device, row-sharded, 2-D
+and on a NCCL group of one rank, and K1, K2, K3 reading their seed from
+device memory.)
 """
 
 import pytest
@@ -712,7 +713,7 @@ def test_bench_phases_match_twin(dev, B, C):
         bk.fused_phase('noop', 0, v, cls, co[:-1], (2,))
 
 
-# -- the split walk of K1, B5, K2 and K3: edge geometry ------------------------
+# -- the split walk of K1, B5, K2 and K3: edge geometry -----------------------
 
 SPLIT_BLOCK_ROWS = fk.SPLIT_THREADS // fk.SPLIT_SLICES * fk.SPLIT_ROWS
 # one row, one short of two warps' rows, several blocks, and one row past a
@@ -1441,3 +1442,184 @@ def test_graph_runner_hyper_moves_and_low_entropy(dev):
     _, stats = _runs(dev, cl_model=cl.LowEntropy.from_dict(
         {'dataset_size': 4096}, device=dev))
     assert stats['captures'] == 1 and stats['replays'] == 5
+
+
+# -- the sharded fused sweeps replayed from CUDA graphs -----------------------
+
+@pytest.mark.parametrize('sampling', ['gumbel', 'gumbel_fast', 'argmax'])
+def test_k3_seed_pointer_is_the_seed(dev, sampling):
+    """K3 with the seed in device memory equals the by-value launch
+    bitwise, at an odd slot offset, for a seed whose top bit is set; the
+    slots are K2's of test_seed_pointer_is_the_seed, where other seeds
+    draw other slots."""
+    seed = 0xF123456789ABCDEF
+    as_tensor = torch.tensor([seed - (1 << 64)], device=dev)
+    args, kwargs, _ = _mixed_inputs(dev, 'niw2mix', 3000, 1000)
+    s_args, s_kwargs = _slot_slice(args, kwargs, 0, 1000)
+
+    def launch(s):
+        return fk.fused_score_sample_pair(s, *s_args, sampling=sampling,
+                                          slot_offset=201, **s_kwargs)
+    assert _bits_equal(launch(seed), launch(as_tensor))
+    if sampling != 'argmax':
+        assert not torch.equal(launch(seed)[0], launch(seed + 1)[0])
+    with pytest.raises(ValueError, match='seed tensor'):
+        launch(as_tensor.cpu())
+
+
+def _check_replays(run, wrapper, per_call, sweeps, score):
+    """run() three times on the graph path and once eagerly: the first
+    call eager (the key's first use), the second captures at its first
+    sweep and replays the rest, the third replays; every call counts
+    `per_call` launches and all four results are bitwise equal."""
+    _reset_graph_stats()
+    before = wrapper.launches
+    first = run()
+    assert wrapper.launches == before + per_call
+    assert gibbs.GRAPH_STATS['first_uses'] == 1
+    assert gibbs.GRAPH_STATS['captures'] == 0
+    g = run()
+    g2 = run()
+    assert wrapper.launches == before + 3 * per_call
+    assert {k: gibbs.GRAPH_STATS[k] for k in (
+        'captures', 'replays', 'score_captures', 'score_replays')} == {
+        'captures': 1, 'replays': 2 * sweeps - 1,
+        'score_captures': int(score), 'score_replays': int(score)}
+    with gibbs._eager_sweeps():
+        e = run()
+    assert _bits_equal(first, e)
+    assert _bits_equal(g, e) and _bits_equal(g2, e)
+    return g
+
+
+@pytest.mark.parametrize('kind', ['nich2', 'niw2mix'])
+@pytest.mark.parametrize('sampling', ['gumbel', 'argmax', 'cdf'])
+def test_graph_sharded_sweeps_equal_eager(dev, kind, sampling):
+    """sharded_sweep_fused on 4 row shards, n_sweeps=3 with the score,
+    replayed from its CUDA graph equals the eager loop bitwise (state,
+    assignments, cache, score); each sweep launches shards x tiles
+    kernels."""
+    from distributions_tpu_torch.parallel import sharding
+    spec, py, sh, tv, an = _graph_problem(dev, kind)
+    st = mx.state_from_assignments(spec, py, sh, tv, an)
+    cache = gibbs.build_stat_cache(spec, sh, tv, 256, an)
+    mesh = sharding.make_mesh(4)
+    wrapper = fk.fused_score_sample_stats if kind == 'nich2' \
+        else fk.fused_mixed_score_sample_stats
+
+    def run():
+        return sharding.sharded_sweep_fused(
+            spec, py, sh, st, tv, an, torch.Generator().manual_seed(5),
+            mesh, 256, cache, block_rows=256, sampling=sampling, n_sweeps=3,
+            with_score=True)
+    g = _check_replays(run, wrapper, 16 * 3, 3, True)
+    assert g[1].device.type == 'cuda' and g[1].dtype == torch.int32
+
+
+@pytest.mark.parametrize('sampling', ['gumbel', 'argmax'])
+def test_graph_2d_fused_equals_eager(dev, sampling):
+    """sharded_sweep_2d_fused on 2 x 2 (niw2mix) replayed from its CUDA
+    graph equals the eager sweep bitwise, K3 reading its seed from the
+    table; a full state is cut and joined outside the graph, so it
+    replays the same graph."""
+    from distributions_tpu_torch.parallel import sharding
+    spec, py, sh, tv, an = _graph_problem(dev, 'niw2mix')
+    st = mx.state_from_assignments(spec, py, sh, tv, an)
+    mesh = sharding.make_mesh_2d(2, 2)
+    sts = sharding.shard_state_components(st, mesh)
+
+    def run(state=sts):
+        out = sharding.sharded_sweep_2d_fused(
+            spec, py, sh, state, tv, an, torch.Generator().manual_seed(5),
+            mesh, 512, block_rows=256, sampling=sampling)
+        return (tuple(out[0]) if isinstance(out[0], list) else out[0],
+                out[1])
+    g = _check_replays(run, fk.fused_score_sample_pair, 4 * 4, 1, False)
+    full = run(st)
+    assert gibbs.GRAPH_STATS['replays'] == 2
+    assert _bits_equal((full[0], full[1]), (
+        sharding.unshard_state_components(list(g[0]), mesh), g[1]))
+
+
+def test_graph_mesh_runner_replays(dev):
+    """run_gibbs(mesh=2 row shards) replays every sweep after its first
+    from the CUDA graph, equal to the eager run bitwise; a run whose
+    capacity doubles captures a graph for each capacity; the run frees
+    its graph when it ends."""
+    from distributions_tpu_torch.parallel import sharding
+    _, stats = _runs(dev, mesh=sharding.make_mesh(2))
+    assert stats['captures'] == 1 and stats['replays'] == 5
+    assert stats['score_captures'] == 1 and stats['score_replays'] == 2
+    assert stats['first_uses'] == 0 and gibbs._GRAPH['graph'] is None
+    _, stats = _runs(dev, mesh=sharding.make_mesh(2),
+                     spec=mx.make_spec([(nich, 2)], capacity=32),
+                     grow_headroom=0.5,
+                     initial_assignments=torch.arange(
+                         4096, device=dev).to(torch.int32) % 16)
+    assert stats['captures'] == 2 and stats['replays'] == 4
+    assert gibbs._GRAPH['graph'] is None
+
+
+def test_graph_plain_mesh_and_v1_sweeps_stay_eager(dev):
+    """The plain mesh sweeps and the v1 sweeps capture nothing on the
+    card, by the rules `_graph_refusal` names."""
+    from distributions_tpu_torch.parallel import sharding
+    spec, py, sh, tv, an = _graph_problem(dev, 'nich2')
+    st = mx.state_from_assignments(spec, py, sh, tv, an)
+    _reset_graph_stats()
+    for _ in range(2):
+        gen = torch.Generator().manual_seed(1)
+        sharding.sharded_sweep_blocked(spec, py, sh, st, tv, an, gen,
+                                       sharding.make_mesh(2), 512)
+        sharding.sharded_sweep_2d(spec, py, sh, st, tv, an, gen,
+                                  sharding.make_mesh_2d(2, 2), 512)
+        sharding.sharded_sweep_components(spec, py, sh, st, tv, an, gen,
+                                          sharding.make_component_mesh(2),
+                                          512)
+        gibbs.sweep_blocked_pallas(spec, py, sh, st, tv, an, 512,
+                                   generator=gen)
+    assert all(v == 0 for v in gibbs.GRAPH_STATS.values())
+    assert gibbs._GRAPH['graph'] is None and gibbs._GRAPH['seen'] is None
+    for kind in ('plain', 'v1'):
+        assert gibbs._graph_refusal(dev, 'gumbel', kind) \
+            == gibbs._EAGER_SWEEPS[kind]
+
+
+def test_graph_process_group_mesh(dev):
+    """A NCCL group of one rank: sharded_sweep_fused on the global mesh
+    replays its CUDA graph (the eager first call makes the communicator
+    before the capture) and equals its eager loop and the single-device
+    fused sweep bitwise."""
+    import socket
+    from distributions_tpu_torch.parallel import distributed, sharding
+    spec, py, sh, tv, an = _graph_problem(dev, 'nich2')
+    st = mx.state_from_assignments(spec, py, sh, tv, an)
+    cache = gibbs.build_stat_cache(spec, sh, tv, 1024, an)
+    s = socket.socket()
+    s.bind(('localhost', 0))
+    port = s.getsockname()[1]
+    s.close()
+    distributed.initialize('localhost:%d' % port, 1, 0, timeout=120)
+    try:
+        mesh = distributed.make_global_mesh()
+
+        def run():
+            return sharding.sharded_sweep_fused(
+                spec, py, sh, st, tv, an, torch.Generator().manual_seed(5),
+                mesh, 1024, cache, block_rows=256, sampling='gumbel',
+                n_sweeps=3, with_score=True)
+        g = _check_replays(run, fk.fused_score_sample_stats, 4 * 3, 3, True)
+        torch.cuda.synchronize()
+    finally:
+        gibbs.release_sweep_graphs()
+        distributed.shutdown()
+    one = gibbs.sweep_blocked_pallas_fused_mixed(
+        spec, py, sh, st, tv, an, 1024, 256,
+        torch.Generator().manual_seed(5), cache, sampling='gumbel',
+        n_sweeps=3, with_score=True)
+    with gibbs._eager_sweeps():
+        one_e = gibbs.sweep_blocked_pallas_fused_mixed(
+            spec, py, sh, st, tv, an, 1024, 256,
+            torch.Generator().manual_seed(5), cache, sampling='gumbel',
+            n_sweeps=3, with_score=True)
+    assert _bits_equal(one, one_e) and _bits_equal(g, one)

@@ -25,8 +25,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
 
 from distributions_tpu import clustering as jcl, mixture as jmx
 from distributions_tpu.ops import gibbs as jg
@@ -188,40 +186,6 @@ def test_twins_take_the_seed_tensor(kernel, sampling):
 
 # -- capturable: nothing between the launches reads the device -------------
 
-class _HostReads(TorchDispatchMode):
-    """Records the ops that would read the device back or copy from the
-    host on the card: `.item()` and friends, data-dependent shapes, and
-    any operand that is neither an input nor made by an earlier op."""
-
-    SYNCS = ('_local_scalar_dense', 'nonzero', 'unique', 'masked_select',
-             'lift_fresh')
-
-    def __init__(self, known):
-        super().__init__()
-        self.known = set(known)
-        self.found = []
-        self.paused = False
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        if not self.paused:
-            name = str(func)
-            if any(s in name for s in self.SYNCS):
-                self.found.append(name)
-            for t in tree_flatten((args, kwargs))[0]:
-                if isinstance(t, torch.Tensor) and t.numel() and (
-                        t.untyped_storage().data_ptr() not in self.known):
-                    self.found.append('%s of a host tensor %s'
-                                      % (name, tuple(t.shape)))
-        self.note(out)
-        return out
-
-    def note(self, out):
-        for t in tree_flatten(out)[0]:
-            if isinstance(t, torch.Tensor):
-                self.known.add(t.untyped_storage().data_ptr())
-
-
 @pytest.mark.parametrize('kind,prior', [('nich2', 'py'), ('niw2mix', 'py'),
                                         ('bbddgp', 'py'), ('dpd_nich', 'py'),
                                         ('nich2', 'le'), ('niw2mix', 'le')])
@@ -235,8 +199,8 @@ def test_static_sweep_reads_nothing_back(kind, prior, monkeypatch):
     st = tmx.state_from_assignments(spec, py, sh, values, labels)
     lay = tg._mixed_static_layout(spec, values)
     W = tg._stat_matrices(spec, lay, sh)
-    state, an, cache = tg._clone_step(
-        st, labels, tg.build_stat_cache(spec, sh, values, BLOCK, labels))
+    state, an, cache = tg._map_tensors(torch.clone, (
+        st, labels, tg.build_stat_cache(spec, sh, values, BLOCK, labels)))
     seeds = sweep_seeds(torch.Generator().manual_seed(0), R // BLOCK)
 
     def step():
@@ -247,7 +211,7 @@ def test_static_sweep_reads_nothing_back(kind, prior, monkeypatch):
     inputs = (py, sh, W, state, an, cache, seeds, lay.nich_vals,
               lay.quad_vals, lay.table_idx, lay.supports,
               tuple(tcl._LOG_PARTITION_TABLES.values()))
-    mode = _HostReads(t.untyped_storage().data_ptr()
+    mode = testing.HostReads(t.untyped_storage().data_ptr()
                       for t in tg._tensors(inputs))
     for name in ('fused_score_sample_stats',
                  'fused_mixed_score_sample_stats'):

@@ -73,6 +73,10 @@ def test_process_group_worker_never_imports_jax():
                                         'torch_multiprocess_worker.py'))
 
 
+def test_psum_worker_never_imports_jax():
+    _assert_no_jax_imports(os.path.join('tests', 'torch_psum_worker.py'))
+
+
 def test_port_never_imports_jax():
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, '-c', PROBE], cwd=ROOT, env=env,

@@ -20,10 +20,10 @@ import numpy as np
 import pytest
 import torch
 
-from distributions_tpu import clustering as jcl, mixture as jmx
+from distributions_tpu import clustering as jcl, mixture as jmx_eager
 from distributions_tpu.inference import runner as jr
 from distributions_tpu.models import nich as jnich
-from distributions_tpu.ops import gibbs as jg, pallas_kernels as pk
+from distributions_tpu.ops import gibbs as jg_eager, pallas_kernels as pk
 from distributions_tpu.parallel import sharding as jsh
 from distributions_tpu_torch import clustering as tcl, config, convert
 from distributions_tpu_torch import mixture as tmx, testing
@@ -40,6 +40,34 @@ NEAR_TIE = 1e-3
 PY = {'alpha': 1.0, 'd': 0.1}
 JAX_MODELS = {name: importlib.import_module('distributions_tpu.models.'
                                             + name) for name in MODULES}
+
+
+class _Traced:
+    """A JAX module whose functions named in `static` (name -> the indices
+    of their static arguments) are jitted: traced and compiled once per
+    spec and shapes, where their eager ops would each compile on their
+    own.  Other names are the module's own."""
+
+    def __init__(self, module, static):
+        self._module = module
+        self._jitted = {name: jax.jit(getattr(module, name),
+                                      static_argnums=argnums)
+                        for name, argnums in static.items()}
+
+    def __getattr__(self, name):
+        return self._jitted.get(name) or getattr(self._module, name)
+
+
+jmx = _Traced(jmx_eager, {'state_from_assignments': (0,)})
+jg = _Traced(jg_eager, {'_build_fused_inputs': (0, 1, 2, 3, 4),
+                        'build_stat_cache': (0, 3)})
+# the sharded functions that are no sweep, traced likewise (`jsh` itself
+# stays the module: tests patch its `sample_from_scores`)
+_jsh_state_from_assignments = jax.jit(jsh.sharded_state_from_assignments,
+                                      static_argnums=(0, 5))
+_jsh_score_data = jax.jit(jsh.sharded_score_data, static_argnums=(0,))
+_jsh_shard_state_components = jax.jit(jsh.shard_state_components,
+                                      static_argnums=(1,))
 
 
 def _np(tree):
@@ -324,12 +352,12 @@ def test_sharded_state_matches_local():
         _nich_pair(values, start, 16, dict(BLOB_SHARED, kappa=1.))
     got = tsh.sharded_state_from_assignments(spec, tpy, shd, tv, ta,
                                              tsh.make_mesh(8))
-    want = jsh.sharded_state_from_assignments(jspec, jpy, jshd, jv, ja,
-                                              jsh.make_mesh())
+    want = _jsh_state_from_assignments(jspec, jpy, jshd, jv, ja,
+                                       jsh.make_mesh())
     _assert_state_close(got, want)
     np.testing.assert_array_equal(got.alive.numpy(), np.asarray(want.alive))
     assert float(tsh.sharded_score_data(spec, tpy, shd, got)) == \
-        pytest.approx(float(jsh.sharded_score_data(jspec, jpy, jshd, want)),
+        pytest.approx(float(_jsh_score_data(jspec, jpy, jshd, want)),
                       rel=1e-5)
 
 
@@ -406,7 +434,10 @@ def test_sharded_fused_matches_jax_and_single_device(kind):
     """tests/test_fused_mixed.py::test_sharded_fused_matches_single_device
     _argmax and ::test_niw_sharded_fused_matches_single_device: 8 row
     shards of local tile 64 against the JAX function and against the
-    single-device fused sweep with tile 512, and the cache check."""
+    single-device fused sweep with tile 512, and the cache check.  The
+    port's sweep is the static one that the card replays from a CUDA
+    graph (`_sharded_fused_sweep_into`), here also fed its seeds as a
+    tensor."""
     (jspec, jpy, jshd, jv, ja, jst), (spec, tpy, shd, tv, ta, st) = \
         _mixed_pair(kind, 512)
     jcache = jg.build_stat_cache(jspec, jshd, jv, 64, ja)
@@ -414,11 +445,24 @@ def test_sharded_fused_matches_jax_and_single_device(kind):
         jspec, jpy, jshd, jst, jv, ja, jax.random.PRNGKey(0), jsh.make_mesh(),
         64, jcache, block_rows=64, sampling='argmax')
     cache = tg.build_stat_cache(spec, shd, tv, 64, ta)
+    mesh = tsh.make_mesh(8)
     st2, an, cache2 = tsh.sharded_sweep_fused(
-        spec, tpy, shd, st, tv, ta, _gen(), tsh.make_mesh(8), 64, cache,
+        spec, tpy, shd, st, tv, ta, _gen(), mesh, 64, cache,
         block_rows=64, sampling='argmax')
     np.testing.assert_array_equal(an.numpy(), np.asarray(jan))
     _assert_state_close(st2, jst2)
+    sup = tsh._supports_for(spec, tv, None)
+    lays = tuple(tg._mixed_static_layout(spec, v, sup)
+                 for v in tsh._shard_values(mesh, tv))
+    assigns = tuple(a.clone() for a in tsh._shard_rows(mesh, ta))
+    caches = tuple((c.clone(), tuple(x.clone() for x in s)) for c, s in zip(
+        tsh._shard_rows(mesh, cache[0]),
+        zip(*(tsh._shard_rows(mesh, x) for x in cache[1]))))
+    tsh._sharded_fused_sweep_into(
+        spec, mesh, lays, tg._stat_matrices(spec, lays[0], shd), 64, 64,
+        'argmax', tpy, shd, tg._map_tensors(torch.clone, st), assigns,
+        caches, torch.zeros(8, dtype=torch.int64))
+    np.testing.assert_array_equal(torch.cat(assigns).numpy(), np.asarray(jan))
 
     cache1 = tg.build_stat_cache(spec, shd, tv, 512, ta)
     st1, an1, _ = tg.sweep_blocked_pallas_fused_mixed(
@@ -516,7 +560,7 @@ def test_2d_argmax_matches_jax_with_the_sharded_state_carried_over():
     jmesh = jsh.make_mesh_2d(2, 4)
     mesh = tsh.make_mesh_2d(2, 4)
     jst2, jan = jsh.sharded_sweep_2d(
-        jspec, jpy, jshd, jsh.shard_state_components(jst, jmesh), jv, ja,
+        jspec, jpy, jshd, _jsh_shard_state_components(jst, jmesh), jv, ja,
         jax.random.PRNGKey(0), jmesh, 256, sampling='argmax')
     sharded = tsh.shard_state_components(st, mesh)
     assert len(sharded) == 8 and sharded[0] is sharded[4]
@@ -558,7 +602,7 @@ def test_2d_fused_argmax_matches_jax_and_plain_2d():
         _nich_pair(values, labels, 512, SAT_SHARED)
     jmesh = jsh.make_mesh_2d(2, 4)
     jst_f, jan_f = jsh.sharded_sweep_2d_fused(
-        jspec, jpy, jshd, jsh.shard_state_components(jst, jmesh), jv, ja,
+        jspec, jpy, jshd, _jsh_shard_state_components(jst, jmesh), jv, ja,
         jax.random.PRNGKey(0), jmesh, 512, block_rows=128, sampling='argmax')
     mesh = tsh.make_mesh_2d(2, 4)
     st_f, an_f = tsh.sharded_sweep_2d_fused(
