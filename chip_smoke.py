@@ -103,7 +103,10 @@ exits non-zero:
                  repeatability, milliseconds of kernel and twin; 'gumbel'
                  equal to 'gumbel_host' on fused_kernels.philox_gumbel_noise
                  at every one of those inputs, and the split kernel's
-                 report and -Xptxas -v as for K1.
+                 report and -Xptxas -v as for K1; the seed read from
+                 device memory (the v1 sweeps' CUDA graph) bitwise the
+                 by-value launch in 'gumbel' and 'argmax', both timed in
+                 turns.
 4. small_reference, small_reference_mixed -- the kernel path on the card
                  against the twin path on the CPU, draw for draw in a
                  3-sweep 'argmax' run of a small problem.
@@ -127,11 +130,20 @@ exits non-zero:
 6b. paths_v1  -- gibbs.sweep_blocked_pallas (K4) on the flagship nich
                  data and gibbs.sweep_blocked_pallas_mixed (K5, and its
                  plain 'xla' backend) on nich + bb + dd + gp, both at
-                 1,048,576 rows x 1024 slots: launches = tiles x sweeps,
-                 counts equal to a bincount of the assignments, score_data
-                 equal to a fresh recompute, ms per sweep, and the profile
-                 of one K4 and one K5 sweep (device ms, the kernel's
-                 share, busy share).
+                 1,048,576 rows x 1024 slots, each sweep the replay of
+                 one CUDA graph of all its tiles (K4 and K5 reading their
+                 seed from the seed table, 'xla' drawing from the graph's
+                 registered device generator): 10 chained sweeps in
+                 'gumbel' and 'argmax' ('xla': 'gumbel') bitwise equal to
+                 the eager loop (gibbs._eager_sweeps), one capture and 9
+                 replays, launches = tiles x sweeps; two replays with
+                 fresh seeds and other draws, each equal to the eager
+                 sweep; the profile of one replayed sweep (one K4 / K5
+                 launch a tile, required); ms per sweep on the graph and
+                 eagerly in turns, capture seconds, pool bytes; counts
+                 equal to a bincount of the assignments, score_data equal
+                 to a fresh recompute; the fused and plain sweeps of the
+                 same problem timed beside.
 6a. graphs    -- each sweep of run_gibbs(use_pallas=True) as the replay of
                  one CUDA graph of all its tiles (gibbs._SweepGraph, K1 and
                  K2 reading their seed from device memory) against the
@@ -160,6 +172,20 @@ exits non-zero:
                  runner phases (main, main_mixed, main_le, main_hypers)
                  also check that every sweep but a graph's first came
                  from its replay (gibbs.GRAPH_STATS).
+6f. plain_graphs -- the single-device plain sweeps as CUDA graphs, the
+                 tiles drawing from the graph's registered device
+                 generator, reseeded from the host before each replay:
+                 sweep_blocked on nich2 (tiles of 4096 and 131,072 rows)
+                 and niw2mix (65,536) at 1,048,576 rows x 1024 slots, 3
+                 chained sweeps bitwise the eager loop, fresh seeds, ms
+                 per sweep in turns; run_gibbs(use_pallas=False) on nich2
+                 at its default 4096-row tiles (4096 slots: a tile opens
+                 up to one cluster, 256 a sweep), 3 steps of 3 sweeps,
+                 every sweep but the first a replay (and the step's score
+                 from its graph), bitwise its eager run and its
+                 interrupted and resumed run; sweep_blocked_chains, 4
+                 chains of 65,536 rows in one replay a sweep, bitwise the
+                 eager chains.
 6c. main_resume -- run_gibbs with checkpoint_path in a temporary
                  directory: an uninterrupted run against an interrupted
                  and resumed one, bitwise, on the fused path at full width
@@ -491,12 +517,15 @@ class Case:
 
 
 class V1Case(Case):
-    """K4 or K5: draws only, 'gumbel' | 'argmax' | 'gumbel_host'."""
+    """K4 or K5: draws only, 'gumbel' | 'argmax' | 'gumbel_host'; the
+    seed from device memory (the v1 sweeps' CUDA graph) held bitwise to
+    the by-value launch and timed in turns with it in 'gumbel' and
+    'argmax'."""
     det_modes = ragged_modes = ('argmax', 'gumbel_host')
     rng_modes = ('gumbel',)
     repeat_modes = ('gumbel', 'argmax')
     time_modes = ('gumbel', 'argmax', 'gumbel_host')
-    pointer_modes = pointer_timed = ()
+    pointer_modes = pointer_timed = ('gumbel', 'argmax')
 
 
 def k1_case(port, values, cl_scores, coeffs, groups=None):
@@ -1006,11 +1035,13 @@ def phase_kernel_k4(port, X, labels):
                                           (wide_cols,)),
                'split_ptxas': split_ptxas(port, 'score_sample_v1')}, **bd))
     # draws only: the error against the twin is the count of draws that
-    # differ, 0 or the check above has raised
+    # differ, 0 or the check above has raised; the main path's launch (the
+    # v1 sweep's graph) takes its seed from device memory
     return dict(bd, max_abs_err=float(max(r['mismatched_draws']
                                           for r in modes.values()
                                           if 'mismatched_draws' in r)),
-                ms=timing['gumbel']['ms'],
+                ms=timing['gumbel']['ms_seed_pointer'],
+                ms_by_value=timing['gumbel']['ms_by_value'],
                 plain_ms=timing['gumbel']['plain_ms'])
 
 
@@ -1046,7 +1077,8 @@ def phase_kernel_k5(port):
                                    (cols,) if cols else (), (),
                                    lay.table_vs)}, **bd)
         if kind == 'nichbbddgp':
-            summary = dict(bd, ms=timing['gumbel']['ms'],
+            summary = dict(bd, ms=timing['gumbel']['ms_seed_pointer'],
+                           ms_by_value=timing['gumbel']['ms_by_value'],
                            plain_ms=timing['gumbel']['plain_ms'])
         del m, case
 
@@ -2122,6 +2154,7 @@ def phase_main(port, X, labels):
     def plain():
         return gibbs.sweep_blocked(spec, py, shareds, state, values,
                                    assignments, BLOCK, generator=gen)
+    plain()     # likewise: the timed plain sweeps are replays
     plain_ms = cuda_ms(plain, 3)
 
     # where a fused sweep's time goes, by the profiler's device times
@@ -2171,6 +2204,7 @@ def phase_main_mixed(port, problem):
     def plain():
         return gibbs.sweep_blocked(spec, py, shareds, state, values,
                                    assignments, BLOCK_MIXED, generator=gen)
+    plain()     # likewise: the timed plain sweeps are replays
     plain_ms = cuda_ms(plain, 2)
     emit({'phase': 'paths_mixed',
           'fused_mixed_ms_per_sweep': fused_ms,
@@ -2567,29 +2601,65 @@ def check_sweep(port, spec, py, shareds, values, state, assignments):
             'fresh_score_data': fresh}
 
 
-def timed_sweeps(sweep, state, assignments, n):
-    """n consecutive sweeps from (state, assignments); (state,
-    assignments, milliseconds per sweep by CUDA events)."""
+V1_SWEEPS = 10
+V1_MODES = ('gumbel', 'argmax')
+V1_TIMED = 5
+
+
+def graph_sweep_checks(port, what, one, tiles, wrapper, modes, gens=False,
+                       sweeps=V1_SWEEPS, timed_sweeps=V1_TIMED):
+    """The checks of a one-sweep entry point on the graph path.  one(st,
+    an, mode, gen) runs one sweep, from the start's (state, assignments)
+    when st is None.  Per mode, `sweeps` chained sweeps replayed from one
+    CUDA graph (after the key's first call, eager) against the eager
+    loop, bitwise, with tiles x sweeps launches of `wrapper` (None: a
+    sweep without a kernel); in the first mode also fresh seeds every
+    replay (`gens`: from the graph's device generator), the profile of
+    one replayed sweep (one score + sample kernel a tile) and ms/sweep on
+    the graph and eagerly in turns.  Returns (report, launches of the
+    first mode's graph run, its result)."""
     import torch
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(n):
-        state, assignments = sweep(state, assignments)
-    b.record()
-    torch.cuda.synchronize()
-    return state, assignments, a.elapsed_time(b) / n
+
+    def chain(mode, n):
+        gen = torch.Generator().manual_seed(7)
+        st = an = None
+        for _ in range(n):
+            st, an = one(st, an, mode, gen)
+        return st, an
+    res = {}
+    # the first mode last: its graph is the one kept for what follows
+    for mode in modes[::-1]:
+        one(None, None, mode, torch.Generator().manual_seed(7))
+        g, res[mode] = sharded_graph_check(
+            port, '%s %s' % (what, mode), lambda: chain(mode, sweeps),
+            wrapper, tiles * sweeps if wrapper else 0, sweeps, 0)
+    launches = res[mode]['launches_graph_run']
+    res['fresh_seeds'] = sharded_fresh_seeds(
+        port, what, lambda gen: one(None, None, mode, gen), tiles, gens)
+    if wrapper is not None:
+        res['profile_replay'] = sharded_profile(
+            port, what, lambda: one(None, None, mode,
+                                    torch.Generator().manual_seed(7)),
+            tiles)
+    res['timing'] = graph_eager_turns(
+        port, lambda: chain(mode, timed_sweeps), timed_sweeps)
+    return res, launches, g
 
 
 def phase_paths_v1(port, X, labels):
-    """The v1 sweeps at full width.  Returns the launches of K4 and K5 on
-    these paths."""
+    """The v1 sweeps at full width, each sweep the replay of one CUDA graph
+    of all its tiles (K4 and K5 reading their seed from the seed table,
+    'xla' drawing from the graph's device generator): K4 on nich2 and K5
+    on nichbbddgp in 'gumbel' and 'argmax', and backend='xla', against the
+    eager loop.  Returns the launches of K4 and K5 in their 'gumbel' graph
+    runs."""
     import torch
     fk, mx, gibbs, testing = (port['fk'], port['mx'], port['gibbs'],
                               port['testing'])
     dev = port['config'].default_device()
-    n = 2
-    out = {'phase': 'paths_v1', 'rows': ROWS, 'slots': SLOTS, 'sweeps': n}
+    out = {'phase': 'paths_v1', 'rows': ROWS, 'slots': SLOTS,
+           'sweeps_checked': V1_SWEEPS, 'seconds': {}}
+    t0 = time.time()
 
     # nich2 through sweep_blocked_pallas (K4)
     spec = mx.make_spec([(port['nich'], FEATURES)], capacity=SLOTS)
@@ -2598,26 +2668,23 @@ def phase_paths_v1(port, X, labels):
     values = (torch.as_tensor(X, device=dev),)
     a0 = torch.as_tensor(labels, device=dev)
     st0 = mx.state_from_assignments(spec, py, shareds, values, a0)
-    gen = torch.Generator().manual_seed(2)
-
-    def k4_sweep(st, an):
-        return gibbs.sweep_blocked_pallas(spec, py, shareds, st, values, an,
-                                          BLOCK, generator=gen)
-    k4_sweep(st0, a0)                                   # warm up
-    torch.cuda.synchronize()
-    fk.nich_score_sample.launches = 0
-    st, an, ms = timed_sweeps(k4_sweep, st0, a0, n)
-    k4_launches = fk.nich_score_sample.launches
     tiles = ROWS // BLOCK
-    if k4_launches != tiles * n:
-        raise AssertionError('K4: %d launches, expected tiles x sweeps = %d'
-                             % (k4_launches, tiles * n))
-    out['nich2'] = dict(check_sweep(port, spec, py, shareds, values, st, an),
-                        block=BLOCK, tiles=tiles, launches=k4_launches,
-                        sweep_blocked_pallas_ms_per_sweep=ms,
-                        profile=profile_sweep(lambda: k4_sweep(st0, a0),
-                                              ('split_score_sample',)))
-    del values, st0, st, an
+
+    def k4(st, an, mode, gen):
+        return gibbs.sweep_blocked_pallas(
+            spec, py, shareds, st0 if st is None else st, values,
+            a0 if an is None else an, BLOCK, generator=gen, sampling=mode)
+    res, k4_launches, g = graph_sweep_checks(
+        port, 'sweep_blocked_pallas nich2', k4, tiles, fk.nich_score_sample,
+        V1_MODES)
+    st2, an2 = k4(*k4(None, None, 'gumbel',
+                      torch.Generator().manual_seed(2)), 'gumbel',
+                  torch.Generator().manual_seed(3))
+    out['nich2'] = dict(res, block=BLOCK, tiles=tiles,
+                        checks=check_sweep(port, spec, py, shareds, values,
+                                           st2, an2))
+    del values, st0, g, st2, an2
+    out['seconds']['nich2'] = round(time.time() - t0, 2)
 
     # nich + bb + dd + gp through sweep_blocked_pallas_mixed (K5, 'xla')
     problem = testing.mixed_problem(ROWS, SLOTS, seed=0, kind='nichbbddgp',
@@ -2632,30 +2699,29 @@ def phase_paths_v1(port, X, labels):
     mixed = {'block': BLOCK_MIXED, 'tiles': tiles}
 
     def mixed_sweep(backend):
-        return lambda st, an: gibbs.sweep_blocked_pallas_mixed(
-            spec, py, shareds, st, values, an, BLOCK_MIXED, gen,
-            supports=supports, backend=backend)
-    for backend in ('pallas', 'xla'):
-        mixed_sweep(backend)(st0, a0)                   # warm up
-        torch.cuda.synchronize()
-        fk.mixed_score_sample.launches = 0
-        st, an, ms = timed_sweeps(mixed_sweep(backend), st0, a0, n)
-        launches = fk.mixed_score_sample.launches
-        want = tiles * n if backend == 'pallas' else 0
-        if launches != want:
-            raise AssertionError('K5, backend %s: %d launches, expected %d'
-                                 % (backend, launches, want))
-        mixed[backend] = dict(
-            check_sweep(port, spec, py, shareds, values, st, an),
-            launches=launches, ms_per_sweep=ms)
-        if backend == 'pallas':
-            k5_launches = launches
-            mixed[backend]['profile'] = profile_sweep(
-                lambda: mixed_sweep(backend)(st0, a0),
-                ('split_score_sample',))
+        def one(st, an, mode, gen):
+            return gibbs.sweep_blocked_pallas_mixed(
+                spec, py, shareds, st0 if st is None else st, values,
+                a0 if an is None else an, BLOCK_MIXED, gen,
+                supports=supports, backend=backend, sampling=mode)
+        return one
+    mixed['pallas'], k5_launches, g = graph_sweep_checks(
+        port, 'sweep_blocked_pallas_mixed nichbbddgp', mixed_sweep('pallas'),
+        tiles, fk.mixed_score_sample, V1_MODES)
+    mixed['pallas']['checks'] = check_sweep(port, spec, py, shareds, values,
+                                            *g)
+    mixed['xla'], _, g = graph_sweep_checks(
+        port, "sweep_blocked_pallas_mixed(backend='xla') nichbbddgp",
+        mixed_sweep('xla'), tiles, None, ('gumbel',), gens=True)
+    mixed['xla']['checks'] = check_sweep(port, spec, py, shareds, values,
+                                         *g)
+    del g
+    out['seconds']['nichbbddgp_v1'] = round(
+        time.time() - t0 - sum(out['seconds'].values()), 2)
 
     # the same problem on the fused path (K2) and the plain path
     cache = gibbs.build_stat_cache(spec, shareds, values, BLOCK_MIXED, a0)
+    gen = torch.Generator().manual_seed(2)
 
     def fused():
         return gibbs.sweep_blocked_pallas_fused_mixed(
@@ -2667,10 +2733,137 @@ def phase_paths_v1(port, X, labels):
     def plain():
         return gibbs.sweep_blocked(spec, py, shareds, st0, values, a0,
                                    BLOCK_MIXED, generator=gen)
+    plain()     # likewise: the timed plain sweeps are replays
     mixed['plain_sweep_blocked_ms_per_sweep'] = cuda_ms(plain, 2)
     out['nichbbddgp'] = mixed
     emit(out)
     return k4_launches, k5_launches
+
+
+PLAIN_SWEEPS = 3
+PLAIN_CASES = (('nich2', 4096), ('nich2', BLOCK), ('niw2mix', BLOCK_MIXED))
+PLAIN_RUN = (3, 3)          # steps, sweeps a step of run_gibbs
+PLAIN_RUN_BLOCK = 4096      # run_gibbs's default block
+PLAIN_RUN_SLOTS = 4 * SLOTS
+CHAIN_GRAPH_SWEEPS = 3
+
+
+def phase_plain_graphs(port, X, labels, mixed):
+    """The single-device plain sweeps, each sweep the replay of one CUDA
+    graph of all its tiles drawing from the graph's device generator
+    (reseeded from the host before each replay), against the eager loop:
+    sweep_blocked at 1,048,576 rows x 1024 slots on nich2 (tiles of 4096,
+    the runner's default, and 131,072) and niw2mix (65,536), 3 sweeps
+    bitwise, fresh seeds, ms/sweep in turns; run_gibbs(use_pallas=False)
+    on nich2 at its default tiles (4096 slots), 3 steps of 3 sweeps, every
+    sweep but the first a replay, bitwise its eager run, resume bitwise;
+    sweep_blocked_chains, 4 chains of 65,536 rows in one replay a sweep,
+    bitwise the eager chains."""
+    import shutil
+    import tempfile
+    import torch
+    mx, gibbs, runner = port['mx'], port['gibbs'], port['runner']
+    out = {'phase': 'plain_graphs', 'rows': ROWS, 'slots': SLOTS,
+           'sweeps_checked': PLAIN_SWEEPS, 'seconds': {}}
+    t0 = time.time()
+    problems = graph_problems(port, X, labels, mixed)
+    for layout, block in PLAIN_CASES:
+        spec, py, shareds, values, a0, _, _, _ = problems[layout]
+        st0 = mx.state_from_assignments(spec, py, shareds, values, a0)
+
+        def one(st, an, mode, gen):
+            return gibbs.sweep_blocked(
+                spec, py, shareds, st0 if st is None else st, values,
+                a0 if an is None else an, block, generator=gen)
+        res, _, g = graph_sweep_checks(
+            port, 'sweep_blocked %s block %d' % (layout, block), one,
+            ROWS // block, None, ('gumbel',), gens=True, sweeps=PLAIN_SWEEPS,
+            timed_sweeps=PLAIN_SWEEPS)
+        res.update(block=block, tiles=ROWS // block,
+                   checks=check_sweep(port, spec, py, shareds, values, *g))
+        out['sweep_blocked_%s_%d' % (layout, block)] = res
+        del st0, g
+        gibbs.release_sweep_graphs()
+    out['seconds']['sweep_blocked'] = round(time.time() - t0, 2)
+
+    # the runner's default path: run_gibbs(use_pallas=False), block 4096.
+    # A tile opens at most one cluster (one reserved empty slot), so 256
+    # tiles open up to 256 a sweep, where the 131,072-row tiles open 8:
+    # from the 896 generating clusters 1024 slots fill within 3 sweeps,
+    # and PLAIN_RUN_SLOTS hold 896 + 9 x 256 with no growth
+    spec, py, shareds = problems['nich2'][:3]
+    spec = spec._replace(capacity=PLAIN_RUN_SLOTS)
+    steps, per_step = PLAIN_RUN
+    passes = steps * per_step
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_')
+    try:
+        def run(n, path=None, seed=0, resume=False):
+            return runner.run_gibbs(
+                spec, py, shareds, (X,), torch.Generator().manual_seed(seed),
+                n, block=PLAIN_RUN_BLOCK, use_pallas=False,
+                initial_assignments=labels, grow_headroom=0.0,
+                sweeps_per_step=per_step, checkpoint_every=per_step,
+                checkpoint_path=path and os.path.join(tmp, path),
+                resume=resume)
+        stats = graph_counts(port)
+        g, g_ms = timed(lambda: run(passes, 'full.ckpt'))
+        graphs = expect_graph('run_gibbs(use_pallas=False)', stats, passes,
+                              steps)
+        with gibbs._eager_sweeps():
+            e, e_ms = timed(lambda: run(passes))
+        run(passes - per_step, 'crash.ckpt')
+        r = run(passes, 'crash.ckpt', seed=999, resume=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    runs_equal('run_gibbs(use_pallas=False)', g[:2], e[:2], g[2], e[2])
+    runs_equal('run_gibbs(use_pallas=False) resumed', g[:2], r[:2], g[2],
+               r[2])
+    steady = [row['seconds'] for row in g[2].rows][1:]
+    out['run_gibbs_plain'] = {
+        'block': PLAIN_RUN_BLOCK, 'steps': steps, 'sweeps_per_step':
+        per_step, 'slots': PLAIN_RUN_SLOTS,
+        'nonempty_groups': [row['nonempty_groups'] for row in g[2].rows],
+        'graphs': graphs, 'equal_eager': True,
+        'resume_bitwise': True, 'graph_wall_ms': g_ms, 'eager_wall_ms': e_ms,
+        'step_seconds': [row['seconds'] for row in g[2].rows],
+        'step_seconds_eager': [row['seconds'] for row in e[2].rows],
+        'ms_per_sweep_steady': 1e3 * sum(steady) / (per_step * len(steady))}
+    del g, e, r
+    out['seconds']['run_gibbs_plain'] = round(
+        time.time() - t0 - sum(out['seconds'].values()), 2)
+
+    # 4 chains in one replay a sweep
+    spec, py, shareds, values, a0, _, _, _ = problems['nich2']
+    cv = (values[0][:CHAIN_ROWS].contiguous(),)
+    gen = torch.Generator().manual_seed(0)
+    A = torch.stack([a0[:CHAIN_ROWS]] + [
+        torch.randint(0, SLOTS // 2, (CHAIN_ROWS,), generator=gen).to(
+            device=a0.device, dtype=torch.int32) for _ in range(CHAINS - 1)])
+    states = gibbs.init_chains(spec, py, shareds, cv, A)
+
+    def chains(n):
+        gens = [torch.Generator().manual_seed(10 + c) for c in range(CHAINS)]
+        sts, an = states, A
+        for _ in range(n):
+            sts, an = gibbs.sweep_blocked_chains(spec, py, shareds, sts, cv,
+                                                 an, CHAIN_BLOCK, gens)
+        return sts, an
+    chains(1)       # the key's first call runs eagerly
+    g, res = sharded_graph_check(port, 'sweep_blocked_chains',
+                                 lambda: chains(CHAIN_GRAPH_SWEEPS), None, 0,
+                                 CHAIN_GRAPH_SWEEPS, 0)
+    for c in range(CHAINS):
+        check_sweep(port, spec, py, shareds, cv, gibbs._chain_take(g[0], c),
+                    g[1][c])
+    res.update(chains=CHAINS, rows=CHAIN_ROWS, block=CHAIN_BLOCK,
+               timing=graph_eager_turns(
+                   port, lambda: chains(CHAIN_GRAPH_SWEEPS),
+                   CHAIN_GRAPH_SWEEPS))
+    out['sweep_blocked_chains'] = res
+    gibbs.release_sweep_graphs()
+    out['seconds']['chains'] = round(
+        time.time() - t0 - sum(out['seconds'].values()), 2)
+    emit(out)
 
 
 def phase_main_resume(port, X, labels):
@@ -2853,15 +3046,16 @@ SHARDED_TIMED = 5
 
 def sharded_graph_check(port, what, run, wrapper, want_launches, captures,
                         score_captures):
-    """run() on the graph path, its launches of `wrapper` counted from 0,
-    then under gibbs._eager_sweeps(), and the two held bitwise: (graph
-    result, per-run report)."""
+    """run() on the graph path, its launches of `wrapper` counted from 0
+    (None: a sweep without a kernel), then under gibbs._eager_sweeps(),
+    and the two held bitwise: (graph result, per-run report)."""
     gibbs = port['gibbs']
     stats = graph_counts(port)
-    wrapper.launches = 0
+    if wrapper is not None:
+        wrapper.launches = 0
     g, g_ms = timed(run)
     counts = dict(stats)
-    launches = wrapper.launches
+    launches = 0 if wrapper is None else wrapper.launches
     with gibbs._eager_sweeps():
         e, e_ms = timed(run)
     want = {'captures': 1, 'replays': captures - 1,
@@ -2880,10 +3074,20 @@ def sharded_graph_check(port, what, run, wrapper, want_launches, captures,
     return g, report
 
 
-def sharded_fresh_seeds(port, what, call, n_seeds):
+def graph_seeds(graph):
+    """What seeded a captured graph's last sweep, on the host: its seed
+    table, or the seeds of its device generators."""
+    import torch
+    if graph.gens:
+        return torch.tensor([g.initial_seed() for g in graph.gens])
+    return graph.seeds.to('cpu', copy=True)
+
+
+def sharded_fresh_seeds(port, what, call, n_seeds, gens=False):
     """Two one-sweep calls on a captured key with one generator: two
-    replays with other seeds (the generator's table) and other draws,
-    each equal to the eager sweep from the same generator."""
+    replays with other seeds (the generator's table, or with `gens` the
+    seed of the graph's device generator) and other draws, each equal to
+    the eager sweep from the same generator."""
     import torch
     gibbs, rnd = port['gibbs'], port['random']
     gen, gen_e = (torch.Generator().manual_seed(11),
@@ -2891,17 +3095,18 @@ def sharded_fresh_seeds(port, what, call, n_seeds):
     stats = graph_counts(port)
     g1 = call(gen)
     graph = gibbs._GRAPH['graph']
-    seeds1 = graph.seeds.to('cpu', copy=True)
+    seeds1 = graph_seeds(graph)
     g2 = call(gen)
-    seeds2 = graph.seeds.to('cpu', copy=True)
+    seeds2 = graph_seeds(graph)
     with gibbs._eager_sweeps():
         e1, e2 = call(gen_e), call(gen_e)
+    ref = torch.Generator().manual_seed(11)
+    want = torch.tensor([rnd.draw_seed(ref)]) if gens else \
+        rnd.sweep_seeds(ref, n_seeds)
     fresh = {
         'replays': stats['replays'] == 2 and stats['captures'] == 0,
         'seeds_differ': bool((seeds1 != seeds2).all()),
-        'seeds_are_the_generators': bool(torch.equal(
-            seeds1, rnd.sweep_seeds(torch.Generator().manual_seed(11),
-                                    n_seeds))),
+        'seeds_are_the_generators': bool(torch.equal(seeds1, want)),
         'draws_differ': not bool(torch.equal(g1[1], g2[1])),
         'first_equals_eager': bits_equal(g1, e1),
         'second_equals_eager': bits_equal(g2, e2)}
@@ -4748,6 +4953,7 @@ def main():
                                   n_clusters=TRUE_CLUSTERS)
     k2['launches'] = phase_main_mixed(port, mixed)
     phase_graphs(port, X, labels, mixed)
+    phase_plain_graphs(port, X, labels, mixed)
     k3['launches'] = phase_sharded(port, X, labels, mixed)
     k1['launches_main_le'], k2['launches_main_le'] = phase_main_le(
         port, X, labels, mixed)
@@ -4794,8 +5000,8 @@ def main():
             'bound_ms': k['bound_ms'], 'bound_by': k['bound_by'],
             'measured_bound_ms': k['measured_bound_ms'],
             'measured_bound_by': k['measured_bound_by'],
-            # K1 and K2 also carry the LowEntropy runs of main_le; K1, K2
-            # and K3 their time with the seed passed by value (`ms` is the
+            # K1 and K2 also carry the LowEntropy runs of main_le; K1-K5
+            # their time with the seed passed by value (`ms` is the
             # main path's launch, the seed read from device memory)
             'launches_main_le': k.get('launches_main_le'),
             'ms_by_value': k.get('ms_by_value'),

@@ -11,11 +11,11 @@ versions are compared only inside one run of one machine.
     python -m distributions_tpu_torch.benchmarks.bench
 
 Prints one JSON line {"metric", "value", "unit", "ms_per_sweep", ...},
-after a line '# graphs: ...': on the card the fused sweeps are replayed
-from CUDA graphs (ops/gibbs.py), and that line gives how many graphs the
-run captured and the seconds the captures took (the warm-up call, the
-key's first, runs eagerly; the first timed call captures, and the median
-call is a replay).
+after a line '# graphs: ...': on the card every kernel's sweeps (v2, v1
+and plain) are replayed from CUDA graphs (ops/gibbs.py), and that line
+gives how many graphs the run captured and the seconds the captures took
+(a key's first call runs eagerly and its second captures, within the
+warm-up call or at the first timed one: the median call is replays).
 Sizes: BENCH_ROWS (1048576), BENCH_COMPONENTS (1024), BENCH_BLOCK
 (131072), BENCH_FEATURES (2), BENCH_SWEEPS (30), BENCH_REPEATS (5),
 BENCH_SAMPLING (gumbel), BENCH_KERNEL (v2: the fused sweep on K1 | v1: K4's

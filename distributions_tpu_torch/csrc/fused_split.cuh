@@ -202,7 +202,7 @@ struct SplitArgs {
                             // the row maximum), or null
   int B, C, slot_offset;
   unsigned long long seed;
-  // K1 and K2 under a CUDA graph: the seed in device memory, read when the
+  // Under a CUDA graph (K1-K5): the seed in device memory, read when the
   // kernel runs (null: `seed` above).  A replayed graph keeps its launch
   // arguments, so a seed passed by value would repeat every replay.
   const unsigned long long* seed_ptr;

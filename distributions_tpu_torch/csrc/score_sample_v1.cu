@@ -54,7 +54,8 @@
 // slot for slot.
 //
 // Bound through ctypes: two plain C entry points that launch on the
-// caller's stream, allocate nothing, and return cudaGetLastError(), and
+// caller's stream, allocate nothing, and return cudaGetLastError() (the
+// seed by value, or from device memory for a CUDA graph's replays), and
 // score_sample_v1_occupancy(), which reports the split kernel a launch
 // takes.
 
@@ -114,7 +115,8 @@ static int launch_v1(const float* values, const int* table_idx,
                      const float* cl, const float* coeffs,
                      const float* tables, const float* noise, int* out,
                      int B, int C, int cols, int n_tab, int V, int mode,
-                     unsigned long long seed, cudaStream_t st) {
+                     unsigned long long seed,
+                     const unsigned long long* seed_ptr, cudaStream_t st) {
   SplitLayout L;
   if (B < 1 || !v1_layout(C, cols, n_tab, V, mode, &L))
     return (int)cudaErrorInvalidValue;
@@ -130,6 +132,7 @@ static int launch_v1(const float* values, const int* table_idx,
   a.C = C;
   a.slot_offset = 0;
   a.seed = seed;
+  a.seed_ptr = seed_ptr;
   const dim3 grid((B + SPLIT_BLOCK_ROWS - 1) / SPLIT_BLOCK_ROWS);
   bool fits = true;
   with_v1_kernel(L, mode, [&](auto kern, int P, int rows) {
@@ -145,25 +148,31 @@ extern "C" const char* score_sample_v1_error_string(int err) {
 }
 
 // values [B, cols], cl [C], coeffs [4 * cols, C], noise [B, C] or null,
-// out [B].
+// out [B].  seed_ptr: null, or the seed in device memory in place of
+// `seed`, read when the kernel runs (the v1 sweeps' CUDA graph); Philox is
+// counted by (row, slot / 4) either way, so both draw alike.
 extern "C" int score_sample_v1_nich_launch(
     const float* values, const float* cl, const float* coeffs,
     const float* noise, int* out, int B, int C, int cols, int mode,
-    unsigned long long seed, void* stream) {
+    unsigned long long seed, const unsigned long long* seed_ptr,
+    void* stream) {
   if (cols < 1) return (int)cudaErrorInvalidValue;
   return launch_v1(values, nullptr, cl, coeffs, nullptr, noise, out, B, C,
-                   cols, 0, 0, mode, seed, (cudaStream_t)stream);
+                   cols, 0, 0, mode, seed, seed_ptr, (cudaStream_t)stream);
 }
 
 // values [B, cols] and coeffs [4 * cols, C] (null when cols == 0),
-// table_idx [B, n_tab] and tables [n_tab, V, C] (null when n_tab == 0).
+// table_idx [B, n_tab] and tables [n_tab, V, C] (null when n_tab == 0);
+// seed_ptr as above.
 extern "C" int score_sample_v1_mixed_launch(
     const float* values, const int* table_idx, const float* cl,
     const float* coeffs, const float* tables, const float* noise, int* out,
     int B, int C, int cols, int n_tab, int V, int mode,
-    unsigned long long seed, void* stream) {
+    unsigned long long seed, const unsigned long long* seed_ptr,
+    void* stream) {
   return launch_v1(values, table_idx, cl, coeffs, tables, noise, out, B, C,
-                   cols, n_tab, V, mode, seed, (cudaStream_t)stream);
+                   cols, n_tab, V, mode, seed, seed_ptr,
+                   (cudaStream_t)stream);
 }
 
 // The split kernel that a launch with this layout and draw takes at C

@@ -127,18 +127,31 @@ def _grid_on(grid, device):
 
 
 def _unfused_sweep(spec, use_pallas):
-    """The sweep of a step that the fused gate refused, as (spec, cl_model,
-    shareds, state, values, assignments, block, generator) -> (state,
-    assignments): with use_pallas the v1 score + sample sweep that serves
-    the spec (K4 for nich-only, K5 without niw blocks), else the plain
-    sweep."""
+    """The sweeps of a step that the fused gate refused, as (spec,
+    cl_model, shareds, state, values, assignments, block, generator, k) ->
+    (state, assignments, the joint score): k sweeps in one call, on the
+    card the replays of one CUDA graph, with the step's score from the
+    static state.  With use_pallas the v1 score + sample sweep that serves
+    the spec (K4 for nich-only, K5 without niw blocks; 'gumbel', as
+    `gibbs.sweep_blocked_pallas` and `sweep_blocked_pallas_mixed` draw by
+    default), else the plain sweep."""
+    kernel = None
     if use_pallas and fk.supports_pallas(spec):
-        return lambda *a: gibbs.sweep_blocked_pallas(*a[:7], generator=a[7])
-    if use_pallas and all(
+        kernel = 'K4'
+    elif use_pallas and all(
             b.module is not fk.niw_mod
             and hasattr(b.module, 'score_value_batch') for b in spec.blocks):
-        return gibbs.sweep_blocked_pallas_mixed
-    return lambda *a: gibbs.sweep_blocked(*a[:7], generator=a[7])
+        kernel = 'K5'
+
+    def sweeps(spec, cl_model, shareds, state, values, assignments, block,
+               generator, k):
+        if kernel is None:
+            return gibbs._plain_run(spec, cl_model, shareds, state, values,
+                                    assignments, block, generator, k, True)
+        return gibbs._v1_run(spec, values, None, kernel, block, 256,
+                             'gumbel', k, True, cl_model, shareds, state,
+                             assignments, generator)
+    return sweeps
 
 
 def run_gibbs(spec, cl_model, shareds, values, generator, passes,
@@ -198,7 +211,9 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
     replays).  A spec that fails that gate takes the v1 score + sample
     sweeps where they serve it: `gibbs.sweep_blocked_pallas` (K4) for a
     nich-only spec, `gibbs.sweep_blocked_pallas_mixed` (K5) for a spec
-    without niw blocks, else the plain `gibbs.sweep_blocked`.
+    without niw blocks, else the plain `gibbs.sweep_blocked` (also the
+    path of use_pallas=False); on the card their sweeps too are replays
+    of one CUDA graph, a step's k sweeps one call.
 
     Hyperparameter moves, every `hyper_every` (>= 1) sweeps, in this
     order: each block in `hyper_grids` ({block index: a Shared with a
@@ -431,11 +446,9 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
                         spec, cl_model, shareds, state, values, assignments,
                         generator, mesh, block)
             else:
-                sweep_once = _unfused_sweep(spec, use_pallas)
-                for _ in range(k):
-                    state, assignments = sweep_once(
-                        spec, cl_model, shareds, state, values, assignments,
-                        block, generator)
+                state, assignments, step_score = _unfused_sweep(
+                    spec, use_pallas)(spec, cl_model, shareds, state, values,
+                                      assignments, block, generator, k)
             # the host copy of the [C] counts is the step's sync point
             counts_host = state.counts.cpu().numpy()
             dt = time.time() - t0

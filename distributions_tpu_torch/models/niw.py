@@ -182,7 +182,11 @@ def _student_t_parts(shared, group):
     dof = post.nu - d + 1.0
     sigma_n = post.psi * ((post.kappa + 1.0)
                           / (post.kappa * dof))[..., None, None]
-    chol = torch.linalg.cholesky(sigma_n)
+    # cholesky_ex: cholesky without its error check, which reads the
+    # factorisation's status back to the host (a CUDA graph's capture
+    # refuses that); sigma_n is positive definite by construction, and a
+    # factor that fails gives non-finite scores, as the JAX package's
+    chol = torch.linalg.cholesky_ex(sigma_n).L
     eye = torch.eye(d, dtype=chol.dtype, device=chol.device).expand(
         chol.shape)
     chol_inv = torch.linalg.solve_triangular(chol, eye, upper=False)

@@ -644,12 +644,13 @@ def _score_v1(B, nich_values, table_indices, cl_scores, coeffs, tables):
 def nich_score_sample_plain(seed, values, cl_scores, coeffs,
                             block_rows=DEFAULT_BLOCK_ROWS, sampling='gumbel',
                             noise=None):
-    """The plain PyTorch version of K4, on any device.  Returns
-    assignments [B] int32."""
+    """The plain PyTorch version of K4, on any device; the seed an int or
+    a 1-element int64 tensor, as the kernel takes it.  Returns assignments
+    [B] int32."""
     mode = _parse_v1_sampling(sampling)
     scores = _score_v1(values.shape[0], values, None, cl_scores, coeffs,
                        None)
-    return _draw(scores, mode, False, seed, noise)
+    return _draw(scores, mode, False, _seed_value(seed), noise)
 
 
 def mixed_score_sample_plain(seed, nich_values, table_indices, cl_scores,
@@ -662,7 +663,7 @@ def mixed_score_sample_plain(seed, nich_values, table_indices, cl_scores,
     B = _mixed_rows(nich_values, None, table_indices)
     scores = _score_v1(B, nich_values, table_indices, cl_scores, coeffs,
                        tables)
-    return _draw(scores, mode, False, seed, noise)
+    return _draw(scores, mode, False, _seed_value(seed), noise)
 
 
 # -- the Hopper kernels -----------------------------------------------------
@@ -697,8 +698,10 @@ _LAUNCHERS = {
         'fused_v3_pair_launch': [_P] * 10 + [_I, _I] + _LAYOUT + [
             _I, _I, _U64, _P, _I, _P]},
     'score_sample_v1': {
-        'score_sample_v1_nich_launch': [_P] * 5 + [_I, _I, _I, _I, _U64, _P],
-        'score_sample_v1_mixed_launch': [_P] * 7 + [_I] * 6 + [_U64, _P]},
+        'score_sample_v1_nich_launch': [_P] * 5 + [_I, _I, _I, _I, _U64, _P,
+                                                   _P],
+        'score_sample_v1_mixed_launch': [_P] * 7 + [_I] * 6 + [_U64, _P,
+                                                                 _P]},
     'roofline': {
         'roofline_chain_launch': [_P, _P, _I64, _I, _I, _I, _P],
         'roofline_copy_launch': [_P, _P, _I64, _P],
@@ -837,7 +840,7 @@ def _check_seed(seed):
 
 
 def _is_seed_tensor(seed):
-    """K1, K2 and K3 take their seed as an int or as a 1-element int64 tensor
+    """K1-K5 take their seed as an int or as a 1-element int64 tensor
     (the form a CUDA graph replays: the kernel reads it from device
     memory when it runs).  True for the tensor form, after checking it."""
     if not isinstance(seed, torch.Tensor):
@@ -859,7 +862,7 @@ def _seed_value(seed):
 
 
 def _seed_args(seed, dev):
-    """(seed, seed_ptr) of a K1, K2 or K3 launch on `dev`: (the int,
+    """(seed, seed_ptr) of a K1-K5 launch on `dev`: (the int,
     None), or (0, the tensor's address) for a seed tensor on `dev`."""
     if not _is_seed_tensor(seed):
         return _check_seed(seed), None
@@ -1289,7 +1292,7 @@ def _launch_v1(seed, nich_values, table_indices, cl_scores, coeffs, tables,
         _check('table_indices', table_indices, dev, (B, tcols), torch.int32)
         _check('tables', tables, dev, (tcols, V, C))
     _check_noise(mode, sampling, noise, dev, B, C)
-    seed = _check_seed(seed)
+    seed, seed_ptr = _seed_args(seed, dev)
 
     lib = build('score_sample_v1')['lib']
     out = torch.empty(B, dtype=torch.int32, device=dev)
@@ -1299,13 +1302,14 @@ def _launch_v1(seed, nich_values, table_indices, cl_scores, coeffs, tables,
             err = lib.score_sample_v1_nich_launch(
                 nich_values.data_ptr(), cl_scores.data_ptr(),
                 coeffs.data_ptr(), _ptr(noise), out.data_ptr(), B, C, ncols,
-                SAMPLING_MODES[mode], seed, stream)
+                SAMPLING_MODES[mode], seed, seed_ptr, stream)
         else:
             err = lib.score_sample_v1_mixed_launch(
                 _ptr(nich_values), _ptr(table_indices), cl_scores.data_ptr(),
                 _ptr(coeffs if ncols else None),
                 _ptr(tables if tcols else None), _ptr(noise), out.data_ptr(),
-                B, C, ncols, tcols, V, SAMPLING_MODES[mode], seed, stream)
+                B, C, ncols, tcols, V, SAMPLING_MODES[mode], seed, seed_ptr,
+                stream)
     _raise_on('score_sample_v1', lib, err)
     wrapper.launches += 1
     return out
@@ -1318,8 +1322,10 @@ def nich_score_sample(seed, values, cl_scores, coeffs,
     outputs.
 
     values: [B, cols] f32; cl_scores: [C] f32; coeffs: [4*cols, C] f32 in
-    the `nich_coeffs` layout.  seed: an int in [0, 2**64), the tile's seed
-    of 'gumbel'.  Returns assignments [B] int32.
+    the `nich_coeffs` layout.  seed: the tile's seed of 'gumbel', an int in
+    [0, 2**64) or a 1-element int64 tensor holding its bits (read from
+    device memory when the kernel runs: the form a CUDA graph of the v1
+    sweep replays).  Returns assignments [B] int32.
 
     sampling: 'gumbel' (Philox in the kernel) | 'argmax' | 'gumbel_host'
     taking `noise` [B, C].  The JAX kernel only draws with its core's

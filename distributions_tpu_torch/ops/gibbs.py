@@ -27,7 +27,13 @@
 
 Randomness: every sweep draws one seed from the caller's
 `torch.Generator`, and each tile folds its index into it
-(`random.fold_seed`), as the JAX package splits a sweep key per tile.
+(`random.fold_seed`), as the JAX package splits a sweep key per tile; the
+plain sweeps seed one device generator with it instead, which all the
+tiles draw from.
+
+On the card each blocked sweep is the replay of one CUDA graph of all its
+tiles (`_SweepGraph`), but for what `_graph_refusal` names (the mesh's
+plain sweeps, the '_host' modes).
 """
 
 import contextlib
@@ -42,8 +48,8 @@ from distributions_tpu_torch.clustering import _crp_seating, _le_seating
 from distributions_tpu_torch.models import nich as nich_mod, niw as niw_mod
 from distributions_tpu_torch.ops import fused_kernels as fk
 from distributions_tpu_torch.random import (device_generator, draw_seed,
-                                            fold_seed, gumbel_noise,
-                                            sample_from_scores, sweep_seeds)
+                                            gumbel_noise, sample_from_scores,
+                                            sweep_seeds)
 
 
 def _n_tiles(assignments, block):
@@ -101,44 +107,29 @@ def sweep_blocked(spec, cl_model, shareds, state, values, assignments, block,
     the tile's rows are scored against the state with the tile removed,
     drawn at once, and added back.  With row-stat columns for every block
     (all seven models) the tile's stats are one contraction of
-    precomputed columns; otherwise the slow branch takes the tile's stats
-    from its values (`mixture.tile_deltas`).  Returns (state,
-    assignments)."""
-    n_blocks = _n_tiles(assignments, block)
-    dev = assignments.device
-    gen = device_generator(draw_seed(generator), dev)
-    if not mx.supports_row_stats(spec):
-        out = []
-        for t in range(n_blocks):
-            sl = slice(t * block, (t + 1) * block)
-            tile_vals = tuple(torch.as_tensor(v)[sl] for v in values)
-            cd, tiles = mx.tile_deltas(spec, shareds, tile_vals,
-                                       assignments[sl])
-            state = mx.apply_stat_tiles(spec, shareds, state, cd, tiles, -1,
-                                        block)
-            scores = mx.score_batch(spec, cl_model, shareds, state,
-                                    tile_vals)
-            new_assign = sample_from_scores(gen, scores).to(torch.int32)
-            cd, tiles = mx.tile_deltas(spec, shareds, tile_vals, new_assign)
-            state = mx.apply_stat_tiles(spec, shareds, state, cd, tiles, +1,
-                                        block)
-            out.append(new_assign)
-        return state, torch.cat(out)
-    row_stats = mx.precompute_row_stats(spec, shareds, values)
+    precomputed columns (`_plain_sweep_into`; on the card the replay of
+    one CUDA graph of all the tiles, see `_plain_run`); otherwise the slow
+    branch takes the tile's stats from its values (`mixture.tile_deltas`).
+    The tiles draw from one generator on the rows' device, seeded with one
+    `draw_seed(generator)`.  Returns (state, assignments)."""
+    return _plain_run(spec, cl_model, shareds, state, values, assignments,
+                      block, generator, 1, False)
+
+
+def _slow_sweep(spec, cl_model, shareds, state, values, assignments, block,
+                gen):
+    """sweep_blocked for a model without row stats: each tile's stats from
+    its values, eagerly (the 'plain' rule of `_graph_refusal`)."""
     out = []
-    for t in range(n_blocks):
+    for t in range(_n_tiles(assignments, block)):
         sl = slice(t * block, (t + 1) * block)
-        tile_stats = tuple(rs[sl] for rs in row_stats)
-        cd, tiles = mx.tile_deltas_fast(spec, shareds, tile_stats,
-                                        assignments[sl])
+        tile_vals = tuple(torch.as_tensor(v)[sl] for v in values)
+        cd, tiles = mx.tile_deltas(spec, shareds, tile_vals, assignments[sl])
         state = mx.apply_stat_tiles(spec, shareds, state, cd, tiles, -1,
                                     block)
-        scores = mx.score_batch(spec, cl_model, shareds, state,
-                                tuple(v[sl] for v in values))
+        scores = mx.score_batch(spec, cl_model, shareds, state, tile_vals)
         new_assign = sample_from_scores(gen, scores).to(torch.int32)
-        del scores
-        cd, tiles = mx.tile_deltas_fast(spec, shareds, tile_stats,
-                                        new_assign)
+        cd, tiles = mx.tile_deltas(spec, shareds, tile_vals, new_assign)
         state = mx.apply_stat_tiles(spec, shareds, state, cd, tiles, +1,
                                     block)
         out.append(new_assign)
@@ -154,41 +145,14 @@ def sweep_blocked_pallas(spec, cl_model, shareds, state, values, assignments,
 
     Equal to `sweep_blocked` in distribution: the kernel draws with its
     own Philox stream.  sampling: 'gumbel' | 'argmax' | 'gumbel_host'
-    (the tile's noise drawn outside the kernel).  Returns (state,
-    assignments)."""
+    (the tile's noise drawn outside the kernel).  On the card the sweep
+    is the replay of one CUDA graph of all its tiles (`_v1_run`).
+    Returns (state, assignments)."""
     if not fk.supports_pallas(spec):
         raise ValueError('sweep_blocked_pallas takes nich-only specs; use '
                          'sweep_blocked_pallas_mixed')
-    n_blocks = _n_tiles(assignments, block)
-    sweep_seed = draw_seed(generator)
-    values_cat = torch.cat([torch.as_tensor(v).to(torch.float32)
-                            for v in values], dim=1).contiguous()
-    row_stats = mx.precompute_row_stats(spec, shareds, values)
-    out = []
-    for t in range(n_blocks):
-        sl = slice(t * block, (t + 1) * block)
-        tile_stats = tuple(rs[sl] for rs in row_stats)
-        cd, tiles = mx.tile_deltas_fast(spec, shareds, tile_stats,
-                                        assignments[sl])
-        state = mx.apply_stat_tiles(spec, shareds, state, cd, tiles, -1,
-                                    block)
-        cl_scores = _cl.score_value(cl_model, state.counts, state.alive,
-                                    state.sample_size)
-        coeffs = torch.cat([fk.nich_coeffs(shared, group)
-                            for shared, group in zip(shareds, state.groups)],
-                           dim=0).contiguous()
-        seed = fold_seed(sweep_seed, t)
-        new_assign = fk.nich_score_sample(
-            seed, values_cat[sl], cl_scores, coeffs, block_rows=block_rows,
-            sampling=sampling,
-            noise=_tile_noise(sampling, seed, block, spec.capacity,
-                              cl_scores.device))
-        cd, tiles = mx.tile_deltas_fast(spec, shareds, tile_stats,
-                                        new_assign)
-        state = mx.apply_stat_tiles(spec, shareds, state, cd, tiles, +1,
-                                    block)
-        out.append(new_assign)
-    return state, torch.cat(out)
+    return _v1_run(spec, values, None, 'K4', block, block_rows, sampling,
+                   1, False, cl_model, shareds, state, assignments, generator)
 
 
 def _is_table_block(block):
@@ -335,6 +299,8 @@ def sweep_blocked_pallas_mixed(spec, cl_model, shareds, state, values,
     added block by block in the spec's order, and drawn with
     `random.sample_from_scores` from one generator per sweep, so that it
     equals `sweep_blocked` bitwise for a generator in the same state.
+    On the card either backend's sweep is the replay of one CUDA graph of
+    all its tiles (`_v1_run`).
 
     Returns (state, assignments)."""
     if backend not in ('pallas', 'xla'):
@@ -344,56 +310,10 @@ def sweep_blocked_pallas_mixed(spec, cl_model, shareds, state, values,
         raise ValueError('sweep_blocked_pallas_mixed takes nich and discrete '
                          'blocks; a niw block needs '
                          'sweep_blocked_pallas_fused_mixed')
-    n_blocks = _n_tiles(assignments, block)
-    lay = _mixed_static_layout(spec, values, supports)
-    C = spec.capacity
-    dev = assignments.device
-    sweep_seed = draw_seed(generator)
-    gen = device_generator(sweep_seed, dev) if backend == 'xla' else None
-    row_stats = mx.precompute_row_stats(spec, shareds, values)
-    out = []
-    for t in range(n_blocks):
-        sl = slice(t * block, (t + 1) * block)
-        tile_stats = tuple(rs[sl] for rs in row_stats)
-        cd, tiles = mx.tile_deltas_fast(spec, shareds, tile_stats,
-                                        assignments[sl])
-        state = mx.apply_stat_tiles(spec, shareds, state, cd, tiles, -1,
-                                    block)
-        cl_scores = _cl.score_value(cl_model, state.counts, state.alive,
-                                    state.sample_size)
-        t_nich, _, t_idx = _slice_rows(lay, t, block)
-        if backend == 'xla':
-            table_list = _column_tables(spec, lay, shareds, state)
-            scores = cl_scores[None, :].expand(block, C)
-            ncol = tcol = 0
-            for i, blk in enumerate(spec.blocks):
-                if i in lay.nich_blocks:
-                    part = mx._block_score_batch(
-                        blk, shareds[i], state.groups[i],
-                        t_nich[:, ncol:ncol + blk.cols])
-                    ncol += blk.cols
-                else:
-                    part = None
-                    for _ in range(blk.cols):
-                        s = table_list[tcol][t_idx[:, tcol].long()]
-                        part = s if part is None else part + s
-                        tcol += 1
-                scores = scores + part
-            new_assign = sample_from_scores(gen, scores).to(torch.int32)
-            del scores
-        else:
-            coeffs, tables = _build_v1_inputs(spec, lay, shareds, state)
-            seed = fold_seed(sweep_seed, t)
-            new_assign = fk.mixed_score_sample(
-                seed, t_nich, t_idx, cl_scores, coeffs, tables,
-                block_rows=block_rows, sampling=sampling,
-                noise=_tile_noise(sampling, seed, block, C, dev))
-        cd, tiles = mx.tile_deltas_fast(spec, shareds, tile_stats,
-                                        new_assign)
-        state = mx.apply_stat_tiles(spec, shareds, state, cd, tiles, +1,
-                                    block)
-        out.append(new_assign)
-    return state, torch.cat(out)
+    return _v1_run(spec, values, supports,
+                   'K5' if backend == 'pallas' else 'xla', block, block_rows,
+                   sampling, 1, False, cl_model, shareds, state, assignments,
+                   generator)
 
 
 def _check_constant_nu(lay, shareds):
@@ -617,17 +537,18 @@ GRAPH_STATS = {'captures': 0, 'replays': 0, 'capture_seconds': 0.0,
                'first_uses': 0}
 # the wrappers whose launches a replay repeats
 _COUNTED = (fk.fused_score_sample_stats, fk.fused_mixed_score_sample_stats,
-            fk.fused_score_sample_pair)
+            fk.fused_score_sample_pair, fk.nich_score_sample,
+            fk.mixed_score_sample)
 # the sweeps that take the eager loop on the card by rule, and the rule;
-# the fused sweeps ('fused': this module's; 'sharded_fused' and 'fused_2d':
-# parallel/sharding.py's) are replayed from a CUDA graph
+# the others are replayed from a CUDA graph: the fused sweeps ('fused':
+# this module's; 'sharded_fused' and 'fused_2d': parallel/sharding.py's),
+# the v1 sweeps ('v1': K4, K5 and backend='xla') and the single-device
+# plain sweeps ('blocked': sweep_blocked's row-stats branch; 'chains')
 _EAGER_SWEEPS = {
-    'plain': 'the plain sweeps (sweep_blocked and the chains, '
-             'sharded_sweep_blocked, sharded_sweep_components, '
-             'sharded_sweep_2d) draw each tile\'s noise from a generator '
-             'seeded from the host',
-    'v1': 'the v1 sweeps (K4, K5) are not graphed yet: their speed work '
-          'is ROADMAP Queue 3 item 4',
+    'plain': 'the mesh\'s plain sweeps (sharded_sweep_blocked, '
+             'sharded_sweep_components, sharded_sweep_2d) and sweep_blocked '
+             'for a model without row stats are not graphed: their speed '
+             'work is ROADMAP Queue 3 item 4',
 }
 
 
@@ -678,16 +599,21 @@ def _graph_refusal(device, sampling, sweep='fused'):
     None when its sweeps are replayed from a CUDA graph.  Rules, not
     failures: a graph that fails to capture raises.
     - The CPU runs the twins, eagerly.
-    - The plain and the v1 sweeps (`_EAGER_SWEEPS`).
+    - The mesh's plain sweeps and sweep_blocked's slow branch
+      (`_EAGER_SWEEPS`).
     - The '_host' modes draw each tile's noise from a generator seeded from
       the host (`_tile_noise`): they are the bitwise bridge to the JAX
-      package, not a production mode.
-    - `_eager_sweeps()`."""
+      package, not a production mode.  (`sampling` None: a sweep with no
+      mode, whose draws come from a device generator.)
+    - `_eager_sweeps()`.
+    Graphed: the fused sweeps ('fused', 'sharded_fused', 'fused_2d'), the
+    v1 sweeps ('v1') and the single-device plain sweeps ('blocked',
+    'chains')."""
     if device.type != 'cuda':
         return 'not on the card'
     if sweep in _EAGER_SWEEPS:
         return _EAGER_SWEEPS[sweep]
-    if '_host' in sampling:
+    if sampling is not None and '_host' in sampling:
         return "a '_host' mode draws its noise from the host"
     if _EAGER[0]:
         return '_eager_sweeps()'
@@ -705,24 +631,30 @@ class _SweepGraph:
     loads (`load`), so new shareds or a new clustering model after a hyper
     move are copied in, not captured anew, and of them `outs`, the ones the
     sweep writes (state, assignments, stat cache), which `outputs` copies
-    out.  `seeds` is the [n_seeds] int64 seed table on the card.  `lay`
-    (the run's layout) and `keep` (the values its key names by address)
-    are held with the graph.
+    out.  `seeds` is the [n_seeds] int64 seed table on the card or, with
+    `gens`, a tuple of n_seeds device generators of the graph's own,
+    registered with the capture and seeded anew before each replay
+    (`manual_seed`, which starts a generator's Philox offset at 0 as a
+    freshly seeded one's: the replay draws what the eager loop draws).
+    `lay` (the run's layout) and `keep` (the values its key names by
+    address) are held with the graph.
 
-    Each sweep costs the host one copy of the seed table and one replay;
-    the first sweep runs the eager function on a side stream, which warms
-    up what the capture needs (the kernels' build, cuBLAS, a process
-    group's communicator), and then captures it.  A replay adds the
-    launches of each kernel wrapper that the capture recorded, as if the
-    wrapper had launched them."""
+    Each sweep costs the host one copy of the seed table (or n_seeds
+    reseeds) and one replay; the first sweep runs the eager function on a
+    side stream, which warms up what the capture needs (the kernels'
+    build, cuBLAS, a process group's communicator), and then captures it.
+    A replay adds the launches of each kernel wrapper that the capture
+    recorded, as if the wrapper had launched them."""
 
-    def __init__(self, lay, sweep, score, inputs, n_seeds, keep):
+    def __init__(self, lay, sweep, score, inputs, n_seeds, keep, gens=False):
         self.lay, self.keep = lay, keep
         self._sweep_fn, self._score_fn = sweep, score
         self.static = _map_tensors(torch.clone, inputs)
         self.device = next(_tensors(self.static[1])).device
-        self.seeds = torch.zeros(n_seeds, dtype=torch.int64,
-                                 device=self.device)
+        self.gens = tuple(torch.Generator(device=self.device)
+                          for _ in range(n_seeds if gens else 0))
+        self.seeds = self.gens or torch.zeros(
+            n_seeds, dtype=torch.int64, device=self.device)
         self.stream = torch.cuda.Stream(self.device)
         self.pools = (torch.cuda.graph_pool_handle(),
                       torch.cuda.graph_pool_handle())
@@ -733,10 +665,10 @@ class _SweepGraph:
         for dst, src in zip(_tensors(self.static), _tensors(inputs)):
             dst.copy_(src)
 
-    def _capture(self, fn, pool):
+    def _capture(self, fn, pool, gens=()):
         """Run fn on the side stream (the warm-up, and a real run), then
-        capture it into `pool`.  Returns (fn's result, the graph, the
-        capture's output)."""
+        capture it into `pool`, with the generators `gens` registered.
+        Returns (fn's result, the graph, the capture's output)."""
         cur = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(cur)
         with torch.cuda.stream(self.stream):
@@ -746,6 +678,8 @@ class _SweepGraph:
             result.record_stream(cur)
         before = [w.launches for w in _COUNTED]
         graph = torch.cuda.CUDAGraph()
+        for g in gens:
+            graph.register_generator_state(g)
         with torch.cuda.graph(graph, pool=pool, stream=self.stream):
             out = fn()
         GRAPH_STATS['pool_bytes'] += sum(
@@ -758,8 +692,13 @@ class _SweepGraph:
         return result, graph, out
 
     def sweep(self, seeds):
-        """One sweep with the [n_seeds] int64 host seed table `seeds`."""
-        self.seeds.copy_(seeds.pin_memory(), non_blocking=True)
+        """One sweep with the [n_seeds] int64 host seed table `seeds` (with
+        generators: each generator's seed)."""
+        if self.gens:
+            for g, seed in zip(self.gens, seeds.tolist()):
+                g.manual_seed(seed)
+        else:
+            self.seeds.copy_(seeds.pin_memory(), non_blocking=True)
         if self.graph is not None:
             self.graph.replay()
             GRAPH_STATS['replays'] += 1
@@ -769,7 +708,7 @@ class _SweepGraph:
         t0 = time.time()
         _, self.graph, _ = self._capture(
             lambda: self._sweep_fn(self.lay, self.static, self.seeds),
-            self.pools[0])
+            self.pools[0], self.gens)
         GRAPH_STATS['captures'] += 1
         GRAPH_STATS['capture_seconds'] += time.time() - t0
 
@@ -796,7 +735,7 @@ def _tensor_key(t):
     return (t.data_ptr(), t._version, tuple(t.shape), t.dtype, t.device)
 
 
-def _graph_for(key, keep, layout, inputs, sweep, score, n_seeds):
+def _graph_for(key, keep, layout, inputs, sweep, score, n_seeds, gens):
     """The `_SweepGraph` of the run with `key`, loaded with its inputs, or
     None when the run takes the eager loop because its key is used for the
     first time outside a session: a call made once costs what the eager
@@ -807,7 +746,7 @@ def _graph_for(key, keep, layout, inputs, sweep, score, n_seeds):
 
     layout(): the run's static layout, built when the graph is captured
     and kept with it; inputs(lay): the (params, outs) that a call loads;
-    sweep, score and n_seeds: as `_SweepGraph` takes them."""
+    sweep, score, n_seeds and gens: as `_SweepGraph` takes them."""
     graph = _GRAPH['graph'] if _GRAPH['key'] == key else None
     if graph is None and not _SESSION[0] and _GRAPH['seen'] != key:
         _GRAPH.update(seen=key, seen_values=keep)
@@ -820,31 +759,44 @@ def _graph_for(key, keep, layout, inputs, sweep, score, n_seeds):
     loaded = inputs(lay)
     # the graph before is freed before this one takes its memory
     release_sweep_graphs()
-    graph = _SweepGraph(lay, sweep, score, loaded, n_seeds, keep)
+    graph = _SweepGraph(lay, sweep, score, loaded, n_seeds, keep, gens)
     _GRAPH.update(key=key, graph=graph)
     return graph
 
 
 def _run_static(key, keep, layout, inputs, sweep, score, n_seeds,
-                generator, n_sweeps, with_score):
+                generator, n_sweeps, with_score, gens=False):
     """`n_sweeps` sweeps of a static sweep function (`_SweepGraph`'s
     `sweep`) from `generator`: replayed from the CUDA graph of `key`
     (`_graph_for`), or eagerly over copies of the inputs with the seeds
     passed by value where `key` is None (a rule of `_graph_refusal`) or
-    new.  Each sweep draws its seeds with `random.sweep_seeds`, so both
-    give the same draws.  Returns (outs, the joint score or None): tensors
-    of their own, which later calls do not write."""
+    new.  Each sweep draws its seeds on the host: the [n_seeds] tile
+    seeds of `random.sweep_seeds(generator, n_seeds)` or, with `gens`,
+    one `draw_seed` from each of the n_seeds generators in `generator`,
+    each the seed of a device generator that the sweep draws from (the
+    eager loop's `device_generator`, the graph's own generators
+    reseeded).  Both give the same draws.  Returns (outs, the joint score
+    or None): tensors of their own, which later calls do not write."""
+    def host_seeds():
+        if gens:
+            return torch.tensor([draw_seed(g) for g in generator],
+                                dtype=torch.int64)
+        return sweep_seeds(generator, n_seeds)
     graph = None if key is None else _graph_for(
-        key, keep, layout, inputs, sweep, score, n_seeds)
+        key, keep, layout, inputs, sweep, score, n_seeds, gens)
     if graph is not None:
         for _ in range(n_sweeps):
-            graph.sweep(sweep_seeds(generator, n_seeds))
+            graph.sweep(host_seeds())
         return graph.outputs(), graph.score() if with_score else None
     lay = layout()
     params, outs = inputs(lay)
     static = (params, _map_tensors(torch.clone, outs))
+    dev = next(_tensors(outs)).device
     for _ in range(n_sweeps):
-        sweep(lay, static, sweep_seeds(generator, n_seeds).tolist())
+        seeds = host_seeds().tolist()
+        if gens:
+            seeds = tuple(device_generator(x, dev) for x in seeds)
+        sweep(lay, static, seeds)
     return static[1], score(lay, static) if with_score else None
 
 
@@ -960,6 +912,187 @@ def sweep_blocked_pallas_fused_mixed(spec, cl_model, shareds, state, values,
                       state, assignments, generator, cache)
 
 
+# -- the unfused sweeps over static buffers, replayed from a CUDA graph ------
+
+def _tile_loop_into(spec, block, shareds, row_stats, state, assignments,
+                    draw):
+    """One unfused sweep that writes its results into the tensors it reads
+    (the leaves of `state`, `assignments` [R]): per tile t, remove its
+    stats (`tile_deltas_fast` of the row stats), draw its rows with
+    draw(t, tile-removed state) -> [block] int32, add the new stats back.
+    Tile t reads its rows of `assignments` before it writes them."""
+    cur = state
+    for t in range(assignments.shape[0] // block):
+        sl = slice(t * block, (t + 1) * block)
+        tile_stats = tuple(rs[sl] for rs in row_stats)
+        cd, tiles = mx.tile_deltas_fast(spec, shareds, tile_stats,
+                                        assignments[sl])
+        cur = mx.apply_stat_tiles(spec, shareds, cur, cd, tiles, -1, block)
+        new_assign = draw(t, cur)
+        cd, tiles = mx.tile_deltas_fast(spec, shareds, tile_stats,
+                                        new_assign)
+        cur = mx.apply_stat_tiles(spec, shareds, cur, cd, tiles, +1, block)
+        assignments[sl] = new_assign
+    for dst, src in zip(_tensors(state), _tensors(cur)):
+        dst.copy_(src)
+
+
+def _plain_sweep_into(spec, block, cl_model, shareds, row_stats, values,
+                      state, assignments, gen):
+    """`sweep_blocked`'s row-stats branch as a `_tile_loop_into` sweep:
+    each tile's [B, C] `mixture.score_batch`, drawn by gumbel-argmax from
+    the device generator `gen` (`random.sample_from_scores`)."""
+    def draw(t, cur):
+        sl = slice(t * block, (t + 1) * block)
+        scores = mx.score_batch(spec, cl_model, shareds, cur,
+                                tuple(v[sl] for v in values))
+        return sample_from_scores(gen, scores).to(torch.int32)
+    _tile_loop_into(spec, block, shareds, row_stats, state, assignments,
+                    draw)
+
+
+def _v1_sweep_into(spec, lay, block, block_rows, sampling, kernel, cl_model,
+                   shareds, row_stats, state, assignments, seeds):
+    """One v1 sweep as a `_tile_loop_into` sweep.  kernel 'K4'
+    (`sweep_blocked_pallas`: `fused_kernels.nich_score_sample`) or 'K5'
+    (`fused_kernels.mixed_score_sample`) scores and draws tile t with
+    seeds[t], an int or a view of a [T] int64 tensor that the kernel reads
+    when it runs; 'xla' (`sweep_blocked_pallas_mixed(backend='xla')`)
+    adds the tables block by block and draws from the device generator
+    seeds[0].
+
+    With a tensor of seeds (or a generator) and a mode without '_host', a
+    sweep reads nothing back from the card and makes no tensor from host
+    data: on the card it is captured into a CUDA graph (`_SweepGraph`); on
+    the CPU it runs on the kernels' twins."""
+    C = spec.capacity
+
+    def draw(t, cur):
+        cl_scores = _cl.score_value(cl_model, cur.counts, cur.alive,
+                                    cur.sample_size)
+        t_nich, _, t_idx = _slice_rows(lay, t, block)
+        if kernel == 'xla':
+            return _xla_draw(spec, lay, shareds, cur, cl_scores, t_nich,
+                             t_idx, seeds[0])
+        coeffs, tables = _build_v1_inputs(spec, lay, shareds, cur)
+        noise = _tile_noise(sampling, seeds[t], block, C, cl_scores.device)
+        if kernel == 'K4':
+            return fk.nich_score_sample(seeds[t], t_nich, cl_scores, coeffs,
+                                        block_rows=block_rows,
+                                        sampling=sampling, noise=noise)
+        return fk.mixed_score_sample(seeds[t], t_nich, t_idx, cl_scores,
+                                     coeffs, tables, block_rows=block_rows,
+                                     sampling=sampling, noise=noise)
+    _tile_loop_into(spec, block, shareds, row_stats, state, assignments,
+                    draw)
+
+
+def _xla_draw(spec, lay, shareds, state, cl_scores, t_nich, t_idx, gen):
+    """backend='xla''s draw of one tile: [B, C] scores from the nich
+    blocks' `score_value_batch` and the table columns' `tables[idx]`, in
+    the spec's block order, drawn from `gen` as `sweep_blocked` draws."""
+    table_list = _column_tables(spec, lay, shareds, state)
+    B = (t_nich if t_nich is not None else t_idx).shape[0]
+    scores = cl_scores[None, :].expand(B, spec.capacity)
+    ncol = tcol = 0
+    for i, blk in enumerate(spec.blocks):
+        if i in lay.nich_blocks:
+            part = mx._block_score_batch(blk, shareds[i], state.groups[i],
+                                         t_nich[:, ncol:ncol + blk.cols])
+            ncol += blk.cols
+        else:
+            part = None
+            for _ in range(blk.cols):
+                s = table_list[tcol][t_idx[:, tcol].long()]
+                part = s if part is None else part + s
+                tcol += 1
+        scores = scores + part
+    return sample_from_scores(gen, scores).to(torch.int32)
+
+
+def _v1_run(spec, values, supports, kernel, block, block_rows, sampling,
+            n_sweeps, with_score, cl_model, shareds, state, assignments,
+            generator):
+    """`n_sweeps` v1 sweeps from `generator` (`_run_static` over
+    `_v1_sweep_into`).  K4 and K5 take each sweep's tile seeds from
+    `random.sweep_seeds(generator, T)`: one `draw_seed` folded with each
+    tile index (`fold_seed`), the seeds the eager loop took.  'xla' seeds
+    its device generator with one `draw_seed(generator)` a sweep.  The
+    row stats are loaded with the shareds at each call, so a hyper move is
+    copied into the graph, not captured anew.  Returns (state,
+    assignments) and, with `with_score`, the joint score."""
+    n_tiles = _n_tiles(assignments, block)
+    assignments = assignments.to(torch.int32)
+    xla = kernel == 'xla'
+    mode = None if xla else sampling
+    key = None
+    if _graph_refusal(assignments.device, mode, 'v1') is None:
+        values = tuple(torch.as_tensor(v, device=assignments.device)
+                       for v in values)
+        key = ('v1', spec, block, block_rows, mode, kernel,
+               assignments.device, type(cl_model),
+               tuple(_tensor_key(v) for v in values),
+               None if supports is None else tuple(
+                   None if s is None else _tensor_key(torch.as_tensor(s))
+                   for s in supports),
+               _signature((cl_model, shareds, state, assignments)))
+
+    def inputs(lay):
+        return ((cl_model, shareds,
+                 mx.precompute_row_stats(spec, shareds, values)),
+                (state, assignments))
+
+    def sweep(lay, static, seeds):
+        (cl, sh, rs), (st, an) = static
+        _v1_sweep_into(spec, lay, block, block_rows, mode, kernel, cl, sh,
+                       rs, st, an, seeds)
+    outs, score = _run_static(
+        key, values, lambda: _mixed_static_layout(spec, values, supports),
+        inputs, sweep, _static_score(spec), 1 if xla else n_tiles,
+        (generator,) if xla else generator, n_sweeps, with_score, gens=xla)
+    return outs + (score,) if with_score else outs
+
+
+def _plain_run(spec, cl_model, shareds, state, values, assignments, block,
+               generator, n_sweeps, with_score):
+    """`n_sweeps` of `sweep_blocked` from `generator`: `_run_static` over
+    `_plain_sweep_into`, each sweep's tiles drawing from one device
+    generator seeded with one `draw_seed(generator)`; for a model without
+    row stats the slow branch, eagerly.  Returns (state, assignments) and,
+    with `with_score`, the joint score."""
+    _n_tiles(assignments, block)
+    dev = assignments.device
+    if not mx.supports_row_stats(spec):
+        for _ in range(n_sweeps):
+            state, assignments = _slow_sweep(
+                spec, cl_model, shareds, state, values, assignments, block,
+                device_generator(draw_seed(generator), dev))
+        if with_score:
+            return state, assignments, mx.score_data(spec, cl_model, shareds,
+                                                     state)
+        return state, assignments
+    assignments = assignments.to(torch.int32)
+    key = None
+    if _graph_refusal(dev, None, 'blocked') is None:
+        values = tuple(torch.as_tensor(v, device=dev) for v in values)
+        key = ('blocked', spec, block, dev, type(cl_model),
+               tuple(_tensor_key(v) for v in values),
+               _signature((cl_model, shareds, state, assignments)))
+
+    def inputs(vals):
+        return ((cl_model, shareds,
+                 mx.precompute_row_stats(spec, shareds, vals)),
+                (state, assignments))
+
+    def sweep(vals, static, gens):
+        (cl, sh, rs), (st, an) = static
+        _plain_sweep_into(spec, block, cl, sh, rs, vals, st, an, gens[0])
+    outs, score = _run_static(
+        key, values, lambda: values, inputs, sweep, _static_score(spec), 1,
+        (generator,), n_sweeps, with_score, gens=True)
+    return outs + (score,) if with_score else outs
+
+
 # -- row-by-row initializations ---------------------------------------------
 
 def sequential_init(spec, cl_model, shareds, state, values, generator):
@@ -1042,19 +1175,48 @@ def sweep_blocked_chains(spec, cl_model, shareds, states, values,
     `assignments` [N, R] lead with the chain axis, `values` are shared,
     and `generators` holds one `torch.Generator` per chain (the JAX
     package's [N] keys), so chain c equals `sweep_blocked` of its own
-    state with generators[c].  The chains run one after another.
+    state with generators[c].  The chains run one after another in one
+    sweep function (`_plain_sweep_into` on each chain's rows of the
+    stacked buffers, chain c drawing from a device generator seeded with
+    one `draw_seed(generators[c])`): on the card all N chains are the
+    replay of one CUDA graph, the analog of the JAX package's `vmap`.
     Returns (states, assignments)."""
     if len(generators) != assignments.shape[0]:
         raise ValueError('one generator per chain: %d generators for %d '
                          'chains' % (len(generators), assignments.shape[0]))
-    out_states, out_assign = [], []
-    for c, gen in enumerate(generators):
-        st, an = sweep_blocked(spec, cl_model, shareds,
-                               _chain_take(states, c), values,
-                               assignments[c], block, generator=gen)
-        out_states.append(st)
-        out_assign.append(an)
-    return _chain_stack(out_states), torch.stack(out_assign)
+    if not mx.supports_row_stats(spec):
+        out_states, out_assign = [], []
+        for c, gen in enumerate(generators):
+            st, an = sweep_blocked(spec, cl_model, shareds,
+                                   _chain_take(states, c), values,
+                                   assignments[c], block, generator=gen)
+            out_states.append(st)
+            out_assign.append(an)
+        return _chain_stack(out_states), torch.stack(out_assign)
+    _n_tiles(assignments[0], block)
+    n = len(generators)
+    assignments = assignments.to(torch.int32)
+    dev = assignments.device
+    key = None
+    if _graph_refusal(dev, None, 'chains') is None:
+        values = tuple(torch.as_tensor(v, device=dev) for v in values)
+        key = ('chains', n, spec, block, dev, type(cl_model),
+               tuple(_tensor_key(v) for v in values),
+               _signature((cl_model, shareds, states, assignments)))
+
+    def inputs(vals):
+        return ((cl_model, shareds,
+                 mx.precompute_row_stats(spec, shareds, vals)),
+                (states, assignments))
+
+    def sweep(vals, static, gens):
+        (cl, sh, rs), (sts, an) = static
+        for c in range(n):
+            _plain_sweep_into(spec, block, cl, sh, rs, vals,
+                              _chain_take(sts, c), an[c], gens[c])
+    outs, _ = _run_static(key, values, lambda: values, inputs, sweep, None,
+                          n, tuple(generators), 1, False, gens=True)
+    return outs
 
 
 def init_chains(spec, cl_model, shareds, values, assignments_per_chain):

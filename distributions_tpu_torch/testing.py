@@ -299,7 +299,7 @@ class HostReads(TorchDispatchMode):
     wrapper's own host work, which differs on the card)."""
 
     SYNCS = ('_local_scalar_dense', 'nonzero', 'unique', 'masked_select',
-             'lift_fresh')
+             'lift_fresh', '_linalg_check_errors')
 
     def __init__(self, known):
         super().__init__()

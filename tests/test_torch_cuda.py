@@ -10,9 +10,10 @@ with a GPU and no JAX, run them with
 the edge tests of the slot-split walk of K1, B5, K2 and K3, `-k v1_split`
 those of its v1 form in K4 and K5, `-k on_the_card` the samplers, the
 LowEntropy prior and the other moves, `-k "graph or seed_pointer"` the
-fused sweeps replayed from CUDA graphs, single-device, row-sharded, 2-D
-and on a NCCL group of one rank, and K1, K2, K3 reading their seed from
-device memory.)
+sweeps replayed from CUDA graphs: fused single-device, row-sharded, 2-D
+and on a NCCL group of one rank, the v1 sweeps, the plain sweep and the
+chains, the runner on each path; and K1-K5 reading their seed from device
+memory.)
 """
 
 import pytest
@@ -1561,8 +1562,10 @@ def test_graph_mesh_runner_replays(dev):
 
 
 def test_graph_plain_mesh_and_v1_sweeps_stay_eager(dev):
-    """The plain mesh sweeps and the v1 sweeps capture nothing on the
-    card, by the rules `_graph_refusal` names."""
+    """The plain mesh sweeps capture nothing on the card, by the rule
+    `_graph_refusal` names ('plain'); the v1 sweeps, which stayed eager
+    before they were graphed, are held to their graphs by
+    test_graph_v1_sweeps_equal_eager."""
     from distributions_tpu_torch.parallel import sharding
     spec, py, sh, tv, an = _graph_problem(dev, 'nich2')
     st = mx.state_from_assignments(spec, py, sh, tv, an)
@@ -1576,13 +1579,13 @@ def test_graph_plain_mesh_and_v1_sweeps_stay_eager(dev):
         sharding.sharded_sweep_components(spec, py, sh, st, tv, an, gen,
                                           sharding.make_component_mesh(2),
                                           512)
-        gibbs.sweep_blocked_pallas(spec, py, sh, st, tv, an, 512,
-                                   generator=gen)
     assert all(v == 0 for v in gibbs.GRAPH_STATS.values())
     assert gibbs._GRAPH['graph'] is None and gibbs._GRAPH['seen'] is None
-    for kind in ('plain', 'v1'):
-        assert gibbs._graph_refusal(dev, 'gumbel', kind) \
-            == gibbs._EAGER_SWEEPS[kind]
+    assert gibbs._graph_refusal(dev, 'gumbel', 'plain') \
+        == gibbs._EAGER_SWEEPS['plain']
+    assert 'v1' not in gibbs._EAGER_SWEEPS
+    for kind in ('v1', 'blocked', 'chains'):
+        assert gibbs._graph_refusal(dev, 'gumbel', kind) is None
 
 
 def test_graph_process_group_mesh(dev):
@@ -1623,3 +1626,161 @@ def test_graph_process_group_mesh(dev):
             torch.Generator().manual_seed(5), cache, sampling='gumbel',
             n_sweeps=3, with_score=True)
     assert _bits_equal(one, one_e) and _bits_equal(g, one)
+
+
+# -- the v1 and plain sweeps replayed from CUDA graphs ------------------------
+
+@pytest.mark.parametrize('kernel', ['K4', 'K5'])
+@pytest.mark.parametrize('sampling', ['gumbel', 'argmax', 'gumbel_host'])
+def test_v1_seed_pointer_is_the_seed(dev, kernel, sampling):
+    """K4 and K5 with the seed in device memory equal the by-value launch
+    bitwise, for a seed whose top bit is set; another seed draws other
+    slots in 'gumbel'; a seed tensor on the host is refused."""
+    seed = 0xF123456789ABCDEF
+    as_tensor = torch.tensor([seed - (1 << 64)], device=dev)
+    nv, idx, cls, co, tab = testing.v1_random_inputs(3000, 1000, 2, 3,
+                                                     seed=8, device=dev)
+    noise = None
+    if sampling == 'gumbel_host':
+        noise = -torch.log(-torch.log(torch.rand(
+            3000, 1000, device=dev).clamp(min=1e-30)))
+
+    def launch(s):
+        if kernel == 'K4':
+            return fk.nich_score_sample(s, nv, cls, co, sampling=sampling,
+                                        noise=noise)
+        return fk.mixed_score_sample(s, nv, idx, cls, co, tab,
+                                     sampling=sampling, noise=noise)
+    assert torch.equal(launch(seed), launch(as_tensor))
+    if sampling == 'gumbel':
+        assert not torch.equal(launch(seed), launch(seed + 1))
+    with pytest.raises(ValueError, match='seed tensor'):
+        launch(as_tensor.cpu())
+
+
+def _chained(one, start, n=3, seed=5):
+    gen = torch.Generator().manual_seed(seed)
+    out = start
+    for _ in range(n):
+        out = one(*out, gen)
+    return out
+
+
+def _check_chained_replays(one, start, wrapper, per_sweep):
+    """Three chained one-sweep calls twice on the graph path (the key's
+    first call eager, the second captures, every later one replays) and
+    once eagerly: `per_sweep` launches of `wrapper` a sweep (None: no
+    kernel), all three results bitwise equal."""
+    _reset_graph_stats()
+    before = 0 if wrapper is None else wrapper.launches
+    g = _chained(one, start)
+    assert {k: gibbs.GRAPH_STATS[k] for k in (
+        'first_uses', 'captures', 'replays')} == {
+        'first_uses': 1, 'captures': 1, 'replays': 1}
+    g2 = _chained(one, start)
+    assert gibbs.GRAPH_STATS['replays'] == 4
+    if wrapper is not None:
+        assert wrapper.launches == before + 6 * per_sweep
+    with gibbs._eager_sweeps():
+        e = _chained(one, start)
+    assert _bits_equal(g, e) and _bits_equal(g2, e)
+    assert g[1].device.type == 'cuda' and g[1].dtype == torch.int32
+    return g
+
+
+@pytest.mark.parametrize('case,sampling', [
+    ('K4', 'gumbel'), ('K4', 'argmax'), ('K5', 'gumbel'), ('K5', 'argmax'),
+    ('xla', 'gumbel')])
+def test_graph_v1_sweeps_equal_eager(dev, case, sampling):
+    """sweep_blocked_pallas (K4, nich2) and sweep_blocked_pallas_mixed (K5
+    and 'xla', nichbbddgp) replayed from their CUDA graph equal the eager
+    loop bitwise over three chained sweeps, with a K4 / K5 launch a tile
+    counted at every replay; 'xla' draws from the graph's registered
+    generator and stays sweep_blocked bitwise."""
+    kind = 'nich2' if case == 'K4' else 'nichbbddgp'
+    spec, py, sh, tv, an = _graph_problem(dev, kind)
+    st = mx.state_from_assignments(spec, py, sh, tv, an)
+
+    def one(st, an, gen):
+        if case == 'K4':
+            return gibbs.sweep_blocked_pallas(spec, py, sh, st, tv, an, 1024,
+                                              generator=gen,
+                                              sampling=sampling)
+        return gibbs.sweep_blocked_pallas_mixed(
+            spec, py, sh, st, tv, an, 1024, gen,
+            backend='xla' if case == 'xla' else 'pallas', sampling=sampling)
+    wrapper = {'K4': fk.nich_score_sample, 'K5': fk.mixed_score_sample,
+               'xla': None}[case]
+    g = _check_chained_replays(one, (st, an), wrapper, 4)
+    if case == 'xla':
+        with gibbs._eager_sweeps():
+            want = _chained(lambda st, an, gen: gibbs.sweep_blocked(
+                spec, py, sh, st, tv, an, 1024, generator=gen), (st, an))
+        assert _bits_equal(g, want)
+
+
+@pytest.mark.parametrize('kind', ['nich2', 'niw2mix'])
+def test_graph_plain_sweeps_equal_eager(dev, kind):
+    """sweep_blocked replayed from its CUDA graph (the tiles drawing from
+    the graph's registered device generator, reseeded before each replay)
+    equals the eager loop bitwise over three chained sweeps, at the
+    runner's default 4096-row tiles on nich2 and 1024 on niw2mix."""
+    spec, py, sh, tv, an = _graph_problem(dev, kind, R=8192)
+    st = mx.state_from_assignments(spec, py, sh, tv, an)
+    block = 4096 if kind == 'nich2' else 1024
+
+    def one(st, an, gen):
+        return gibbs.sweep_blocked(spec, py, sh, st, tv, an, block,
+                                   generator=gen)
+    _check_chained_replays(one, (st, an), None, 0)
+
+
+def test_graph_chains_equal_each_chain(dev):
+    """sweep_blocked_chains, all 4 chains in one replay a sweep, equals
+    the eager chains bitwise, and chain c equals sweep_blocked with its
+    own generator."""
+    spec, py, sh, tv, an = _graph_problem(dev, 'nich2')
+    A = torch.stack([an, (an + 1) % 64, an % 8, torch.zeros_like(an)])
+    states = gibbs.init_chains(spec, py, sh, tv, A)
+
+    def run():
+        gens = [torch.Generator().manual_seed(10 + c) for c in range(4)]
+        out = (states, A)
+        for _ in range(3):
+            out = gibbs.sweep_blocked_chains(spec, py, sh, out[0], tv,
+                                             out[1], 1024, gens)
+        return out
+    _reset_graph_stats()
+    g = run()
+    assert gibbs.GRAPH_STATS['captures'] == 1
+    assert gibbs.GRAPH_STATS['replays'] == 1
+    with gibbs._eager_sweeps():
+        e = run()
+        for c in range(4):
+            one = _chained(lambda st, a, gen: gibbs.sweep_blocked(
+                spec, py, sh, st, tv, a, 1024, generator=gen),
+                (gibbs._chain_take(states, c), A[c]), seed=10 + c)
+            assert _bits_equal((gibbs._chain_take(g[0], c), g[1][c]), one)
+    assert _bits_equal(g, e)
+
+
+def test_graph_plain_runner_replays(dev):
+    """run_gibbs(use_pallas=False) replays every sweep after its first
+    from the CUDA graph, a step's two sweeps in one call and its score
+    from the score graph, equal to the eager run bitwise (logger rows
+    included); the run frees its graph when it ends."""
+    _, stats = _runs(dev, use_pallas=False)
+    assert stats['captures'] == 1 and stats['replays'] == 5
+    assert stats['score_captures'] == 1 and stats['score_replays'] == 2
+    assert stats['first_uses'] == 0 and gibbs._GRAPH['graph'] is None
+
+
+def test_graph_v1_runner_replays(dev, monkeypatch):
+    """The runner's v1 fallback (the fused gate closed by hand: K4 on
+    nich2) replays every sweep after its first, bitwise its eager run."""
+    monkeypatch.setattr(fk, 'supports_mixed_pallas', lambda spec: False)
+    before = fk.nich_score_sample.launches
+    _, stats = _runs(dev)
+    assert stats['captures'] == 1 and stats['replays'] == 5
+    assert stats['score_captures'] == 1 and stats['score_replays'] == 2
+    assert fk.nich_score_sample.launches == before + 2 * 4 * 6

@@ -345,7 +345,10 @@ def test_step_edge_without_free_slot_raises():
 def test_use_pallas_failed_gate_takes_v1_sweeps(monkeypatch, kind, sweep):
     """use_pallas=True with a failed fused gate: K4's sweep for a nich-only
     spec (as the JAX runner), K5's for a spec without niw blocks, else the
-    plain sweep; without use_pallas always the plain sweep."""
+    plain sweep; without use_pallas always the plain sweep.  The runner
+    calls the sweeps' runs, which take a step's sweeps in one call
+    (`gibbs._v1_run` with K4 or K5, `gibbs._plain_run`): one call a step
+    of one sweep here."""
     use_pallas = kind != 'plain'
     if kind in ('nich', 'plain'):
         values, _, spec, py, sh, _ = _nich_run_problem()
@@ -357,11 +360,15 @@ def test_use_pallas_failed_gate_takes_v1_sweeps(monkeypatch, kind, sweep):
         tv = tuple(torch.from_numpy(v) for v in p['values'])
     monkeypatch.setattr(tr.fk, 'supports_mixed_pallas', lambda spec: False)
     calls = []
-    for name in ('sweep_blocked', 'sweep_blocked_pallas',
-                 'sweep_blocked_pallas_mixed',
-                 'sweep_blocked_pallas_fused_mixed'):
-        def counted(*a, _fn=getattr(gibbs, name), _name=name, **kw):
-            calls.append(_name)
+    # the public sweep each run serves
+    served = {'_plain_run': lambda a: 'sweep_blocked',
+              '_v1_run': lambda a: {'K4': 'sweep_blocked_pallas',
+                                    'K5': 'sweep_blocked_pallas_mixed'}[a[3]],
+              'sweep_blocked_pallas_fused_mixed':
+                  lambda a: 'sweep_blocked_pallas_fused_mixed'}
+    for name, sweep_of in served.items():
+        def counted(*a, _fn=getattr(gibbs, name), _of=sweep_of, **kw):
+            calls.append(_of(a))
             return _fn(*a, **kw)
         monkeypatch.setattr(gibbs, name, counted)
     st, an, _ = tr.run_gibbs(spec, py, sh, tv,

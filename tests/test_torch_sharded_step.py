@@ -479,19 +479,27 @@ def _flatten_layouts(tree):
                                   'eager_sweeps', 'graphed'])
 def test_graph_refusal_names_each_rule(case):
     """What stays eager on the card does so by a rule `_graph_refusal`
-    names: the CPU, the '_host' modes, the plain sweeps (the mesh's plain
-    sweeps among them), the v1 sweeps, `_eager_sweeps()`; the three fused
-    sweeps are graphed."""
+    names: the CPU, the '_host' modes, the plain sweeps of a mesh (and
+    sweep_blocked for a model without row stats), `_eager_sweeps()`; the
+    three fused sweeps, the v1 sweeps (K4, K5 and backend='xla', which
+    passes no mode) and the single-device plain sweeps are graphed."""
     card = torch.device('cuda', 0)
+    host = "a '_host' mode draws its noise from the host"
     if case == 'graphed':
-        for kind in ('fused', 'sharded_fused', 'fused_2d'):
+        for kind in ('fused', 'sharded_fused', 'fused_2d', 'blocked',
+                     'chains'):
             assert tg._graph_refusal(card, 'gumbel', kind) is None
+        return
+    if case == 'v1':
+        assert 'v1' not in tg._EAGER_SWEEPS
+        assert tg._graph_refusal(card, 'gumbel', 'v1') is None
+        assert tg._graph_refusal(card, None, 'v1') is None
+        assert tg._graph_refusal(card, 'gumbel_host', 'v1') == host
         return
     rule = {'cpu': lambda: tg._graph_refusal(torch.device('cpu'), 'gumbel'),
             'host_mode': lambda: tg._graph_refusal(card, 'gumbel_host',
                                                    'sharded_fused'),
-            'plain': lambda: tg._graph_refusal(card, 'gumbel', 'plain'),
-            'v1': lambda: tg._graph_refusal(card, 'gumbel', 'v1')}
+            'plain': lambda: tg._graph_refusal(card, 'gumbel', 'plain')}
     if case == 'eager_sweeps':
         with tg._eager_sweeps():
             why = tg._graph_refusal(card, 'gumbel', 'fused_2d')
@@ -500,10 +508,10 @@ def test_graph_refusal_names_each_rule(case):
     why = rule[case]()
     assert why and why == {
         'cpu': 'not on the card',
-        'host_mode': "a '_host' mode draws its noise from the host",
-        'plain': tg._EAGER_SWEEPS['plain'],
-        'v1': tg._EAGER_SWEEPS['v1']}[case]
+        'host_mode': host,
+        'plain': tg._EAGER_SWEEPS['plain']}[case]
     assert 'sharded_sweep_2d' in tg._EAGER_SWEEPS['plain']
+    assert 'without row stats' in tg._EAGER_SWEEPS['plain']
 
 
 def test_sharded_sweeps_on_the_cpu_take_no_graph_path():
