@@ -8,7 +8,8 @@ exits non-zero:
 
 1. build      -- compile the kernels K1 and B5 (csrc/fused_v2.cu), K2 and
                  K3 (csrc/fused_v3.cu), K4 and K5 (csrc/score_sample_v1.cu;
-                 all three with the slot-split walk of csrc/fused_split.cuh),
+                 all three with the slot-split walk of csrc/fused_split.cuh,
+                 K1 and K2 with the stat stage of csrc/fused_stats.cuh),
                  B2, B3 and B4 (csrc/roofline.cu) and B1
                  (csrc/sampler_bench.cu) with nvcc from the sources in this
                  checkout, the compilers started together; print the card's
@@ -76,7 +77,21 @@ exits non-zero:
                  exactly equal; the ragged case is niw d=3 + nich + bb
                  (the wide shape).  The Philox check and the split
                  kernel's report as well, also for the wide shape.
-3a. kernel_k3 -- the pair kernel K3 at B=65536 x C_local=256, the four
+3a. kernel_stats -- K1's and K2's stat stage (csrc/fused_stats.cuh) alone,
+                 through bench_kernels.stat_sums / mixed_stat_sums: against
+                 the twins' one-hot sums (float sums within rtol 1e-5 /
+                 atol 1e-3, count tables exact), two launches bitwise
+                 equal and a CUDA graph replay bitwise equal to an eager
+                 launch, with every row in one slot, uniform slots,
+                 Pitman-Yor-skewed slots, slots outside [0, C), the
+                 kernels' own 'gumbel' draws, ragged B (131,072 - 77 and
+                 3001), at C = 1024 and 8192, K2 on niw2mix and on bbddgp
+                 (count tables alone); then milliseconds a launch at
+                 16,384, 65,536 and 131,072 rows (CUDA events over graph
+                 replays, and the profiler's device time of its two
+                 kernels) beside the twin and torch.Tensor.index_add_ of
+                 the prebuilt features, and at 8192 slots against 1024.
+3b. kernel_k3 -- the pair kernel K3 at B=65536 x C_local=256, the four
                  component shards of the K2 problems above (niw2mix and
                  bbddgp), and once at C_local=1024: equal to its twin in
                  'argmax', 'argmax_fast' and 'gumbel_host' (slot exactly,
@@ -91,7 +106,7 @@ exits non-zero:
                  'gumbel_fast', both timed in turns; the Philox check on
                  each shard at its slot offset, and the split kernel's
                  report.
-3b. kernel_k4, kernel_k5 -- the v1 score + sample kernels (no stat
+3c. kernel_k4, kernel_k5 -- the v1 score + sample kernels (no stat
                  outputs; the slot-split walk in its v1 form) against their
                  twins: K4 at B=131072 x C=1024 x 2 nich, K5 at B=65536 x
                  C=1024 on nich + bb + dd + gp and on bb + dd + gp without
@@ -299,13 +314,16 @@ exits non-zero:
                  (HMC 100 + 100, NUTS 40 + 40, ADVI 300; seconds and
                  purity per backend, purity above 0.9 for collapsed
                  gibbs, mh, smc and advi, above 0.6 for hmc and nuts).
-7. kernels    -- one line listing each ported kernel (K1-K5, B1-B5) with
-                 its launches on its main path, its time, its twin's time,
-                 its nominal bound (data-sheet rates, a log as one
-                 operation), its measured bound (the roofline phase's
-                 rates, each op kind at its own rate) and, for a kernel
-                 redesigned after its port, the design it has now; K1 and
-                 K2 also give their launches in main_le.
+7. kernels    -- one line listing each ported kernel (K1-K5, B1-B5, and
+                 K1's and K2's stat stages, which run inside every launch
+                 of K1 and K2) with its launches on its main path, its
+                 time, its twin's time, its nominal bound (data-sheet
+                 rates, a log as one operation), its measured bound (the
+                 roofline phase's rates, each op kind at its own rate),
+                 the library call's time where one PyTorch call computes
+                 the same and, for a kernel redesigned after its port, the
+                 design it has now; K1 and K2 also give their launches in
+                 main_le.
 
 The entry points are called without a device, so they run on the package's
 default device, the card.  The last line is {"ok": true, "device": {...}}.
@@ -341,6 +359,8 @@ SWEEPS_PER_STEP = 10
 # stat sums: f32 sums of up to a few hundred rows per slot, summed in
 # another order than the twin's matmul
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-3
+# the kernels of K1's and K2's stat stage, by the profiler's names
+STAT_KERNELS = ('stat_partials', 'stat_reduce')
 # a mismatched draw must be a near-tie: score gap at f32 rounding level
 TIE_GAP = 1e-4
 Z_MAX = 5.0
@@ -938,6 +958,254 @@ def phase_kernel_k2(port):
     result['split_ptxas'] = split_ptxas(port, 'fused_v3')
     emit(result)
     return summary
+
+
+# -- K1's and K2's stat stage alone ------------------------------------------
+
+STAT_TIMED_ROWS = (16384, 65536, 131072)
+STAT_SLOTS = (1024, 8192)
+STAT_GRAPH_REPS = 20
+STAT_CASES = ('one', 'uniform', 'pitman_yor', 'outside', 'draws')
+
+
+def pitman_yor_slots(B, C, seed):
+    """B slots drawn from the stick-breaking weights of a Pitman-Yor
+    {alpha 1, d 0.1} partition cut to C slots (numpy, seeded): a few
+    slots take most rows."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    k = np.arange(1, C + 1)
+    v = rng.beta(1.0 - PY['d'], PY['alpha'] + k * PY['d'])
+    w = v * np.concatenate([[1.0], np.cumprod(1.0 - v)[:-1]])
+    return rng.choice(C, B, p=w / w.sum()).astype(np.int32)
+
+
+def stat_slots(port, kind, B, C, draws):
+    """The slots of one stat-stage case, int32 [B] on the card: every row
+    in one slot, uniform over C, Pitman-Yor-skewed, a quarter outside
+    [0, C) (some far out), or `draws` (the kernel's own 'gumbel' draws of
+    the main path's tile)."""
+    import torch
+    dev = port['config'].default_device()
+    gen = torch.Generator(device=dev).manual_seed(B + C)
+    if kind == 'one':
+        return torch.full((B,), C // 3, dtype=torch.int32, device=dev)
+    if kind == 'uniform':
+        return torch.randint(0, C, (B,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    if kind == 'pitman_yor':
+        return torch.from_numpy(pitman_yor_slots(B, C, B + C)).to(dev)
+    if kind == 'outside':
+        a = torch.randint(-C // 8, C + C // 8, (B,), generator=gen,
+                          device=dev, dtype=torch.int32)
+        a[::7] = -1000000
+        a[1::11] = C + 100000
+        return a
+    return draws[:B].contiguous()
+
+
+def graph_replay(fn, reps):
+    """A CUDA graph of `reps` calls of fn() (one eager call first) and the
+    outputs of its last call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            out = fn()
+    return g, out
+
+
+def graph_ms(fn, names=STAT_KERNELS):
+    """(milliseconds a call by CUDA events over replays of a graph of
+    STAT_GRAPH_REPS calls, device milliseconds a call of the kernels
+    named `names` by the profiler over one replay; with names=None every
+    device kernel counts)."""
+    reps = STAT_GRAPH_REPS
+    g, _ = graph_replay(fn, reps)
+    g.replay()
+    ms = cuda_ms(g.replay, 5) / reps
+    prof = profile_sweep(g.replay, names or ('',))
+    dev_ms = prof.get('kernel_device_ms')
+    return ms, (dev_ms / reps if isinstance(dev_ms, float) else dev_ms)
+
+
+def stat_check(port, what, launch, plain, exact):
+    """The stage against its twin on one case (float sums within
+    SUM_RTOL / SUM_ATOL, the outputs in `exact` equal), two launches
+    bitwise equal, and a replay of a CUDA graph of it bitwise equal to an
+    eager launch.  Returns the largest difference from the twin."""
+    import torch
+    got = launch()
+    want = plain()
+    err = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape:
+            raise AssertionError('%s: output %d has shape %s, twin %s'
+                                 % (what, i, tuple(a.shape), tuple(b.shape)))
+        if a.numel() == 0:
+            continue
+        err = max(err, float((a - b).abs().max()))
+        ok = (torch.equal(a, b) if i in exact else
+              bool(torch.allclose(a, b, rtol=SUM_RTOL, atol=SUM_ATOL)))
+        if not ok:
+            raise AssertionError('%s: output %d disagrees with the twin '
+                                 '(max abs err %g)' % (what, i, err))
+    again = launch()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError('%s is not bitwise repeatable' % what)
+    g, replayed = graph_replay(launch, 1)
+    g.replay()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, replayed)):
+        raise AssertionError('%s: a graph replay differs from the eager '
+                             'launch' % what)
+    return err
+
+
+def phase_kernel_stats(port, X, labels):
+    """K1's and K2's stat stage (csrc/fused_stats.cuh) alone, through
+    bench_kernels.stat_sums / mixed_stat_sums: against their twins, twice
+    bitwise, and replayed from a CUDA graph bitwise, in every case of
+    STAT_CASES at C = 1024 and 8192, ragged B, and K2 on count tables
+    alone; then its time at STAT_TIMED_ROWS beside the twin and
+    torch.Tensor.index_add_ of the prebuilt features."""
+    import torch
+    fk, bk, mx = port['fk'], port['bk'], port['mx']
+    dev = port['config'].default_device()
+    B = STAT_TIMED_ROWS[-1]
+    t0 = time.time()
+    values = torch.as_tensor(X[:B], device=dev)
+    _, _, _, _, cl_scores, coeffs = nich_inputs(
+        port, torch.as_tensor(X, device=dev), labels, SLOTS)
+    draws1 = fk.fused_score_sample_stats(3, values, cl_scores, coeffs,
+                                         (FEATURES,), sampling='gumbel')[0]
+    k2in = {kind: mixed_inputs(port, kind, B, SLOTS, TRUE_CLUSTERS)
+            for kind in ('niw2mix', 'bbddgp')}
+    draws2 = {}
+    for kind, m in k2in.items():
+        case = k2_case(port, m)
+        draws2[kind] = case.launch('gumbel', None, 3)[0]
+
+    def k1_fns(B, C, a):
+        v = values[:B]
+        return (lambda: (bk.stat_sums(v, a, C),),
+                lambda: (bk.stat_sums_plain(v, a, C),))
+
+    def k2_fns(kind, B, C, a):
+        lay = k2in[kind]['lay']
+
+        def rows(t):
+            return None if t is None else t[:B].contiguous()
+        args = (rows(lay.nich_vals), rows(lay.quad_vals),
+                rows(lay.table_idx), a, C, k2in[kind]['col_groups'],
+                lay.quad_groups, lay.table_vs)
+        return (lambda: bk.mixed_stat_sums(*args),
+                lambda: bk.mixed_stat_sums_plain(*args))
+
+    result = {'phase': 'kernel_stats', 'cases': {}}
+    max_err = {'K1': 0.0, 'K2': 0.0}
+    checks = []
+    for C in STAT_SLOTS:
+        for kind in STAT_CASES:
+            if kind == 'draws' and C != SLOTS:
+                continue
+            checks.append((C, kind, B))
+        checks.append((C, 'uniform', B - 77))
+        checks.append((C, 'pitman_yor', 3001))
+    for C, kind, rows in checks:
+        a1 = stat_slots(port, kind, rows, C, draws1)
+        err = stat_check(port, 'K1 stat stage %s B=%d C=%d' % (kind, rows, C),
+                         *k1_fns(rows, C, a1), ())
+        max_err['K1'] = max(max_err['K1'], err)
+        result['cases']['K1 %s %d x %d' % (kind, rows, C)] = err
+        for layout in ('niw2mix', 'bbddgp'):
+            a2 = stat_slots(port, kind, rows, C, draws2[layout])
+            err = stat_check(
+                port, 'K2 stat stage %s %s B=%d C=%d' % (layout, kind, rows,
+                                                         C),
+                *k2_fns(layout, rows, C, a2), (1,))
+            if layout == 'niw2mix':
+                max_err['K2'] = max(max_err['K2'], err)
+            result['cases']['K2 %s %s %d x %d' % (layout, kind, rows,
+                                                  C)] = err
+    result['check_seconds'] = round(time.time() - t0, 1)
+
+    # times a launch: the stage (CUDA events over graph replays; the
+    # profiler's device time of its two kernels), the twin, index_add_
+    timing = {}
+    lay2 = k2in['niw2mix']['lay']
+    groups2 = k2in['niw2mix']['col_groups']
+    for rows in STAT_TIMED_ROWS:
+        for name in ('K1', 'K2'):
+            if name == 'K1':
+                a = draws1[:rows].contiguous()
+                kern, plain = k1_fns(rows, SLOTS, a)
+                v = values[:rows]
+                feats = torch.cat([torch.ones_like(v), v, v * v], 1)
+                plan = fk.stat_plan('fused_v2', rows, SLOTS, (FEATURES,))
+            else:
+                a = draws2['niw2mix'][:rows].contiguous()
+                kern, plain = k2_fns('niw2mix', rows, SLOTS, a)
+                v = lay2.nich_vals[:rows]
+                feats = torch.cat(
+                    [torch.ones_like(v), v, v * v, fk._quad_stat_features(
+                        lay2.quad_vals[:rows], lay2.quad_groups)], 1)
+                plan = fk.stat_plan('fused_v3', rows, SLOTS, groups2,
+                                    lay2.quad_groups, lay2.table_vs)
+            ms, dev_ms = graph_ms(kern)
+            # the one PyTorch call that sums the prebuilt features per
+            # slot (with float atomics)
+            acc = torch.zeros((SLOTS, feats.shape[1]), device=dev)
+            idx = a.long()
+            lib_ms, lib_dev_ms = graph_ms(
+                lambda: acc.index_add_(0, idx, feats), names=None)
+            timing['%s %d' % (name, rows)] = {
+                'ms': ms, 'device_ms': dev_ms, 'plain_ms': cuda_ms(plain, 3),
+                'library_ms': lib_ms, 'library_device_ms': lib_dev_ms,
+                'plan': plan}
+    # at 8192 slots against 1024, uniform slots: (ms, device ms)
+    for C in STAT_SLOTS:
+        for rows in (STAT_TIMED_ROWS[0], STAT_TIMED_ROWS[-1]):
+            a = stat_slots(port, 'uniform', rows, C, None)
+            timing['K1 %d x %d uniform' % (rows, C)] = graph_ms(
+                k1_fns(rows, C, a)[0])
+            timing['K2 %d x %d uniform' % (rows, C)] = graph_ms(
+                k2_fns('niw2mix', rows, C, a)[0])
+    result['timing'] = timing
+    result['seconds'] = round(time.time() - t0, 1)
+
+    # the kernels line's figures at the main path's tiles
+    out = {}
+    for name, rows in (('K1', BLOCK), ('K2', BLOCK_MIXED)):
+        t = timing['%s %d' % (name, rows)]
+        if name == 'K1':
+            tensors = (values[:rows], draws1[:rows],
+                       torch.empty(SLOTS, 3 * FEATURES))
+        else:
+            tensors = (lay2.nich_vals[:rows], lay2.quad_vals[:rows],
+                       lay2.table_idx[:rows], draws2['niw2mix'][:rows],
+                       torch.empty(SLOTS, 3 * sum(groups2)
+                                   + fk.quad_stat_dim(lay2.quad_groups)
+                                   + sum(lay2.table_vs)))
+        # bytes: each input read once, each output written once; the
+        # arithmetic (a few adds a feature a row) is negligible
+        nbytes = sum(x.numel() * x.element_size() for x in tensors)
+        bound, bound_by = nominal_bound(nbytes, 0)
+        out[name] = {'ms': t['ms'], 'device_ms': t['device_ms'],
+                     'plain_ms': t['plain_ms'],
+                     'library_ms': t['library_ms'], 'bound_ms': bound,
+                     'bound_by': bound_by,
+                     'measured_bound_ms':
+                         1e3 * nbytes / port['rates']['bytes_per_sec'],
+                     'measured_bound_by': 'bytes', 'rows': rows,
+                     'bytes': nbytes, 'max_abs_err': max_err[name]}
+    result['summary'] = out
+    result['stat_sums_launches'] = bk.stat_sums.launches
+    result['mixed_stat_sums_launches'] = bk.mixed_stat_sums.launches
+    emit(result)
+    return out
 
 
 def v1_case(port, name, nich_vals, idx, cl_scores, coeffs, tables):
@@ -2005,6 +2273,14 @@ def run_main(port, wrapper, spec, py, shareds, values_np, labels, block):
             'kernels and the wrapper counted %d launches, expected tiles x '
             'sweeps = %d (profile: %s)' % (seen, last['launches_counted'],
                                            want, last))
+    # and as many launches of the stat stage (csrc/fused_stats.cuh), which
+    # K1 and K2 run after their draw
+    stat_seen = last.get('stat_stage_calls', {}).get('stat_partials')
+    if stat_seen != want:
+        raise AssertionError(
+            'run_gibbs: in its last step the device ran %r stat stages, '
+            'expected tiles x sweeps = %d (profile: %s)'
+            % (stat_seen, want, last))
     steps = [r['seconds'] for r in log.rows]
     # steady steps: the first also builds the stat cache and captures the
     # graph, the last is profiled
@@ -2055,6 +2331,7 @@ def device_profile(prof, wall_ms, kernel_names):
     from torch.autograd import DeviceType
     rows = []
     calls = {}
+    stat_calls = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CPU:
             continue
@@ -2062,17 +2339,23 @@ def device_profile(prof, wall_ms, kernel_names):
                          getattr(e, 'self_cuda_time_total', 0))
         if dev_us > 0:
             rows.append((dev_us, e.key))
-            for name in kernel_names:
-                if name in e.key:
-                    calls[name] = calls.get(name, 0) + e.count
+            for names, seen in ((kernel_names, calls),
+                                (STAT_KERNELS, stat_calls)):
+                for name in names:
+                    if name in e.key:
+                        seen[name] = seen.get(name, 0) + e.count
     rows.sort(reverse=True)
     total_ms = sum(us for us, _ in rows) / 1e3
     if not rows:
         return {'device_ms': 'not measured', 'wall_ms': wall_ms}
     kernel_ms = sum(us for us, k in rows
                     if any(name in k for name in kernel_names)) / 1e3
+    # the stat stage of K1 and K2 (csrc/fused_stats.cuh), wherever it ran
+    stat_ms = sum(us for us, k in rows
+                  if any(name in k for name in STAT_KERNELS)) / 1e3
     return {'wall_ms': wall_ms, 'device_ms': total_ms,
             'kernel_device_ms': kernel_ms, 'kernel_calls': calls,
+            'stat_stage_device_ms': stat_ms, 'stat_stage_calls': stat_calls,
             'device_busy_share': total_ms / wall_ms,
             'top': [[k[:60], us / 1e3] for us, k in rows[:8]]}
 
@@ -4923,6 +5206,7 @@ def main():
     b1['launches'] = phase_suite(port)
     k1 = phase_kernel(port, X, labels)
     k2 = phase_kernel_k2(port)
+    stages = phase_kernel_stats(port, X, labels)
     k3 = phase_kernel_k3(port)
     k4 = phase_kernel_k4(port, X, labels)
     k5 = phase_kernel_k5(port)
@@ -4952,6 +5236,10 @@ def main():
     mixed = testing.mixed_problem(ROWS, SLOTS, seed=0, kind='niw2mix',
                                   n_clusters=TRUE_CLUSTERS)
     k2['launches'] = phase_main_mixed(port, mixed)
+    # the stat stage runs inside every launch of K1 and K2 (run_main
+    # checks the profiler's count of it in the last step)
+    stages['K1']['launches'] = k1['launches']
+    stages['K2']['launches'] = k2['launches']
     phase_graphs(port, X, labels, mixed)
     phase_plain_graphs(port, X, labels, mixed)
     k3['launches'] = phase_sharded(port, X, labels, mixed)
@@ -4968,10 +5256,17 @@ def main():
     pk = 'distributions_tpu/ops/pallas_kernels.py:%d'
     split = 'the slot-split walk (csrc/fused_split.cuh)'
     split_v1 = split + ', v1 form'
+    stat_design = ('rows staged in shared memory, the walk split across '
+                   'warps, partials and a fixed-order reduce that follow '
+                   'the rows')
     kernels = []
     for name, source, replaces, k, design in (
             ('fused_v2 (K1)', 'fused_v2.cu', pk % 535, k1, split),
             ('fused_v3 (K2)', 'fused_v3.cu', pk % 749, k2, split),
+            ('fused_v2 stat stage (K1)', 'fused_stats.cuh', pk % 574,
+             stages['K1'], stat_design),
+            ('fused_v3 stat stage (K2)', 'fused_stats.cuh', pk % 821,
+             stages['K2'], stat_design),
             ('fused_v3_pair (K3)', 'fused_v3.cu', pk % 1061, k3, split),
             ('score_sample_v1_nich (K4)', 'score_sample_v1.cu', pk % 137, k4,
              split_v1),
@@ -5006,7 +5301,8 @@ def main():
             'launches_main_le': k.get('launches_main_le'),
             'ms_by_value': k.get('ms_by_value'),
             # no single PyTorch call computes score + draw (+ sums), a
-            # dependent chain or a resident sampler; B3 and B4 have one
+            # dependent chain or a resident sampler; B3, B4 and the stat
+            # stages (index_add_) have one
             'library_ms': k.get('library_ms'),
             'redesigned': design})
     emit({'kernels': kernels})

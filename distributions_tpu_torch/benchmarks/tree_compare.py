@@ -20,7 +20,10 @@ Then four processes run in turn, OLD, NEW, NEW, OLD, each importing the
 package of its own tree and building its kernels from its own sources:
 
 - every output of K1 and K2 in 'argmax', 'gumbel', 'gumbel_host', 'cdf',
-  'cdf_host' and their '_fast' forms (draws and every stat sum), of K3 in
+  'cdf_host' and their '_fast' forms (draws and every stat sum; the stat
+  sums are hashed apart, bitwise within a tree, and held across the trees
+  within rtol 1e-5 / atol 1e-3, count tables exactly, since a redesigned
+  stat stage may sum in another order), of K3 in
   'argmax', 'gumbel', 'gumbel_host' and their '_fast' forms on each shard
   (draws and best scores), of B5's 'noop', 'score_max', 'score_bits' and
   'score_<mode>' phases, and of K4, K5 and B1 (2048 rows of random
@@ -30,7 +33,10 @@ package of its own tree and building its kernels from its own sources:
   and K5 in those three modes;
 - median CUDA-event milliseconds of K1, K2, K3 (shard 0), K4 and K5 in
   'gumbel' and of every B5 phase named above in 'gumbel', on the main
-  path's layouts and off them;
+  path's layouts and off them; the device milliseconds a launch of K1's
+  and K2's stat stage by the profiler (the kernels of the stage inside a
+  K1 / K2 launch, STAT_KERNELS) at STAT_ROWS rows of the nich2 and
+  niw2mix tiles;
 - benchmarks.bench_runner at each model of TREE_COMPARE_RUNNER (a comma
   list, default 'nich,niw2mix': the `main` and `main_mixed` runner
   configurations; RUNNER_* from the environment; empty for none), and the
@@ -40,7 +46,8 @@ package of its own tree and building its kernels from its own sources:
 
 Prints one JSON line per process, then one with the verdict: for each
 output whether all four runs agree, each tree's times (two runs each) and
-ms per sweep.  Exits 1 when an output differs.  Needs one card.
+ms per sweep.  Exits 1 when an output differs (a stat sum: beyond its
+tolerance across the trees, or at all within one).  Needs one card.
 """
 
 import hashlib
@@ -75,6 +82,14 @@ K5_RANDOM = (3, 5, 6)
 V1_KINDS = ('nichbbddgp', 'bbddgp')
 V1_ROWS = 1048576
 V1_SWEEPS = 3
+# the stat stage of K1 and K2 (its rounding order may differ between the
+# trees: float sums are held to each other within SUM_RTOL / SUM_ATOL,
+# count tables exactly, and each tree's two runs bitwise), timed at these
+# rows of the nich2 and niw2mix tiles by the profiler's device time
+STAT_ROWS = (16384, 65536, 131072)
+STAT_KERNELS = ('stat_partials', 'stat_reduce')
+STAT_REPS = 20
+SUM_RTOL, SUM_ATOL = 1e-5, 1e-3
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
@@ -85,6 +100,8 @@ def make_inputs(path):
     import torch
     from distributions_tpu_torch import testing
     d = main_path_inputs(kinds=('niw2mix',) + V1_KINDS + WIDE_K2 + WIDE_K5)
+    d['niw2mix %d' % STAT_ROWS[-1]] = mixed_tile_inputs('niw2mix',
+                                                        STAT_ROWS[-1])
     for groups in WIDE_K1 + WIDE_K4:
         if 'k1 %s' % (groups,) not in d:
             d['k1 %s' % (groups,)] = nich_tile_inputs(groups)
@@ -146,33 +163,43 @@ def main_path_inputs(kinds=('niw2mix',)):
     from distributions_tpu_torch import testing
     from distributions_tpu_torch.models import MODULES
     from distributions_tpu_torch.ops import gibbs
-    cpu = torch.device('cpu')
-    n_true = SLOTS // 8 * 7
     out = {'k1': nich_tile_inputs((2,))}
     for kind in kinds:
-        problem = testing.mixed_problem(K2_ROWS, SLOTS, seed=0, kind=kind,
-                                        n_clusters=n_true)
-        spec, py, shareds = testing.build_problem(
-            problem, MODULES, mx.make_spec, cl.PitmanYor.from_dict,
-            device=cpu)
-        vals = tuple(torch.from_numpy(v) for v in problem['values'])
-        state = mx.state_from_assignments(
-            spec, py, shareds, vals, torch.from_numpy(problem['labels']))
-        lay = gibbs._mixed_static_layout(spec, vals)
-        coeffs, qcoeffs, tables = gibbs._build_fused_inputs(spec, lay,
-                                                            shareds, state)
-        out[kind] = dict(
-            values=lay.nich_vals, table_idx=lay.table_idx,
-            cl_scores=cl.score_value(py, state.counts, state.alive,
-                                     state.sample_size),
-            coeffs=coeffs, tables=tables, qvalues=lay.quad_vals,
-            qcoeffs=qcoeffs,
-            col_groups=tuple(spec.blocks[i].cols for i in lay.nich_blocks),
-            quad_groups=tuple(lay.quad_groups),
-            table_vs=tuple(lay.table_vs))
-        if not lay.quad_groups:
-            out[kind]['v1_coeffs'], out[kind]['v1_tables'] = \
-                gibbs._build_v1_inputs(spec, lay, shareds, state)
+        out[kind] = mixed_tile_inputs(kind)
+    return out
+
+
+def mixed_tile_inputs(kind, rows=K2_ROWS):
+    """K2's tile of `rows` rows of the mixed layout `kind` against the state
+    of its rows, on the CPU: its arguments by name, and K5's v1_coeffs and
+    v1_tables where it has no niw block."""
+    import torch
+    from distributions_tpu_torch import clustering as cl, mixture as mx
+    from distributions_tpu_torch import testing
+    from distributions_tpu_torch.models import MODULES
+    from distributions_tpu_torch.ops import gibbs
+    cpu = torch.device('cpu')
+    problem = testing.mixed_problem(rows, SLOTS, seed=0, kind=kind,
+                                    n_clusters=SLOTS // 8 * 7)
+    spec, py, shareds = testing.build_problem(
+        problem, MODULES, mx.make_spec, cl.PitmanYor.from_dict, device=cpu)
+    vals = tuple(torch.from_numpy(v) for v in problem['values'])
+    state = mx.state_from_assignments(
+        spec, py, shareds, vals, torch.from_numpy(problem['labels']))
+    lay = gibbs._mixed_static_layout(spec, vals)
+    coeffs, qcoeffs, tables = gibbs._build_fused_inputs(spec, lay, shareds,
+                                                        state)
+    out = dict(
+        values=lay.nich_vals, table_idx=lay.table_idx,
+        cl_scores=cl.score_value(py, state.counts, state.alive,
+                                 state.sample_size),
+        coeffs=coeffs, tables=tables, qvalues=lay.quad_vals,
+        qcoeffs=qcoeffs,
+        col_groups=tuple(spec.blocks[i].cols for i in lay.nich_blocks),
+        quad_groups=tuple(lay.quad_groups), table_vs=tuple(lay.table_vs))
+    if not lay.quad_groups:
+        out['v1_coeffs'], out['v1_tables'] = gibbs._build_v1_inputs(
+            spec, lay, shareds, state)
     return out
 
 
@@ -235,6 +262,44 @@ def v1_sweeps(dev):
             supports=supports),
         mx.state_from_assignments(spec, py, shareds, values, a0), a0)
     return out
+
+
+def stat_stage_ms(call):
+    """Device milliseconds a call of the stat stage that `call` (a K1 or
+    K2 launch) runs after its draw: the profiler's device time of the
+    kernels named STAT_KERNELS (the parent's fused_v2_stat_partials ...
+    too) over STAT_REPS calls, the window opened and closed 0.1 s away
+    from the work."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.1)
+        for _ in range(STAT_REPS):
+            call()
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+    us = sum(getattr(e, 'self_device_time_total',
+                     getattr(e, 'self_cuda_time_total', 0))
+             for e in prof.key_averages()
+             if any(name in e.key for name in STAT_KERNELS))
+    return us / 1e3 / STAT_REPS
+
+
+def sums_agree(old, new, key):
+    """The stat sums of one K1 or K2 output of two trees: float sums
+    within SUM_RTOL / SUM_ATOL, K2's count tables (its second output)
+    exactly."""
+    import torch
+    for i, (a, b) in enumerate(zip(old, new)):
+        if a.shape != b.shape:
+            return False
+        exact = key.startswith('K2') and i == 1
+        if not (torch.equal(a, b) if exact else
+                torch.allclose(a, b, rtol=SUM_RTOL, atol=SUM_ATOL)):
+            return False
+    return True
 
 
 def worker(tree, inputs, out):
@@ -341,6 +406,14 @@ def worker(tree, inputs, out):
     b1_noise = n1['gumbel_host'][:B1_ROWS].contiguous()
 
     hashes = {}
+    sums = {}
+
+    def k12(key, out):
+        # the draws bitwise; the stat sums kept for the comparison across
+        # trees (their bits within a tree)
+        hashes[key] = digest(out[0])
+        hashes[key + ' sums'] = digest(*out[1:])
+        sums[key] = [t.cpu() for t in out[1:]]
     for mode in V1_MODES:
         for name, t in k4_tiles.items():
             hashes['K4%s %s' % (name, mode)] = digest(k4_call(mode, t))
@@ -350,8 +423,8 @@ def worker(tree, inputs, out):
             5, b1_scores, 4, mode,
             b1_noise if mode == 'gumbel_host' else None, all_draws=True))
     for mode in ALL_MODES:
-        hashes['K1 ' + mode] = digest(*k1_call(mode))
-        hashes['K2 ' + mode] = digest(*k2_call(mode))
+        k12('K1 ' + mode, k1_call(mode))
+        k12('K2 ' + mode, k2_call(mode))
     for mode in PAIR_MODES:
         for a in range(0, SLOTS, CL):
             hashes['K3 %s slot_offset %d' % (mode, a)] = digest(
@@ -360,12 +433,12 @@ def worker(tree, inputs, out):
         hashes['B5 ' + phase] = digest(b5_call(phase))
     for groups, t in k1_wide.items():
         for mode in WIDE_MODES:
-            hashes['K1 %s %s' % (groups, mode)] = digest(*k1_call(mode, t))
+            k12('K1 %s %s' % (groups, mode), k1_call(mode, t))
         for phase in PHASES + ('score_gumbel',):
             hashes['B5 %s %s' % (groups, phase)] = digest(b5_call(phase, t))
     for kind in WIDE_K2:
         for mode in WIDE_MODES:
-            hashes['K2 %s %s' % (kind, mode)] = digest(*k2_call(mode, kind))
+            k12('K2 %s %s' % (kind, mode), k2_call(mode, kind))
         for mode in PAIR_MODES[:3]:
             for a in range(0, SLOTS, CL):
                 hashes['K3 %s %s slot_offset %d' % (kind, mode, a)] = \
@@ -389,6 +462,22 @@ def worker(tree, inputs, out):
     for name, t in k5_tiles.items():
         ms['K5%s gumbel' % name] = median_ms(lambda: k5_call('gumbel', t), 7,
                                              dev)
+    # the stat stage inside K1 and K2 at STAT_ROWS rows of their tiles
+    big = mixed_args(on_card(d['niw2mix %d' % STAT_ROWS[-1]]))
+
+    def rows_of(x, r):
+        return x[:r].contiguous() if isinstance(x, torch.Tensor) else x
+    for r in STAT_ROWS:
+        ms['K1 stat stage %d' % r] = stat_stage_ms(
+            lambda: fk.fused_score_sample_stats(
+                5, k1['values'][:r], k1['cl_scores'], k1['coeffs'], (2,),
+                sampling='gumbel'))
+        args, kwargs = big
+        args = (rows_of(args[0], r), rows_of(args[1], r)) + args[2:]
+        kwargs = dict(kwargs, qvalues=rows_of(kwargs['qvalues'], r))
+        ms['K2 stat stage %d' % r] = stat_stage_ms(
+            lambda: fk.fused_mixed_score_sample_stats(
+                5, *args, sampling='gumbel', **kwargs))
     runner = {}
     models = os.environ.get('TREE_COMPARE_RUNNER', 'nich,niw2mix')
     for model in filter(None, models.split(',')):
@@ -397,6 +486,7 @@ def worker(tree, inputs, out):
         runner[model] = {'ms_per_sweep': r['ms_per_sweep'],
                          'ms_per_sweep_of_each_run':
                              r['ms_per_sweep_of_each_run']}
+    torch.save(sums, out + '.sums.pt')
     with open(out, 'w') as f:
         json.dump({'tree': tree, 'build_seconds': build_s, 'hashes': hashes,
                    'ms': ms, 'runner': runner, 'v1_sweeps': v1_sweeps(dev),
@@ -427,11 +517,28 @@ def main(argv=None):
             runs.append(json.load(f))
         print(json.dumps(dict(runs[-1], role=('old', 'new')[i in (1, 2)])),
               flush=True)
+    import torch
     keys = sorted(runs[0]['hashes'])
-    differ = [k for k in keys if len({r['hashes'].get(k) for r in runs}) != 1]
+    sum_keys = [k for k in keys if k.endswith(' sums')]
+    # every output bitwise across the four runs, but the stat sums: those
+    # bitwise within each tree, and within tolerance across the trees
+    differ = [k for k in keys if k not in sum_keys
+              and len({r['hashes'].get(k) for r in runs}) != 1]
+    differ += [k for k in sum_keys
+               if len({runs[i]['hashes'].get(k) for i in (0, 3)}) != 1
+               or len({runs[i]['hashes'].get(k) for i in (1, 2)}) != 1]
+    sums = [torch.load(os.path.join(work, 'run%d.json.sums.pt' % i))
+            for i in (0, 1)]
+    sums_differ = [k for k in sorted(sums[0])
+                   if not sums_agree(sums[0][k], sums[1].get(k, []), k)]
+    trees_bitwise = [k for k in sum_keys
+                     if runs[0]['hashes'][k] == runs[1]['hashes'].get(k)]
     verdict = {
         'outputs': len(keys), 'outputs_that_differ': differ,
         'bitwise_equal': not differ,
+        'stat_sums_outside_tolerance': sums_differ,
+        'stat_sums_bitwise_across_trees': len(trees_bitwise),
+        'stat_sums_compared': len(sum_keys),
         'ms': {k: {'old': [runs[0]['ms'][k], runs[3]['ms'][k]],
                    'new': [runs[1]['ms'][k], runs[2]['ms'][k]]}
                for k in runs[0]['ms']},
@@ -447,7 +554,7 @@ def main(argv=None):
             for m in runs[0]['v1_sweeps']},
         'device': runs[0]['device'], 'trees': trees}
     print(json.dumps(verdict), flush=True)
-    return 1 if differ else 0
+    return 1 if differ or sums_differ else 0
 
 
 if __name__ == '__main__':

@@ -46,12 +46,16 @@
 //     reproduces slot for slot;
 //   - '_fast' replaces log/exp with the polynomial fast_log/fast_exp of the
 //     JAX package (same coefficients);
-//   - stat sums are deterministic: per-block partial sums in row order,
-//     then a fixed-order reduce over blocks.  No float atomics.
+//   - stat sums are deterministic: the stat stage of fused_stats.cuh sums
+//     per-block partials in an order fixed by the launch's shape, then
+//     reduces them over blocks in a fixed order.  No float atomics.
 //
 // Bound through ctypes: fused_v2_launch() is a plain C entry point that
 // launches on the caller's stream, allocates nothing, and returns
-// cudaGetLastError().  fused_v2_occupancy() reports the split kernel's
+// cudaGetLastError().  fused_v2_stats_launch() runs the stat stage alone
+// on given slots (a measurement entry point; fused_v2_launch runs the same
+// stage after its draw), fused_v2_stat_plan() reports how it cuts a
+// launch.  fused_v2_occupancy() reports the split kernel's
 // registers, shared memory and resident blocks for a layout.
 //
 // The seed.  fused_v2_launch takes the tile's 64-bit seed by value or, with
@@ -73,11 +77,11 @@
 // All but the 'cdf' phases are the split walk.
 
 #include "fused_split.cuh"
+#include "fused_stats.cuh"
 
 #define MAX_GROUPS 8
 #define MAX_COLS 32
 #define SCORE_THREADS 128
-#define STAT_THREADS 256
 #define SMEM_FLOATS (48 * 1024 / 4)
 
 static inline int imin(int a, int b) { return a < b ? a : b; }
@@ -176,59 +180,43 @@ fused_v2_score_sample(const float* __restrict__ values,
   if (active) out[row] = dr.result();
 }
 
-// -- kernel 2: per-block stat partials --------------------------------------
+// -- kernels 2 and 3: the stat stage of fused_stats.cuh ----------------------
 //
-// Block b sums rows [b * stat_rows, (b + 1) * stat_rows) into
-// partials[b, C, 3 * cols].  Each slot of a chunk has one owning thread
-// (kk % STAT_THREADS), which adds the block's rows in row order: the sums
-// are deterministic with no atomics.
+// stat_partials<NichRows<NC>> and stat_reduce: per-block partials of the
+// rows' [1 | v | v^2] features, then a fixed-order reduce over blocks; an
+// exact shape for 1-4 nich columns (NC), the run-time one (NC = 0) for
+// more.
 
-__global__ void __launch_bounds__(STAT_THREADS)
-fused_v2_stat_partials(const float* __restrict__ values,
-                       const int* __restrict__ assign,
-                       float* __restrict__ partials, int B, int C, int cols,
-                       int stat_rows, int CKS) {
-  extern __shared__ float smem[];
-  const int S = 3 * cols;
-  float* acc = smem;                                  // [CKS][S]
-  int* sassign = (int*)(smem + (size_t)CKS * S);      // [stat_rows]
-  const int tid = threadIdx.x;
-  const int r0 = blockIdx.x * stat_rows;
-  const int r1 = min(B, r0 + stat_rows);
-  for (int r = r0 + tid; r < r1; r += STAT_THREADS) sassign[r - r0] = assign[r];
-  for (int c0 = 0; c0 < C; c0 += CKS) {
-    const int n = min(CKS, C - c0);
-    __syncthreads();
-    for (int i = tid; i < n * S; i += STAT_THREADS) acc[i] = F(0.0);
-    __syncthreads();
-    for (int r = r0; r < r1; ++r) {
-      const int kk = sassign[r - r0] - c0;
-      if (kk < 0 || kk >= n || (kk % STAT_THREADS) != tid) continue;
-      float* a = acc + (size_t)kk * S;
-      for (int c = 0; c < cols; ++c) {
-        const float v = values[(size_t)r * cols + c];
-        a[c] = __fadd_rn(a[c], F(1.0));
-        a[cols + c] = __fadd_rn(a[cols + c], v);
-        a[2 * cols + c] = __fadd_rn(a[2 * cols + c], __fmul_rn(v, v));
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < n * S; i += STAT_THREADS)
-      partials[((size_t)blockIdx.x * C + c0) * S + i] = acc[i];
-  }
+template <int NC>
+static int nich_stage(const float* values, const int* assign,
+                      float* partials, unsigned* bmask, float* sums, int B,
+                      int C, int cols, cudaStream_t st) {
+  NichRows<NC> rows;
+  rows.values = values;
+  rows.cols = cols;
+  return stat_stage_launch(rows, assign, partials, bmask, sums, nullptr,
+                           3 * cols, nullptr, nullptr, B, C, st);
 }
 
-// -- kernel 3: fixed-order reduce of the partials ---------------------------
-
-__global__ void fused_v2_stat_reduce(const float* __restrict__ partials,
-                                     float* __restrict__ sums, int nblocks,
-                                     int n) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    float s = partials[i];
-    for (int b = 1; b < nblocks; ++b)
-      s = __fadd_rn(s, partials[(size_t)b * n + i]);
-    sums[i] = s;
+static int launch_nich_stage(const float* values, const int* assign,
+                             float* partials, unsigned* bmask, float* sums,
+                             int B, int C, int cols, cudaStream_t st) {
+  switch (cols) {
+    case 1:
+      return nich_stage<1>(values, assign, partials, bmask, sums, B, C, cols,
+                           st);
+    case 2:
+      return nich_stage<2>(values, assign, partials, bmask, sums, B, C, cols,
+                           st);
+    case 3:
+      return nich_stage<3>(values, assign, partials, bmask, sums, B, C, cols,
+                           st);
+    case 4:
+      return nich_stage<4>(values, assign, partials, bmask, sums, B, C, cols,
+                           st);
+    default:
+      return nich_stage<0>(values, assign, partials, bmask, sums, B, C, cols,
+                           st);
   }
 }
 
@@ -409,34 +397,44 @@ extern "C" const char* fused_v2_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// partials: scratch of [nblocks, 3 * cols, C] floats and bmask of
+// [nblocks, ceil(C / 32)] words, nblocks = ceil(B / stat_rows_per_block(B))
+// (fused_stats.cuh).  seed_ptr: null, or the seed in device memory in place
+// of `seed`.
 extern "C" int fused_v2_launch(const float* values, const float* cl,
                                const float* coeffs, const float* noise,
-                               int* out, float* partials, float* sums, int B,
-                               int C, int n_groups, const int* col_groups,
-                               int mode, int fast, unsigned long long seed,
+                               int* out, float* partials, unsigned* bmask,
+                               float* sums, int B, int C, int n_groups,
+                               const int* col_groups, int mode, int fast,
+                               unsigned long long seed,
                                const unsigned long long* seed_ptr,
-                               int stat_rows, void* stream) {
-  if (stat_rows < 1 || mode > MODE_CDF_HOST)
-    return (int)cudaErrorInvalidValue;
+                               void* stream) {
+  if (mode > MODE_CDF_HOST) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   int total_cols = 0;
   int rc = launch_score_phase(values, cl, coeffs, noise, out, nullptr, B, C,
                               n_groups, col_groups, PHASE_FULL, mode, fast,
                               seed, seed_ptr, st, &total_cols);
   if (rc != 0) return rc;
-  cudaError_t err;
+  return launch_nich_stage(values, out, partials, bmask, sums, B, C,
+                           total_cols, st);
+}
 
-  const int S = 3 * total_cols;
-  const int CKS = imin(C, (SMEM_FLOATS - stat_rows) / S);
-  if (CKS < 1) return (int)cudaErrorInvalidValue;
-  const int nblocks = (B + stat_rows - 1) / stat_rows;
-  const size_t smem2 = ((size_t)CKS * S + stat_rows) * sizeof(float);
-  fused_v2_stat_partials<<<nblocks, STAT_THREADS, smem2, st>>>(
-      values, out, partials, B, C, total_cols, stat_rows, CKS);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int n = C * S;
-  const int grid3 = imin((n + 255) / 256, 1024);
-  fused_v2_stat_reduce<<<grid3, 256, 0, st>>>(partials, sums, nblocks, n);
-  return (int)cudaGetLastError();
+// The stat stage alone: sums [C, 3 * cols] of the rows `values` [B, cols]
+// at the slots `assign` [B] (a slot outside [0, C) adds nothing), with the
+// scratch of fused_v2_launch.
+extern "C" int fused_v2_stats_launch(const float* values, const int* assign,
+                                     float* partials, unsigned* bmask,
+                                     float* sums, int B, int C, int cols,
+                                     void* stream) {
+  if (cols < 1 || cols > MAX_COLS) return (int)cudaErrorInvalidValue;
+  return launch_nich_stage(values, assign, partials, bmask, sums, B, C, cols,
+                           (cudaStream_t)stream);
+}
+
+// How the stat stage cuts a launch of B rows of `cols` nich columns
+// against C slots: info[0..6] as stat_plan_info's (fused_stats.cuh).
+extern "C" int fused_v2_stat_plan(int B, int C, int cols, int* info) {
+  if (cols < 1 || cols > MAX_COLS) return (int)cudaErrorInvalidValue;
+  return stat_plan_info(B, C, 3 * cols, cols, 0, 0, 0, info);
 }

@@ -50,10 +50,11 @@
 //     rows of a warp that hold different values cannot collide on a shared
 //     memory bank.  The table of a tile is [Vtot, C] f32, small enough to
 //     stay in L1/L2.
-//   - Count tables are integers: the stat kernel adds them with atomicAdd
-//     on int32 (exact in any order, so still bitwise repeatable) and the
-//     reduce kernel converts them to f32.  The float sums use per-block
-//     partials in row order and a fixed-order reduce, no float atomics.
+//   - The stat stage is fused_stats.cuh's: count tables are integers,
+//     added with int32 atomics (exact in any order, so still bitwise
+//     repeatable) and converted to f32 by the reduce; the float sums are
+//     per-block partials in an order fixed by the launch's shape and a
+//     fixed-order reduce, no float atomics.
 //   - An index outside its column's support would read the next column's
 //     rows: the caller checks supports on the host (ops/gibbs.py
 //     _mixed_static_layout); building with -DFUSED_V3_DEBUG also traps in
@@ -72,6 +73,9 @@
 // plain C entry points that launch on the caller's stream, allocate
 // nothing, and return cudaGetLastError(); fused_v3_occupancy() reports the
 // split kernel's registers, shared memory and resident blocks.
+// fused_v3_stats_launch() runs the stat stage alone on given slots (a
+// measurement entry point), fused_v3_stat_plan() reports how it cuts a
+// launch.
 //
 // fused_v3_launch and fused_v3_pair_launch take the tile's seed by value
 // or, with seed_ptr non-null, from device memory, read when the kernel
@@ -82,6 +86,7 @@
 #include <string.h>
 
 #include "fused_split.cuh"
+#include "fused_stats.cuh"
 
 #define MAX_GROUPS 8        // nich blocks, and niw blocks
 #define MAX_COLS 32         // nich columns in all
@@ -89,7 +94,6 @@
 #define MAX_D 4             // niw dimension
 #define MAX_TABLE_COLS 16
 #define SCORE_THREADS 128
-#define STAT_THREADS 256
 #define SMEM_FLOATS (48 * 1024 / 4)
 
 struct Layout {
@@ -304,105 +308,15 @@ fused_v3_score_sample(const float* __restrict__ values,
 // the shards' pairs reduced by (largest best, then lowest global slot)
 // give exactly the slot that fused_v3_launch draws on the whole slot axis.
 
-// -- kernel 2: count tables and per-block stat partials ---------------------
+// -- kernels 2 and 3: the stat stage of fused_stats.cuh ----------------------
 //
-// Block b takes rows [b * stat_rows, (b + 1) * stat_rows).  It adds each
-// row's packed table rows into tcounts_i[slot, Vtot] with integer atomics,
-// and sums the float features [nich 1 | v | v^2 ; per niw column 1 | v |
-// v_a v_b] into partials[b, C, S]: each slot of a chunk has one owning
-// thread (kk % STAT_THREADS), which adds the block's rows in row order, so
-// the sums are deterministic with no float atomics.
-
-__global__ void __launch_bounds__(STAT_THREADS)
-fused_v3_stat_partials(const float* __restrict__ values,
-                       const float* __restrict__ qvalues,
-                       const int* __restrict__ table_idx,
-                       const int* __restrict__ assign,
-                       float* __restrict__ partials,
-                       int* __restrict__ tcounts_i, int B, int C, Layout L,
-                       int S, int stat_rows, int CKS) {
-  extern __shared__ float smem[];
-  float* acc = smem;                                  // [CKS][S]
-  int* sassign = (int*)(smem + (size_t)CKS * S);      // [stat_rows]
-  const int tid = threadIdx.x;
-  const int r0 = blockIdx.x * stat_rows;
-  const int r1 = min(B, r0 + stat_rows);
-  for (int r = r0 + tid; r < r1; r += STAT_THREADS) {
-    const int a = assign[r];
-    sassign[r - r0] = a;
-    if (a < 0 || a >= C) continue;
-    for (int j = 0; j < L.n_tab; ++j)
-      atomicAdd(tcounts_i + (size_t)a * L.vtot + L.tab_off[j] +
-                    table_idx[(size_t)r * L.n_tab + j], 1);
-  }
-  if (S == 0) return;
-  const int S1 = 3 * L.ncols;
-  for (int c0 = 0; c0 < C; c0 += CKS) {
-    const int n = min(CKS, C - c0);
-    __syncthreads();
-    for (int i = tid; i < n * S; i += STAT_THREADS) acc[i] = F(0.0);
-    __syncthreads();
-    for (int r = r0; r < r1; ++r) {
-      const int kk = sassign[r - r0] - c0;
-      if (kk < 0 || kk >= n || (kk % STAT_THREADS) != tid) continue;
-      float* a = acc + (size_t)kk * S;
-      for (int c = 0; c < L.ncols; ++c) {
-        const float v = values[(size_t)r * L.ncols + c];
-        a[c] = __fadd_rn(a[c], F(1.0));
-        a[L.ncols + c] = __fadd_rn(a[L.ncols + c], v);
-        a[2 * L.ncols + c] = __fadd_rn(a[2 * L.ncols + c], __fmul_rn(v, v));
-      }
-      float* q = a + S1;
-      const float* qv = qvalues + (size_t)r * L.qvals;
-      for (int g = 0; g < L.n_quad; ++g) {
-        const int d = L.quad_d[g];
-        for (int j = 0; j < L.quad_cols[g]; ++j) {
-          q[0] = __fadd_rn(q[0], F(1.0));
-          for (int x = 0; x < d; ++x) q[1 + x] = __fadd_rn(q[1 + x], qv[x]);
-          int o = 1 + d;
-          for (int x = 0; x < d; ++x)
-            for (int y = x; y < d; ++y) {
-              q[o] = __fadd_rn(q[o], __fmul_rn(qv[x], qv[y]));
-              ++o;
-            }
-          q += o;
-          qv += d;
-        }
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < n * S; i += STAT_THREADS)
-      partials[((size_t)blockIdx.x * C + c0) * S + i] = acc[i];
-  }
-}
-
-// -- kernel 3: fixed-order reduce of the partials, counts to f32 ------------
-
-__global__ void fused_v3_stat_reduce(const float* __restrict__ partials,
-                                     const int* __restrict__ tcounts_i,
-                                     float* __restrict__ sums,
-                                     float* __restrict__ qsums,
-                                     float* __restrict__ tcounts, int nblocks,
-                                     int C, int S, int S1, int vtot) {
-  const int n = C * S;
-  const int step = gridDim.x * blockDim.x;
-  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
-  for (int i = i0; i < n; i += step) {
-    float s = partials[i];
-    for (int b = 1; b < nblocks; ++b)
-      s = __fadd_rn(s, partials[(size_t)b * n + i]);
-    const int c = i / S, x = i % S;
-    if (x < S1)
-      sums[(size_t)c * S1 + x] = s;
-    else
-      qsums[(size_t)c * (S - S1) + (x - S1)] = s;
-  }
-  const int m = C * vtot;
-  for (int i = i0; i < m; i += step) tcounts[i] = (float)tcounts_i[i];
-}
+// stat_partials<MixedRows<NC, QD>> and stat_reduce: the count tables and
+// the per-block partials of the float features [nich 1 | v | v^2 ; per
+// niw column 1 | v | v_a v_b], then a fixed-order reduce over blocks; an
+// exact shape for 0-1 nich columns and one niw column of d = 2 (niw2mix),
+// the run-time one (QD = 0) for every other layout.
 
 static inline int imin(int a, int b) { return a < b ? a : b; }
-static inline int imax_(int a, int b) { return a > b ? a : b; }
 
 template <int MODE>
 static void launch_score(bool fast, dim3 grid, size_t smem, cudaStream_t st,
@@ -554,22 +468,73 @@ static int launch_split(const float* values, const float* qvalues,
   return fits ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
+// The stat stage of the layout L (qdim: the niw features) on the rows
+// values / qvalues / table_idx at the slots `assign`: MixedRows<NC, QD>
+// filled from L, launched.
+template <int NC, int QD>
+static int mixed_stage(const Layout& L, int qdim, const float* values,
+                       const float* qvalues, const int* table_idx,
+                       const int* assign, float* partials, unsigned* bmask,
+                       float* sums, float* qsums, int* tcounts_i,
+                       float* tcounts, int B, int C, cudaStream_t st) {
+  MixedRows<NC, QD> r;
+  memset(&r, 0, sizeof(r));
+  r.values = values;
+  r.qvalues = qvalues;
+  r.table_idx = table_idx;
+  r.ncols = L.ncols;
+  r.qvals = L.qvals;
+  r.n_tab = L.n_tab;
+  r.n_quad = L.n_quad;
+  r.nvtot = L.vtot;
+  r.qdim = qdim;
+  for (int g = 0; g < L.n_quad; ++g) {
+    r.quad_cols[g] = L.quad_cols[g];
+    r.quad_d[g] = L.quad_d[g];
+  }
+  for (int j = 0; j < L.n_tab; ++j) r.tab_off[j] = L.tab_off[j];
+  return stat_stage_launch(r, assign, partials, bmask, sums, qsums,
+                           3 * L.ncols, tcounts_i, tcounts, B, C, st);
+}
+
+static int launch_mixed_stage(const Layout& L, int qdim, const float* values,
+                              const float* qvalues, const int* table_idx,
+                              const int* assign, float* partials,
+                              unsigned* bmask, float* sums, float* qsums,
+                              int* tcounts_i, float* tcounts, int B, int C,
+                              cudaStream_t st) {
+  const bool niw2 = L.n_quad == 1 && L.quad_cols[0] == 1 &&
+                    L.quad_d[0] == 2 && L.n_nich <= 1;
+  if (niw2 && L.ncols == 1)
+    return mixed_stage<1, 2>(L, qdim, values, qvalues, table_idx, assign,
+                             partials, bmask, sums, qsums, tcounts_i, tcounts,
+                             B, C, st);
+  if (niw2 && L.ncols == 0)
+    return mixed_stage<0, 2>(L, qdim, values, qvalues, table_idx, assign,
+                             partials, bmask, sums, qsums, tcounts_i, tcounts,
+                             B, C, st);
+  return mixed_stage<0, 0>(L, qdim, values, qvalues, table_idx, assign,
+                           partials, bmask, sums, qsums, tcounts_i, tcounts,
+                           B, C, st);
+}
+
 // nich_cols[n_nich], quad_cols[n_quad], quad_d[n_quad], table_vs[n_tab]
 // describe the layout; values / qvalues / table_idx and their coefficient
 // arrays may be null when their count is 0.  partials is scratch of
-// [ceil(B / stat_rows), C, S] floats and tcounts_i of [C, Vtot] ints.
+// [nblocks, S, C] floats and bmask of [nblocks, ceil(C / 32)] words
+// (nblocks = ceil(B / stat_rows_per_block(B)), S = 3 * ncols + qdim;
+// fused_stats.cuh), tcounts_i of [C, Vtot] ints.
 // seed_ptr: null, or the seed in device memory in place of `seed`.
 extern "C" int fused_v3_launch(
     const float* values, const float* qvalues, const int* table_idx,
     const float* cl, const float* coeffs, const float* qcoeffs,
     const float* tables, const float* noise, int* out, float* partials,
-    float* sums, float* qsums, int* tcounts_i, float* tcounts, int B, int C,
-    int n_nich, const int* nich_cols, int n_quad, const int* quad_cols,
-    const int* quad_d, int n_tab, const int* table_vs, int mode, int fast,
-    unsigned long long seed, const unsigned long long* seed_ptr,
-    int stat_rows, void* stream) {
-  if (B < 1 || C < 1 || stat_rows < 1 || mode < MODE_ARGMAX ||
-      mode > MODE_CDF_HOST)
+    unsigned* bmask, float* sums, float* qsums, int* tcounts_i,
+    float* tcounts, int B, int C, int n_nich, const int* nich_cols,
+    int n_quad, const int* quad_cols, const int* quad_d, int n_tab,
+    const int* table_vs, int mode, int fast, unsigned long long seed,
+    const unsigned long long* seed_ptr, void* stream) {
+  if (B < 1 || C < 1 || mode < MODE_ARGMAX || mode > MODE_CDF_HOST)
     return (int)cudaErrorInvalidValue;
   Layout L;
   int qdim = 0;
@@ -599,28 +564,44 @@ extern "C" int fused_v3_launch(
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  return launch_mixed_stage(L, qdim, values, qvalues, table_idx, out,
+                            partials, bmask, sums, qsums, tcounts_i, tcounts,
+                            B, C, st);
+}
 
-  if (n_tab > 0) {
-    err = cudaMemsetAsync(tcounts_i, 0, (size_t)C * L.vtot * sizeof(int), st);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int S1 = 3 * L.ncols;
-  const int S = S1 + qdim;
-  const int CKS = S > 0 ? imin(C, (SMEM_FLOATS - stat_rows) / S) : 0;
-  if (S > 0 && CKS < 1) return (int)cudaErrorInvalidValue;
-  const int nblocks = (B + stat_rows - 1) / stat_rows;
-  const size_t smem2 = ((size_t)CKS * S + stat_rows) * sizeof(float);
-  fused_v3_stat_partials<<<nblocks, STAT_THREADS, smem2, st>>>(
-      values, qvalues, table_idx, out, partials, tcounts_i, B, C, L, S,
-      stat_rows, CKS);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int n = imax_(C * S, C * L.vtot);
-  const int grid3 = imin((n + 255) / 256, 1024);
-  fused_v3_stat_reduce<<<grid3, 256, 0, st>>>(partials, tcounts_i, sums, qsums,
-                                              tcounts, nblocks, C, S, S1,
-                                              L.vtot);
-  return (int)cudaGetLastError();
+// The stat stage alone on the slots `assign` [B] (a slot outside [0, C)
+// adds nothing): the outputs and scratch of fused_v3_launch for the rows
+// values / qvalues / table_idx of the layout.
+extern "C" int fused_v3_stats_launch(
+    const float* values, const float* qvalues, const int* table_idx,
+    const int* assign, float* partials, unsigned* bmask, float* sums,
+    float* qsums, int* tcounts_i, float* tcounts, int B, int C, int n_nich,
+    const int* nich_cols, int n_quad, const int* quad_cols,
+    const int* quad_d, int n_tab, const int* table_vs, void* stream) {
+  Layout L;
+  int qdim = 0;
+  if (B < 1 || C < 1 ||
+      !make_layout(n_nich, nich_cols, n_quad, quad_cols, quad_d, n_tab,
+                   table_vs, &L, &qdim))
+    return (int)cudaErrorInvalidValue;
+  return launch_mixed_stage(L, qdim, values, qvalues, table_idx, assign,
+                            partials, bmask, sums, qsums, tcounts_i, tcounts,
+                            B, C, (cudaStream_t)stream);
+}
+
+// How the stat stage cuts a launch of B rows of this layout against C
+// slots: info[0..6] as stat_plan_info's (fused_stats.cuh).
+extern "C" int fused_v3_stat_plan(int B, int C, int n_nich,
+                                  const int* nich_cols, int n_quad,
+                                  const int* quad_cols, const int* quad_d,
+                                  int n_tab, const int* table_vs, int* info) {
+  Layout L;
+  int qdim = 0;
+  if (!make_layout(n_nich, nich_cols, n_quad, quad_cols, quad_d, n_tab,
+                   table_vs, &L, &qdim))
+    return (int)cudaErrorInvalidValue;
+  return stat_plan_info(B, C, 3 * L.ncols + qdim, L.ncols, L.qvals, L.n_tab,
+                        L.vtot, info);
 }
 
 // The pair kernel over one shard's C slots: out[B] local slot ids, best[B]

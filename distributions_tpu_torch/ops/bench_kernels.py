@@ -15,6 +15,11 @@ the Pallas kernels on the JAX package's measurement entry points:
   score + sample kernel cut into cumulative phases (`csrc/fused_v2.cu`
   instantiated over a compile-time phase).
 
+Beside B5, the stat stage of K1 and K2 alone on given slots (the stage
+of `csrc/fused_stats.cuh` that K1 and K2 run after their draw; no TPU
+kernel of its own): `stat_sums` (K1's nich sums) and `mixed_stat_sums`
+(K2's nich and niw sums and count tables).
+
 Each wrapper takes its twin (`*_plain`) for CPU tensors.  For CUDA tensors
 it launches the hand-written kernel (built by `fused_kernels.build`) or
 raises; there is no fallback.  Its `launches` attribute counts the kernel
@@ -23,6 +28,7 @@ launches.
 
 import torch
 
+from distributions_tpu_torch.models import base
 from distributions_tpu_torch.ops import fused_kernels as fk
 from distributions_tpu_torch.random import device_generator
 
@@ -501,3 +507,112 @@ def fused_phase(phase, seed, values, cl_scores, coeffs, col_groups,
 
 
 fused_phase.launches = 0
+
+
+# -- the stat stage of K1 and K2 alone ----------------------------------------
+
+def stat_sums_plain(values, assign, C):
+    """The plain PyTorch version of `stat_sums`, on any device: an exact
+    f32 one-hot contraction (K1's twin's sums)."""
+    stats = torch.cat([torch.ones_like(values), values, values * values],
+                      dim=1)
+    return base.segment_sum(stats, assign, C)
+
+
+def stat_sums(values, assign, C):
+    """K1's stat stage alone: per slot k < C the sums [C, 3 * cols] of
+    [1 | v | v^2] over the rows of `values` [B, cols] f32 whose slot
+    `assign` [B] int32 is k; rows with a slot outside [0, C) add nothing.
+    The same launch as the stage inside K1 (`fused_v2_stats_launch`);
+    for measurement, off the main path.
+
+    CPU tensors run the plain twin; CUDA tensors launch the kernels or
+    raise."""
+    if _device_kind('stat_sums', values) == 'cpu':
+        return stat_sums_plain(values, assign, C)
+    dev = values.device
+    if values.dim() != 2 or not 1 <= values.shape[1] <= fk.MAX_COLS \
+            or values.shape[0] < 1 or C < 1:
+        raise ValueError('values must be [B >= 1, 1..%d], C >= 1'
+                         % fk.MAX_COLS)
+    B, cols = values.shape
+    fk._check('values', values, dev, (B, cols))
+    fk._check('assign', assign, dev, (B,), torch.int32)
+    lib = fk.build('fused_v2')['lib']
+    partials, bmask = fk.stat_scratch(B, C, 3 * cols, dev)
+    sums = torch.empty((C, 3 * cols), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.fused_v2_stats_launch(
+            values.data_ptr(), assign.data_ptr(), partials.data_ptr(),
+            bmask.data_ptr(), sums.data_ptr(), B, C, cols, _stream(dev))
+    fk._raise_on('fused_v2', lib, err)
+    stat_sums.launches += 1
+    return sums
+
+
+stat_sums.launches = 0
+
+
+def mixed_stat_sums_plain(values, qvalues, table_idx, assign, C, col_groups,
+                          quad_groups=(), table_vs=()):
+    """The plain PyTorch version of `mixed_stat_sums`, on any device: the
+    exact f32 one-hot contractions of K2's twin."""
+    sums, tcounts, qsums = fk._mixed_stat_sums(
+        assign, C, values, table_idx, tuple(col_groups), qvalues,
+        tuple(quad_groups), tuple(table_vs))
+    return sums, tcounts, qsums
+
+
+def mixed_stat_sums(values, qvalues, table_idx, assign, C, col_groups,
+                    quad_groups=(), table_vs=()):
+    """K2's stat stage alone on the slots `assign` [B] int32: (nich sums
+    [C, 3 * ncols], packed count tables [C, Vtot] f32, niw sums [C,
+    quad_stat_dim]) of the rows `values` / `qvalues` / `table_idx` in the
+    layout of `fk.fused_mixed_score_sample_stats` (None for a family that
+    is absent, which gives [C, 0]); rows with a slot outside [0, C) add
+    nothing.  The same launch as the stage inside K2
+    (`fused_v3_stats_launch`); for measurement, off the main path.
+
+    CPU tensors run the plain twin; CUDA tensors launch the kernels or
+    raise."""
+    col_groups = fk._check_col_groups(col_groups, 0)
+    quad_groups = tuple((int(nc), int(d)) for nc, d in quad_groups)
+    table_vs = tuple(int(v) for v in table_vs)
+    if _device_kind('mixed_stat_sums', assign) == 'cpu':
+        return mixed_stat_sums_plain(values, qvalues, table_idx, assign, C,
+                                     col_groups, quad_groups, table_vs)
+    if not quad_groups and not table_vs:
+        raise ValueError('mixed_stat_sums needs niw or table columns: '
+                         'nich columns alone are stat_sums')
+    dev = assign.device
+    B = assign.shape[0]
+    if assign.dim() != 1 or B < 1 or C < 1:
+        raise ValueError('assign must be [B >= 1], C >= 1')
+    # the layout's checks of K2, against a stand-in for its score inputs
+    cl = torch.empty(C, dtype=torch.float32, device=dev)
+    fk._check_mixed(
+        values, table_idx, cl,
+        torch.empty((sum(2 + 2 * c for c in col_groups), C), device=dev),
+        torch.empty((sum(table_vs), C), device=dev), col_groups, qvalues,
+        torch.empty((sum(2 + nc * (d + d * (d + 1) // 2)
+                         for nc, d in quad_groups), C), device=dev),
+        quad_groups, table_vs)
+    fk._check('assign', assign, dev, (B,), torch.int32)
+    lib = fk.build('fused_v3')['lib']
+    outputs = fk._mixed_stat_outputs(B, C, sum(col_groups), quad_groups,
+                                     sum(table_vs), dev)
+    with torch.cuda.device(dev):
+        err = lib.fused_v3_stats_launch(
+            fk._ptr(values if col_groups else None),
+            fk._ptr(qvalues if quad_groups else None),
+            fk._ptr(table_idx if table_vs else None), assign.data_ptr(),
+            *(t.data_ptr() for t in outputs), B, C,
+            *fk._layout_args(col_groups, quad_groups, table_vs),
+            _stream(dev))
+    fk._raise_on('fused_v3', lib, err)
+    mixed_stat_sums.launches += 1
+    _, _, sums, qsums, _, tcounts = outputs
+    return sums, tcounts, qsums
+
+
+mixed_stat_sums.launches = 0

@@ -50,8 +50,10 @@ MAX_QVALS = 16          # niw value columns in all (sum of cols * d)
 MAX_D = 4               # niw dimension
 MAX_TABLE_COLS = 16
 MAX_VTOT = 4096         # packed table rows
-# rows per block of the kernel's stat partial sums
-STAT_ROWS = 1024
+# the stat stage of K1 and K2 (csrc/fused_stats.cuh): the blocks a launch
+# aims at and the most rows a block takes
+STAT_GRID = 132
+STAT_MAX_ROWS = 1024
 # the slot-split walk of the argmax-family draws (csrc/fused_split.cuh):
 # threads per row (one slice of the slot axis each), rows per thread,
 # threads per block, and the unit of a staged slot record (floats: one
@@ -671,7 +673,8 @@ def mixed_score_sample_plain(seed, nich_values, table_indices, cl_scores,
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'csrc')
 # device code that the kernel sources include
-_HEADERS = ('fused_common.cuh', 'fused_split.cuh', 'hopper.cuh')
+_HEADERS = ('fused_common.cuh', 'fused_split.cuh', 'fused_stats.cuh',
+            'hopper.cuh')
 KERNELS = ('fused_v2', 'fused_v3', 'score_sample_v1', 'roofline',
            'sampler_bench')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -688,13 +691,15 @@ _LAYOUT = [_I, _IP, _I, _IP, _IP, _I, _IP]
 # ops/bench_kernels.py)
 _LAUNCHERS = {
     'fused_v2': {
-        'fused_v2_launch': [_P] * 7 + [_I, _I, _I, _IP, _I, _I, _U64, _P, _I,
+        'fused_v2_launch': [_P] * 8 + [_I, _I, _I, _IP, _I, _I, _U64, _P,
                                        _P],
+        'fused_v2_stats_launch': [_P] * 5 + [_I, _I, _I, _P],
         'fused_v2_phase_launch': [_P] * 6 + [_I, _I, _I, _IP, _I, _I, _I,
                                              _U64, _P]},
     'fused_v3': {
-        'fused_v3_launch': [_P] * 14 + [_I, _I] + _LAYOUT + [_I, _I, _U64,
-                                                             _P, _I, _P],
+        'fused_v3_launch': [_P] * 15 + [_I, _I] + _LAYOUT + [_I, _I, _U64,
+                                                             _P, _P],
+        'fused_v3_stats_launch': [_P] * 10 + [_I, _I] + _LAYOUT + [_P],
         'fused_v3_pair_launch': [_P] * 10 + [_I, _I] + _LAYOUT + [
             _I, _I, _U64, _P, _I, _P]},
     'score_sample_v1': {
@@ -711,10 +716,13 @@ _LAUNCHERS = {
 }
 
 # library -> its C entry points that report on a kernel without launching
-# it (the split kernel's occupancy) -> their argument types
+# it (the split kernel's occupancy, the stat stage's plan) -> their
+# argument types
 _QUERIES = {
-    'fused_v2': {'fused_v2_occupancy': [_I, _I, _IP, _I, _I, _I, _IP]},
-    'fused_v3': {'fused_v3_occupancy': [_I] + _LAYOUT + [_I, _I, _IP]},
+    'fused_v2': {'fused_v2_occupancy': [_I, _I, _IP, _I, _I, _I, _IP],
+                 'fused_v2_stat_plan': [_I, _I, _I, _IP]},
+    'fused_v3': {'fused_v3_occupancy': [_I] + _LAYOUT + [_I, _I, _IP],
+                 'fused_v3_stat_plan': [_I, _I] + _LAYOUT + [_IP]},
     'score_sample_v1': {'score_sample_v1_occupancy': [_I, _I, _I, _I, _IP]},
 }
 
@@ -932,6 +940,55 @@ def split_occupancy(name, C, col_groups, quad_groups=(), table_vs=(),
                     info))
 
 
+def stat_blocks(B):
+    """Blocks of the stat stage's launch over B rows
+    (csrc/fused_stats.cuh stat_rows_per_block): one per SM of the H100
+    (STAT_GRID), each of a multiple of 32 rows, at most STAT_MAX_ROWS."""
+    rows = -(-B // STAT_GRID)
+    rows = min(STAT_MAX_ROWS, -(-rows // 32) * 32)
+    return -(-B // rows)
+
+
+def stat_scratch(B, C, S, dev):
+    """The stat stage's scratch for B rows of S float features against C
+    slots: per-block partials [blocks, S, C] f32 and their slot bits
+    [blocks, ceil(C / 32)] (int32 words)."""
+    nblocks = stat_blocks(B)
+    return (torch.empty((nblocks, S, C), dtype=torch.float32, device=dev),
+            torch.empty((nblocks, -(-C // 32)), dtype=torch.int32,
+                        device=dev))
+
+
+def _mixed_stat_outputs(B, C, ncols, quad_groups, vtot, dev):
+    """(partials, bmask, sums, qsums, tcounts_i, tcounts): the scratch and
+    outputs of K2's stat stage, in the order fused_v3_launch takes them."""
+    qdim = quad_stat_dim(quad_groups)
+
+    def empty(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    return stat_scratch(B, C, 3 * ncols + qdim, dev) + (
+        empty((C, 3 * ncols)), empty((C, qdim)),
+        empty((C, vtot), torch.int32), empty((C, vtot)))
+
+
+def stat_plan(name, B, C, col_groups, quad_groups=(), table_vs=()):
+    """How the stat stage of library `name` ('fused_v2': K1, nich column
+    groups `col_groups`; 'fused_v3': K2's layout) cuts a launch of B rows
+    against C slots: rows a block, rows staged at once, warps, slots a
+    chunk, whether the count tables sit in shared memory, blocks and
+    dynamic shared memory bytes.  Needs the card."""
+    lib = build(name)['lib']
+    info = (ctypes.c_int * 7)()
+    if name == 'fused_v2':
+        err = lib.fused_v2_stat_plan(B, C, sum(col_groups), info)
+    else:
+        err = lib.fused_v3_stat_plan(
+            B, C, *_layout_args(col_groups, quad_groups, table_vs), info)
+    _raise_on(name, lib, err)
+    return dict(zip(('rows_per_block', 'staged_rows', 'warps', 'chunk_slots',
+                     'tables_in_shared', 'blocks', 'smem_bytes'), info))
+
+
 def _launch(seed, values, cl_scores, coeffs, col_groups, sampling, noise):
     mode, fast = _parse_sampling(sampling)
     col_groups = _check_col_groups(col_groups, 1)
@@ -952,18 +1009,16 @@ def _launch(seed, values, cl_scores, coeffs, col_groups, sampling, noise):
 
     lib = build('fused_v2')['lib']
     out = torch.empty(B, dtype=torch.int32, device=dev)
-    nblocks = (B + STAT_ROWS - 1) // STAT_ROWS
-    partials = torch.empty((nblocks, C, 3 * total_cols), dtype=torch.float32,
-                           device=dev)
+    partials, bmask = stat_scratch(B, C, 3 * total_cols, dev)
     sums = torch.empty((C, 3 * total_cols), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_v2_launch(
             values.data_ptr(), cl_scores.data_ptr(), coeffs.data_ptr(),
             _ptr(noise), out.data_ptr(), partials.data_ptr(),
-            sums.data_ptr(), B, C, len(col_groups), _int_array(col_groups),
-            SAMPLING_MODES[mode], int(fast), seed, seed_ptr, STAT_ROWS,
-            stream)
+            bmask.data_ptr(), sums.data_ptr(), B, C, len(col_groups),
+            _int_array(col_groups), SAMPLING_MODES[mode], int(fast), seed,
+            seed_ptr, stream)
     _raise_on('fused_v2', lib, err)
     fused_score_sample_stats.launches += 1
     return out, sums
@@ -1084,31 +1139,20 @@ def _launch_mixed(seed, values, table_idx, cl_scores, coeffs, tables,
     seed, seed_ptr = _seed_args(seed, dev)
 
     lib = build('fused_v3')['lib']
-    qdim = quad_stat_dim(quad_groups)
-    S = 3 * ncols + qdim
-    nblocks = (B + STAT_ROWS - 1) // STAT_ROWS
-
-    def empty(shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-    out = empty(B, torch.int32)
-    partials = empty((nblocks, C, S))
-    sums = empty((C, 3 * ncols))
-    qsums = empty((C, qdim))
-    tcounts_i = empty((C, vtot), torch.int32)
-    tcounts = empty((C, vtot))
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    outputs = _mixed_stat_outputs(B, C, ncols, quad_groups, vtot, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_v3_launch(
             *_mixed_pointers(values, table_idx, cl_scores, coeffs, tables,
                              col_groups, qvalues, qcoeffs, quad_groups,
                              table_vs, noise),
-            out.data_ptr(), partials.data_ptr(), sums.data_ptr(),
-            qsums.data_ptr(), tcounts_i.data_ptr(), tcounts.data_ptr(), B, C,
+            out.data_ptr(), *(t.data_ptr() for t in outputs), B, C,
             *_layout_args(col_groups, quad_groups, table_vs),
-            SAMPLING_MODES[mode], int(fast), seed, seed_ptr, STAT_ROWS,
-            stream)
+            SAMPLING_MODES[mode], int(fast), seed, seed_ptr, stream)
     _raise_on('fused_v3', lib, err)
     fused_mixed_score_sample_stats.launches += 1
+    _, _, sums, qsums, _, tcounts = outputs
     return out, sums, tcounts, qsums
 
 

@@ -6,7 +6,8 @@ with a GPU and no JAX, run them with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-(`-k pair` picks the tests of K3, `-k bench` those of B1-B5, `-k fused`
+(`-k pair` picks the tests of K3, `-k bench` those of B1-B5, `-k
+stat_stage` those of the stat stage of K1 and K2, `-k fused`
 the edge tests of the slot-split walk of K1, B5, K2 and K3, `-k v1_split`
 those of its v1 form in K4 and K5, `-k on_the_card` the samplers, the
 LowEntropy prior and the other moves, `-k "graph or seed_pointer"` the
@@ -16,6 +17,7 @@ chains, the runner on each path; and K1-K5 reading their seed from device
 memory.)
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -1784,3 +1786,158 @@ def test_graph_v1_runner_replays(dev, monkeypatch):
     assert stats['captures'] == 1 and stats['replays'] == 5
     assert stats['score_captures'] == 1 and stats['score_replays'] == 2
     assert fk.nich_score_sample.launches == before + 2 * 4 * 6
+
+
+# -- the stat stage of K1 and K2 (csrc/fused_stats.cuh) -----------------------
+
+def _stat_slots(dev, kind, B, C):
+    """int32 [B] on the card: every row in one slot, uniform slots,
+    Pitman-Yor {alpha 1, d 0.1} stick-breaking weights cut to C, or a
+    quarter of the rows outside [0, C) (some far out)."""
+    g = torch.Generator().manual_seed(B + C)
+    if kind == 'one':
+        a = torch.full((B,), C // 3, dtype=torch.int32)
+    elif kind == 'uniform':
+        a = torch.randint(0, C, (B,), generator=g, dtype=torch.int32)
+    elif kind == 'pitman_yor':
+        rng = np.random.RandomState(B + C)
+        v = rng.beta(0.9, 1.0 + 0.1 * np.arange(1, C + 1))
+        w = v * np.concatenate([[1.0], np.cumprod(1.0 - v)[:-1]])
+        a = torch.from_numpy(rng.choice(C, B, p=w / w.sum()).astype(
+            np.int32))
+    else:
+        a = torch.randint(-C // 8, C + C // 8, (B,), generator=g,
+                          dtype=torch.int32)
+        a[::7] = -1000000
+        a[1::11] = C + 100000
+    return a.to(dev)
+
+
+def _stage_holds(launch, plain, exact=()):
+    """The stage against its twin (float sums within SUM_RTOL / SUM_ATOL,
+    the outputs in `exact` equal), twice bitwise, and a CUDA graph replay
+    of it bitwise an eager launch."""
+    got, want = launch(), plain()
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape
+        if i in exact:
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=SUM_RTOL, atol=SUM_ATOL)
+    assert all(torch.equal(a, b) for a, b in zip(got, launch()))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, replayed))
+
+
+STAT_KINDS = ('one', 'uniform', 'pitman_yor', 'outside')
+
+
+@pytest.mark.parametrize('B,C', [(4096, 1024), (3001, 1000), (131072 - 77,
+                                                              1024),
+                                 (65536, 8192), (257, 2500)])
+@pytest.mark.parametrize('kind', STAT_KINDS)
+def test_stat_stage_k1_matches_twin(dev, kind, B, C):
+    v = torch.randn((B, 2), generator=torch.Generator().manual_seed(B)).to(
+        dev)
+    a = _stat_slots(dev, kind, B, C)
+    before = bk.stat_sums.launches
+    _stage_holds(lambda: (bk.stat_sums(v, a, C),),
+                 lambda: (bk.stat_sums_plain(v, a, C),))
+    assert bk.stat_sums.launches == before + 3
+
+
+@pytest.mark.parametrize('B,C', [(4096, 1024), (3001, 1000), (65536, 8192),
+                                 (257, 2500)])
+@pytest.mark.parametrize('kind', STAT_KINDS)
+@pytest.mark.parametrize('layout', sorted(SPLIT_LAYOUTS) + ['tables'])
+def test_stat_stage_k2_matches_twin(dev, layout, kind, B, C):
+    """K2's layouts of the split-walk tests, and table columns alone (no
+    float sums); count tables exact."""
+    groups, quads, tvs = SPLIT_LAYOUTS.get(layout, ((), (), (2, 7, 3)))
+    args, kwargs = _rand_layout(dev, B, C, groups, quads, tvs, seed=B)
+    values, table_idx = args[0], args[1]
+    a = _stat_slots(dev, kind, B, C)
+    call = (values, kwargs['qvalues'], table_idx, a, C, groups, quads, tvs)
+    _stage_holds(lambda: bk.mixed_stat_sums(*call),
+                 lambda: bk.mixed_stat_sums_plain(*call), exact=(1,))
+
+
+def test_stat_stage_plans_and_shared_memory_opt_in(dev):
+    """The C plan's blocks are stat_blocks' (which sizes the partials);
+    the main path's tiles and 8192 slots take more than the 48 KB of
+    shared memory a block gets without opting in, and 8192 slots walk the
+    staged rows in chunks of 1024."""
+    for B in (1, 33, 3001, 16384, 65536, 131072, 131073, 1048576):
+        assert fk.stat_plan('fused_v2', B, 1024, (2,))['blocks'] == \
+            fk.stat_blocks(B)
+    p = fk.stat_plan('fused_v2', 131072, 1024, (2,))
+    assert (p['warps'], p['chunk_slots'], p['rows_per_block']) == \
+        (8, 1024, 1024)
+    assert p['smem_bytes'] > 48 * 1024
+    q = fk.stat_plan('fused_v3', 65536, 1024, (1,), ((1, 2),), (2,))
+    assert (q['warps'], q['tables_in_shared']) == (4, 1)
+    r = fk.stat_plan('fused_v2', 65536, 8192, (2,))
+    assert r['chunk_slots'] == 1024 and r['smem_bytes'] > 48 * 1024
+    v = torch.randn((65536, 2), device=dev)
+    a = _stat_slots(dev, 'uniform', 65536, 8192)
+    torch.testing.assert_close(bk.stat_sums(v, a, 8192),
+                               bk.stat_sums_plain(v, a, 8192),
+                               rtol=SUM_RTOL, atol=SUM_ATOL)
+
+
+@pytest.mark.parametrize('sampling', ['gumbel', 'argmax', 'cdf'])
+def test_stat_stage_inside_k1_and_k2_is_the_stage_alone(dev, sampling):
+    """K1's and K2's sums are, bitwise, the stage alone on their draws."""
+    v, cls, co = _inputs(dev, 65536, 1024)
+    a, s = fk.fused_score_sample_stats(7, v, cls, co, (2,),
+                                       sampling=sampling)
+    assert torch.equal(s, bk.stat_sums(v, a, 1024))
+    args, kwargs, _ = _mixed_inputs(dev, 'niw2mix', 65536, 1024)
+    out = fk.fused_mixed_score_sample_stats(7, *args, sampling=sampling,
+                                            **kwargs)
+    alone = bk.mixed_stat_sums(args[0], kwargs['qvalues'], args[1], out[0],
+                               1024, args[5], kwargs['quad_groups'],
+                               kwargs['table_vs'])
+    assert all(torch.equal(x, y) for x, y in zip(alone, out[1:]))
+
+
+def test_stat_stage_wrappers_reject_bad_inputs(dev):
+    v = torch.randn((512, 2), device=dev)
+    a = torch.zeros(512, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        bk.stat_sums(v, a.long(), 64)
+    with pytest.raises(ValueError):
+        bk.stat_sums(v[:-1], a, 64)
+    with pytest.raises(ValueError):
+        bk.mixed_stat_sums(v, None, None, a, 64, (2,))
+
+
+# -- niw's score for a scale that is not positive definite -------------------
+
+def test_niw_non_pd_scale_gives_non_finite_scores_on_the_card(dev):
+    """models/niw.py factors the predictive scale with cholesky_ex, which
+    reads no status: a scale that is not positive definite gives
+    non-finite score rows, as the JAX package's all-NaN factor does, and
+    raises nothing (ROADMAP Queue 3 item 21)."""
+    from distributions_tpu_torch.models import niw
+    raw = {'mu': [0.0, 0.0], 'kappa': 1.0, 'psi': [[1.0, 2.0], [2.0, 1.0]],
+           'nu': 3.0}
+    shared = niw.shared_from_dict(raw, device=dev)
+    group = niw.group_init(shared, (3,))
+    values = torch.randn((5, 2), device=dev)
+    scores = niw.score_value_batch(shared, group, values)
+    torch.cuda.synchronize()
+    assert scores.shape == (5, 3)
+    assert not torch.isfinite(scores).any()
+    one = niw.score_value(shared, group, values[0])
+    assert not torch.isfinite(one).any()
+    # a positive definite scale beside it stays finite
+    good = niw.shared_from_dict(dict(raw, psi=[[2.0, 1.0], [1.0, 2.0]]),
+                                device=dev)
+    assert torch.isfinite(niw.score_value_batch(
+        good, niw.group_init(good, (3,)), values)).all()
