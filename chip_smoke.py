@@ -257,6 +257,26 @@ exits non-zero:
                  recompute, tile 0 in 'argmax' against the plain path's
                  argmax (near-ties only); ms per sweep and the profile of
                  one fused sweep.
+6i'. reference_configs -- the JAX package's documented benchmark
+                 configurations (benchmarks/bench_runner.py, bench.py at
+                 BENCH_COMPONENTS=8192 and BENCH_FEATURES=1) through
+                 run_gibbs(use_pallas=True) at 1,048,576 rows, 50 sweeps a
+                 step, 7C/8 generating clusters (3C/4 where 7C/8 fills
+                 1024 slots: nich2, nich1), warm from their labels,
+                 grow_headroom=0, 'gumbel': nich2 at 1024 slots (3 steps)
+                 and at 8192 (2), one nich column (K1's one-column shape)
+                 and the bb model under a CRP (K2 with one table column),
+                 one line each: run_main's launch, graph and profile
+                 checks, check_state, capacity unchanged, ms/sweep (median
+                 of the steps after the first), cells/s, the device split
+                 of a replayed sweep, occupied groups per step.  Then at
+                 8192 slots: sweep_blocked_pallas (K4), sweep_blocked and
+                 sharded_sweep_2d_fused on 2 x 4 (K3, slot offsets up to
+                 6144) graph against eager, bitwise, timed in turns; K1,
+                 K3 (each shard, the last timed), K4 and K2 on the bb
+                 layout (also at 1024) against their twins in 'argmax' and
+                 'gumbel_host', 'gumbel' on its Philox noise, ms and
+                 shares of the bounds.
 6j. moves     -- on the nich2 state at full width: one sweep_mh (tiles of
                  131,072, 4 steps), 20 split_merge_move and 3
                  split_merge_restricted (no depth cut), sweep_sequential at
@@ -323,7 +343,8 @@ exits non-zero:
                  the library call's time where one PyTorch call computes
                  the same and, for a kernel redesigned after its port, the
                  design it has now; K1 and K2 also give their launches in
-                 main_le.
+                 main_le, K1-K4 theirs in reference_configs and their ms
+                 at 8192 slots.
 
 The entry points are called without a device, so they run on the package's
 default device, the card.  The last line is {"ok": true, "device": {...}}.
@@ -332,6 +353,7 @@ false.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -578,17 +600,26 @@ def mixed_inputs(port, kind, B, C, n_clusters, seed=0):
     """A mixed problem on the card (default device) and K2's inputs for
     its first B rows against the state of all its rows."""
     import torch
-    mx, cl, gibbs, testing = (port['mx'], port['cl'], port['gibbs'],
-                              port['testing'])
+    mx, cl, testing = port['mx'], port['cl'], port['testing']
     problem = testing.mixed_problem(B, C, seed=seed, kind=kind,
                                     n_clusters=n_clusters)
     spec, py, shareds = testing.build_problem(
         problem, port['models'], mx.make_spec, cl.PitmanYor.from_dict)
     dev = py.alpha.device
     values = tuple(torch.from_numpy(v).to(dev) for v in problem['values'])
-    state = mx.state_from_assignments(
-        spec, py, shareds, values, torch.from_numpy(problem['labels']).to(dev))
+    return tile_inputs(port, spec, py, shareds, values,
+                       torch.from_numpy(problem['labels']).to(dev), B)
+
+
+def tile_inputs(port, spec, py, shareds, values, labels, B):
+    """K2's (and K3's) inputs for the first B rows of a problem on the
+    card, against the state that `labels` give all its rows."""
+    mx, cl, gibbs = port['mx'], port['cl'], port['gibbs']
+    state = mx.state_from_assignments(spec, py, shareds, values, labels)
     lay = gibbs._mixed_static_layout(spec, values)
+    lay = lay._replace(**{
+        k: None if getattr(lay, k) is None else getattr(lay, k)[:B]
+        .contiguous() for k in ('nich_vals', 'quad_vals', 'table_idx')})
     coeffs, qcoeffs, tables = gibbs._build_fused_inputs(spec, lay, shareds,
                                                         state)
     cl_scores = cl.score_value(py, state.counts, state.alive,
@@ -599,13 +630,18 @@ def mixed_inputs(port, kind, B, C, n_clusters, seed=0):
                 cl_scores=cl_scores, col_groups=col_groups)
 
 
+def tile_rows(lay):
+    """The rows of a fused layout's tile."""
+    return next(x for x in (lay.table_idx, lay.quad_vals, lay.nich_vals)
+                if x is not None).shape[0]
+
+
 def k2_case(port, m):
     import torch
     fk = port['fk']
     lay = m['lay']
     C = m['cl_scores'].shape[0]
-    B = lay.table_idx.shape[0] if lay.table_idx is not None \
-        else lay.quad_vals.shape[0]
+    B = tile_rows(lay)
     args = (lay.nich_vals, lay.table_idx, m['cl_scores'], m['coeffs'],
             m['tables'], m['col_groups'])
     kwargs = dict(qvalues=lay.quad_vals, qcoeffs=m['qcoeffs'],
@@ -1417,8 +1453,7 @@ def check_pair_shards(port, m, cuts, noise, z_scores):
     fk, testing = port['fk'], port['testing']
     lay = m['lay']
     C = m['cl_scores'].shape[0]
-    B = (lay.table_idx if lay.table_idx is not None
-         else lay.quad_vals).shape[0]
+    B = tile_rows(lay)
     k2_args = (lay.nich_vals, lay.table_idx, m['cl_scores'], m['coeffs'],
                m['tables'], m['col_groups'])
     k2_kwargs = dict(qvalues=lay.quad_vals, qcoeffs=m['qcoeffs'],
@@ -2238,23 +2273,25 @@ def expect_graph(what, stats, sweeps, steps, captures=1):
                 pool_bytes=stats['pool_bytes'])
 
 
-def run_main(port, wrapper, spec, py, shareds, values_np, labels, block):
+def run_main(port, wrapper, spec, py, shareds, values_np, labels, block,
+             steps=STEPS, sweeps_per_step=SWEEPS_PER_STEP):
     """run_gibbs on numpy rows and labels with no device named, with the
     launch count of `wrapper` and the graph counters set to 0 just before
     and read just after."""
     import torch
-    tiles = ROWS // block
-    passes = STEPS * SWEEPS_PER_STEP
+    rows = len(labels)
+    tiles = rows // block
+    passes = steps * sweeps_per_step
     torch.cuda.synchronize()
     wrapper.launches = 0
     stats = graph_counts(port)
-    log = last_step_profiler(port, STEPS, wrapper)
+    log = last_step_profiler(port, steps, wrapper)
     t0 = time.time()
     state, assignments, log = port['runner'].run_gibbs(
         spec, py, shareds, values_np, torch.Generator().manual_seed(0),
         passes, block=block, use_pallas=True, sampling='gumbel',
         initial_assignments=labels, grow_headroom=0.0,
-        sweeps_per_step=SWEEPS_PER_STEP, log=log)
+        sweeps_per_step=sweeps_per_step, log=log)
     torch.cuda.synchronize()
     wall = time.time() - t0
     last = log.stop()
@@ -2262,10 +2299,10 @@ def run_main(port, wrapper, spec, py, shareds, values_np, labels, block):
     if launches != tiles * passes:
         raise AssertionError('%d kernel launches, expected tiles x sweeps '
                              '= %d' % (launches, tiles * passes))
-    graphs = expect_graph('run_gibbs', stats, passes, STEPS)
+    graphs = expect_graph('run_gibbs', stats, passes, steps)
     # the launches the wrapper counted in the last step, replays included,
     # against the kernels the device ran in it
-    want = tiles * SWEEPS_PER_STEP
+    want = tiles * sweeps_per_step
     seen = last.get('kernel_calls', {}).get('split_score_sample')
     if not seen == last['launches_counted'] == want:
         raise AssertionError(
@@ -2281,15 +2318,16 @@ def run_main(port, wrapper, spec, py, shareds, values_np, labels, block):
             'run_gibbs: in its last step the device ran %r stat stages, '
             'expected tiles x sweeps = %d (profile: %s)'
             % (stat_seen, want, last))
-    steps = [r['seconds'] for r in log.rows]
+    step_seconds = [r['seconds'] for r in log.rows]
     # steady steps: the first also builds the stat cache and captures the
-    # graph, the last is profiled
-    steady = steps[1:-1]
-    ms_sweep = 1e3 * sum(steady) / (SWEEPS_PER_STEP * len(steady))
+    # graph, the last is profiled (of two steps, the profiled one)
+    steady = step_seconds[1:-1] or step_seconds[1:]
+    ms_sweep = 1e3 * sum(steady) / (sweeps_per_step * len(steady))
     return state, assignments, log, {
-        'rows': ROWS, 'slots': SLOTS, 'block': block, 'sampling': 'gumbel',
-        'sweeps': passes, 'sweeps_per_step': SWEEPS_PER_STEP,
-        'step_seconds': steps, 'wall_seconds': round(wall, 3),
+        'rows': rows, 'slots': spec.capacity, 'block': block,
+        'sampling': 'gumbel', 'sweeps': passes,
+        'sweeps_per_step': sweeps_per_step,
+        'step_seconds': step_seconds, 'wall_seconds': round(wall, 3),
         'ms_per_sweep': ms_sweep, 'launches': launches, 'graphs': graphs,
         'last_step_profile': last,
         'busy_share_steady_step': last['device_busy_share'],
@@ -2300,8 +2338,19 @@ def run_main(port, wrapper, spec, py, shareds, values_np, labels, block):
 # Closed as soon as the card has synchronised, it lost the last tiles of 1
 # of 80 profiles of 5 replayed niw2mix sweeps on an H100; opened and closed
 # this long away from the profiled work, card idle, 0 of 80 lost any
-# (chip_profile_window.py).
+# (chip_profile_window.py).  The card's timestamps can also run fast against
+# the host's clock, so the window's end drifts into the work it closes: on
+# an H100 a step of 400 K1 launches, 2.14 s on the host's clock, read as
+# 2.20 s of device time, and its last 7 launches fell after a 0.1 s pad.
+# The pad after the work therefore grows with the work.
 PROFILE_PAD_SECONDS = 0.1
+PROFILE_PAD_SHARE = 0.25
+
+
+def profile_pad(wall_seconds):
+    """Seconds to leave the card idle after `wall_seconds` of profiled
+    work before the profiler's window closes."""
+    return max(PROFILE_PAD_SECONDS, PROFILE_PAD_SHARE * wall_seconds)
 
 
 def profile_sweep(sweep, kernel_names):
@@ -2321,7 +2370,7 @@ def profile_sweep(sweep, kernel_names):
         sweep()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.time() - t0)
-        time.sleep(PROFILE_PAD_SECONDS)
+        time.sleep(profile_pad(wall_ms / 1e3))
     return device_profile(prof, wall_ms, kernel_names)
 
 
@@ -2332,6 +2381,10 @@ def device_profile(prof, wall_ms, kernel_names):
     rows = []
     calls = {}
     stat_calls = {}
+    # first device event's start to last one's end, on the card's clock: above
+    # wall_ms, the card's timestamps ran fast against the host's
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type != DeviceType.CPU]
     for e in prof.key_averages():
         if e.device_type == DeviceType.CPU:
             continue
@@ -2353,7 +2406,9 @@ def device_profile(prof, wall_ms, kernel_names):
     # the stat stage of K1 and K2 (csrc/fused_stats.cuh), wherever it ran
     stat_ms = sum(us for us, k in rows
                   if any(name in k for name in STAT_KERNELS)) / 1e3
+    span_ms = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3
     return {'wall_ms': wall_ms, 'device_ms': total_ms,
+            'device_span_ms': span_ms,
             'kernel_device_ms': kernel_ms, 'kernel_calls': calls,
             'stat_stage_device_ms': stat_ms, 'stat_stage_calls': stat_calls,
             'device_busy_share': total_ms / wall_ms,
@@ -2390,7 +2445,7 @@ def last_step_profiler(port, steps, wrapper):
             torch.cuda.synchronize()
             t = time.time()
             wall_ms = 1e3 * (t - self.t0)
-            time.sleep(PROFILE_PAD_SECONDS)
+            time.sleep(profile_pad(wall_ms / 1e3))
             self.prof.stop()
             out = device_profile(self.prof, wall_ms, ('split_score_sample',))
             out.pop('top', None)
@@ -4040,13 +4095,19 @@ def additive_leaves(module, group):
 
 
 def check_state(port, spec, cl_model, shareds, values, state, assignments,
-                what):
+                what, updates=0):
     """The state equals state_from_assignments of its assignments: counts,
     the alive mask and integer stats exactly, float stats in their
     additive form within rtol 1e-5 / atol 1e-3 (nich's count_times_variance
     is a difference of two such sums, ~1e4 each at this data's means, and
     carries their rounding); score_data within 1e-4 of a fresh recompute.
-    Returns (fresh score, the largest float difference of each form)."""
+    `updates`: the incremental tile updates (an unmerge and a merge a tile
+    and sweep) that each slot's float stats went through since they were
+    built from the assignments.  Each rounds in f32, in the JAX package's
+    runner as in the port's, so a float leaf may also differ by updates x
+    2^-24 x its largest magnitude (0: the tolerance above alone, which
+    holds over about ten sweeps).  Returns (fresh score, the largest float
+    difference of each form)."""
     import torch
     mx = port['mx']
     fresh = mx.state_from_assignments(spec, cl_model, shareds, values,
@@ -4065,8 +4126,9 @@ def check_state(port, spec, cl_model, shareds, values, state, assignments,
                 worst[form] = max(worst[form],
                                   float((a - b).abs().max()))
                 if form == 'additive':
+                    drift = updates * 2.0 ** -24 * float(b.abs().max())
                     ok = ok and torch.allclose(a, b, rtol=SUM_RTOL,
-                                               atol=SUM_ATOL)
+                                               atol=SUM_ATOL + drift)
     score = float(mx.score_data(spec, cl_model, shareds, state))
     want = float(mx.score_data(spec, cl_model, shareds, fresh))
     if not (ok and abs(score - want) <= 1e-4 * abs(want)):
@@ -4198,6 +4260,371 @@ def phase_main_le(port, X, labels, mixed):
                   k: sorted(v)[len(v) // 2] for k, v in by_prior.items()},
               'one_sweep_wall_ms_turns': by_prior})
     return launches
+
+
+# -- the JAX package's documented runner configurations ----------------------
+
+REF_SPS = 50            # benchmarks/bench_runner.py's sweeps a step
+REF_BLOCK = 131072
+REF_SLOTS = 8192        # bench.py with BENCH_COMPONENTS=8192 (BENCH.md)
+# (line, bench_runner model, nich columns, slots, steps, generating
+# clusters as (num, den) of the slots).  The JAX runner's 7C/8 where the
+# port's runner holds it; on an H100 nich2 at 1024 slots from 7C/8 ended
+# its first step with 1022 groups and its second with none free (the
+# runner's refusal), nich1 ended its two steps with 1022 and 1023: both
+# run from 3C/4, bench_runner's default.  At 8192 slots 7168 clusters
+# merge (5419 and 3645 groups after the two steps); bb1 holds ~900.
+REF_CONFIGS = (
+    ('nich2_sps50', 'nich', 2, SLOTS, 3, (3, 4)),
+    ('nich2_c8192', 'nich', 2, REF_SLOTS, 2, (7, 8)),
+    ('nich1_sps50', 'nich', 1, SLOTS, 2, (3, 4)),
+    ('bb1_sps50', 'bb', 1, SLOTS, 2, (7, 8)))
+# chained sweeps of each 8192-slot path, graph against eager
+REF_PATH_SWEEPS = {'v1': 3, 'plain': 2, 'fused_2d': 3}
+REF_DET_MODES = ('argmax', 'gumbel_host')
+
+
+def reference_problem(port, model, cols, C, frac):
+    """bench_runner's problem of `model` at ROWS rows and C slots, with
+    frac = (num, den) of the slots as generating clusters: (spec, prior,
+    shareds, numpy values, numpy labels, generating clusters)."""
+    num, den = frac
+    n_true = C // den * num
+    return port['bench_runner'].problem(model, ROWS, C, n_true, cols) + (
+        n_true,)
+
+
+def reference_run(port, name, model, cols, C, steps, frac):
+    """One configuration through run_gibbs(use_pallas=True) at full width,
+    REF_SPS sweeps a step, warm from the generating labels,
+    grow_headroom=0, 'gumbel': run_main's launch, graph and profile
+    checks, check_state, the logged score against a recompute, capacity
+    unchanged.  Returns (line, problem on the card, launches)."""
+    import statistics
+    import torch
+    fk = port['fk']
+    spec, py, shareds, values_np, labels, n_true = reference_problem(
+        port, model, cols, C, frac)
+    wrapper = fk.fused_mixed_score_sample_stats if model == 'bb' \
+        else fk.fused_score_sample_stats
+    state, assignments, log, run = run_main(
+        port, wrapper, spec, py, shareds, values_np, labels, REF_BLOCK,
+        steps=steps, sweeps_per_step=REF_SPS)
+    dev = assignments.device
+    values = tuple(torch.as_tensor(v, device=dev) for v in values_np)
+    # every slot's float stats take an unmerge and a merge a tile and sweep
+    updates = 2 * ROWS // REF_BLOCK * steps * REF_SPS
+    fresh, worst = check_state(port, spec, py, shareds, values, state,
+                               assignments, name, updates)
+    score = log.rows[-1]['score_data']
+    checks = {
+        'capacity_unchanged': state.counts.shape[0] == C,
+        'range': bool(((assignments >= 0) & (assignments < C)).all()),
+        'on_the_card': dev.type == 'cuda',
+        'finite': math.isfinite(score),
+        'fresh_score': abs(score - fresh) <= 1e-4 * abs(fresh)}
+    if not all(checks.values()):
+        raise AssertionError('%s: the run is wrong: %s (score %r, fresh %r)'
+                             % (name, checks, score, fresh))
+    last = run.pop('last_step_profile')
+    ms = 1e3 * statistics.median(run['step_seconds'][1:]) / REF_SPS
+    features = cols if model == 'nich' else len(spec.blocks)
+    # the profiled last step: REF_SPS replayed sweeps and one replay of the
+    # step's score graph (in 'rest'), per sweep
+    split = {'device_ms': last['device_ms'] / REF_SPS,
+             'split_kernel_ms': last['kernel_device_ms'] / REF_SPS,
+             'stat_stage_ms': last['stat_stage_device_ms'] / REF_SPS}
+    split['rest_ms'] = split['device_ms'] - split['split_kernel_ms'] \
+        - split['stat_stage_ms']
+    line = dict(run, phase='reference_configs', config=name, model=model,
+                features=features, generating_clusters=n_true,
+                ms_per_sweep_median=ms,
+                cells_per_sec=float(ROWS) * C * features / (ms / 1e3),
+                device_split_per_sweep=split,
+                busy_share_profiled_step=last['device_busy_share'],
+                profiled_step=last,
+                nonempty_groups_per_step=[r['nonempty_groups']
+                                          for r in log.rows],
+                final_capacity=int(state.counts.shape[0]),
+                score_data=score, fresh_score_data=fresh,
+                state_max_float_difference=worst,
+                state_float_updates=updates, checks=checks)
+    del state, assignments, log
+    labels = torch.as_tensor(labels, device=dev)
+    return line, (spec, py, shareds, values, labels, n_true), run['launches']
+
+
+def reference_kernel(port, launch, plain, modes, philox, bd, B, C):
+    """A kernel against its twin at one input of the 8192-slot problems:
+    `modes` {mode: compare_mode-style result}, 'gumbel' on its Philox
+    noise (`philox`), then milliseconds of the kernel ('gumbel', the seed
+    read from device memory as the sweeps' graphs launch it) and of its
+    twin, and its shares of the nominal and measured bounds (`bd`)."""
+    import torch
+    seed_t = torch.tensor([3], device=port['config'].default_device())
+    ms = cuda_ms(lambda: launch('gumbel', None, seed_t), 7)
+    return dict(bd, B=B, C=C, modes=modes, philox_exact=philox, ms=ms,
+                plain_ms=cuda_ms(lambda: plain('gumbel', None, 3), 3),
+                nominal_bound_share=bd['bound_ms'] / ms,
+                measured_bound_share=bd['measured_bound_ms'] / ms)
+
+
+# Philox words of slots g >= 4096 come from counter words q = g / 4 >= 1024
+PHILOX_HIGH_SLOT = 4096
+
+
+def reference_kernels(port, problem):
+    """K1, K2 (bb), K3 (the 2 x 4 mesh's four slot shards, the last one
+    timed) and K4 at 8192 slots (K2 also at 1024) on the main path's
+    first tile, each against its twin in 'argmax' and 'gumbel_host'
+    (near-ties counted, count tables exact, float sums within rtol 1e-5 /
+    atol 1e-3) and 'gumbel' on its Philox noise."""
+    import torch
+    fk = port['fk']
+    spec, py, shareds, values, labels, _ = problem
+    B, C = REF_BLOCK, spec.capacity
+    out = {}
+    m = tile_inputs(port, spec, py, shareds, values, labels, B)
+    noise = host_noise(port, B, C, 11)
+    v = m['lay'].nich_vals
+    cols = spec.blocks[0].cols
+
+    # K1: nich2's product-form coefficients
+    st = m['state']
+    coeffs = fk.nich_coeffs_v2(shareds[0], st.groups[0]).contiguous()
+    case = k1_case(port, v, m['cl_scores'], coeffs)
+    modes = {mode: compare_mode(port, case, mode, noise.get(mode))
+             for mode in REF_DET_MODES}
+
+    def k1_draws(mode, nz, seed):
+        return case.launch(mode, nz, seed)[0]
+    philox = philox_exact(port, 'K1 C=%d' % C, k1_draws,
+                          lambda fast: case.scores(), B, C, fast_modes=False)
+    # rows whose draw is a slot of the upper Philox words
+    philox['rows_drawn_high'] = int(
+        (k1_draws('gumbel', None, 21) >= PHILOX_HIGH_SLOT).sum())
+    bd = bounds(port, (v, m['cl_scores'], coeffs,
+                       torch.empty(B, dtype=torch.int32),
+                       torch.empty(C, 3 * cols)),
+                gumbel_ops_per_cell((cols,), (), 0), B, C)
+    out['K1'] = reference_kernel(port, case.launch, case.plain, modes,
+                                 philox, bd, B, C)
+    del case, coeffs
+
+    # K4: the v1 record of the same rows and state
+    coeffs = fk.nich_coeffs(shareds[0], st.groups[0]).contiguous()
+    case = v1_case(port, 'K4', v, None, m['cl_scores'], coeffs, None)
+    modes = {mode: compare_mode(port, case, mode, noise.get(mode))
+             for mode in REF_DET_MODES}
+    philox = v1_philox_exact(port, case)
+    philox['rows_drawn_high'] = int(
+        (case.launch('gumbel', None, 21)[0] >= PHILOX_HIGH_SLOT).sum())
+    out['K4'] = reference_kernel(
+        port, case.launch, case.plain, modes, philox,
+        v1_bounds(port, (v, m['cl_scores'], coeffs), cols, 0, B, C), B, C)
+    del case, coeffs
+
+    # K3: the 2 x 4 mesh's four slot shards, each against its twin, reduced
+    # against the whole slot axis; the last shard timed, its Philox checked
+    n_comp = MESH_2D[1]
+    cuts = tuple(range(0, C + 1, C // n_comp))
+    pair_modes, best_err = check_pair_shards(port, m, cuts,
+                                             noise['gumbel_host'], None)
+    a, b = cuts[-2], cuts[-1]
+    s_args, s_kwargs = slot_slice(m, a, b)
+    s_kwargs.pop('noise')
+
+    def k3(mode, nz, seed):
+        return fk.fused_score_sample_pair(seed, *s_args, sampling=mode,
+                                          noise=nz, **s_kwargs)
+
+    def k3_plain(mode, nz, seed):
+        return fk.fused_score_sample_pair_plain(seed, *s_args, sampling=mode,
+                                                noise=nz, **s_kwargs)
+
+    def k3_scores(fast):
+        return fk._score_mixed(B, *s_args, s_kwargs['qvalues'],
+                               s_kwargs['qcoeffs'], s_kwargs['quad_groups'],
+                               s_kwargs['table_vs'], torch.log)
+    philox = philox_exact(port, 'K3 [%d, %d)' % (a, b),
+                          lambda mode, nz, seed: k3(mode, nz, seed)[0],
+                          k3_scores, B, b - a, slot_offset=a,
+                          fast_modes=False)
+    bd = bounds(port, (v,) + s_args[2:4] + (
+        torch.empty(B, dtype=torch.int32), torch.empty(B)),
+        gumbel_ops_per_cell(m['col_groups'], (), 0), B, b - a)
+    out['K3'] = dict(reference_kernel(port, k3, k3_plain, pair_modes,
+                                      philox, bd, B, b - a),
+                     slot_offset=a, shards=list(cuts),
+                     best_max_abs_err=best_err)
+    del m, noise
+
+    # K2 on the bb layout: one table column, no float feature
+    dev = port['config'].default_device()
+    for Cb in (SLOTS, REF_SLOTS):
+        bb_spec, bb_py, bb_sh, bb_values, bb_labels, _ = reference_problem(
+            port, 'bb', 1, Cb, (7, 8))
+        mb = tile_inputs(port, bb_spec, bb_py, bb_sh, tuple(
+            torch.as_tensor(x, device=dev) for x in bb_values),
+            torch.as_tensor(bb_labels, device=dev), B)
+        case = k2_case(port, mb)
+        nz = host_noise(port, B, Cb, 13)
+        modes = {mode: compare_mode(port, case, mode, nz.get(mode))
+                 for mode in REF_DET_MODES}
+        lay = mb['lay']
+        philox = philox_exact(port, 'K2 bb C=%d' % Cb,
+                              lambda mode, nz, seed: case.launch(
+                                  mode, nz, seed)[0],
+                              lambda fast: case.scores(), B, Cb,
+                              fast_modes=False)
+        bd = bounds(port, (lay.table_idx, mb['cl_scores'], mb['tables'],
+                           torch.empty(B, dtype=torch.int32),
+                           torch.empty(Cb, sum(lay.table_vs))),
+                    gumbel_ops_per_cell((), (), len(lay.table_vs)), B, Cb)
+        out['K2_bb_c%d' % Cb] = dict(
+            reference_kernel(port, case.launch, case.plain, modes,
+                             philox, bd, B, Cb),
+            table_vs=list(lay.table_vs))
+        del mb, case, nz, bb_values
+    return out
+
+
+def reference_path(port, what, one, n, wrapper, want):
+    """n chained sweeps of one(state, assignments, generator) (None, None:
+    from the start) on the graph path against the eager loop, bitwise
+    (`sharded_graph_check`, after the key's first call, eager), `want`
+    launches of `wrapper` in the graph run; then ms/sweep graph against
+    eager in turns (`graph_eager_turns`)."""
+    import torch
+
+    def chain():
+        gen = torch.Generator().manual_seed(7)
+        st = an = None
+        for _ in range(n):
+            st, an = one(st, an, gen)
+        return st, an
+    one(None, None, torch.Generator().manual_seed(7))
+    g, rep = sharded_graph_check(port, what, chain, wrapper, want, n, 0)
+    rep['timing'] = graph_eager_turns(port, chain, n)
+    rep['sweeps'] = n
+    return g, rep
+
+
+def reference_paths(port, problem):
+    """The other single-device paths and the component-sharded sweep on
+    nich2 at 8192 slots, from the generating labels: K4
+    (gibbs.sweep_blocked_pallas), the plain gibbs.sweep_blocked, and
+    sharding.sharded_sweep_2d_fused on the in-process 2 x 4 mesh (K3,
+    2048 slots a shard), each graph against eager.  Returns (report, K4's
+    and K3's launches in the graph runs)."""
+    import torch
+    fk, mx, gibbs, sharding = (port['fk'], port['mx'], port['gibbs'],
+                               port['sharding'])
+    spec, py, shareds, values, a0, n_true = problem
+    C = spec.capacity
+    tiles = ROWS // REF_BLOCK
+    st0 = mx.state_from_assignments(spec, py, shareds, values, a0)
+    out = {'seconds': {}}
+    t0 = time.time()
+
+    def v1(st, an, gen):
+        return gibbs.sweep_blocked_pallas(
+            spec, py, shareds, st0 if st is None else st, values,
+            a0 if an is None else an, REF_BLOCK, generator=gen,
+            sampling='gumbel')
+    n = REF_PATH_SWEEPS['v1']
+    g, out['v1'] = reference_path(port, 'sweep_blocked_pallas C=%d' % C, v1,
+                                  n, fk.nich_score_sample, tiles * n)
+    out['v1']['checks'] = check_sweep(port, spec, py, shareds, values, *g)
+    k4 = out['v1']['launches_graph_run']
+    del g
+    gibbs.release_sweep_graphs()
+    out['seconds']['v1'] = round(time.time() - t0, 2)
+
+    def plain(st, an, gen):
+        return gibbs.sweep_blocked(
+            spec, py, shareds, st0 if st is None else st, values,
+            a0 if an is None else an, REF_BLOCK, generator=gen)
+    n = REF_PATH_SWEEPS['plain']
+    torch.cuda.reset_peak_memory_stats()
+    g, out['plain'] = reference_path(port, 'sweep_blocked C=%d' % C, plain,
+                                     n, None, 0)
+    out['plain']['peak_allocated_bytes'] = torch.cuda.max_memory_allocated()
+    out['plain']['checks'] = check_sweep(port, spec, py, shareds, values, *g)
+    del g
+    gibbs.release_sweep_graphs()
+    out['seconds']['plain'] = round(
+        time.time() - t0 - sum(out['seconds'].values()), 2)
+
+    # the generating clusters spread evenly over the component shards'
+    # slot ranges, so that every shard has free slots
+    n_row, n_comp = MESH_2D
+    per = -(-n_true // n_comp)
+    a2 = a0 + (a0 // per) * (C // n_comp - per)
+    mesh2 = sharding.make_mesh_2d(n_row, n_comp)
+    sts = sharding.shard_state_components(
+        mx.state_from_assignments(spec, py, shareds, values, a2), mesh2)
+    local = REF_BLOCK // n_row
+
+    def fused_2d(st, an, gen):
+        st, an = sharding.sharded_sweep_2d_fused(
+            spec, py, shareds, list(sts if st is None else st), values,
+            a2 if an is None else an, gen, mesh2, local, sampling='gumbel')
+        return tuple(st), an
+    n = REF_PATH_SWEEPS['fused_2d']
+    per_sweep = ROWS // n_row // local * n_row * n_comp
+    g, out['fused_2d'] = reference_path(
+        port, 'sharded_sweep_2d_fused C=%d' % C, fused_2d, n,
+        fk.fused_score_sample_pair, per_sweep * n)
+    out['fused_2d'].update(
+        mesh=list(MESH_2D), C_local=C // n_comp, local_block=local,
+        slot_offsets=list(range(0, C, C // n_comp)),
+        checks=check_sharded(
+            port, spec, py, shareds, values,
+            sharding.unshard_state_components(list(g[0]), mesh2), g[1],
+            n_comp))
+    k3 = out['fused_2d']['launches_graph_run']
+    del g, sts
+    gibbs.release_sweep_graphs()
+    out['seconds']['fused_2d'] = round(
+        time.time() - t0 - sum(out['seconds'].values()), 2)
+    return out, k4, k3
+
+
+def phase_reference_configs(port):
+    """The JAX package's documented benchmark configurations through the
+    port's normal entry points (REF_CONFIGS: bench_runner.py's nich2 at 50
+    sweeps a step, at 8192 slots, its one-column nich and its bb model),
+    one line each; then, at 8192 slots, the other single-device paths and
+    the component-sharded sweep graph against eager, and K1, K2 (bb), K3
+    and K4 against their twins.  Returns the launches of K1-K4 in the
+    phase's graph runs."""
+    import torch
+    t0 = time.time()
+    launches = {'K1': 0, 'K2': 0}
+    seconds = {}
+    for name, model, cols, C, steps, frac in REF_CONFIGS:
+        line, prob, n = reference_run(port, name, model, cols, C, steps, frac)
+        launches['K2' if model == 'bb' else 'K1'] += n
+        if name == 'nich2_c8192':
+            problem = prob
+        seconds[name] = round(time.time() - t0 - sum(seconds.values()), 2)
+        emit(dict(line, seconds=seconds[name]))
+    del prob
+    paths, launches['K4'], launches['K3'] = reference_paths(port, problem)
+    seconds['paths_c8192'] = round(time.time() - t0 - sum(seconds.values()),
+                                   2)
+    kernels = reference_kernels(port, problem)
+    seconds['kernels_c8192'] = round(
+        time.time() - t0 - sum(seconds.values()), 2)
+    del problem
+    torch.cuda.empty_cache()
+    emit({'phase': 'reference_configs', 'config': 'c8192',
+          'slots': REF_SLOTS, 'rows': ROWS, 'block': REF_BLOCK,
+          'paths': paths, 'kernels': kernels, 'launches': launches,
+          'seconds': seconds,
+          'phase_seconds': round(time.time() - t0, 2)})
+    return launches, kernels
 
 
 def timed(fn):
@@ -5161,7 +5588,8 @@ def main():
     sys.path.insert(0, HERE)
     from distributions_tpu_torch import (clustering, config, diagnostics,
                                          mixture, random, testing)
-    from distributions_tpu_torch.benchmarks import (kernel_phases, roofline,
+    from distributions_tpu_torch.benchmarks import (bench_runner,
+                                                    kernel_phases, roofline,
                                                     suite)
     from distributions_tpu_torch.inference import (annealing, hmc, hypers,
                                                    logprob, runner, smc, vi)
@@ -5181,7 +5609,8 @@ def main():
             'kernel_phases': kernel_phases, 'hypers': hypers,
             'hmc': hmc, 'logprob': logprob, 'vi': vi, 'smc': smc,
             'annealing': annealing, 'checkpoint_orbax': checkpoint_orbax,
-            'compat_models': compat_models, 'protobuf': protobuf}
+            'compat_models': compat_models, 'protobuf': protobuf,
+            'bench_runner': bench_runner}
     fk = fused_kernels
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError('TF32 matmuls must stay off on this path')
@@ -5246,6 +5675,12 @@ def main():
     k1['launches_main_le'], k2['launches_main_le'] = phase_main_le(
         port, X, labels, mixed)
     del mixed
+    ref_launches, ref_kernels = phase_reference_configs(port)
+    for k, name in ((k1, 'K1'), (k2, 'K2'), (k3, 'K3'), (k4, 'K4')):
+        k['launches_reference_configs'] = ref_launches[name]
+    for k, name in ((k1, 'K1'), (k3, 'K3'), (k4, 'K4'),
+                    (k2, 'K2_bb_c%d' % REF_SLOTS)):
+        k['ms_c8192'] = ref_kernels[name]['ms']
     phase_main_hypers(port, X, labels)
     phase_moves(port, X, labels)
     phase_main_orbax(port, X, labels)
@@ -5299,6 +5734,11 @@ def main():
             # their time with the seed passed by value (`ms` is the
             # main path's launch, the seed read from device memory)
             'launches_main_le': k.get('launches_main_le'),
+            # K1-K4 in the JAX package's documented configurations
+            # (reference_configs), and their ms at 8192 slots (K2: bb)
+            'launches_reference_configs': k.get(
+                'launches_reference_configs'),
+            'ms_c8192': k.get('ms_c8192'),
             'ms_by_value': k.get('ms_by_value'),
             # no single PyTorch call computes score + draw (+ sums), a
             # dependent chain or a resident sampler; B3, B4 and the stat

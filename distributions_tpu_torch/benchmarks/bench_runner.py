@@ -5,11 +5,16 @@ shape.
 
 RUNNER_MODEL=nich (default): 1,048,576 rows x 1024 slots x 2 nich features.
 RUNNER_MODEL=niw2mix: niw d=2 + nich + bb (the mixed problem of the JAX
-package's profile_mixed.py), tiles of 65,536 rows.  Both start from the
-generating labels with grow_headroom=0, so that capacity growth never fires
-mid-run, and with RUNNER_CLUSTERS = 3C/4 true clusters: the chain opens
-about a hundred new groups in 20 sweeps, and from the JAX script's 7C/8 it
-fills all 1024 slots within 30, where the port's runner refuses to go on
+package's profile_mixed.py), tiles of 65,536 rows.
+RUNNER_MODEL=bb: the JAX script's table model, one bb {alpha 0.5, beta 0.5}
+feature under a CRP {alpha 1, d 0}, rows X = rand < p[label] with one p
+per generating cluster, drawn from RandomState(0) in the JAX script's
+order; K2 with a single table column and no float feature.
+All start from the generating labels with grow_headroom=0, so that
+capacity growth never fires mid-run, and with RUNNER_CLUSTERS = 3C/4 true
+clusters: the chain opens about a hundred new groups in 20 sweeps, and
+from the JAX script's 7C/8 it fills all 1024 slots within 30, where the
+port's runner refuses to go on
 (the time of a sweep does not depend on how many slots are occupied: the
 kernels score every slot).  After one warm-up run, RUNNER_REPEATS runs of
 RUNNER_PASSES sweeps are timed inside one process and the median is
@@ -41,46 +46,69 @@ from distributions_tpu_torch import clustering, config, mixture as mx, testing
 from distributions_tpu_torch.benchmarks.timing import (
     device_name, graphs_line, int_env)
 from distributions_tpu_torch.inference import runner
-from distributions_tpu_torch.models import MODULES, nich
+from distributions_tpu_torch.models import MODULES, bb, nich
 from distributions_tpu_torch.ops import gibbs
+
+
+# each model's tile rows unless RUNNER_BLOCK says otherwise
+BLOCKS = {'nich': 131072, 'niw2mix': 65536, 'bb': 131072}
+
+
+def problem(model, R, C, n_true, features=2, device=None):
+    """The runner's problem: (spec, clustering model, shareds, values,
+    labels), the values and labels as numpy arrays, R rows generated by
+    n_true clusters, capacity C.  'nich' and 'bb' draw from
+    RandomState(0) in the JAX script's order: the labels, then one center
+    (nich, `features` columns) or one heads probability (bb) per cluster,
+    then the rows."""
+    if model == 'niw2mix':
+        p = testing.mixed_problem(R, C, seed=0, kind='niw2mix',
+                                  n_clusters=n_true)
+        spec, cl, shareds = testing.build_problem(
+            p, MODULES, mx.make_spec, clustering.PitmanYor.from_dict,
+            device=device)
+        return spec, cl, shareds, tuple(p['values']), p['labels']
+    if model not in ('nich', 'bb'):
+        raise ValueError("RUNNER_MODEL must be 'nich', 'niw2mix' or 'bb', "
+                         'got %r' % (model,))
+    rng = np.random.RandomState(0)
+    labels = rng.randint(0, n_true, R).astype(np.int32)
+    if model == 'bb':
+        spec = mx.make_spec([(bb, 1)], capacity=C, empties=1)
+        # d = 0 (a CRP): under d = 0.1 the binary rows of 1M rows hold more
+        # groups than 1024 slots
+        cl = clustering.PitmanYor.from_dict({'alpha': 1.0, 'd': 0.0},
+                                            device=device)
+        shareds = (bb.shared_from_dict({'alpha': 0.5, 'beta': 0.5},
+                                       device=device),)
+        ps = rng.rand(n_true)
+        return (spec, cl, shareds, ((rng.rand(R) < ps[labels])[:, None],),
+                labels)
+    spec = mx.make_spec([(nich, features)], capacity=C, empties=1)
+    cl = clustering.PitmanYor.from_dict({'alpha': 1.0, 'd': 0.1},
+                                        device=device)
+    shareds = (nich.shared_from_dict(
+        {'mu': 0., 'kappa': 0.1, 'sigmasq': 0.01, 'nu': 1.}, device=device),)
+    centers = rng.randn(n_true, features).astype(np.float32)
+    values = ((centers[labels] + 0.1 * rng.randn(R, features).astype(
+        np.float32)).astype(np.float32),)
+    return spec, cl, shareds, values, labels
 
 
 def run(device=None):
     device = config.resolve_device(device)
     R = int_env('RUNNER_ROWS', 1048576)
     C = int_env('RUNNER_COMPONENTS', 1024)
-    FEATURES = int_env('RUNNER_FEATURES', 2)
     SPS = int_env('RUNNER_SPS', 10)
     PASSES = int_env('RUNNER_PASSES', 3 * SPS)
     REPEATS = int_env('RUNNER_REPEATS', 3)
     model = os.environ.get('RUNNER_MODEL', 'nich')
     n_true = int_env('RUNNER_CLUSTERS', max(C // 4 * 3, 1))
-
-    if model == 'niw2mix':
-        BLOCK = int_env('RUNNER_BLOCK', 65536)
-        problem = testing.mixed_problem(R, C, seed=0, kind='niw2mix',
-                                        n_clusters=n_true)
-        spec, cl, shareds = testing.build_problem(
-            problem, MODULES, mx.make_spec, clustering.PitmanYor.from_dict,
-            device=device)
-        values, labels = problem['values'], problem['labels']
-        FEATURES = len(spec.blocks)
-    elif model == 'nich':
-        BLOCK = int_env('RUNNER_BLOCK', 131072)
-        rng = np.random.RandomState(0)
-        spec = mx.make_spec([(nich, FEATURES)], capacity=C, empties=1)
-        cl = clustering.PitmanYor.from_dict({'alpha': 1.0, 'd': 0.1},
-                                            device=device)
-        shareds = (nich.shared_from_dict(
-            {'mu': 0., 'kappa': 0.1, 'sigmasq': 0.01, 'nu': 1.},
-            device=device),)
-        labels = rng.randint(0, n_true, R).astype(np.int32)
-        centers = rng.randn(n_true, FEATURES).astype(np.float32)
-        values = ((centers[labels] + 0.1 * rng.randn(R, FEATURES).astype(
-            np.float32)).astype(np.float32),)
-    else:
-        raise ValueError("RUNNER_MODEL must be 'nich' or 'niw2mix', got %r"
-                         % (model,))
+    spec, cl, shareds, values, labels = problem(
+        model, R, C, n_true, int_env('RUNNER_FEATURES', 2), device)
+    BLOCK = int_env('RUNNER_BLOCK', BLOCKS[model])
+    # a cell: one row against one slot for one nich column or one block
+    FEATURES = spec.blocks[0].cols if model == 'nich' else len(spec.blocks)
     values = tuple(torch.from_numpy(np.asarray(v)).to(device)
                    for v in values)
     common = dict(block=BLOCK, initial_assignments=labels, use_pallas=True,

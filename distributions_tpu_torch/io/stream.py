@@ -7,8 +7,11 @@ bytes on disk:
   length-prefixed binary frames
 - transparent .gz / .bz2 compression by filename extension
 
-This is the pure-Python path; the JAX package's optional native framing
-extension is not used.
+A C++ fast path for the length-prefixed framing,
+`distributions_tpu_torch.io._framing` (native/framing.cc, built by
+`python setup.py build_ext --inplace`), is used when it imports, for
+uncompressed files; these Python definitions are the always-available
+path and the semantics of record.
 """
 
 import bz2
@@ -16,6 +19,12 @@ import gzip
 import json
 import os
 import struct
+
+try:
+    from distributions_tpu_torch.io import _framing as _native
+except ImportError:     # the native extension is optional
+    _native = None
+
 
 def mkdir_p(dirname):
     if dirname and not os.path.exists(dirname):
@@ -128,7 +137,14 @@ def protobuf_stream_read(fd):
     return fd.read(size)
 
 
+def _use_native(filename):
+    return _native is not None and not filename.endswith(('.gz', '.bz2'))
+
+
 def protobuf_stream_dump(stream, filename):
+    if _use_native(filename):
+        _native.stream_dump(list(stream), filename)
+        return
     with open_compressed(filename, 'wb') as f:
         for item in stream:
             protobuf_stream_write(item, f)
@@ -136,15 +152,22 @@ def protobuf_stream_dump(stream, filename):
 
 class protobuf_stream_load(object):
     def __init__(self, filename):
-        self.fd = open_compressed(filename, 'rb')
+        self._items = self.fd = None
+        if _use_native(filename):
+            self._items = iter(_native.stream_load(filename))
+        else:
+            self.fd = open_compressed(filename, 'rb')
 
     def __iter__(self):
         return self
 
     def __next__(self):
+        if self._items is not None:
+            return next(self._items)
         return protobuf_stream_read(self.fd)
 
     next = __next__
 
     def close(self):
-        self.fd.close()
+        if self.fd is not None:
+            self.fd.close()

@@ -5,6 +5,8 @@ normal pip build) additionally compiles the native C++ helpers:
 
 - distributions_tpu.io._framing — length-prefixed stream framing
   (native/framing.cc), the host-side checkpoint-stream fast path.
+- distributions_tpu_torch.io._framing — the same source built for the
+  PyTorch/CUDA port's io/stream.py.
 
 The reference gates its native builds similarly (reference setup.py:104-167:
 pip-only installs get the pure-python dbg flavor; cython builds add hp/lp).
@@ -15,6 +17,12 @@ from setuptools import setup, Extension, find_packages
 ext_modules = [
     Extension(
         'distributions_tpu.io._framing',
+        sources=['native/framing.cc'],
+        extra_compile_args=['-O3', '-std=c++17'],
+        optional=True,
+    ),
+    Extension(
+        'distributions_tpu_torch.io._framing',
         sources=['native/framing.cc'],
         extra_compile_args=['-O3', '-std=c++17'],
         optional=True,

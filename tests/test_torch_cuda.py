@@ -1941,3 +1941,74 @@ def test_niw_non_pd_scale_gives_non_finite_scores_on_the_card(dev):
                                 device=dev)
     assert torch.isfinite(niw.score_value_batch(
         good, niw.group_init(good, (3,)), values)).all()
+
+
+# -- the JAX package's documented configurations: 8192 slots, the bb layout --
+
+# bench.py's BENCH_COMPONENTS=8192: the slot axis staged in turns (K1's
+# nich2 record, 8 floats, holds 896 slots a turn: 10 turns), Philox words
+# of slots g >= 4096 (counter words q = g / 4 >= 1024)
+REF_SLOTS = 8192
+REF_B = (3000, 16384 + 5)
+
+
+@pytest.mark.parametrize('B', REF_B)
+@pytest.mark.parametrize('groups', [(2,), (1,)], ids=str)
+def test_reference_k1_at_8192_slots(dev, groups, B):
+    """K1 (and B5 on its split walk) on nich2 and on the one-column exact
+    shape at 8192 slots: the twin's draws in 'argmax' and 'gumbel_host',
+    its sums, and 'gumbel' on its own Philox noise."""
+    _check_k1_and_b5(dev, B, REF_SLOTS, groups)
+
+
+@pytest.mark.parametrize('B', REF_B)
+def test_reference_k4_at_8192_slots(dev, B):
+    _check_v1(dev, 'K4', B, REF_SLOTS, 2, 0)
+
+
+@pytest.mark.parametrize('C', [1024, REF_SLOTS])
+@pytest.mark.parametrize('B', REF_B)
+def test_reference_k2_bb_layout(dev, B, C):
+    """K2 on the bb runner's layout: one table column of support 2, no
+    float feature (the wide shape; the stat stage with no float sums, the
+    count table alone), against its twin and its Philox noise."""
+    args, kwargs = _rand_layout(dev, B, C, (), (), (2,), seed=B + C)
+    noise = _noise(dev, 'gumbel_host', B, C)
+    for sampling, nz in (('argmax', None), ('gumbel_host', noise)):
+        got = fk.fused_mixed_score_sample_stats(3, *args, sampling=sampling,
+                                                noise=nz, **kwargs)
+        want = fk.fused_mixed_score_sample_stats_plain(
+            3, *args, sampling=sampling, noise=nz, **kwargs)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), sampling
+    # the count table [C, V], float counts; no float sums
+    assert got[2].shape == (C, 2) and int(got[2].sum()) == B
+    assert got[1].numel() == got[3].numel() == 0
+    _gumbel_is_philox(
+        lambda m, nz: fk.fused_mixed_score_sample_stats(
+            9, *args, sampling=m, noise=nz, **kwargs)[0],
+        _scores(args, kwargs), 9, B, C)
+
+
+@pytest.mark.parametrize('groups', [(2,), ()], ids=['nich2', 'bb'])
+def test_reference_k3_last_shard_of_8192(dev, groups):
+    """K3 on the 2 x 4 mesh's last slot shard at 8192 slots: 2048 slots at
+    offset 6144, against its twin and its Philox noise at that offset."""
+    B, C = 16384 + 5, REF_SLOTS
+    a, b = 3 * C // 4, C
+    args, kwargs = _rand_layout(dev, B, C, groups, (), () if groups else (2,),
+                                seed=7)
+    args, kwargs = _slot_slice(args, kwargs, a, b)
+    kwargs.update(slot_offset=a, total_slots=C)
+    noise = _noise(dev, 'gumbel_host', B, b - a)
+    for sampling, nz in (('argmax', None), ('gumbel_host', noise)):
+        got = fk.fused_score_sample_pair(3, *args, sampling=sampling,
+                                         noise=nz, **kwargs)
+        want = fk.fused_score_sample_pair_plain(3, *args, sampling=sampling,
+                                                noise=nz, **kwargs)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _gumbel_is_philox(
+        lambda m, nz: fk.fused_score_sample_pair(
+            9, *args, sampling=m, noise=nz, **kwargs)[0],
+        _scores(args, kwargs), 9, B, b - a, a)

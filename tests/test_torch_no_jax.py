@@ -68,6 +68,10 @@ def test_chip_profile_window_never_imports_jax():
     _assert_no_jax_imports('chip_profile_window.py')
 
 
+def test_chip_reference_occupancy_never_imports_jax():
+    _assert_no_jax_imports('chip_reference_occupancy.py')
+
+
 def test_process_group_worker_never_imports_jax():
     _assert_no_jax_imports(os.path.join('tests',
                                         'torch_multiprocess_worker.py'))
