@@ -2617,12 +2617,13 @@ def run_graph_and_eager(port, fn):
 
 def runs_equal(what, a, b, log_a=None, log_b=None):
     """Two (state, assignments, ...) results bitwise equal, and their
-    logger rows alike but for the clock ('time', 'seconds')."""
+    logger rows alike but for the clock (`diagnostics.CLOCK_KEYS`)."""
+    from distributions_tpu_torch import diagnostics
     ok = bits_equal(a, b)
     if log_a is not None:
         def rows(log):
             return [{k: v for k, v in r.items()
-                     if k not in ('time', 'seconds')} for r in log.rows]
+                     if k not in diagnostics.CLOCK_KEYS} for r in log.rows]
         ok = ok and rows(log_a) == rows(log_b)
     if not ok:
         raise AssertionError('%s: the graph path and the eager loop differ'

@@ -126,6 +126,38 @@ def _grid_on(grid, device):
         else torch.as_tensor(np.asarray(x)).to(device) for x in grid))
 
 
+def _hyper_moves(stats, generator, spec, shareds, cl_model, state, device,
+                 hyper_grids, hyper_slice, cl_grid, cl_slice, hyper_sample):
+    """The step's hyperparameter moves, in run_gibbs's order, each noted in
+    the step's logger row `stats`.  Returns (shareds, cl_model)."""
+    for block_idx, grid in (hyper_grids or {}).items():
+        shareds, idx, _ = _hypers.grid_step_feature(
+            generator, spec, block_idx, shareds, state,
+            _grid_on(grid, device), sample=hyper_sample)
+        stats['hyper_%d' % block_idx] = int(idx)
+    for block_idx, cfg in (hyper_slice or {}).items():
+        if isinstance(cfg, dict):
+            kw = dict(cfg)
+            params = tuple(kw.pop('params'))
+        else:
+            params, width = cfg
+            params, kw = tuple(params), {'width': width}
+        shareds, _ = _slice.slice_step_feature(
+            generator, spec, block_idx, shareds, state, params, **kw)
+        stats['hyper_slice_%d' % block_idx] = 1
+    if cl_grid is not None:
+        cl_model, idx, _ = _hypers.grid_step_clustering(
+            generator, _grid_on(cl_grid, device), state, sample=hyper_sample)
+        stats['hyper_cl'] = int(idx)
+    elif cl_slice:
+        kw = cl_slice if isinstance(cl_slice, dict) else {}
+        cl_model, _ = _slice.slice_step_clustering(
+            generator, cl_model, state, **kw)
+        stats['hyper_cl_alpha'] = float(cl_model.alpha)
+        stats['hyper_cl_d'] = float(cl_model.d)
+    return shareds, cl_model
+
+
 def _unfused_sweep(spec, use_pallas):
     """The sweeps of a step that the fused gate refused, as (spec,
     cl_model, shareds, state, values, assignments, block, generator, k) ->
@@ -154,6 +186,7 @@ def _unfused_sweep(spec, use_pallas):
     return sweeps
 
 
+@diagnostics.spanned('runner.call')
 def run_gibbs(spec, cl_model, shareds, values, generator, passes,
               block=4096, checkpoint_path=None, checkpoint_every=10,
               resume=True, init='prior', use_pallas=False,
@@ -274,98 +307,105 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
     if sweeps_per_step < 1:
         raise ValueError('sweeps_per_step must be >= 1')
     logger = log or diagnostics.SweepLogger()
-    dev, cl_model, shareds, values, initial_assignments = _place(
-        spec, cl_model, shareds, values, initial_assignments, device)
-    row_sharded = isinstance(values[0], sharding.RowSharded)
-    if row_sharded and mesh is None:
-        raise ValueError('RowSharded values need the mesh they are cut over')
-    if isinstance(initial_assignments, sharding.RowSharded) \
-            and not row_sharded:
-        raise ValueError('RowSharded initial_assignments need RowSharded '
-                         'values')
-    R = values[0].n_rows if row_sharded else int(values[0].shape[0])
-    if (cl_grid is not None or cl_slice) and not isinstance(
-            cl_model, clustering.PitmanYor):
-        # the clustering moves resample Pitman-Yor {alpha, d}; the feature
-        # moves (hyper_grids, hyper_slice) do not read the prior
-        raise ValueError('cl_grid and cl_slice resample a Pitman-Yor '
-                         'prior; got %s' % type(cl_model).__name__)
+    with diagnostics.span('runner.setup'):
+        dev, cl_model, shareds, values, initial_assignments = _place(
+            spec, cl_model, shareds, values, initial_assignments, device)
+        row_sharded = isinstance(values[0], sharding.RowSharded)
+        if row_sharded and mesh is None:
+            raise ValueError('RowSharded values need the mesh they are cut '
+                             'over')
+        if isinstance(initial_assignments, sharding.RowSharded) \
+                and not row_sharded:
+            raise ValueError('RowSharded initial_assignments need RowSharded '
+                             'values')
+        R = values[0].n_rows if row_sharded else int(values[0].shape[0])
+        if (cl_grid is not None or cl_slice) and not isinstance(
+                cl_model, clustering.PitmanYor):
+            # the clustering moves resample Pitman-Yor {alpha, d}; the feature
+            # moves (hyper_grids, hyper_slice) do not read the prior
+            raise ValueError('cl_grid and cl_slice resample a Pitman-Yor '
+                             'prior; got %s' % type(cl_model).__name__)
 
-    def in_form(full):
-        # a full [R] vector in the form of the run's rows
-        return sharding.cut_rows(full, mesh) if row_sharded else full
+        def in_form(full):
+            # a full [R] vector in the form of the run's rows
+            return sharding.cut_rows(full, mesh) if row_sharded else full
 
-    def state_of(assignments):
-        if mesh is None:
-            return mx.state_from_assignments(spec, cl_model, shareds, values,
-                                             assignments)
-        return sharding.sharded_state_from_assignments(
-            spec, cl_model, shareds, values, assignments, mesh)
+        def state_of(assignments):
+            if mesh is None:
+                return mx.state_from_assignments(spec, cl_model, shareds,
+                                                 values, assignments)
+            return sharding.sharded_state_from_assignments(
+                spec, cl_model, shareds, values, assignments, mesh)
 
-    start_pass = 0
-    if (resume and checkpoint_path and checkpoint_format == 'orbax'
-            and checkpoint_orbax.recover(checkpoint_path)):
-        loaded = checkpoint_orbax.load_sharded(
-            checkpoint_path, spec, shareds, mesh=mesh if row_sharded else None,
-            n_rows=R, extended=True)
-        state, assignments = loaded.state, loaded.assignments
-        start_pass, spec = loaded.sweep, loaded.spec
-        if loaded.generator is not None:
-            checkpoint.restore_generator(generator, loaded.generator)
-        if loaded.logger_rows and not logger.rows:
-            logger.rows = loaded.logger_rows
-        if loaded.shareds is not None:
-            shareds = loaded.shareds
-        if loaded.cl_model is not None:
-            cl_model = loaded.cl_model
-    elif (resume and checkpoint_path and checkpoint_format == 'npz'
-            and os.path.exists(checkpoint_path)):
-        state, assignments, saved, start_pass, rows = \
-            checkpoint.load_extended(checkpoint_path, spec, shareds)
-        assignments = in_form(assignments)
-        # a checkpoint written after capacity growth holds the grown state
-        spec = spec._replace(capacity=int(state.counts.shape[0]))
-        if saved is not None:
-            checkpoint.restore_generator(generator, saved)
-        if rows and not logger.rows:
-            logger.rows = rows
-        saved_shareds, saved_cl = checkpoint.load_hypers(
-            checkpoint_path, spec, device=dev)
-        if saved_shareds is not None:
-            shareds = saved_shareds
-        if saved_cl is not None:
-            cl_model = saved_cl
-    elif initial_assignments is not None:
-        assignments = _int32(initial_assignments)
-        if row_sharded and not isinstance(assignments, sharding.RowSharded):
+        start_pass = 0
+        if (resume and checkpoint_path and checkpoint_format == 'orbax'
+                and checkpoint_orbax.recover(checkpoint_path)):
+            loaded = checkpoint_orbax.load_sharded(
+                checkpoint_path, spec, shareds,
+                mesh=mesh if row_sharded else None, n_rows=R, extended=True)
+            state, assignments = loaded.state, loaded.assignments
+            start_pass, spec = loaded.sweep, loaded.spec
+            if loaded.generator is not None:
+                checkpoint.restore_generator(generator, loaded.generator)
+            if loaded.logger_rows and not logger.rows:
+                logger.rows = loaded.logger_rows
+            if loaded.shareds is not None:
+                shareds = loaded.shareds
+            if loaded.cl_model is not None:
+                cl_model = loaded.cl_model
+        elif (resume and checkpoint_path and checkpoint_format == 'npz'
+                and os.path.exists(checkpoint_path)):
+            state, assignments, saved, start_pass, rows = \
+                checkpoint.load_extended(checkpoint_path, spec, shareds)
             assignments = in_form(assignments)
-        state = state_of(assignments)
-    elif init == 'prior':
-        state0 = mx.init(spec, shareds)
-        if mesh is None:
-            state, assignments = gibbs.prior_init(
-                spec, cl_model, shareds, state0, values, generator)
-        else:
-            assignments = in_form(gibbs.prior_seating(
-                cl_model, state0, R, generator))
+            # a checkpoint written after capacity growth holds the grown state
+            spec = spec._replace(capacity=int(state.counts.shape[0]))
+            if saved is not None:
+                checkpoint.restore_generator(generator, saved)
+            if rows and not logger.rows:
+                logger.rows = rows
+            saved_shareds, saved_cl = checkpoint.load_hypers(
+                checkpoint_path, spec, device=dev)
+            if saved_shareds is not None:
+                shareds = saved_shareds
+            if saved_cl is not None:
+                cl_model = saved_cl
+        elif initial_assignments is not None:
+            assignments = _int32(initial_assignments)
+            if row_sharded and not isinstance(assignments,
+                                              sharding.RowSharded):
+                assignments = in_form(assignments)
             state = state_of(assignments)
-    elif init.startswith('random'):
-        k0 = int(init.split(':')[1]) if ':' in init else 64
-        assignments = in_form(torch.randint(
-            0, min(k0, spec.capacity), (R,), generator=generator,
-            device=generator.device).to(device=dev, dtype=torch.int32))
-        state = state_of(assignments)
-    elif init == 'sequential':
-        if row_sharded:
-            raise ValueError("init='sequential' assigns the rows one after "
-                             'another and needs them all in one place; '
-                             'RowSharded values take prior or random:K')
-        state, assignments = gibbs.sequential_init(
-            spec, cl_model, shareds, mx.init(spec, shareds), values,
-            generator)
-    else:
-        raise ValueError("init must be 'prior', 'sequential' or 'random:K', "
-                         'got %r' % (init,))
+        elif init == 'prior':
+            state0 = mx.init(spec, shareds)
+            if mesh is None:
+                state, assignments = gibbs.prior_init(
+                    spec, cl_model, shareds, state0, values, generator)
+            else:
+                assignments = in_form(gibbs.prior_seating(
+                    cl_model, state0, R, generator))
+                state = state_of(assignments)
+        elif init.startswith('random'):
+            k0 = int(init.split(':')[1]) if ':' in init else 64
+            assignments = in_form(torch.randint(
+                0, min(k0, spec.capacity), (R,), generator=generator,
+                device=generator.device).to(device=dev, dtype=torch.int32))
+            state = state_of(assignments)
+        elif init == 'sequential':
+            if row_sharded:
+                raise ValueError("init='sequential' assigns the rows one "
+                                 'after another and needs them all in one '
+                                 'place; RowSharded values take prior or '
+                                 'random:K')
+            state, assignments = gibbs.sequential_init(
+                spec, cl_model, shareds, mx.init(spec, shareds), values,
+                generator)
+        else:
+            raise ValueError("init must be 'prior', 'sequential' or "
+                             "'random:K', got %r" % (init,))
+        # the first step's growth check reads this host copy: it ends the
+        # set-up on the card
+        counts_host = state.counts.cpu().numpy()
 
     def save(at_sweep):
         if checkpoint_format == 'orbax':
@@ -394,126 +434,131 @@ def run_gibbs(spec, cl_model, shareds, values, generator, passes,
     # step, and free it when the run ends
     with gibbs.sweep_graph_session():
         cache = None
-        counts_host = None
         sweep = start_pass
         while sweep < passes:
-            if counts_host is None:
-                counts_host = state.counts.cpu().numpy()
-            if mx.needs_growth(spec, state, grow_headroom, counts=counts_host):
-                spec, state = mx.grow_capacity(spec, state, 2 * spec.capacity)
-                cache = None
-                # the sweep graph of the old capacity is of no more use: free
-                # its memory before the next step captures the new one
-                gibbs.release_sweep_graphs()
-            # the fused gate keeps what the algorithm needs; the JAX runner's
-            # TPU-only conditions (capacity % 128, block % 512, the VMEM cap of
-            # auto_block_rows) do not apply to the CUDA kernel
-            fused_ok = (use_pallas and fk.supports_mixed_pallas(spec)
-                        and R % block == 0)
-            if mesh is not None:
-                fused_ok = (fused_ok and mesh.axis_names == (sharding.ROWS,)
-                            and R % (mesh.size * block) == 0)
-            # every hyper and checkpoint boundary lands on a step edge
-            k = min(sweeps_per_step, passes - sweep)
-            if hyper_active:
-                k = min(k, hyper_every - sweep % hyper_every)
-            if checkpoint_path and checkpoint_every:
-                k = min(k, checkpoint_every - sweep % checkpoint_every)
-
-            step_score = None
-            t0 = time.time()
-            if fused_ok:
-                if cache is None:
-                    cache = _stat_cache(spec, shareds, values, block,
-                                        assignments, mesh)
+            with diagnostics.span('runner.step', step=sweep) as step:
+                with diagnostics.span('runner.growth'):
+                    if mx.needs_growth(spec, state, grow_headroom,
+                                       counts=counts_host):
+                        spec, state = mx.grow_capacity(spec, state,
+                                                       2 * spec.capacity)
+                        cache = None
+                        # the sweep graph of the old capacity is of no more
+                        # use: free its memory before the next step captures
+                        # the new one
+                        gibbs.release_sweep_graphs()
+                # the fused gate keeps what the algorithm needs; the JAX
+                # runner's TPU-only conditions (capacity % 128, block % 512,
+                # the VMEM cap of auto_block_rows) do not apply to the CUDA
+                # kernel
+                fused_ok = (use_pallas and fk.supports_mixed_pallas(spec)
+                            and R % block == 0)
                 if mesh is not None:
-                    state, assignments, cache, step_score = \
-                        sharding.sharded_sweep_fused(
-                            spec, cl_model, shareds, state, values,
-                            assignments, generator, mesh, block, cache,
-                            block_rows=min(block_rows, block),
-                            sampling=sampling, n_sweeps=k, with_score=True)
-                else:
-                    state, assignments, cache, step_score = \
-                        gibbs.sweep_blocked_pallas_fused_mixed(
-                            spec, cl_model, shareds, state, values,
-                            assignments, block, min(block_rows, block),
-                            generator, cache,
-                            sampling=sampling, n_sweeps=k, with_score=True)
-            elif mesh is not None:
-                for _ in range(k):
-                    state, assignments = sharding.sharded_sweep_blocked(
-                        spec, cl_model, shareds, state, values, assignments,
-                        generator, mesh, block)
-            else:
-                state, assignments, step_score = _unfused_sweep(
-                    spec, use_pallas)(spec, cl_model, shareds, state, values,
-                                      assignments, block, generator, k)
-            # the host copy of the [C] counts is the step's sync point
-            counts_host = state.counts.cpu().numpy()
-            dt = time.time() - t0
-            sweep += k
-            if int((counts_host > 0).sum()) >= spec.capacity:
-                # growth is only checked between steps: a step that ends with
-                # no free slot may have refused new groups along the way
-                raise RuntimeError(
-                    'no free slot is left after sweep %d (capacity %d): the '
-                    'chain may have been truncated within the step; raise '
-                    'grow_headroom or the capacity, or lower sweeps_per_step'
-                    % (sweep, spec.capacity))
+                    fused_ok = (fused_ok
+                                and mesh.axis_names == (sharding.ROWS,)
+                                and R % (mesh.size * block) == 0)
+                # every hyper and checkpoint boundary lands on a step edge
+                k = min(sweeps_per_step, passes - sweep)
+                if hyper_active:
+                    k = min(k, hyper_every - sweep % hyper_every)
+                if checkpoint_path and checkpoint_every:
+                    k = min(k, checkpoint_every - sweep % checkpoint_every)
 
-            debug.validate_state(spec, state)
-            if config.DEBUG_LEVEL >= 1:
-                debug.validate_assignments(
-                    spec, state, torch.from_numpy(distributed.gather_rows(
-                        assignments)) if row_sharded else assignments)
-            stats = diagnostics.sweep_stats(
-                spec, cl_model, shareds, state, counts=counts_host,
-                score=step_score)
-            stats['seconds'] = round(dt, 4)
-            if sweeps_per_step > 1:
-                stats['sweeps'] = k
-            if hyper_active and sweep % hyper_every == 0:
-                for block_idx, grid in (hyper_grids or {}).items():
-                    shareds, idx, _ = _hypers.grid_step_feature(
-                        generator, spec, block_idx, shareds, state,
-                        _grid_on(grid, dev), sample=hyper_sample)
-                    stats['hyper_%d' % block_idx] = int(idx)
-                for block_idx, cfg in (hyper_slice or {}).items():
-                    if isinstance(cfg, dict):
-                        kw = dict(cfg)
-                        params = tuple(kw.pop('params'))
+                step_score = None
+                t0 = time.perf_counter()
+                if fused_ok and cache is None:
+                    with diagnostics.span('runner.stat_cache'):
+                        cache = _stat_cache(spec, shareds, values, block,
+                                            assignments, mesh)
+                with diagnostics.span('runner.sweeps'):
+                    if fused_ok and mesh is not None:
+                        state, assignments, cache, step_score = \
+                            sharding.sharded_sweep_fused(
+                                spec, cl_model, shareds, state, values,
+                                assignments, generator, mesh, block, cache,
+                                block_rows=min(block_rows, block),
+                                sampling=sampling, n_sweeps=k,
+                                with_score=True)
+                    elif fused_ok:
+                        state, assignments, cache, step_score = \
+                            gibbs.sweep_blocked_pallas_fused_mixed(
+                                spec, cl_model, shareds, state, values,
+                                assignments, block, min(block_rows, block),
+                                generator, cache, sampling=sampling,
+                                n_sweeps=k, with_score=True)
+                    elif mesh is not None:
+                        for _ in range(k):
+                            state, assignments = \
+                                sharding.sharded_sweep_blocked(
+                                    spec, cl_model, shareds, state, values,
+                                    assignments, generator, mesh, block)
                     else:
-                        params, width = cfg
-                        params, kw = tuple(params), {'width': width}
-                    shareds, _ = _slice.slice_step_feature(
-                        generator, spec, block_idx, shareds, state, params,
-                        **kw)
-                    stats['hyper_slice_%d' % block_idx] = 1
-                if cl_grid is not None:
-                    cl_model, idx, _ = _hypers.grid_step_clustering(
-                        generator, _grid_on(cl_grid, dev), state,
-                        sample=hyper_sample)
-                    stats['hyper_cl'] = int(idx)
-                elif cl_slice:
-                    kw = cl_slice if isinstance(cl_slice, dict) else {}
-                    cl_model, _ = _slice.slice_step_clustering(
-                        generator, cl_model, state, **kw)
-                    stats['hyper_cl_alpha'] = float(cl_model.alpha)
-                    stats['hyper_cl_d'] = float(cl_model.d)
-                # the cache's raw sums were built under the old shareds (dpd's
-                # value tables depend on them): rebuild it next sweep
-                cache = None
-            logger.log(sweep - 1, **stats)
+                        state, assignments, step_score = _unfused_sweep(
+                            spec, use_pallas)(spec, cl_model, shareds, state,
+                                              values, assignments, block,
+                                              generator, k)
+                # the host copy of the [C] counts is the step's sync point
+                with diagnostics.span('runner.counts_sync'):
+                    counts_host = state.counts.cpu().numpy()
+                dt = time.perf_counter() - t0
+                # the card's events of the step's sweeps (none for the
+                # mesh's plain sweeps, which take no static run)
+                times = None
+                if fused_ok or mesh is None:
+                    times = gibbs.step_times(dev)
+                sweep += k
+                if int((counts_host > 0).sum()) >= spec.capacity:
+                    # growth is only checked between steps: a step that ends
+                    # with no free slot may have refused new groups along the
+                    # way
+                    raise RuntimeError(
+                        'no free slot is left after sweep %d (capacity %d): '
+                        'the chain may have been truncated within the step; '
+                        'raise grow_headroom or the capacity, or lower '
+                        'sweeps_per_step' % (sweep, spec.capacity))
 
-            if checkpoint_path and checkpoint_every \
-                    and sweep % checkpoint_every == 0 and sweep < passes:
-                save(sweep)
-                # a run resumed from this file rebuilds the cache from the
-                # assignments; do the same, so that both continue alike
-                cache = None
+                with diagnostics.span('runner.validate'):
+                    debug.validate_state(spec, state)
+                    if config.DEBUG_LEVEL >= 1:
+                        debug.validate_assignments(
+                            spec, state,
+                            torch.from_numpy(distributed.gather_rows(
+                                assignments)) if row_sharded else assignments)
+                with diagnostics.span('runner.sweep_stats'):
+                    stats = diagnostics.sweep_stats(
+                        spec, cl_model, shareds, state, counts=counts_host,
+                        score=step_score)
+                stats['seconds'] = round(dt, 4)
+                if sweeps_per_step > 1:
+                    stats['sweeps'] = k
+                if hyper_active and sweep % hyper_every == 0:
+                    with diagnostics.span('runner.hypers'):
+                        shareds, cl_model = _hyper_moves(
+                            stats, generator, spec, shareds, cl_model, state,
+                            dev, hyper_grids, hyper_slice, cl_grid, cl_slice,
+                            hyper_sample)
+                    # the cache's raw sums were built under the old shareds
+                    # (dpd's value tables depend on them): rebuild it next
+                    # sweep
+                    cache = None
+                if times is not None:
+                    stats.update(times)
+                # the spans closed so far; runner.checkpoint's and the
+                # step's own time join this dict when the step ends
+                stats['host_ms'] = step.self_ms
+                logger.log(sweep - 1, **stats)
+
+                if checkpoint_path and checkpoint_every \
+                        and sweep % checkpoint_every == 0 and sweep < passes:
+                    with diagnostics.span('runner.checkpoint'):
+                        save(sweep)
+                    # a run resumed from this file rebuilds the cache from
+                    # the assignments; do the same, so that both continue
+                    # alike
+                    cache = None
     if checkpoint_path:
-        save(passes)
+        with diagnostics.span('runner.checkpoint'):
+            save(passes)
     logger.final_shareds = shareds
     logger.final_cl_model = cl_model
     return state, assignments, logger

@@ -676,7 +676,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 _HEADERS = ('fused_common.cuh', 'fused_split.cuh', 'fused_stats.cuh',
             'hopper.cuh')
 KERNELS = ('fused_v2', 'fused_v3', 'score_sample_v1', 'roofline',
-           'sampler_bench')
+           'sampler_bench', 'step_clock')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), 'build', 'torch_kernels')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -713,6 +713,9 @@ _LAUNCHERS = {
         'roofline_mma_launch': [_P] * 6 + [_I, _I, _P]},
     'sampler_bench': {
         'sampler_bench_launch': [_P] * 5 + [_I, _I, _I, _I, _U64, _P]},
+    'step_clock': {
+        'step_clock_mark_launch': [_P, _I, _P, ctypes.POINTER(_P)],
+        'step_clock_set_enabled': [_P, _P, _I]},
 }
 
 # library -> its C entry points that report on a kernel without launching
@@ -1426,3 +1429,35 @@ def mixed_score_sample(seed, nich_values, table_indices, cl_scores, coeffs,
 
 
 mixed_score_sample.launches = 0
+
+
+# -- the phase marks of a sweep (csrc/step_clock.cu) -------------------------
+
+def clock_mark(stamps, slot):
+    """Write the card's global nanosecond timer into `stamps[slot]` ([N]
+    int64 on the card) once the work before it on the current stream is
+    done.  Returns the graph node of the mark while the stream captures a
+    CUDA graph (for `clock_set_enabled`), else None."""
+    if stamps.device.type != 'cuda' or stamps.dtype != torch.int64 \
+            or stamps.dim() != 1 or not 0 <= slot < stamps.shape[0]:
+        raise ValueError('clock_mark takes a slot of a 1-D int64 tensor on '
+                         'the card')
+    lib = build('step_clock')['lib']
+    node = _P()
+    _raise_on('step_clock', lib, lib.step_clock_mark_launch(
+        stamps.data_ptr(), slot,
+        torch.cuda.current_stream(stamps.device).cuda_stream,
+        ctypes.byref(node)))
+    return node.value
+
+
+def clock_set_enabled(graph_exec, nodes, on):
+    """Switch the captured marks `nodes` on or off in the instantiated
+    graph `graph_exec` (a cudaGraphExec_t as an int: a torch.cuda.CUDAGraph
+    made with keep_graph=True gives it, `raw_cuda_graph_exec()`, once
+    instantiated).  Later replays follow; a replay with them off runs
+    none."""
+    lib = build('step_clock')['lib']
+    for node in nodes:
+        _raise_on('step_clock', lib, lib.step_clock_set_enabled(
+            graph_exec, node, int(bool(on))))

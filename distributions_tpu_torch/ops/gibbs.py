@@ -37,13 +37,13 @@ plain sweeps, the '_host' modes).
 """
 
 import contextlib
-import time
 from collections import namedtuple
 
 import numpy as np
 import torch
 
-from distributions_tpu_torch import clustering as _cl, mixture as mx
+from distributions_tpu_torch import clustering as _cl, diagnostics
+from distributions_tpu_torch import mixture as mx
 from distributions_tpu_torch.clustering import _crp_seating, _le_seating
 from distributions_tpu_torch.models import nich as nich_mod, niw as niw_mod
 from distributions_tpu_torch.ops import fused_kernels as fk
@@ -387,11 +387,12 @@ def _fused_tile_inputs(spec, lay, cl_model, shareds, state):
 
 def _fused_tile_core(spec, lay, W, block_rows, sampling, cl_model, shareds,
                      state, t_nich, t_quad, t_idx, seed, noise=None,
-                     inputs=None):
+                     inputs=None, after_kernel=None):
     """Score + sample + stats for ONE tile against the current (already
     tile-removed) state via the fused kernel.  `inputs`: the
     `_fused_tile_inputs` of `state` when the caller has them already (row
-    shards that share one state).  Returns (new_assign [B], counts_delta
+    shards that share one state).  `after_kernel()`, when given, is called
+    once the kernel is launched.  Returns (new_assign [B], counts_delta
     [C], per-block raw sums in build_stat_cache's format)."""
     col_groups = tuple(spec.blocks[i].cols for i in lay.nich_blocks)
     if inputs is None:
@@ -403,6 +404,8 @@ def _fused_tile_core(spec, lay, W, block_rows, sampling, cl_model, shareds,
             block_rows=block_rows, sampling=sampling, qvalues=t_quad,
             qcoeffs=qcoeffs, quad_groups=lay.quad_groups, noise=noise,
             table_vs=lay.table_vs)
+    if after_kernel is not None:
+        after_kernel()
 
     # counts delta: the ones column of whichever stat family is present
     # (nich [1|v|v^2] sums; quad [1|v|vv^T] sums; or the row sums of the
@@ -461,28 +464,42 @@ def _fused_sweep_into(spec, lay, W, block, block_rows, sampling, cl_model,
     With a tensor of seeds and a mode without '_host', a sweep reads nothing
     back from the card and makes no tensor from host data: on the card it
     is captured into a CUDA graph (`_SweepGraph`); on the CPU it runs on the
-    kernels' twins."""
+    kernels' twins.  On the card the sweep stamps the phase marks of the
+    card's `_DeviceClock`: tile 0's, the last tile's end and the state
+    copy's."""
     cached_cd, cached_sums = cache
+    clock = _device_clock(cached_cd.device)
     cur = state
     for t in range(cached_cd.shape[0]):
+        mark = clock.tile if t == 0 else _NO_CLOCK.tile
+        mark(0)
         tiles = mx.sums_to_tiles(spec, shareds,
                                  tuple(s[t] for s in cached_sums))
         cur = mx.apply_stat_tiles(spec, shareds, cur, cached_cd[t], tiles, -1,
                                   block)
+        mark(1)
         noise = _tile_noise(sampling, seeds[t], block, spec.capacity,
                             cached_cd.device)
+        inputs = _fused_tile_inputs(spec, lay, cl_model, shareds, cur)
+        mark(2)
         new_assign, new_cd, new_sums = _fused_tile_core(
             spec, lay, W, block_rows, sampling, cl_model, shareds, cur,
-            *_slice_rows(lay, t, block), seeds[t], noise=noise)
+            *_slice_rows(lay, t, block), seeds[t], noise=noise,
+            inputs=inputs, after_kernel=lambda: mark(3))
+        mark(4)
         tiles = mx.sums_to_tiles(spec, shareds, new_sums)
         cur = mx.apply_stat_tiles(spec, shareds, cur, new_cd, tiles, +1,
                                   block)
+        mark(5)
         assignments[t * block:(t + 1) * block] = new_assign
         cached_cd[t] = new_cd
         for buf, s in zip(cached_sums, new_sums):
             buf[t] = s
+        mark(6)
+    clock.tile(7)
     for dst, src in zip(_tensors(state), _tensors(cur)):
         dst.copy_(src)
+    clock.tile(8)
 
 
 def _map_tensors(fn, tree):
@@ -528,13 +545,16 @@ _SESSION = [False]
 # session), and its graph replaces the one before.
 _GRAPH = {'key': None, 'graph': None, 'seen': None, 'seen_values': None}
 # what the graph path did since the counters were last set to 0: graphs
-# captured, sweeps replayed, seconds spent capturing (the first sweep of a
-# graph, which warms it up, and the capture), the bytes of the captures'
-# memory pools, the joint-score graph's captures and replays, and the runs
-# that took the eager loop because their key was new
+# captured, sweeps replayed, seconds spent capturing (the `graph.capture`
+# spans: the first sweep of a graph, which warms it up, and the capture),
+# the bytes of the captures' memory pools, the joint-score graph's captures
+# and replays, the runs that took the eager loop because their key was new,
+# the nodes of the last sweep graph captured (each launch, copy, memset and
+# event record in it), and the host spans' totals (`diagnostics.span`)
 GRAPH_STATS = {'captures': 0, 'replays': 0, 'capture_seconds': 0.0,
                'pool_bytes': 0, 'score_captures': 0, 'score_replays': 0,
-               'first_uses': 0}
+               'first_uses': 0, 'sweep_graph_nodes': 0,
+               'spans': diagnostics.SPAN_TOTALS}
 # the wrappers whose launches a replay repeats
 _COUNTED = (fk.fused_score_sample_stats, fk.fused_mixed_score_sample_stats,
             fk.fused_score_sample_pair, fk.nich_score_sample,
@@ -587,11 +607,171 @@ def release_sweep_graphs():
 
 
 def reset_graph_stats():
-    """Set the counters of GRAPH_STATS to 0; returns GRAPH_STATS, to be
-    read after the run."""
+    """Set the counters of GRAPH_STATS to 0 and empty the span totals and
+    ring (`diagnostics.reset_spans`); returns GRAPH_STATS, to be read after
+    the run."""
     for k in GRAPH_STATS:
-        GRAPH_STATS[k] = type(GRAPH_STATS[k])(0)
+        if k != 'spans':
+            GRAPH_STATS[k] = type(GRAPH_STATS[k])(0)
+    diagnostics.reset_spans()
     return GRAPH_STATS
+
+
+def _graph_nodes(graph):
+    """The nodes of a captured torch.cuda.CUDAGraph made with
+    keep_graph=True: libcuda's cuGraphGetNodes on its cudaGraph_t (a
+    CUgraph)."""
+    import ctypes
+    fn = ctypes.CDLL('libcuda.so.1').cuGraphGetNodes
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_size_t)]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    rc = fn(graph.raw_cuda_graph(), None, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError('cuGraphGetNodes failed with CUresult %d' % rc)
+    return int(n.value)
+
+
+class _DeviceClock:
+    """Timing marks of the sweeps on one card, which the runner reads after
+    a step's sync (`step_times`).
+
+    The step's edge: CUDA timing events on the current stream, outside any
+    graph, at its start (before the load of its buffers), after the load,
+    after its last sweep, and after its score and the copies of its
+    outputs.  Two sets of them, one each step in turn, so that the last
+    event of the step before is there to time the device's idle edge from.
+
+    Tile 0's phases inside a fused sweep (`_fused_sweep_into`): stamps of
+    the card's global timer (`fused_kernels.clock_mark`) before its remove
+    and after its remove, inputs, kernel, sums, add and write, before the
+    end-of-sweep state copy and after it.  In a capture each mark is a
+    kernel node of the graph, which `_SweepGraph` switches on for the last
+    sweep of a step alone: the stamps are that sweep's."""
+
+    STEP = ('start', 'loaded', 'swept', 'scored')
+    PHASES = ('remove', 'inputs', 'kernel', 'sums', 'add', 'write')
+    # the marks: one before the tile's phases, one after each, one after
+    # the last tile and one after the state copy
+    MARKS = len(PHASES) + 3
+
+    def __init__(self, device):
+        self.device = device
+        self.steps = [[torch.cuda.Event(enable_timing=True)
+                       for _ in self.STEP] for _ in range(2)]
+        self.stamps = torch.zeros(self.MARKS, dtype=torch.int64,
+                                  device=device)
+        # their host copy, made on the stream at the step's end
+        self.host_stamps = torch.zeros(self.MARKS, dtype=torch.int64,
+                                       pin_memory=True)
+        self.turn = 0
+        # sweeps that stamped the tile marks, eagerly or in a capture
+        self.tiled = 0
+        # while a graph captures: the mark nodes it captured
+        self.nodes = None
+        # (graph or None, its 'scored' event) of the last step
+        self.last = None
+        self.pending = None
+
+    def mark(self, point):
+        self.steps[self.turn][self.STEP.index(point)].record(
+            torch.cuda.current_stream(self.device))
+
+    def tile(self, i):
+        node = fk.clock_mark(self.stamps, i)
+        if node is not None and self.nodes is not None:
+            self.nodes.append(node)
+        if i == self.MARKS - 1:
+            self.tiled += 1
+
+    def end_step(self, graph, n_sweeps, captured, tiled):
+        """After the step's score and output copies: copy the stamps of a
+        step that `tiled` to the host, mark 'scored', and keep the step to
+        read."""
+        if tiled:
+            self.host_stamps.copy_(self.stamps, non_blocking=True)
+        self.mark('scored')
+        scored = self.steps[self.turn][-1]
+        edge_from = None
+        if graph is not None and self.last is not None \
+                and self.last[0] is graph:
+            edge_from = self.last[1]
+        self.pending = dict(events=self.steps[self.turn], n=n_sweeps,
+                            captured=captured, tiled=tiled,
+                            edge_from=edge_from)
+        self.last = (graph, scored)
+        self.turn ^= 1
+
+    def read(self):
+        """The last step's {'device_ms', 'tile_ms', 'captured'} (see
+        `step_times`), or None when none is there to read."""
+        p, self.pending = self.pending, None
+        if p is None:
+            return None
+        start, loaded, swept, scored = p['events']
+        scored.synchronize()
+        device = {'load': start.elapsed_time(loaded),
+                  'sweeps': loaded.elapsed_time(swept) / p['n'],
+                  'score': swept.elapsed_time(scored)}
+        if p['edge_from'] is not None:
+            device['edge'] = p['edge_from'].elapsed_time(start)
+        out = {'device_ms': device}
+        if p['tiled']:
+            t = self.host_stamps.tolist()
+            tile = {name: (t[i + 1] - t[i]) / 1e6
+                    for i, name in enumerate(self.PHASES)}
+            tile['state_copy'] = (t[-1] - t[-2]) / 1e6
+            tile['sweep'] = (t[-1] - t[0]) / 1e6
+            out['tile_ms'] = tile
+        if p['captured']:
+            out['captured'] = True
+        return out
+
+
+class _NoClock:
+    """The clock off the card: it records nothing."""
+
+    tiled = 0
+
+    def mark(self, point):
+        pass
+
+    def tile(self, i):
+        pass
+
+    def end_step(self, graph, n_sweeps, captured, tiled):
+        pass
+
+
+_NO_CLOCK = _NoClock()
+# the `_DeviceClock` of each card, by device index
+_CLOCKS = {}
+
+
+def _device_clock(device):
+    if device.type != 'cuda':
+        return _NO_CLOCK
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    clock = _CLOCKS.get(index)
+    if clock is None:
+        clock = _CLOCKS[index] = _DeviceClock(torch.device('cuda', index))
+    return clock
+
+
+def step_times(device):
+    """What the card's timing events saw of the last fused, v1 or plain
+    run of sweeps on `device` (`_run_static`), once its outputs have
+    synced, or None (off the card, or nothing since the last read):
+    {'device_ms': {'load', 'sweeps' (a sweep), 'score', and on the graph
+    path after a step of the same graph 'edge', the device time from that
+    step's last event to this one's first}, 'tile_ms' (fused sweeps: tile
+    0's phases in the last sweep, 'state_copy' and the whole 'sweep'), and
+    'captured': True when the run captured its graph}, times in ms."""
+    if device.type != 'cuda':
+        return None
+    return _device_clock(device).read()
 
 
 def _graph_refusal(device, sampling, sweep='fused'):
@@ -644,13 +824,21 @@ class _SweepGraph:
     side stream, which warms up what the capture needs (the kernels'
     build, cuBLAS, a process group's communicator), and then captures it.
     A replay adds the launches of each kernel wrapper that the capture
-    recorded, as if the wrapper had launched them."""
+    recorded, as if the wrapper had launched them.  The card's
+    `_DeviceClock` marks the start and the end of each load (the clone of
+    the inputs at construction); `marks` are the clock's mark nodes in the
+    sweep graph, off but in the replays that `sweep(marks=True)` asks
+    for."""
 
     def __init__(self, lay, sweep, score, inputs, n_seeds, keep, gens=False):
         self.lay, self.keep = lay, keep
         self._sweep_fn, self._score_fn = sweep, score
+        self.device = next(_tensors(inputs[1])).device
+        self.clock = _device_clock(self.device)
+        self.clock.mark('start')
         self.static = _map_tensors(torch.clone, inputs)
-        self.device = next(_tensors(self.static[1])).device
+        self.clock.mark('loaded')
+        self.marks = ()
         self.gens = tuple(torch.Generator(device=self.device)
                           for _ in range(n_seeds if gens else 0))
         self.seeds = self.gens or torch.zeros(
@@ -662,13 +850,18 @@ class _SweepGraph:
         self.launches = {}
 
     def load(self, inputs):
+        """Copy `inputs` into the buffers; the step's start was marked
+        before `inputs` were made."""
         for dst, src in zip(_tensors(self.static), _tensors(inputs)):
             dst.copy_(src)
+        self.clock.mark('loaded')
 
-    def _capture(self, fn, pool, gens=()):
+    def _capture(self, fn, pool, gens=(), sweep=False):
         """Run fn on the side stream (the warm-up, and a real run), then
         capture it into `pool`, with the generators `gens` registered.
-        Returns (fn's result, the graph, the capture's output)."""
+        For the `sweep` graph, GRAPH_STATS['sweep_graph_nodes'] takes the
+        captured graph's nodes, and `marks` the clock's mark nodes, turned
+        off.  Returns (fn's result, the graph, the capture's output)."""
         cur = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(cur)
         with torch.cuda.stream(self.stream):
@@ -677,11 +870,24 @@ class _SweepGraph:
         if result is not None:
             result.record_stream(cur)
         before = [w.launches for w in _COUNTED]
-        graph = torch.cuda.CUDAGraph()
+        # the sweep graph is kept, for its nodes: a mark node is switched
+        # in the graph instantiated from the one that holds it
+        graph = torch.cuda.CUDAGraph(keep_graph=sweep)
         for g in gens:
             graph.register_generator_state(g)
-        with torch.cuda.graph(graph, pool=pool, stream=self.stream):
-            out = fn()
+        self.clock.nodes = [] if sweep else None
+        try:
+            with torch.cuda.graph(graph, pool=pool, stream=self.stream):
+                out = fn()
+        finally:
+            marks, self.clock.nodes = self.clock.nodes, None
+        if sweep:
+            GRAPH_STATS['sweep_graph_nodes'] = _graph_nodes(graph)
+            graph.instantiate()
+            self.marks = tuple(marks)
+            if self.marks:
+                fk.clock_set_enabled(graph.raw_cuda_graph_exec(),
+                                     self.marks, False)
         GRAPH_STATS['pool_bytes'] += sum(
             seg['total_size'] for seg in torch.cuda.memory_snapshot()
             if tuple(seg.get('segment_pool_id', ())) == tuple(pool))
@@ -691,26 +897,34 @@ class _SweepGraph:
             w.launches = n
         return result, graph, out
 
-    def sweep(self, seeds):
+    def sweep(self, seeds, marks=False):
         """One sweep with the [n_seeds] int64 host seed table `seeds` (with
-        generators: each generator's seed)."""
+        generators: each generator's seed); a replay with `marks` stamps
+        the clock's tile marks.  (The first sweep, the capture's warm-up,
+        stamps them whatever `marks` says.)"""
         if self.gens:
             for g, seed in zip(self.gens, seeds.tolist()):
                 g.manual_seed(seed)
         else:
             self.seeds.copy_(seeds.pin_memory(), non_blocking=True)
         if self.graph is not None:
-            self.graph.replay()
+            if marks and self.marks:
+                exec_ = self.graph.raw_cuda_graph_exec()
+                fk.clock_set_enabled(exec_, self.marks, True)
+                self.graph.replay()
+                fk.clock_set_enabled(exec_, self.marks, False)
+            else:
+                self.graph.replay()
             GRAPH_STATS['replays'] += 1
             for w, n in self.launches.items():
                 w.launches += n
             return
-        t0 = time.time()
-        _, self.graph, _ = self._capture(
-            lambda: self._sweep_fn(self.lay, self.static, self.seeds),
-            self.pools[0], self.gens)
+        with diagnostics.span('graph.capture') as capture:
+            _, self.graph, _ = self._capture(
+                lambda: self._sweep_fn(self.lay, self.static, self.seeds),
+                self.pools[0], self.gens, sweep=True)
         GRAPH_STATS['captures'] += 1
-        GRAPH_STATS['capture_seconds'] += time.time() - t0
+        GRAPH_STATS['capture_seconds'] += capture.seconds
 
     def score(self):
         """The joint score of the static state, a tensor of its own."""
@@ -718,11 +932,11 @@ class _SweepGraph:
             self.score_graph.replay()
             GRAPH_STATS['score_replays'] += 1
             return self.score_out.clone()
-        t0 = time.time()
-        score, self.score_graph, self.score_out = self._capture(
-            lambda: self._score_fn(self.lay, self.static), self.pools[1])
+        with diagnostics.span('graph.capture') as capture:
+            score, self.score_graph, self.score_out = self._capture(
+                lambda: self._score_fn(self.lay, self.static), self.pools[1])
         GRAPH_STATS['score_captures'] += 1
-        GRAPH_STATS['capture_seconds'] += time.time() - t0
+        GRAPH_STATS['capture_seconds'] += capture.seconds
         return score
 
     def outputs(self):
@@ -752,15 +966,17 @@ def _graph_for(key, keep, layout, inputs, sweep, score, n_seeds, gens):
         _GRAPH.update(seen=key, seen_values=keep)
         GRAPH_STATS['first_uses'] += 1
         return None
-    if graph is not None:
-        graph.load(inputs(graph.lay))
-        return graph
-    lay = layout()
-    loaded = inputs(lay)
-    # the graph before is freed before this one takes its memory
-    release_sweep_graphs()
-    graph = _SweepGraph(lay, sweep, score, loaded, n_seeds, keep, gens)
-    _GRAPH.update(key=key, graph=graph)
+    with diagnostics.span('graph.load'):
+        if graph is not None:
+            graph.clock.mark('start')
+            graph.load(inputs(graph.lay))
+            return graph
+        lay = layout()
+        loaded = inputs(lay)
+        # the graph before is freed before this one takes its memory
+        release_sweep_graphs()
+        graph = _SweepGraph(lay, sweep, score, loaded, n_seeds, keep, gens)
+        _GRAPH.update(key=key, graph=graph)
     return graph
 
 
@@ -776,7 +992,10 @@ def _run_static(key, keep, layout, inputs, sweep, score, n_seeds,
     each the seed of a device generator that the sweep draws from (the
     eager loop's `device_generator`, the graph's own generators
     reseeded).  Both give the same draws.  Returns (outs, the joint score
-    or None): tensors of their own, which later calls do not write."""
+    or None): tensors of their own, which later calls do not write.
+
+    On the card both paths mark the step's edge on the card's
+    `_DeviceClock` (`step_times` reads it)."""
     def host_seeds():
         if gens:
             return torch.tensor([draw_seed(g) for g in generator],
@@ -785,19 +1004,37 @@ def _run_static(key, keep, layout, inputs, sweep, score, n_seeds,
     graph = None if key is None else _graph_for(
         key, keep, layout, inputs, sweep, score, n_seeds, gens)
     if graph is not None:
-        for _ in range(n_sweeps):
-            graph.sweep(host_seeds())
-        return graph.outputs(), graph.score() if with_score else None
+        clock = graph.clock
+        captured = graph.graph is None or (
+            with_score and graph.score_graph is None)
+        with diagnostics.span('graph.replays'):
+            for i in range(n_sweeps):
+                graph.sweep(host_seeds(), marks=i == n_sweeps - 1)
+        clock.mark('swept')
+        outs = graph.outputs()
+        result = None
+        if with_score:
+            with diagnostics.span('graph.score'):
+                result = graph.score()
+        clock.end_step(graph, n_sweeps, captured, bool(graph.marks))
+        return outs, result
     lay = layout()
     params, outs = inputs(lay)
-    static = (params, _map_tensors(torch.clone, outs))
     dev = next(_tensors(outs)).device
+    clock = _device_clock(dev)
+    clock.mark('start')
+    static = (params, _map_tensors(torch.clone, outs))
+    clock.mark('loaded')
+    tiled = clock.tiled
     for _ in range(n_sweeps):
         seeds = host_seeds().tolist()
         if gens:
             seeds = tuple(device_generator(x, dev) for x in seeds)
         sweep(lay, static, seeds)
-    return static[1], score(lay, static) if with_score else None
+    clock.mark('swept')
+    result = score(lay, static) if with_score else None
+    clock.end_step(None, n_sweeps, False, clock.tiled > tiled)
+    return static[1], result
 
 
 def _fused_run(spec, values, supports, nich_only, block, block_rows,

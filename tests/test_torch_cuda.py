@@ -21,7 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from distributions_tpu_torch import clustering as cl, mixture as mx, testing
+from distributions_tpu_torch import clustering as cl, diagnostics
+from distributions_tpu_torch import mixture as mx, testing
 from distributions_tpu_torch.models import MODULES, nich
 from distributions_tpu_torch.ops import bench_kernels as bk
 from distributions_tpu_torch.ops import fused_kernels as fk, gibbs
@@ -1409,7 +1410,7 @@ def _runs(dev, **kw):
     with gibbs._eager_sweeps():
         e = runner.run_gibbs(spec, cl_model, sh, tv,
                              torch.Generator().manual_seed(0), 6, **kw)
-    rows = [[{k: v for k, v in r.items() if k not in ('time', 'seconds')}
+    rows = [[{k: v for k, v in r.items() if k not in diagnostics.CLOCK_KEYS}
              for r in x[2].rows] for x in (g, e)]
     assert _bits_equal(g[:2], e[:2]) and rows[0] == rows[1]
     return g, stats
@@ -1445,6 +1446,72 @@ def test_graph_runner_hyper_moves_and_low_entropy(dev):
     _, stats = _runs(dev, cl_model=cl.LowEntropy.from_dict(
         {'dataset_size': 4096}, device=dev))
     assert stats['captures'] == 1 and stats['replays'] == 5
+
+
+def test_graph_runner_rows_carry_device_and_tile_ms(dev):
+    """On the graph path each step's row holds the card's timing marks:
+    device_ms (CUDA events: load, sweeps a sweep, score, and from the
+    second step on the edge from the step before) and tile 0's phases in
+    the step's last sweep (the mark nodes in the graph, on for that
+    replay); the capturing step is marked.  The run with those nodes in
+    its graph equals the eager one bitwise (`_runs`)."""
+    g, stats = _runs(dev)
+    rows = g[2].rows
+    assert len(rows) == 3
+    assert rows[0].get('captured') is True
+    assert not any('captured' in r for r in rows[1:])
+    phases = gibbs._DeviceClock.PHASES
+    for i, r in enumerate(rows):
+        d = r['device_ms']
+        assert all(d[k] > 0 for k in ('load', 'sweeps', 'score'))
+        assert ('edge' in d) == (i > 0)
+        assert d.get('edge', 0.0) >= 0
+        t = r['tile_ms']
+        assert set(t) == set(phases) | {'state_copy', 'sweep'}
+        assert all(v > 0 for v in t.values()), t
+        # a sweep of 4 tiles outlasts tile 0, and the step's last sweep
+        # (the card's global timer) fits in its 2 sweeps (CUDA events)
+        assert t['sweep'] > sum(t[p] for p in phases)
+        assert t['sweep'] <= 2 * d['sweeps'] * 1.01
+    assert stats['sweep_graph_nodes'] > 0
+
+
+def test_graph_sweep_nodes_counted_at_each_capture(dev):
+    """GRAPH_STATS['sweep_graph_nodes'] counts the captured sweep graph's
+    nodes once a capture (never a replay), the same for two captures of
+    one key; more tiles, more nodes.  The clock's 9 mark nodes stamp in a
+    replay that switches them on, and in no other."""
+    counts = []
+    for R in (4096, 4096, 8192):
+        spec, py, sh, tv, an = _graph_problem(dev, 'nich2', R=R)
+        st = mx.state_from_assignments(spec, py, sh, tv, an)
+        cache = gibbs.build_stat_cache(spec, sh, tv, 1024, an)
+        _reset_graph_stats()
+        with gibbs.sweep_graph_session():
+            for _ in range(2):
+                gibbs.sweep_blocked_pallas_fused_mixed(
+                    spec, py, sh, st, tv, an, 1024, 256,
+                    torch.Generator().manual_seed(5), cache,
+                    sampling='gumbel', n_sweeps=2, with_score=True)
+            assert gibbs.GRAPH_STATS['captures'] == 1
+            assert gibbs.GRAPH_STATS['replays'] == 3
+            graph = gibbs._GRAPH['graph']
+            assert len(graph.marks) == gibbs._DeviceClock.MARKS
+            stamps = graph.clock.stamps
+            seeds = torch.arange(R // 1024, dtype=torch.int64)
+            for marks in (False, True):
+                stamps.zero_()
+                graph.sweep(seeds, marks=marks)
+                torch.cuda.synchronize(dev)
+                t = stamps.tolist()
+                if marks:
+                    assert all(0 < a <= b for a, b in zip(t, t[1:])), t
+                else:
+                    assert not any(t)
+        counts.append(gibbs.GRAPH_STATS['sweep_graph_nodes'])
+    # tile 0's mark nodes and each tile's operations
+    assert counts[0] > gibbs._DeviceClock.MARKS and counts[0] == counts[1]
+    assert counts[2] > counts[0]
 
 
 # -- the sharded fused sweeps replayed from CUDA graphs -----------------------
@@ -1581,7 +1648,8 @@ def test_graph_plain_mesh_and_v1_sweeps_stay_eager(dev):
         sharding.sharded_sweep_components(spec, py, sh, st, tv, an, gen,
                                           sharding.make_component_mesh(2),
                                           512)
-    assert all(v == 0 for v in gibbs.GRAPH_STATS.values())
+    assert all(v == 0 for k, v in gibbs.GRAPH_STATS.items() if k != 'spans')
+    assert not gibbs.GRAPH_STATS['spans']
     assert gibbs._GRAPH['graph'] is None and gibbs._GRAPH['seen'] is None
     assert gibbs._graph_refusal(dev, 'gumbel', 'plain') \
         == gibbs._EAGER_SWEEPS['plain']

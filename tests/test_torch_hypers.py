@@ -18,6 +18,7 @@ from distributions_tpu import clustering as jcl, mixture as jmx
 from distributions_tpu import models as jmodels_pkg  # noqa: F401
 from distributions_tpu.inference import hypers as jhypers, runner as jr
 from distributions_tpu_torch import clustering as tcl, config, convert
+from distributions_tpu_torch import diagnostics
 from distributions_tpu_torch import mixture as tmx, testing
 from distributions_tpu_torch.inference import hypers, runner as tr
 from distributions_tpu_torch.models import MODULES
@@ -283,8 +284,8 @@ def test_resume_with_hyper_moves_is_bitwise(tmp_path, use_pallas, moves):
                                                  log_b.final_shareds[0]))
     assert torch.equal(log_a.final_cl_model.alpha, log_b.final_cl_model.alpha)
     def chain_rows(log):
-        return [{k: v for k, v in r.items() if k not in ('seconds', 'time')}
-                for r in log.rows]
+        return [{k: v for k, v in r.items()
+                 if k not in diagnostics.CLOCK_KEYS} for r in log.rows]
     assert chain_rows(log_a) == chain_rows(log_b)
     key = 'hyper_0' if moves == 'grids' else 'hyper_slice_0'
     assert [r['sweep'] for r in log_b.rows if key in r] == [1, 3, 5]

@@ -29,7 +29,7 @@ import pytest
 import torch
 
 from distributions_tpu import clustering as jcl, mixture as jmx
-from distributions_tpu_torch import clustering as tcl, config
+from distributions_tpu_torch import clustering as tcl, config, diagnostics
 from distributions_tpu_torch import mixture as tmx, testing
 from distributions_tpu_torch.inference import runner
 from distributions_tpu_torch.models import MODULES, nich
@@ -348,8 +348,8 @@ def test_runner_unfused_step_is_bitwise_the_old_sweeps(use_pallas, kind,
     assert _bits(got[:2]) == _bits(want[:2])
 
     def rows(log):
-        return [{k: v for k, v in r.items() if k not in ('time', 'seconds')}
-                for r in log.rows]
+        return [{k: v for k, v in r.items()
+                 if k not in diagnostics.CLOCK_KEYS} for r in log.rows]
     assert rows(got[2]) == rows(want[2])
 
 
