@@ -6,8 +6,8 @@ the default's, its times and its occupancy.
 
     python -m distributions_tpu_torch.benchmarks.split_variants [KERNEL ...]
 
-KERNELs (K1, B5, K2, K3, K4, K5; all by default) pick the kernels timed,
-and so the libraries built.
+KERNELs (K1, B5, K2, K2bb, K3, K4, K5; all by default) pick the kernels
+timed, and so the libraries built.
 
 Variants: the default (each warp walks one slice, two rows a thread), the
 lane mapping (a row's eight slices on lanes of one warp, merged by warp
@@ -19,7 +19,9 @@ the wide shape in place of the exact shapes of the main path's layouts
 reads four (SPLIT_TABLE_VEC=0).
 Inputs: tree_compare's nich2 tile (131,072 x 1024; K1, B5, K4) and
 niw2mix, bbddgp and nichbbddgp tiles (65,536 x 1024; K2 on the first two,
-K3 on the niw2mix tile's first 256 slots, K5 on the last two).  Every
+K3 on the niw2mix tile's first 256 slots, K5 on the last two), and bb
+tiles of one table column (131,072 x 1024 and x 8192; K2bb: K2 on the
+folded shape).  Every
 variant runs twice, in the order given and then in reverse, each time in a
 process of its own (two libraries with the same kernel names must not meet
 in one process), timed by median CUDA-event milliseconds of 7 launches.  Prints one JSON line per
@@ -48,8 +50,10 @@ VARIANTS = (('warp slices, 2 rows', ()),
             ('table rows one slot a load', ('SPLIT_TABLE_VEC=0',)))
 # kernel -> the library that holds it
 KERNEL_LIBS = {'K1': 'fused_v2', 'B5': 'fused_v2', 'K2': 'fused_v3',
-               'K3': 'fused_v3', 'K4': 'score_sample_v1',
+               'K2bb': 'fused_v3', 'K3': 'fused_v3', 'K4': 'score_sample_v1',
                'K5': 'score_sample_v1'}
+# K2bb's tiles: rows and slots
+BB_TILES = ((131072, 1024), (131072, 8192))
 
 
 def libs(kernels):
@@ -105,6 +109,16 @@ def all_calls(fk, bk, data, dev):
             s_kwargs = dict(kwargs, qcoeffs=cut(kwargs['qcoeffs']))
             out['K3 niw2mix gumbel'] = lambda: fk.fused_score_sample_pair(
                 5, *s_args, sampling='gumbel', **s_kwargs)
+    for rows, slots in BB_TILES:
+        t = {k: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+             for k, v in data['bb %d' % slots].items()}
+        args = (None, t['table_idx'], t['cl_scores'], None,
+                torch.clamp(t['tables'], min=-1e30), ())
+        for mode in ('gumbel', 'argmax'):
+            out['K2bb %d %s' % (slots, mode)] = (
+                lambda m, a, tv: lambda: fk.fused_mixed_score_sample_stats(
+                    5, *a, sampling=m, table_vs=tv))(mode, args,
+                                                      t['table_vs'])
     for mode in ('gumbel', 'argmax'):
         out['K4 ' + mode] = (lambda m: lambda: (fk.nich_score_sample(
             5, k1['values'], k1['cl_scores'], k1['v1_coeffs'],
@@ -143,6 +157,10 @@ def worker(defines, inputs, out, kernels):
         'K2 niw2mix': lambda: fk.split_occupancy('fused_v3', C, *layout),
         'K3 niw2mix': lambda: fk.split_occupancy(
             'fused_v3', C // tree_compare.SHARDS, *layout),
+        'K2bb 1024': lambda: fk.split_occupancy('fused_v3', 1024, (), (),
+                                                (2,)),
+        'K2bb 8192': lambda: fk.split_occupancy('fused_v3', 8192, (), (),
+                                                (2,)),
         'K4': lambda: fk.split_occupancy('score_sample_v1', C, (2,)),
         'K5 nichbbddgp': lambda: fk.split_occupancy(
             'score_sample_v1', C, (1,), (), data['nichbbddgp']['table_vs']),
@@ -178,8 +196,12 @@ def main(argv=None):
     work = os.path.join(tree_compare.ROOT, 'build', 'split_variants')
     os.makedirs(work, exist_ok=True)
     inputs = os.path.join(work, 'inputs.pt')
-    torch.save(tree_compare.main_path_inputs(
-        kinds=('niw2mix', 'bbddgp', 'nichbbddgp')), inputs)
+    data = tree_compare.main_path_inputs(
+        kinds=('niw2mix', 'bbddgp', 'nichbbddgp'))
+    for rows, slots in BB_TILES:
+        data['bb %d' % slots] = tree_compare.mixed_tile_inputs('bb', rows,
+                                                               slots)
+    torch.save(data, inputs)
     results = {label: {'defines': list(defines), 'ms': {}}
                for label, defines in VARIANTS}
     digests = {}

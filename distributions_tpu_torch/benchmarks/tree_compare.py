@@ -169,18 +169,18 @@ def main_path_inputs(kinds=('niw2mix',)):
     return out
 
 
-def mixed_tile_inputs(kind, rows=K2_ROWS):
+def mixed_tile_inputs(kind, rows=K2_ROWS, slots=SLOTS):
     """K2's tile of `rows` rows of the mixed layout `kind` against the state
-    of its rows, on the CPU: its arguments by name, and K5's v1_coeffs and
-    v1_tables where it has no niw block."""
+    of its rows in `slots` slots, on the CPU: its arguments by name, and
+    K5's v1_coeffs and v1_tables where it has no niw block."""
     import torch
     from distributions_tpu_torch import clustering as cl, mixture as mx
     from distributions_tpu_torch import testing
     from distributions_tpu_torch.models import MODULES
     from distributions_tpu_torch.ops import gibbs
     cpu = torch.device('cpu')
-    problem = testing.mixed_problem(rows, SLOTS, seed=0, kind=kind,
-                                    n_clusters=SLOTS // 8 * 7)
+    problem = testing.mixed_problem(rows, slots, seed=0, kind=kind,
+                                    n_clusters=slots // 8 * 7)
     spec, py, shareds = testing.build_problem(
         problem, MODULES, mx.make_spec, cl.PitmanYor.from_dict, device=cpu)
     vals = tuple(torch.from_numpy(v) for v in problem['values'])

@@ -48,6 +48,12 @@
 // ShapeV1<NC, NT>: NC nich columns and NT table columns in the v1 form)
 // fixes the layout's sizes and its products at compile time, so that the
 // record and the row values are register arrays and every loop unrolls.
+// A folded shape (ShapeTable1Folded: one table column of V <= 4 values and
+// nothing else) stages in each slot's record the slot's score for each of
+// the column's values, cst + tables[v, k] (the one rounded add of the
+// sequential walk, done once a slot and block instead of once a cell):
+// a row keeps its value index in a register, and a cell's score is the
+// record's entry at that index, with no table gather in the walk.
 // The wide shape (WideShape, WideShapeV1) takes every other layout the
 // wrappers accept: its loops run to the run-time layout's counts, so the
 // rows' values (and table rows) are staged in shared memory beside the
@@ -144,7 +150,7 @@ constexpr unsigned chunk_last(int n, int c = 0) {
 template <int NC, int NQC, int D, int NT>
 struct Shape {
   static constexpr int kNC = NC, kNQC = NQC, kD = D, kNT = NT;
-  static constexpr bool kExact = true, kV1 = false;
+  static constexpr bool kExact = true, kV1 = false, kFolded = false;
   static constexpr unsigned kNFirst = chunk_first(NC), kNLast = chunk_last(NC);
   static constexpr unsigned kQFirst = chunk_first(NQC),
                             kQLast = chunk_last(NQC);
@@ -156,22 +162,28 @@ struct Shape {
       (kRec + SPLIT_PACK - 1) / SPLIT_PACK * SPLIT_PACK;
 };
 
+// One table column of V <= kP values and nothing else, each slot's V
+// scores folded into its record: record entry v is cst + tables[v, k].
+struct ShapeTable1Folded : Shape<0, 0, 1, 1> {
+  static constexpr bool kFolded = true;
+};
+
 // the shape that takes every layout
 struct WideShape {
-  static constexpr bool kExact = false, kV1 = false;
+  static constexpr bool kExact = false, kV1 = false, kFolded = false;
 };
 
 // The v1 form's exact shapes: NC nich columns, NT table columns.
 template <int NC, int NT>
 struct ShapeV1 {
   static constexpr int kNC = NC, kNQC = 0, kD = 1, kNT = NT;
-  static constexpr bool kExact = true, kV1 = true;
+  static constexpr bool kExact = true, kV1 = true, kFolded = false;
   static constexpr int kP = 4 * NC + SPLIT_PACK;   // [4 a column | cl, pad]
 };
 
 // the v1 form's shape that takes every layout
 struct WideShapeV1 {
-  static constexpr bool kExact = false, kV1 = true;
+  static constexpr bool kExact = false, kV1 = true, kFolded = false;
 };
 
 // What varies at run time: the groups, and per column where a product of
@@ -341,7 +353,7 @@ static inline bool split_layout_v1(int ncols, int n_tab, int V,
 
 // True when layout L runs on shape SH: a shape of its form, the wide one
 // for any layout, an exact one for its counts (and dimension and chunk
-// masks).
+// masks), a folded one also for its table values (at most a record).
 template <class SH>
 static bool split_fits(const SplitLayout& L) {
   if (L.v1 != SH::kV1) return false;
@@ -356,7 +368,7 @@ static bool split_fits(const SplitLayout& L) {
       return false;
     for (int j = 0; j < L.nqc; ++j)
       if (L.qd[j] != SH::kD) return false;
-    return true;
+    return !SH::kFolded || L.vtot <= SH::kP;
   }
 }
 
@@ -365,13 +377,19 @@ static bool split_fits(const SplitLayout& L) {
 // Stage slot k's record at rec (shared memory), in the twin's order of the
 // constant: cl, then the nich blocks' bases, then the niw blocks' bases.
 // A niw column's record is mu[d], lam[d (d + 1) / 2] in row-major
-// upper-triangle order, lc (an exact shape's d is its D).
+// upper-triangle order, lc (an exact shape's d is its D).  A folded
+// shape's record is the slot's score of each table value.
 template <class SH>
 __device__ __forceinline__ void split_stage(const SplitArgs& a,
                                             const SplitLayout& L, int k,
                                             float* rec) {
   const size_t C = a.C;
   float cst = a.cl[k];
+  if constexpr (SH::kFolded) {
+    for (int v = 0; v < L.vtot; ++v)
+      rec[v] = __fadd_rn(cst, a.tables[v * C + k]);
+    return;
+  }
   int r = 0, c = 0;
   for (int g = 0; g < L.n_nich; ++g) {
     const int nc = L.nich_cols[g];
@@ -771,9 +789,45 @@ struct WideRows {
   }
 };
 
+// A thread's rows on a folded shape: each row's table value, its index
+// into a slot's record, in a register.
+struct FoldedRows {
+  static constexpr bool kExact = true;
+  int v[SPLIT_ROWS];
+
+  // an inactive row reads nothing and takes value 0
+  __device__ __forceinline__ void load(const SplitArgs& a,
+                                       const SplitLayout& L,
+                                       const int (&row)[SPLIT_ROWS],
+                                       const bool (&active)[SPLIT_ROWS], int,
+                                       float*) {
+#pragma unroll
+    for (int i = 0; i < SPLIT_ROWS; ++i) {
+      v[i] = active[i] ? L.tab_off[0] + a.table_idx[row[i]] : 0;
+#if defined(FUSED_V3_DEBUG)
+      if (v[i] < 0 || v[i] >= L.vtot) __trap();
+#endif
+    }
+  }
+
+  // no nich columns (PHASE_NOOP)
+  __device__ __forceinline__ float sum(int, const SplitLayout&) const {
+    return F(0.0);
+  }
+
+  // Row i's score of the slot whose record is at p (shared memory): one
+  // 4-byte load at its value (a 16-byte load of the record for all rows
+  // and a select per row measured 6-38% slower on the H100).
+  __device__ __forceinline__ float score(const float* __restrict__ p,
+                                         int i) const {
+    return p[v[i]];
+  }
+};
+
 template <class SH>
-using SplitRows =
-    std::conditional_t<SH::kExact, ExactRows<SH>, WideRows>;
+using SplitRows = std::conditional_t<
+    SH::kFolded, FoldedRows,
+    std::conditional_t<SH::kExact, ExactRows<SH>, WideRows>>;
 
 // -- the kernel -------------------------------------------------------------
 
@@ -855,7 +909,15 @@ __device__ __forceinline__ void split_turn(
       const int k = vq + w - a.lead;
       if (k < 0 || k >= a.C) continue;
       const float* p = mine + (size_t)(o + w) * P;
-      if constexpr (SH::kExact) {
+      if constexpr (SH::kFolded) {
+        // each row's score read from the record at its value
+#pragma unroll
+        for (int r = 0; r < SPLIT_ROWS; ++r)
+          split_visit<MODE, FAST, PHASE>(
+              rows.score(p, r),
+              kBits ? uint4_get(bits[r], w) & 0x00FFFFFFu : 0u, k, a, row[r],
+              active[r], best[r], idx[r]);
+      } else if constexpr (SH::kExact) {
         // each row scored and offered in turn, the record in registers
         const auto f = rows.record(p);
 #pragma unroll

@@ -39,11 +39,13 @@
 //   - The layout (how many nich blocks and columns, niw blocks as
 //     (columns, d), table offsets) is a small struct passed by value.  The
 //     split walk is instantiated over the layout's sizes for the layouts
-//     of the main path (Shape<> in fused_split.cuh) and a wide shape for
-//     the rest (its rows staged in shared memory, its loops to the
-//     layout's counts); the sequential 'cdf' walk only over MODE x FAST, its
-//     quadratic form a function template over d (1..MAX_D) picked by a
-//     warp-uniform switch, so the centred differences stay in registers.
+//     of the main path (Shape<> in fused_split.cuh: niw2mix, bbddgp, and
+//     one table column of at most four values, its scores folded into the
+//     slots' records) and a wide shape for the rest (its rows staged in
+//     shared memory, its loops to the layout's counts); the sequential
+//     'cdf' walk only over MODE x FAST, its quadratic form a function
+//     template over d (1..MAX_D) picked by a warp-uniform switch, so the
+//     centred differences stay in registers.
 //   - Score tables are read from device memory through the read-only cache
 //     (__ldg), not staged in shared memory: a thread walks its own table
 //     row in slot order, so consecutive slots hit the same cache line, and
@@ -72,7 +74,8 @@
 // Bound through ctypes: fused_v3_launch() and fused_v3_pair_launch() are
 // plain C entry points that launch on the caller's stream, allocate
 // nothing, and return cudaGetLastError(); fused_v3_occupancy() reports the
-// split kernel's registers, shared memory and resident blocks.
+// split kernel's registers, shared memory and resident blocks, and
+// fused_v3_split_shape() the split shape a layout takes.
 // fused_v3_stats_launch() runs the stat stage alone on given slots (a
 // measurement entry point), fused_v3_stat_plan() reports how it cuts a
 // launch.
@@ -409,17 +412,38 @@ static void with_split_shape(const SplitLayout& S, int mode, bool fast,
 using ShapeNiw2Mix = Shape<1, 1, 2, 1>;
 // bbddgp: three table columns
 using ShapeTables3 = Shape<0, 0, 1, 3>;
+// bb: one table column of at most four values, ShapeTable1Folded
+
+// The split shapes, as fused_v3_split_shape names them
+// (ops/fused_kernels.py SPLIT_SHAPES, in this order).
+enum { SHAPE_WIDE = 0, SHAPE_NIW2MIX = 1, SHAPE_TABLES3 = 2,
+       SHAPE_TABLE1_FOLDED = 3 };
 
 // The main path's exact shapes, the wide one for every other layout.
+static int split_shape(const SplitLayout& S) {
+  if (split_fits<ShapeNiw2Mix>(S)) return SHAPE_NIW2MIX;
+  if (split_fits<ShapeTables3>(S)) return SHAPE_TABLES3;
+  if (split_fits<ShapeTable1Folded>(S)) return SHAPE_TABLE1_FOLDED;
+  return SHAPE_WIDE;
+}
+
+// fn(kernel, record floats, staged row floats) on the kernel of S's shape.
 template <class Fn>
 static void with_split_kernel(const SplitLayout& S, int mode, bool fast,
                               Fn&& fn) {
-  if (split_fits<ShapeNiw2Mix>(S))
-    with_split_shape<ShapeNiw2Mix>(S, mode, fast, fn);
-  else if (split_fits<ShapeTables3>(S))
-    with_split_shape<ShapeTables3>(S, mode, fast, fn);
-  else
-    with_split_shape<WideShape>(S, mode, fast, fn);
+  switch (split_shape(S)) {
+    case SHAPE_NIW2MIX:
+      with_split_shape<ShapeNiw2Mix>(S, mode, fast, fn);
+      break;
+    case SHAPE_TABLES3:
+      with_split_shape<ShapeTables3>(S, mode, fast, fn);
+      break;
+    case SHAPE_TABLE1_FOLDED:
+      with_split_shape<ShapeTable1Folded>(S, mode, fast, fn);
+      break;
+    default:
+      with_split_shape<WideShape>(S, mode, fast, fn);
+  }
 }
 
 static SplitLayout split_of(const Layout& L, const int* nich_cols,
@@ -630,6 +654,21 @@ extern "C" int fused_v3_pair_launch(
                       tables, noise, out, best, B, C,
                       split_of(L, nich_cols, quad_cols, quad_d), mode, fast,
                       seed, seed_ptr, slot_offset, (cudaStream_t)stream);
+}
+
+// The split shape (SHAPE_*) that fused_v3_launch and fused_v3_pair_launch
+// take for this layout in 'argmax', 'gumbel' and 'gumbel_host': *shape.
+extern "C" int fused_v3_split_shape(int n_nich, const int* nich_cols,
+                                    int n_quad, const int* quad_cols,
+                                    const int* quad_d, int n_tab,
+                                    const int* table_vs, int* shape) {
+  Layout L;
+  int qdim = 0;
+  if (!make_layout(n_nich, nich_cols, n_quad, quad_cols, quad_d, n_tab,
+                   table_vs, &L, &qdim))
+    return (int)cudaErrorInvalidValue;
+  *shape = split_shape(split_of(L, nich_cols, quad_cols, quad_d));
+  return 0;
 }
 
 // The split kernel that fused_v3_launch takes for this layout and draw at

@@ -19,7 +19,8 @@ Each wrapper takes its twin (`*_plain`) for CPU tensors.  For CUDA tensors
 it launches the hand-written Hopper kernel in `csrc/fused_v2.cu`,
 `csrc/fused_v3.cu` or `csrc/score_sample_v1.cu` (built with nvcc into
 build/torch_kernels/ at first use, bound with ctypes) or raises; there is
-no fallback.  Its `launches` attribute counts the kernel launches.
+no fallback.  Its `launches` attribute counts the kernel launches; K2's
+`shape_launches` counts them by the split walk's shape (`split_shape`).
 """
 
 import ctypes
@@ -62,6 +63,11 @@ SPLIT_SLICES = 8
 SPLIT_ROWS = 2
 SPLIT_THREADS = 256
 SPLIT_PACK = 4
+# K2's and K3's split shapes by their csrc/fused_v3.cu SHAPE_* codes: the
+# wide shape, the exact shapes of niw2mix and bbddgp, and of one table
+# column of at most SPLIT_PACK values, its scores folded into the slot
+# records
+SPLIT_SHAPES = ('wide', 'niw2mix', 'tables3', 'table1_folded')
 
 # -- fast transcendentals (pallas_kernels.py _FAST_LOG_C / _FAST_EXP_C) -----
 
@@ -725,6 +731,7 @@ _QUERIES = {
     'fused_v2': {'fused_v2_occupancy': [_I, _I, _IP, _I, _I, _I, _IP],
                  'fused_v2_stat_plan': [_I, _I, _I, _IP]},
     'fused_v3': {'fused_v3_occupancy': [_I] + _LAYOUT + [_I, _I, _IP],
+                 'fused_v3_split_shape': _LAYOUT + [_IP],
                  'fused_v3_stat_plan': [_I, _I] + _LAYOUT + [_IP]},
     'score_sample_v1': {'score_sample_v1_occupancy': [_I, _I, _I, _I, _IP]},
 }
@@ -918,8 +925,9 @@ def split_occupancy(name, C, col_groups, quad_groups=(), table_vs=(),
     len(table_vs) table columns) takes for this layout and draw at C
     slots: its registers, local (spill) bytes, dynamic shared memory,
     record floats, turns of the slot axis, threads and resident blocks per
-    SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Needs the card;
-    'cdf' draws take the sequential walk and raise."""
+    SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor); for 'fused_v3'
+    also its `shape` (`split_shape`).  Needs the card; 'cdf' draws take
+    the sequential walk and raise."""
     lib = build(name)['lib']
     info = (ctypes.c_int * 7)()
     if name == 'score_sample_v1':
@@ -938,9 +946,30 @@ def split_occupancy(name, C, col_groups, quad_groups=(), table_vs=(),
                 C, *_layout_args(col_groups, quad_groups, table_vs),
                 SAMPLING_MODES[mode], int(fast), info)
     _raise_on(name, lib, err)
-    return dict(zip(('blocks_per_sm', 'threads_per_block', 'smem_bytes',
-                     'record_floats', 'turns', 'registers', 'local_bytes'),
-                    info))
+    report = dict(zip(('blocks_per_sm', 'threads_per_block', 'smem_bytes',
+                       'record_floats', 'turns', 'registers',
+                       'local_bytes'), info))
+    if name == 'fused_v3':
+        report['shape'] = split_shape(col_groups, quad_groups, table_vs)
+    return report
+
+
+# (col_groups, quad_groups, table_vs) -> its SPLIT_SHAPES name
+_SPLIT_SHAPE = {}
+
+
+def split_shape(col_groups, quad_groups=(), table_vs=()):
+    """The split walk's shape (a SPLIT_SHAPES name) that K2 and K3 take
+    for this layout in 'argmax', 'gumbel' and 'gumbel_host'.  Needs the
+    card."""
+    key = (tuple(col_groups), tuple(quad_groups), tuple(table_vs))
+    if key not in _SPLIT_SHAPE:
+        lib = build('fused_v3')['lib']
+        code = _I()
+        _raise_on('fused_v3', lib, lib.fused_v3_split_shape(
+            *_layout_args(*key), ctypes.byref(code)))
+        _SPLIT_SHAPE[key] = SPLIT_SHAPES[code.value]
+    return _SPLIT_SHAPE[key]
 
 
 def stat_blocks(B):
@@ -1155,6 +1184,10 @@ def _launch_mixed(seed, values, table_idx, cl_scores, coeffs, tables,
             SAMPLING_MODES[mode], int(fast), seed, seed_ptr, stream)
     _raise_on('fused_v3', lib, err)
     fused_mixed_score_sample_stats.launches += 1
+    shape = ('sequential' if mode in ('cdf', 'cdf_host')
+             else split_shape(col_groups, quad_groups, table_vs))
+    counts = fused_mixed_score_sample_stats.shape_launches
+    counts[shape] = counts.get(shape, 0) + 1
     _, _, sums, qsums, _, tcounts = outputs
     return out, sums, tcounts, qsums
 
@@ -1216,6 +1249,10 @@ def fused_mixed_score_sample_stats(seed, values, table_idx, cl_scores,
 
 
 fused_mixed_score_sample_stats.launches = 0
+# launches by the split walk's shape (SPLIT_SHAPES; 'sequential': the
+# 'cdf' walk), eager and at a CUDA graph's capture (a replay calls no
+# Python)
+fused_mixed_score_sample_stats.shape_launches = {}
 
 
 def _launch_pair(seed, values, table_idx, cl_scores, coeffs, tables,

@@ -43,6 +43,9 @@ MIXED_KINDS = {
     'bbddgp': (('bb', None), ('dd', None), ('gp', None)),
     # bbddgp with a nich column in front: the v1 mixed sweep's layout
     'nichbbddgp': (('nich', None), ('bb', None), ('dd', None), ('gp', None)),
+    # one table column alone: K2's folded shape (bb: 2 values, dd: 4)
+    'bb': (('bb', None),),
+    'dd': (('dd', None),),
 }
 
 

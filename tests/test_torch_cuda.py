@@ -143,7 +143,11 @@ def _noise(dev, sampling, B, C):
 @pytest.mark.parametrize('kind,B,C', [
     ('nich_gp_bb', 4096, 128), ('dd_bb', 3000, 1000), ('niw2', 4096, 128),
     ('niw3_nich_bb', 3000, 1000), ('niw4', 257, 1200), ('dpd_nich', 1024, 128),
-    ('bnb', 1024, 128), ('niw2mix', 4096, 1024), ('bbddgp', 4096, 1024)])
+    ('bnb', 1024, 128), ('niw2mix', 4096, 1024), ('bbddgp', 4096, 1024),
+    # one table column (the folded shape); ragged: B no multiple of the
+    # thread block's rows, C % 4 != 0, C below the 8 slices
+    ('bb', 4096, 1024), ('dd', 4096, 128), ('bb', 3001, 1027),
+    ('dd', 257, 6)])
 @pytest.mark.parametrize('sampling', ['argmax', 'argmax_fast', 'gumbel_host',
                                       'cdf_host'])
 def test_k2_matches_twin(dev, kind, B, C, sampling):
@@ -193,6 +197,36 @@ def test_k2_neg_inf_table_entries(dev):
         assert int(a.min()) >= 0 and int(a.max()) < 128
         assert not bool((a == 5).any())
         assert int(tcounts.sum()) == 2 * 2048
+
+
+def test_k2_neg_inf_table_entries_folded(dev):
+    """On the folded shape (one bb column) -inf entries are floored into
+    the slot records: a row never draws a slot whose entry at its value is
+    -inf, and the draws equal the twin's."""
+    B, C = 3001, 130
+    args, kwargs, _ = _mixed_inputs(dev, 'bb', B, C)
+    assert fk.split_shape(args[5], kwargs['quad_groups'],
+                          kwargs['table_vs']) == 'table1_folded'
+    tables = args[4].clone()
+    tables[:, 5] = float('-inf')
+    tables[1, ::2] = float('-inf')
+    args = args[:4] + (tables,) + args[5:]
+    ones = args[1][:, 0] == 1
+    noise = _noise(dev, 'gumbel_host', B, C)
+    for sampling, nz in (('argmax', None), ('cdf', None), ('gumbel', None),
+                         ('gumbel_host', noise)):
+        a, _, tcounts, _ = fk.fused_mixed_score_sample_stats(
+            3, *args, sampling=sampling, noise=nz, **kwargs)
+        assert int(a.min()) >= 0 and int(a.max()) < C
+        assert not bool((a == 5).any())
+        # value-1 rows only on odd slots
+        assert not bool((a[ones] % 2 == 0).any())
+        assert int(tcounts.sum()) == B
+        if sampling in ('argmax', 'gumbel_host'):
+            want = fk.fused_mixed_score_sample_stats_plain(
+                3, *args[:4], torch.clamp(tables, min=-1e30), args[5],
+                sampling=sampling, noise=nz, **kwargs)
+            assert torch.equal(a, want[0])
 
 
 def test_k2_wrapper_rejects_bad_inputs(dev):
@@ -248,7 +282,12 @@ def _pair_reduce(pairs, offsets, C):
     # ragged: B not a multiple of the thread block, slot ranges that are
     # no multiple of 4 and start at odd offsets
     ('niw3_nich_bb', 3001, 1000, (0, 333, 335, 1000)),
-    ('niw4', 257, 1200, (0, 7, 1200))])
+    ('niw4', 257, 1200, (0, 7, 1200)),
+    # one table column (the folded shape): ragged rows, shards cut at odd
+    # slots and inside a Philox block, fewer slots than slices
+    ('bb', 3001, 1027, (0, 333, 335, 1027)),
+    ('dd', 257, 1200, (0, 7, 601, 1200)),
+    ('bb', 4096, 6, (0, 3, 6))])
 @pytest.mark.parametrize('sampling', ['argmax', 'argmax_fast', 'gumbel_host',
                                       'gumbel', 'gumbel_fast'])
 def test_pair_kernel_matches_twin_and_k2(dev, kind, B, C, cuts, sampling):
@@ -725,10 +764,13 @@ SPLIT_BLOCK_ROWS = fk.SPLIT_THREADS // fk.SPLIT_SLICES * fk.SPLIT_ROWS
 SPLIT_B = (1, 127, 3000, 47 * SPLIT_BLOCK_ROWS + 1)
 SPLIT_C = (1, 3, 5, 1000, 1025)
 SPLIT_OFFSETS = (0, 2, 6, 256)
-# layouts of K2 and K3: niw2mix's (an exact shape of the kernel) and some
-# that take the wide shape (several blocks of each kind; niw d = 3, 4; more
-# than four columns in a block)
+# layouts of K2 and K3: niw2mix's (an exact shape of the kernel), one table
+# column of 2 values (bb: the folded shape), and some that take the wide
+# shape (one table column of 9 values; several blocks of each kind; niw d =
+# 3, 4; more than four columns in a block)
 SPLIT_LAYOUTS = {'niw2mix': ((1,), ((1, 2),), (3,)),
+                 'bb': ((), (), (2,)),
+                 'table9': ((), (), (9,)),
                  'wide': ((2, 3), ((1, 3), (2, 1)), (2, 5)),
                  'niw3_nich_bb': ((1,), ((1, 3),), (2,)),
                  'niw4': ((), ((1, 4),), ()),
@@ -896,8 +938,8 @@ def test_fused_split_k3_edges(dev, slot_offset, C):
 
 
 @pytest.mark.parametrize('C', (5, 1025))
-@pytest.mark.parametrize('slot_offset', SPLIT_OFFSETS)
-@pytest.mark.parametrize('layout', ['wide', 'niw3_nich_bb'])
+@pytest.mark.parametrize('slot_offset', SPLIT_OFFSETS + (3,))
+@pytest.mark.parametrize('layout', ['wide', 'niw3_nich_bb', 'bb', 'table9'])
 def test_fused_split_k3_wide_layouts(dev, layout, slot_offset, C):
     B = 3000
     args, kwargs = _rand_layout(dev, B, C, *SPLIT_LAYOUTS[layout],
@@ -977,19 +1019,68 @@ def test_fused_split_special_rows_wide(dev, kernel, rows):
                         else SPLIT_LAYOUTS['wide'])
 
 
+def _staged_record_bytes(C, report):
+    """split_geometry's shared memory of one turn's slot records (no
+    padding between slices in the default build) for a kernel's report at
+    C slots from slot 0."""
+    per_slice = -(-((C + 3) // 4) // fk.SPLIT_SLICES)
+    L = 4 * -(-per_slice // report['turns'])
+    return fk.SPLIT_SLICES * L * report['record_floats'] * 4
+
+
 def test_fused_split_occupancy_report(dev):
     """The occupancy entry points name the kernels of the main path, and
-    the wide shape of other layouts."""
+    the wide shape of other layouts; K2 names its shape."""
     r1 = fk.split_occupancy('fused_v2', 1024, (2,))
     r2 = fk.split_occupancy('fused_v3', 1024, (1,), ((1, 2),), (2,))
     r3 = fk.split_occupancy('fused_v2', 1024, (2, 3))
     r4 = fk.split_occupancy('fused_v3', 1024, *SPLIT_LAYOUTS['wide'])
-    for r in (r1, r2, r3, r4):
+    bb = fk.split_occupancy('fused_v3', 1024, *SPLIT_LAYOUTS['bb'])
+    t9 = fk.split_occupancy('fused_v3', 8192, *SPLIT_LAYOUTS['table9'])
+    t3 = fk.split_occupancy('fused_v3', 1024, (), (), (2, 4, 9))
+    for r in (r1, r2, r3, r4, bb, t9, t3):
         assert r['threads_per_block'] == fk.SPLIT_THREADS
         assert r['blocks_per_sm'] >= 1 and r['registers'] > 0
         assert r['record_floats'] % fk.SPLIT_PACK == 0
+    assert [r['shape'] for r in (r2, r4, bb, t9, t3)] == [
+        'niw2mix', 'wide', 'table1_folded', 'wide', 'tables3']
+    assert 'shape' not in r1
+    # the wide shape stages the block's rows beside the records (5 nich
+    # columns, 5 niw values and 2 table columns a row); the folded shape
+    # stages its records alone, where the wide shape would add a row's
+    # table index, and spills nothing
+    assert r4['smem_bytes'] == (_staged_record_bytes(1024, r4)
+                                + SPLIT_BLOCK_ROWS * (5 + 5 + 2) * 4)
+    assert bb['smem_bytes'] == _staged_record_bytes(1024, bb)
+    assert bb['record_floats'] == fk.SPLIT_PACK
+    assert bb['local_bytes'] == 0
+    # K1 on nich2 compiles as before
+    assert (r1['registers'], r1['local_bytes'], r1['blocks_per_sm']) == (
+        48, 0, 5)
     with pytest.raises(RuntimeError):
         fk.split_occupancy('fused_v2', 1024, (2,), sampling='cdf')
+
+
+@pytest.mark.parametrize('layout,shape', [
+    (SPLIT_LAYOUTS['bb'], 'table1_folded'), (((), (), (4,)), 'table1_folded'),
+    (SPLIT_LAYOUTS['table9'], 'wide'), (SPLIT_LAYOUTS['niw2mix'], 'niw2mix'),
+    (((), (), (2, 4, 9)), 'tables3'), (SPLIT_LAYOUTS['wide'], 'wide')],
+    ids=['bb', 'dd', 'table9', 'niw2mix', 'tables3', 'wide'])
+def test_k2_counts_launches_by_shape(dev, layout, shape):
+    """K2 counts its eager launches by the split shape it takes ('cdf':
+    the sequential walk), beside its count of all launches."""
+    assert fk.split_shape(*layout) == shape
+    args, kwargs = _rand_layout(dev, 300, 64, *layout)
+    counts = fk.fused_mixed_score_sample_stats.shape_launches
+    want = dict(counts)
+    before = fk.fused_mixed_score_sample_stats.launches
+    for sampling in ('gumbel', 'argmax', 'cdf'):
+        fk.fused_mixed_score_sample_stats(1, *args, sampling=sampling,
+                                          **kwargs)
+    want[shape] = want.get(shape, 0) + 2
+    want['sequential'] = want.get('sequential', 0) + 1
+    assert counts == want
+    assert fk.fused_mixed_score_sample_stats.launches == before + 3
 
 
 # -- the split walk of K4 and K5 (its v1 form): edge geometry -----------------
@@ -2038,8 +2129,8 @@ def test_reference_k4_at_8192_slots(dev, B):
 @pytest.mark.parametrize('B', REF_B)
 def test_reference_k2_bb_layout(dev, B, C):
     """K2 on the bb runner's layout: one table column of support 2, no
-    float feature (the wide shape; the stat stage with no float sums, the
-    count table alone), against its twin and its Philox noise."""
+    float feature (the folded shape; the stat stage with no float sums,
+    the count table alone), against its twin and its Philox noise."""
     args, kwargs = _rand_layout(dev, B, C, (), (), (2,), seed=B + C)
     noise = _noise(dev, 'gumbel_host', B, C)
     for sampling, nz in (('argmax', None), ('gumbel_host', noise)):

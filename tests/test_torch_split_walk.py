@@ -34,6 +34,18 @@ def test_constants_match_the_source():
             assert '#include "fused_split.cuh"' in f.read()
 
 
+def test_split_shapes_match_the_source():
+    """K2's and K3's shape names are fused_v3.cu's SHAPE_* codes in
+    order, and each code is dispatched."""
+    with open(os.path.join(fk._CSRC, 'fused_v3.cu')) as f:
+        src = f.read()
+    codes = {name.lower(): int(code) for name, code in
+             re.findall(r'\bSHAPE_(\w+) = (\d+)', src)}
+    assert codes == {name: i for i, name in enumerate(fk.SPLIT_SHAPES)}
+    for name in fk.SPLIT_SHAPES[1:]:
+        assert 'case SHAPE_%s:' % name.upper() in src
+
+
 def test_v1_caps_match_the_source():
     """K4 and K5 take the wrappers' caps of nich and table columns, and
     launch only the split walk."""
