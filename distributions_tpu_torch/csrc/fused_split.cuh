@@ -54,16 +54,25 @@
 // sequential walk, done once a slot and block instead of once a cell):
 // a row keeps its value index in a register, and a cell's score is the
 // record's entry at that index, with no table gather in the walk.
+// A shared-record shape (ShapeNiw16: one niw column of D = 16 and nothing
+// else) has a record too large for registers (cst, mu[16], lam[136], lc:
+// 156 floats with its pad): its rows' values stay in registers, and the
+// walk reads the record from shared memory a 16-byte load at a time, in
+// field order, once for all SPLIT_ROWS rows (a warp's lanes read one
+// slot: one broadcast address a load); the block's threads stage the
+// records a field a thread, so that a turn's staging is not left to one
+// thread a slot.
 // The wide shape (WideShape, WideShapeV1) takes every other layout the
 // wrappers accept: its loops run to the run-time layout's counts, so the
 // rows' values (and table rows) are staged in shared memory beside the
 // records, column by column, SPLIT_BLOCK_ROWS apart, and indexed there;
 // the record is packed to the layout (each niw column at its own
 // dimension) and read field by field, once for all SPLIT_ROWS rows; the
-// niw form unrolls to D <= 4 with the column's d as a guard, so the
+// niw form unrolls to D <= kQMax (WideShape: 4; WideShapeD16, for layouts
+// with a niw column of d > 4: 16) with the column's d as a guard, so the
 // centred differences stay in registers.  The wrappers pick the shape by
 // layout (fused_v2.cu, fused_v3.cu, score_sample_v1.cu); SPLIT_WIDE_ONLY=1
-// at compile time sends every layout to the wide shape, a variant that
+// at compile time sends every layout to a wide shape, a variant that
 // times one shape against the other.
 //
 // Table columns.  A table entry is a gather: the lanes of a warp read one
@@ -128,6 +137,7 @@
 #define SPLIT_MAX_QUAD 16
 #define SPLIT_MAX_TAB 16
 #define SPLIT_MAX_GROUPS 8
+#define SPLIT_MAX_D 16              // niw dimension
 
 static_assert(SPLIT_THREADS == 32 * SPLIT_SLICES && 32 % SPLIT_SLICES == 0,
               "a warp a slice, or a row's slices in one warp");
@@ -151,6 +161,7 @@ template <int NC, int NQC, int D, int NT>
 struct Shape {
   static constexpr int kNC = NC, kNQC = NQC, kD = D, kNT = NT;
   static constexpr bool kExact = true, kV1 = false, kFolded = false;
+  static constexpr bool kSharedRecord = false;
   static constexpr unsigned kNFirst = chunk_first(NC), kNLast = chunk_last(NC);
   static constexpr unsigned kQFirst = chunk_first(NQC),
                             kQLast = chunk_last(NQC);
@@ -168,9 +179,22 @@ struct ShapeTable1Folded : Shape<0, 0, 1, 1> {
   static constexpr bool kFolded = true;
 };
 
-// the shape that takes every layout
+// One niw column of D = 16 and nothing else, its record read from shared
+// memory (kSharedRecord).
+struct ShapeNiw16 : Shape<0, 1, 16, 0> {
+  static constexpr bool kSharedRecord = true;
+};
+
+// the shape that takes every layout whose niw columns have d <= kQMax
 struct WideShape {
   static constexpr bool kExact = false, kV1 = false, kFolded = false;
+  static constexpr bool kSharedRecord = false;
+  static constexpr int kQMax = 4;
+};
+
+// the shape that takes every layout
+struct WideShapeD16 : WideShape {
+  static constexpr int kQMax = SPLIT_MAX_D;
 };
 
 // The v1 form's exact shapes: NC nich columns, NT table columns.
@@ -178,12 +202,15 @@ template <int NC, int NT>
 struct ShapeV1 {
   static constexpr int kNC = NC, kNQC = 0, kD = 1, kNT = NT;
   static constexpr bool kExact = true, kV1 = true, kFolded = false;
+  static constexpr bool kSharedRecord = false;
   static constexpr int kP = 4 * NC + SPLIT_PACK;   // [4 a column | cl, pad]
 };
 
 // the v1 form's shape that takes every layout
 struct WideShapeV1 {
   static constexpr bool kExact = false, kV1 = true, kFolded = false;
+  static constexpr bool kSharedRecord = false;
+  static constexpr int kQMax = 4;
 };
 
 // What varies at run time: the groups, and per column where a product of
@@ -313,7 +340,7 @@ static inline bool split_layout(int n_nich, const int* nich_cols, int n_quad,
   int rec = 1 + 3 * L->ncols;
   for (int g = 0; g < n_quad; ++g) {
     const int nc = quad_cols[g], d = quad_d[g];
-    if (nc < 1 || d < 1 || d > 4 || L->nqc + nc > SPLIT_MAX_QUAD)
+    if (nc < 1 || d < 1 || d > SPLIT_MAX_D || L->nqc + nc > SPLIT_MAX_QUAD)
       return false;
     L->quad_cols[g] = nc;
     L->quad_d[g] = d;
@@ -357,18 +384,23 @@ static inline bool split_layout_v1(int ncols, int n_tab, int V,
 template <class SH>
 static bool split_fits(const SplitLayout& L) {
   if (L.v1 != SH::kV1) return false;
-  if (!SH::kExact) return true;
-  if (SPLIT_WIDE_ONLY) return false;
-  if constexpr (SH::kV1) {
-    return L.ncols == SH::kNC && L.n_tab == SH::kNT;
-  } else {
-    if (L.ncols != SH::kNC || L.nqc != SH::kNQC || L.n_tab != SH::kNT ||
-        L.nfirst != SH::kNFirst || L.nlast != SH::kNLast ||
-        L.qfirst != SH::kQFirst || L.qlast != SH::kQLast)
-      return false;
+  if constexpr (!SH::kExact) {
     for (int j = 0; j < L.nqc; ++j)
-      if (L.qd[j] != SH::kD) return false;
-    return !SH::kFolded || L.vtot <= SH::kP;
+      if (L.qd[j] > SH::kQMax) return false;
+    return true;
+  } else {
+    if (SPLIT_WIDE_ONLY) return false;
+    if constexpr (SH::kV1) {
+      return L.ncols == SH::kNC && L.n_tab == SH::kNT;
+    } else {
+      if (L.ncols != SH::kNC || L.nqc != SH::kNQC || L.n_tab != SH::kNT ||
+          L.nfirst != SH::kNFirst || L.nlast != SH::kNLast ||
+          L.qfirst != SH::kQFirst || L.qlast != SH::kQLast)
+        return false;
+      for (int j = 0; j < L.nqc; ++j)
+        if (L.qd[j] != SH::kD) return false;
+      return !SH::kFolded || L.vtot <= SH::kP;
+    }
   }
 }
 
@@ -426,6 +458,45 @@ __device__ __forceinline__ void split_stage(const SplitArgs& a,
   rec[0] = cst;
 }
 
+// Record field f of slot k of a shared-record shape, as split_stage
+// stages it: cst = cl + the block's base; mu, lam in niw_coeffs_v4's row
+// order; lc last.
+template <class SH>
+__device__ __forceinline__ float split_field(const SplitArgs& a, int f,
+                                             int k) {
+  const size_t C = a.C;
+  if (f == 0) return __fadd_rn(a.cl[k], a.qcoeffs[k]);
+  if (f == SH::kRec - 1) return a.qcoeffs[C + k];
+  return a.qcoeffs[(f + 1) * C + k];
+}
+
+// Stage the records of a turn of a shared-record shape (one niw column,
+// nothing else).  Where the turn's nrec records divide the block's threads
+// (ShapeNiw16's turn is a block of four slots a slice: nrec = 32), thread
+// t stages fields t / nrec, t / nrec + SPLIT_THREADS / nrec, ... of record
+// t % nrec: a warp's lanes load one field of consecutive slots, and no
+// thread divides a field index; otherwise a thread a record.
+template <class SH>
+__device__ __forceinline__ void split_stage_fields(const SplitArgs& a,
+                                                   float* recs, int stride,
+                                                   int v0, int tid) {
+  static_assert(SH::kNC == 0 && SH::kNQC == 1 && SH::kNT == 0 &&
+                    SH::kQBase == 1,
+                "one niw column alone");
+  const int nrec = SPLIT_SLICES * a.L;
+  const bool even = SPLIT_THREADS % nrec == 0;
+  const int per = even ? SPLIT_THREADS / nrec : 1;
+  for (int j = even ? tid % nrec : tid; j < nrec;
+       j += even ? nrec : SPLIT_THREADS) {
+    const int s = j / a.L, o = j - s * a.L;
+    const int k = s * a.SL + v0 + o - a.lead;
+    if (v0 + o >= a.SL || k < 0 || k >= a.C) continue;
+    float* rec = recs + (size_t)s * stride + (size_t)o * SH::kP;
+    for (int f = even ? tid / nrec : 0; f < SH::kRec; f += per)
+      rec[f] = split_field<SH>(a, f, k);
+  }
+}
+
 // Stage slot k's v1 record at rec: nich_coeffs' four rows of each column
 // (score, log_coeff, prec, mean), then cl.
 __device__ __forceinline__ void split_stage_v1(const SplitArgs& a,
@@ -457,6 +528,24 @@ struct RegRecord {
 __device__ __forceinline__ float float4_get(float4 v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
+
+// A record in shared memory read in field order, a 16-byte load each four
+// fields: with the fields' indices known at compile time (unrolled loops)
+// every load and select folds to a constant place.
+struct SharedRecord {
+  const float4* p;
+  float4 cur;
+  int at;
+  __device__ __forceinline__ explicit SharedRecord(const float* q)
+      : p(reinterpret_cast<const float4*>(q)), at(-1) {}
+  __device__ __forceinline__ float operator[](int i) {
+    if (i / 4 != at) {
+      at = i / 4;
+      cur = p[at];
+    }
+    return float4_get(cur, i % 4);
+  }
+};
 
 // -- the rows of a thread ----------------------------------------------------
 
@@ -599,6 +688,45 @@ struct ExactRows {
   static constexpr bool kExact = true;
   SplitRow<SH> r[SPLIT_ROWS];
 
+  // A shared-record shape's scores of the slot whose record is at p
+  // (shared memory): the niw column's fields read once for all rows, and
+  // per row product_base's operations in its order.
+  template <bool FAST>
+  __device__ __forceinline__ void scores_shared(const float* __restrict__ p,
+                                                float (&s)[SPLIT_ROWS]) const {
+    constexpr int D = SH::kD, Q = SH::kQBase;
+    SharedRecord f(p);
+    const float cst = f[0];
+    float t[SPLIT_ROWS][D];
+#pragma unroll
+    for (int u = 0; u < D; ++u) {
+      const float mu = f[Q + u];
+#pragma unroll
+      for (int i = 0; i < SPLIT_ROWS; ++i)
+        t[i][u] = __fsub_rn(r[i].qv[u], mu);
+    }
+    // lam in row-major upper-triangle order
+    float q[SPLIT_ROWS];
+    int x = 0;
+#pragma unroll
+    for (int u = 0; u < D; ++u) {
+#pragma unroll
+      for (int w = u; w < D; ++w, ++x) {
+        const float l = f[Q + D + x];
+#pragma unroll
+        for (int i = 0; i < SPLIT_ROWS; ++i) {
+          const float term = __fmul_rn(l, __fmul_rn(t[i][u], t[i][w]));
+          q[i] = (x == 0) ? term : __fadd_rn(q[i], term);
+        }
+      }
+    }
+    const float lc = f[Q + D + SH::kTri];
+#pragma unroll
+    for (int i = 0; i < SPLIT_ROWS; ++i)
+      s[i] = __fadd_rn(
+          cst, __fmul_rn(lc, log_<FAST>(__fadd_rn(F(1.0), q[i]))));
+  }
+
   __device__ __forceinline__ void load(const SplitArgs& a,
                                        const SplitLayout& L,
                                        const int (&row)[SPLIT_ROWS],
@@ -621,11 +749,13 @@ struct ExactRows {
   }
 };
 
-// A thread's rows on the wide shape: the block's rows staged in shared
+// A thread's rows on a wide shape: the block's rows staged in shared
 // memory, value column c of block row b at sv[c * SPLIT_BLOCK_ROWS + b]
 // (nich columns, then niw values, then the table rows' indices into the
 // packed tables, as ints), so that run-time column counts index no local
-// array; a warp's lanes read consecutive rows.
+// array; a warp's lanes read consecutive rows.  QMAX: the largest niw
+// dimension that the walk unrolls to.
+template <int QMAX>
 struct WideRows {
   static constexpr bool kExact = false;
   const float* sv;
@@ -707,9 +837,9 @@ struct WideRows {
       const int d = L.qd[j];
       const float* q = f + L.qrec[j];
       const float* v = qv + L.qoff[j] * SPLIT_BLOCK_ROWS;
-      float t[SPLIT_ROWS][4];
+      float t[SPLIT_ROWS][QMAX];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
+      for (int u = 0; u < QMAX; ++u) {
         if (u < d) {
           const float mu = q[u];
 #pragma unroll
@@ -718,13 +848,13 @@ struct WideRows {
         }
       }
       // lam in row-major upper-triangle order, the d x d triangle of a
-      // D = 4 walk with the column's d as a guard
+      // D = QMAX walk with the column's d as a guard
       float qq[SPLIT_ROWS];
       const float* lam = q + d;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
+      for (int u = 0; u < QMAX; ++u) {
 #pragma unroll
-        for (int w = u; w < 4; ++w) {
+        for (int w = u; w < QMAX; ++w) {
           if (w < d) {
             const float l = *lam++;
 #pragma unroll
@@ -824,10 +954,17 @@ struct FoldedRows {
   }
 };
 
+template <class SH, bool EXACT = SH::kExact>
+struct SplitRowsOf {
+  using type = ExactRows<SH>;
+};
 template <class SH>
-using SplitRows = std::conditional_t<
-    SH::kFolded, FoldedRows,
-    std::conditional_t<SH::kExact, ExactRows<SH>, WideRows>>;
+struct SplitRowsOf<SH, false> {
+  using type = WideRows<SH::kQMax>;
+};
+template <class SH>
+using SplitRows = std::conditional_t<SH::kFolded, FoldedRows,
+                                     typename SplitRowsOf<SH>::type>;
 
 // -- the kernel -------------------------------------------------------------
 
@@ -917,6 +1054,16 @@ __device__ __forceinline__ void split_turn(
               rows.score(p, r),
               kBits ? uint4_get(bits[r], w) & 0x00FFFFFFu : 0u, k, a, row[r],
               active[r], best[r], idx[r]);
+      } else if constexpr (SH::kSharedRecord) {
+        // every row scored against the record in shared memory, then
+        // offered in turn
+        float s[SPLIT_ROWS];
+        rows.template scores_shared<FAST>(p, s);
+#pragma unroll
+        for (int r = 0; r < SPLIT_ROWS; ++r)
+          split_visit<MODE, FAST, PHASE>(
+              s[r], kBits ? uint4_get(bits[r], w) & 0x00FFFFFFu : 0u, k, a,
+              row[r], active[r], best[r], idx[r]);
       } else if constexpr (SH::kExact) {
         // each row scored and offered in turn, the record in registers
         const auto f = rows.record(p);
@@ -997,15 +1144,19 @@ __global__ void SPLIT_BOUNDS split_score_sample(SplitArgs a, SplitLayout L) {
   for (int turn = 0; turn < a.turns; ++turn) {
     const int v0 = turn * a.L;
     __syncthreads();
-    for (int i = tid; i < SPLIT_SLICES * a.L; i += SPLIT_THREADS) {
-      const int s = i / a.L, o = i - s * a.L;
-      const int k = s * a.SL + v0 + o - a.lead;
-      if (v0 + o < a.SL && k >= 0 && k < a.C) {
-        float* rec = recs + (size_t)s * stride + o * P;
-        if constexpr (SH::kV1)
-          split_stage_v1(a, L, k, rec);
-        else
-          split_stage<SH>(a, L, k, rec);
+    if constexpr (SH::kSharedRecord) {
+      split_stage_fields<SH>(a, recs, stride, v0, tid);
+    } else {
+      for (int i = tid; i < SPLIT_SLICES * a.L; i += SPLIT_THREADS) {
+        const int s = i / a.L, o = i - s * a.L;
+        const int k = s * a.SL + v0 + o - a.lead;
+        if (v0 + o < a.SL && k >= 0 && k < a.C) {
+          float* rec = recs + (size_t)s * stride + o * P;
+          if constexpr (SH::kV1)
+            split_stage_v1(a, L, k, rec);
+          else
+            split_stage<SH>(a, L, k, rec);
+        }
       }
     }
     __syncthreads();

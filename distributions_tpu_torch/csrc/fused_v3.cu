@@ -10,7 +10,8 @@
 //                                   (1 + prec_j[k] (v_rj - mean_j[k])^2))
 //     + per niw block   lc[k] * log(prod over <= 4 columns of (1 + q)),
 //           q = sum_{a<=b} lam'_ab[k] (v_a - mu_a[k]) (v_b - mu_b[k])
-//           (centred differences; off-diagonal lam' pre-doubled)
+//           (centred differences; off-diagonal lam' pre-doubled; a
+//           column's dimension d <= MAX_D = 16)
 //     + per table column  tables[off_j + idx_rj, k]
 //
 // draws one slot per row, and emits per drawn slot the nich [1 | v | v^2]
@@ -39,13 +40,16 @@
 //   - The layout (how many nich blocks and columns, niw blocks as
 //     (columns, d), table offsets) is a small struct passed by value.  The
 //     split walk is instantiated over the layout's sizes for the layouts
-//     of the main path (Shape<> in fused_split.cuh: niw2mix, bbddgp, and
-//     one table column of at most four values, its scores folded into the
-//     slots' records) and a wide shape for the rest (its rows staged in
-//     shared memory, its loops to the layout's counts); the sequential
-//     'cdf' walk only over MODE x FAST, its quadratic form a function
-//     template over d (1..MAX_D) picked by a warp-uniform switch, so the
-//     centred differences stay in registers.
+//     of the main path (Shape<> in fused_split.cuh: niw2mix, bbddgp, one
+//     table column of at most four values, its scores folded into the
+//     slots' records, and one niw column of d = 16, its record read from
+//     shared memory) and a wide shape for the rest (its rows staged in
+//     shared memory, its loops to the layout's counts; its niw form
+//     unrolled to d = 4, or to d = 16 for a layout with a wider niw
+//     column); the sequential 'cdf' walk only over MODE x FAST, its
+//     quadratic form a function template over d (1..MAX_D) picked by a
+//     warp-uniform switch, so the centred differences stay in
+//     registers.
 //   - Score tables are read from device memory through the read-only cache
 //     (__ldg), not staged in shared memory: a thread walks its own table
 //     row in slot order, so consecutive slots hit the same cache line, and
@@ -94,7 +98,7 @@
 #define MAX_GROUPS 8        // nich blocks, and niw blocks
 #define MAX_COLS 32         // nich columns in all
 #define MAX_QVALS 16        // niw value columns in all (sum of cols * d)
-#define MAX_D 4             // niw dimension
+#define MAX_D 16            // niw dimension
 #define MAX_TABLE_COLS 16
 #define SCORE_THREADS 128
 #define SMEM_FLOATS (48 * 1024 / 4)
@@ -258,7 +262,19 @@ __device__ __forceinline__ void score_and_draw(
                 case 1: q = quad_form<1>(v, co, CK); break;
                 case 2: q = quad_form<2>(v, co, CK); break;
                 case 3: q = quad_form<3>(v, co, CK); break;
-                default: q = quad_form<4>(v, co, CK); break;
+                case 4: q = quad_form<4>(v, co, CK); break;
+                case 5: q = quad_form<5>(v, co, CK); break;
+                case 6: q = quad_form<6>(v, co, CK); break;
+                case 7: q = quad_form<7>(v, co, CK); break;
+                case 8: q = quad_form<8>(v, co, CK); break;
+                case 9: q = quad_form<9>(v, co, CK); break;
+                case 10: q = quad_form<10>(v, co, CK); break;
+                case 11: q = quad_form<11>(v, co, CK); break;
+                case 12: q = quad_form<12>(v, co, CK); break;
+                case 13: q = quad_form<13>(v, co, CK); break;
+                case 14: q = quad_form<14>(v, co, CK); break;
+                case 15: q = quad_form<15>(v, co, CK); break;
+                default: q = quad_form<16>(v, co, CK); break;
               }
               w += d + d * (d + 1) / 2;
               qidx += d;
@@ -413,18 +429,22 @@ using ShapeNiw2Mix = Shape<1, 1, 2, 1>;
 // bbddgp: three table columns
 using ShapeTables3 = Shape<0, 0, 1, 3>;
 // bb: one table column of at most four values, ShapeTable1Folded
+// niw16: one niw column of d = 16, ShapeNiw16
 
 // The split shapes, as fused_v3_split_shape names them
 // (ops/fused_kernels.py SPLIT_SHAPES, in this order).
 enum { SHAPE_WIDE = 0, SHAPE_NIW2MIX = 1, SHAPE_TABLES3 = 2,
-       SHAPE_TABLE1_FOLDED = 3 };
+       SHAPE_TABLE1_FOLDED = 3, SHAPE_NIW16 = 4, SHAPE_WIDE_D16 = 5 };
 
-// The main path's exact shapes, the wide one for every other layout.
+// The main path's exact shapes, a wide one for every other layout: the
+// wide shape of niw columns of d <= 4, or the one of d <= 16.
 static int split_shape(const SplitLayout& S) {
   if (split_fits<ShapeNiw2Mix>(S)) return SHAPE_NIW2MIX;
   if (split_fits<ShapeTables3>(S)) return SHAPE_TABLES3;
   if (split_fits<ShapeTable1Folded>(S)) return SHAPE_TABLE1_FOLDED;
-  return SHAPE_WIDE;
+  if (split_fits<ShapeNiw16>(S)) return SHAPE_NIW16;
+  if (split_fits<WideShape>(S)) return SHAPE_WIDE;
+  return SHAPE_WIDE_D16;
 }
 
 // fn(kernel, record floats, staged row floats) on the kernel of S's shape.
@@ -440,6 +460,12 @@ static void with_split_kernel(const SplitLayout& S, int mode, bool fast,
       break;
     case SHAPE_TABLE1_FOLDED:
       with_split_shape<ShapeTable1Folded>(S, mode, fast, fn);
+      break;
+    case SHAPE_NIW16:
+      with_split_shape<ShapeNiw16>(S, mode, fast, fn);
+      break;
+    case SHAPE_WIDE_D16:
+      with_split_shape<WideShapeD16>(S, mode, fast, fn);
       break;
     default:
       with_split_shape<WideShape>(S, mode, fast, fn);

@@ -13,8 +13,9 @@ How an operator reads a run:
   sweep, `score`, and `edge`, the device time from the previous step's
   last event to this one's first), `tile_ms` (tile 0's phases in the
   step's last sweep: `remove`, `inputs`, `kernel`, `sums`, `add`,
-  `write`, the end-of-sweep `state_copy` and the whole `sweep`) and, in a
-  step that captured its graph, `captured: true`.
+  `write`, the end-of-sweep `state_copy` and the whole `sweep`; with niw
+  blocks also `niw_coeffs`, the niw coefficients inside `inputs`) and, in
+  a step that captured its graph, `captured: true`.
 - The span totals: `ops.gibbs.reset_graph_stats()` returns the process's
   table of graph counters, whose `spans` entry holds each span name's
   `count`, `seconds` and `self_seconds` since the table was last reset.

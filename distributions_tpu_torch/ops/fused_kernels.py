@@ -44,11 +44,12 @@ DEFAULT_BLOCK_ROWS = 256
 # sampling mode -> the kernels' MODE_* enum (csrc/fused_common.cuh)
 SAMPLING_MODES = {'argmax': 0, 'gumbel': 1, 'gumbel_host': 2, 'cdf': 3,
                   'cdf_host': 4}
-# caps of the kernels' run-time layouts (csrc/fused_v2.cu, csrc/fused_v3.cu)
+# caps of the kernels' run-time layouts (csrc/fused_v3.cu's MAX_* defines,
+# which a test holds these to)
 MAX_GROUPS = 8          # nich blocks, and niw blocks
 MAX_COLS = 32           # nich columns in all
 MAX_QVALS = 16          # niw value columns in all (sum of cols * d)
-MAX_D = 4               # niw dimension
+MAX_D = 16              # niw dimension
 MAX_TABLE_COLS = 16
 MAX_VTOT = 4096         # packed table rows
 # the stat stage of K1 and K2 (csrc/fused_stats.cuh): the blocks a launch
@@ -64,10 +65,13 @@ SPLIT_ROWS = 2
 SPLIT_THREADS = 256
 SPLIT_PACK = 4
 # K2's and K3's split shapes by their csrc/fused_v3.cu SHAPE_* codes: the
-# wide shape, the exact shapes of niw2mix and bbddgp, and of one table
-# column of at most SPLIT_PACK values, its scores folded into the slot
-# records
-SPLIT_SHAPES = ('wide', 'niw2mix', 'tables3', 'table1_folded')
+# wide shape (niw columns of d <= 4), the exact shapes of niw2mix and
+# bbddgp, of one table column of at most SPLIT_PACK values, its scores
+# folded into the slot records, and of one niw column of d = 16, its
+# record read from shared memory; and the wide shape of layouts with a
+# niw column of 4 < d <= MAX_D
+SPLIT_SHAPES = ('wide', 'niw2mix', 'tables3', 'table1_folded', 'niw16',
+                'wide_d16')
 
 # -- fast transcendentals (pallas_kernels.py _FAST_LOG_C / _FAST_EXP_C) -----
 
@@ -267,17 +271,23 @@ def niw_coeffs_v4(shared, group):
     psi_inv, logdet_psi = _inv_logdet_spd_small(post.psi)
     lam = psi_inv * (kap / (kap + 1.0))[..., None, None]
     logdet_sigma = logdet_psi + d * torch.log((kap + 1.0) / (kap * dof))
-    lg = sum(lgamma_nu(dof + i) for i in range(d))
+    # lgamma_nu(dof + i) of every i < d at once, summed in i's order
+    lgs = lgamma_nu(dof[..., None] + torch.arange(d, dtype=dof.dtype,
+                                                  device=dof.device))
+    lg = lgs[..., 0]
+    for i in range(1, d):
+        lg = lg + lgs[..., i]
     const = lg - 0.5 * (d * torch.log(dof * torch.pi) + logdet_sigma)
-    rows = [const.sum(1),                        # base [C]
-            -0.5 * (dof[:, 0] + d)]              # lc   [C]
+    # the upper triangle in row-major order, off-diagonals doubled: one
+    # gather a column, not d (d + 1) / 2 launches
+    a, b = torch.triu_indices(d, d, device=lam.device)
+    twice = (a != b).to(lam.dtype) + 1.0
+    rows = [const.sum(1)[None],                  # base [C]
+            -0.5 * (dof[:, 0] + d)[None]]        # lc   [C]
     for j in range(post.mu.shape[1]):
-        for a in range(d):
-            rows.append(post.mu[:, j, a])
-        for a in range(d):
-            for b in range(a, d):
-                rows.append((1.0 if a == b else 2.0) * lam[:, j, a, b])
-    return torch.stack(rows, dim=0)
+        rows.append(post.mu[:, j, :].t())
+        rows.append((lam[:, j, a, b] * twice).t())
+    return torch.cat(rows, dim=0)
 
 
 def quad_sums_to_raw(qsums, quad_groups):

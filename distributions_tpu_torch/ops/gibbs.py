@@ -352,19 +352,26 @@ def _tile_noise(sampling, seed, block, C, device):
                       dtype=torch.float32)
 
 
-def _build_fused_inputs(spec, lay, shareds, state):
+def _build_fused_inputs(spec, lay, shareds, state, mark=None):
     """Per-slot kernel inputs (coeffs, qcoeffs, tables) from the current
     groups; a kind of block that the spec lacks gives None.  tables is
     the PACKED [Vtot, C] score table: every table column's [V, C] table of
-    `score_value_batch` over its support, stacked in column order."""
+    `score_value_batch` over its support, stacked in column order.
+    `mark(i)`, when given, stamps the `_DeviceClock`'s niw marks, i = 0
+    before and i = 1 after the niw coefficients (their posterior, inverse
+    and logdet) of a spec with niw blocks."""
     coeffs = qcoeffs = tables = None
     if lay.nich_blocks:
         coeffs = torch.cat([fk.nich_coeffs_v2_rows(shareds[i],
                                                    state.groups[i])
                             for i in lay.nich_blocks], dim=0).contiguous()
     if lay.quad_blocks:
+        if mark is not None:
+            mark(0)
         qcoeffs = torch.cat([fk.niw_coeffs_v4(shareds[i], state.groups[i])
                              for i in lay.quad_blocks], dim=0).contiguous()
+        if mark is not None:
+            mark(1)
     table_list = _column_tables(spec, lay, shareds, state)
     if table_list:
         tables = torch.cat(table_list, dim=0).contiguous()
@@ -377,12 +384,14 @@ def _slice_rows(lay, t, block):
                  for x in (lay.nich_vals, lay.quad_vals, lay.table_idx))
 
 
-def _fused_tile_inputs(spec, lay, cl_model, shareds, state):
+def _fused_tile_inputs(spec, lay, cl_model, shareds, state, mark=None):
     """The fused kernel's per-slot inputs from the current state:
-    (cl_scores, coeffs, qcoeffs, tables)."""
+    (cl_scores, coeffs, qcoeffs, tables); `mark` as `_build_fused_inputs`
+    takes it."""
     cl_scores = _cl.score_value(cl_model, state.counts, state.alive,
                                 state.sample_size)
-    return (cl_scores,) + _build_fused_inputs(spec, lay, shareds, state)
+    return (cl_scores,) + _build_fused_inputs(spec, lay, shareds, state,
+                                              mark)
 
 
 def _fused_tile_core(spec, lay, W, block_rows, sampling, cl_model, shareds,
@@ -466,12 +475,15 @@ def _fused_sweep_into(spec, lay, W, block, block_rows, sampling, cl_model,
     is captured into a CUDA graph (`_SweepGraph`); on the CPU it runs on the
     kernels' twins.  On the card the sweep stamps the phase marks of the
     card's `_DeviceClock`: tile 0's, the last tile's end and the state
-    copy's."""
+    copy's; and a capture records the stat stage's plan
+    (`_record_stat_plan`)."""
     cached_cd, cached_sums = cache
     clock = _device_clock(cached_cd.device)
+    _record_stat_plan(spec, lay, block, cached_cd.device)
     cur = state
     for t in range(cached_cd.shape[0]):
         mark = clock.tile if t == 0 else _NO_CLOCK.tile
+        niw_mark = clock.niw if t == 0 else _NO_CLOCK.niw
         mark(0)
         tiles = mx.sums_to_tiles(spec, shareds,
                                  tuple(s[t] for s in cached_sums))
@@ -480,7 +492,8 @@ def _fused_sweep_into(spec, lay, W, block, block_rows, sampling, cl_model,
         mark(1)
         noise = _tile_noise(sampling, seeds[t], block, spec.capacity,
                             cached_cd.device)
-        inputs = _fused_tile_inputs(spec, lay, cl_model, shareds, cur)
+        inputs = _fused_tile_inputs(spec, lay, cl_model, shareds, cur,
+                                    niw_mark)
         mark(2)
         new_assign, new_cd, new_sums = _fused_tile_core(
             spec, lay, W, block_rows, sampling, cl_model, shareds, cur,
@@ -500,6 +513,25 @@ def _fused_sweep_into(spec, lay, W, block, block_rows, sampling, cl_model,
     for dst, src in zip(_tensors(state), _tensors(cur)):
         dst.copy_(src)
     clock.tile(8)
+
+
+def _record_stat_plan(spec, lay, block, device):
+    """While a sweep graph captures on the card: the plan of the stat
+    stage of the sweep's K1 or K2 launches (`fused_kernels.stat_plan`) in
+    GRAPH_STATS['stat_plan']: its warps, slots a chunk and chunks of the
+    slot axis."""
+    if device.type != 'cuda' or not torch.cuda.is_current_stream_capturing():
+        return
+    col_groups = tuple(spec.blocks[i].cols for i in lay.nich_blocks)
+    if lay.quad_groups or lay.table_vs:
+        plan = fk.stat_plan('fused_v3', block, spec.capacity, col_groups,
+                            lay.quad_groups, lay.table_vs)
+    else:
+        plan = fk.stat_plan('fused_v2', block, spec.capacity, col_groups)
+    cks = plan['chunk_slots']
+    GRAPH_STATS['stat_plan'] = {
+        'warps': plan['warps'], 'chunk_slots': cks,
+        'chunks': -(-spec.capacity // cks) if cks else 0}
 
 
 def _map_tensors(fn, tree):
@@ -550,10 +582,12 @@ _GRAPH = {'key': None, 'graph': None, 'seen': None, 'seen_values': None}
 # the bytes of the captures' memory pools, the joint-score graph's captures
 # and replays, the runs that took the eager loop because their key was new,
 # the nodes of the last sweep graph captured (each launch, copy, memset and
-# event record in it), and the host spans' totals (`diagnostics.span`)
+# event record in it), the stat stage's plan in the last fused sweep graph
+# captured (`_record_stat_plan`), and the host spans' totals
+# (`diagnostics.span`)
 GRAPH_STATS = {'captures': 0, 'replays': 0, 'capture_seconds': 0.0,
                'pool_bytes': 0, 'score_captures': 0, 'score_replays': 0,
-               'first_uses': 0, 'sweep_graph_nodes': 0,
+               'first_uses': 0, 'sweep_graph_nodes': 0, 'stat_plan': {},
                'spans': diagnostics.SPAN_TOTALS}
 # the wrappers whose launches a replay repeats
 _COUNTED = (fk.fused_score_sample_stats, fk.fused_mixed_score_sample_stats,
@@ -611,7 +645,9 @@ def reset_graph_stats():
     ring (`diagnostics.reset_spans`); returns GRAPH_STATS, to be read after
     the run."""
     for k in GRAPH_STATS:
-        if k != 'spans':
+        if k == 'stat_plan':
+            GRAPH_STATS[k] = {}
+        elif k != 'spans':
             GRAPH_STATS[k] = type(GRAPH_STATS[k])(0)
     diagnostics.reset_spans()
     return GRAPH_STATS
@@ -646,9 +682,11 @@ class _DeviceClock:
     Tile 0's phases inside a fused sweep (`_fused_sweep_into`): stamps of
     the card's global timer (`fused_kernels.clock_mark`) before its remove
     and after its remove, inputs, kernel, sums, add and write, before the
-    end-of-sweep state copy and after it.  In a capture each mark is a
-    kernel node of the graph, which `_SweepGraph` switches on for the last
-    sweep of a step alone: the stamps are that sweep's."""
+    end-of-sweep state copy and after it; and with niw blocks, inside its
+    inputs, before and after the niw coefficients (`niw`, stamps of their
+    own).  In a capture each mark is a kernel node of the graph, which
+    `_SweepGraph` switches on for the last sweep of a step alone: the
+    stamps are that sweep's."""
 
     STEP = ('start', 'loaded', 'swept', 'scored')
     PHASES = ('remove', 'inputs', 'kernel', 'sums', 'add', 'write')
@@ -660,14 +698,21 @@ class _DeviceClock:
         self.device = device
         self.steps = [[torch.cuda.Event(enable_timing=True)
                        for _ in self.STEP] for _ in range(2)]
+        # the phase marks, then the two niw marks (stamped by specs with
+        # niw blocks alone)
         self.stamps = torch.zeros(self.MARKS, dtype=torch.int64,
                                   device=device)
-        # their host copy, made on the stream at the step's end
+        self.niw_stamps = torch.zeros(2, dtype=torch.int64, device=device)
+        # their host copies, made on the stream at the step's end
         self.host_stamps = torch.zeros(self.MARKS, dtype=torch.int64,
                                        pin_memory=True)
+        self.host_niw_stamps = torch.zeros(2, dtype=torch.int64,
+                                           pin_memory=True)
         self.turn = 0
         # sweeps that stamped the tile marks, eagerly or in a capture
         self.tiled = 0
+        # whether a sweep has stamped the niw marks
+        self.niw_used = False
         # while a graph captures: the mark nodes it captured
         self.nodes = None
         # (graph or None, its 'scored' event) of the last step
@@ -679,11 +724,18 @@ class _DeviceClock:
             torch.cuda.current_stream(self.device))
 
     def tile(self, i):
-        node = fk.clock_mark(self.stamps, i)
-        if node is not None and self.nodes is not None:
-            self.nodes.append(node)
+        self._stamp(self.stamps, i)
         if i == self.MARKS - 1:
             self.tiled += 1
+
+    def niw(self, i):
+        self._stamp(self.niw_stamps, i)
+        self.niw_used = True
+
+    def _stamp(self, stamps, i):
+        node = fk.clock_mark(stamps, i)
+        if node is not None and self.nodes is not None:
+            self.nodes.append(node)
 
     def end_step(self, graph, n_sweeps, captured, tiled):
         """After the step's score and output copies: copy the stamps of a
@@ -691,6 +743,9 @@ class _DeviceClock:
         read."""
         if tiled:
             self.host_stamps.copy_(self.stamps, non_blocking=True)
+            if self.niw_used:
+                self.host_niw_stamps.copy_(self.niw_stamps,
+                                           non_blocking=True)
         self.mark('scored')
         scored = self.steps[self.turn][-1]
         edge_from = None
@@ -723,6 +778,11 @@ class _DeviceClock:
                     for i, name in enumerate(self.PHASES)}
             tile['state_copy'] = (t[-1] - t[-2]) / 1e6
             tile['sweep'] = (t[-1] - t[0]) / 1e6
+            # the niw marks of this sweep lie inside its inputs phase
+            # (older stamps, of another run, before it)
+            a, b = self.host_niw_stamps.tolist()
+            if t[1] <= a <= b <= t[2]:
+                tile['niw_coeffs'] = (b - a) / 1e6
             out['tile_ms'] = tile
         if p['captured']:
             out['captured'] = True
@@ -738,6 +798,9 @@ class _NoClock:
         pass
 
     def tile(self, i):
+        pass
+
+    def niw(self, i):
         pass
 
     def end_step(self, graph, n_sweeps, captured, tiled):

@@ -46,6 +46,13 @@ MIXED_KINDS = {
     # one table column alone: K2's folded shape (bb: 2 values, dd: 4)
     'bb': (('bb', None),),
     'dd': (('dd', None),),
+    # niw columns past d = 4: K2's niw16 shape (one column of d = 16) and
+    # its wide shape of d <= 16 (every other layout with such a column)
+    'niw5': (('niw', 5),),
+    'niw8': (('niw', 8),),
+    'niw13': (('niw', 13),),
+    'niw16': (('niw', 16),),
+    'niw16_nich': (('niw', 16), ('nich', None)),
 }
 
 

@@ -147,7 +147,11 @@ def _noise(dev, sampling, B, C):
     # one table column (the folded shape); ragged: B no multiple of the
     # thread block's rows, C % 4 != 0, C below the 8 slices
     ('bb', 4096, 1024), ('dd', 4096, 128), ('bb', 3001, 1027),
-    ('dd', 257, 6)])
+    ('dd', 257, 6),
+    # niw columns past d = 4: one column of d = 16 (the niw16 shape) and
+    # the wide shape of d <= 16
+    ('niw5', 3001, 1027), ('niw8', 4096, 128), ('niw13', 257, 1200),
+    ('niw16', 4096, 1024), ('niw16', 3001, 1027), ('niw16_nich', 2048, 256)])
 @pytest.mark.parametrize('sampling', ['argmax', 'argmax_fast', 'gumbel_host',
                                       'cdf_host'])
 def test_k2_matches_twin(dev, kind, B, C, sampling):
@@ -774,7 +778,11 @@ SPLIT_LAYOUTS = {'niw2mix': ((1,), ((1, 2),), (3,)),
                  'wide': ((2, 3), ((1, 3), (2, 1)), (2, 5)),
                  'niw3_nich_bb': ((1,), ((1, 3),), (2,)),
                  'niw4': ((), ((1, 4),), ()),
-                 'niw1x5_nich6': ((6,), ((5, 1),), ())}
+                 'niw1x5_nich6': ((6,), ((5, 1),), ()),
+                 # one niw column of d = 16 (the niw16 shape); two of d = 8
+                 # beside nich and table columns (the wide shape of d <= 16)
+                 'niw16': ((), ((1, 16),), ()),
+                 'niw8x2_nich_bb': ((1,), ((2, 8),), (2,))}
 
 
 def _rand_layout(dev, B, C, groups, quads, tvs, seed=0):
@@ -939,7 +947,8 @@ def test_fused_split_k3_edges(dev, slot_offset, C):
 
 @pytest.mark.parametrize('C', (5, 1025))
 @pytest.mark.parametrize('slot_offset', SPLIT_OFFSETS + (3,))
-@pytest.mark.parametrize('layout', ['wide', 'niw3_nich_bb', 'bb', 'table9'])
+@pytest.mark.parametrize('layout', ['wide', 'niw3_nich_bb', 'bb', 'table9',
+                                    'niw16', 'niw8x2_nich_bb'])
 def test_fused_split_k3_wide_layouts(dev, layout, slot_offset, C):
     B = 3000
     args, kwargs = _rand_layout(dev, B, C, *SPLIT_LAYOUTS[layout],
@@ -1064,8 +1073,11 @@ def test_fused_split_occupancy_report(dev):
 @pytest.mark.parametrize('layout,shape', [
     (SPLIT_LAYOUTS['bb'], 'table1_folded'), (((), (), (4,)), 'table1_folded'),
     (SPLIT_LAYOUTS['table9'], 'wide'), (SPLIT_LAYOUTS['niw2mix'], 'niw2mix'),
-    (((), (), (2, 4, 9)), 'tables3'), (SPLIT_LAYOUTS['wide'], 'wide')],
-    ids=['bb', 'dd', 'table9', 'niw2mix', 'tables3', 'wide'])
+    (((), (), (2, 4, 9)), 'tables3'), (SPLIT_LAYOUTS['wide'], 'wide'),
+    (SPLIT_LAYOUTS['niw16'], 'niw16'), (((), ((1, 5),), ()), 'wide_d16'),
+    (SPLIT_LAYOUTS['niw8x2_nich_bb'], 'wide_d16')],
+    ids=['bb', 'dd', 'table9', 'niw2mix', 'tables3', 'wide', 'niw16',
+         'niw5', 'niw8x2_nich_bb'])
 def test_k2_counts_launches_by_shape(dev, layout, shape):
     """K2 counts its eager launches by the split shape it takes ('cdf':
     the sequential walk), beside its count of all launches."""
@@ -1081,6 +1093,35 @@ def test_k2_counts_launches_by_shape(dev, layout, shape):
     want['sequential'] = want.get('sequential', 0) + 1
     assert counts == want
     assert fk.fused_mixed_score_sample_stats.launches == before + 3
+
+
+@pytest.mark.parametrize('layout', ['niw16', 'niw8x2_nich_bb'])
+def test_k2_niw_wide_gumbel_draws_the_law(dev, layout):
+    """'gumbel' on niw columns past d = 4 (the niw16 shape, the wide shape
+    of d <= 16) draws from the softmax of the twin's scores."""
+    B, C = 16384, 96
+    args, kwargs = _rand_layout(dev, B, C, *SPLIT_LAYOUTS[layout], seed=4)
+    a = fk.fused_mixed_score_sample_stats(5, *args, sampling='gumbel',
+                                          **kwargs)
+    assert torch.equal(a[0], fk.fused_mixed_score_sample_stats(
+        5, *args, sampling='gumbel', **kwargs)[0])
+    assert testing.softmax_ztest(a[0], _scores(args, kwargs)) < 5.0
+
+
+@pytest.mark.parametrize('quads', [((1, 17),), ((2, 9),), ((1, 4), (1, 13))],
+                         ids=str)
+def test_k2_and_k3_refuse_layouts_past_the_caps(dev, quads):
+    """A niw column of d > 16 or more than 16 niw values in all: K2 in
+    every walk and K3 raise ValueError before any launch."""
+    args, kwargs = _rand_layout(dev, 64, 32, (), quads, ())
+    before = fk.fused_mixed_score_sample_stats.launches
+    for sampling in ('gumbel', 'argmax', 'cdf'):
+        with pytest.raises(ValueError):
+            fk.fused_mixed_score_sample_stats(1, *args, sampling=sampling,
+                                              **kwargs)
+    with pytest.raises(ValueError):
+        fk.fused_score_sample_pair(1, *args, sampling='gumbel', **kwargs)
+    assert fk.fused_mixed_score_sample_stats.launches == before
 
 
 # -- the split walk of K4 and K5 (its v1 form): edge geometry -----------------
@@ -1386,7 +1427,8 @@ def _graph_problem(dev, kind, R=4096, C=128):
             torch.from_numpy(p['labels']).to(dev))
 
 
-@pytest.mark.parametrize('kind', ['nich2', 'niw2mix', 'niw4', 'bbddgp'])
+@pytest.mark.parametrize('kind', ['nich2', 'niw2mix', 'niw4', 'bbddgp',
+                                  'niw16'])
 @pytest.mark.parametrize('sampling', ['gumbel', 'argmax', 'cdf'])
 def test_graph_sweeps_equal_eager(dev, kind, sampling):
     """sweep_blocked_pallas_fused_mixed(n_sweeps=3, with_score=True)
@@ -1739,8 +1781,10 @@ def test_graph_plain_mesh_and_v1_sweeps_stay_eager(dev):
         sharding.sharded_sweep_components(spec, py, sh, st, tv, an, gen,
                                           sharding.make_component_mesh(2),
                                           512)
-    assert all(v == 0 for k, v in gibbs.GRAPH_STATS.items() if k != 'spans')
+    assert all(v == 0 for k, v in gibbs.GRAPH_STATS.items()
+               if k not in ('spans', 'stat_plan'))
     assert not gibbs.GRAPH_STATS['spans']
+    assert not gibbs.GRAPH_STATS['stat_plan']
     assert gibbs._GRAPH['graph'] is None and gibbs._GRAPH['seen'] is None
     assert gibbs._graph_refusal(dev, 'gumbel', 'plain') \
         == gibbs._EAGER_SWEEPS['plain']
@@ -2047,6 +2091,50 @@ def test_stat_stage_plans_and_shared_memory_opt_in(dev):
     torch.testing.assert_close(bk.stat_sums(v, a, 8192),
                                bk.stat_sums_plain(v, a, 8192),
                                rtol=SUM_RTOL, atol=SUM_ATOL)
+
+
+def test_stat_stage_niw16(dev):
+    """niw16's 153 float features a row fit the stat stage's plan: at the
+    cell's tile (131,072 rows, 1024 slots) one warp a block in chunks of
+    256 slots, and 65,536 rows at 8192 slots; against the twin, and a
+    graph replay bitwise."""
+    p = fk.stat_plan('fused_v3', 131072, 1024, (), ((1, 16),), ())
+    assert (p['warps'], p['chunk_slots']) == (1, 256)
+    for B, C, kind in ((131072, 1024, 'pitman_yor'), (65536, 8192,
+                                                      'uniform')):
+        args, kwargs = _rand_layout(dev, B, C, (), ((1, 16),), (), seed=C)
+        a = _stat_slots(dev, kind, B, C)
+        call = (None, kwargs['qvalues'], None, a, C, (), ((1, 16),), ())
+        _stage_holds(lambda: bk.mixed_stat_sums(*call),
+                     lambda: bk.mixed_stat_sums_plain(*call), exact=(1,))
+
+
+def test_niw16_run_marks_its_coefficients(dev):
+    """run_gibbs on one niw column of d = 16: every launch takes the niw16
+    shape, the sweep graph holds the clock's two niw marks beside its
+    nine, the capture records the stat stage's plan, and the step
+    rows time the niw coefficients inside the tiles' inputs."""
+    from distributions_tpu_torch.inference import runner
+    p = testing.mixed_problem(8192, 256, seed=3, kind='niw16',
+                              n_clusters=40)
+    spec, py, sh = testing.build_problem(p, MODULES, mx.make_spec,
+                                         cl.PitmanYor.from_dict, device=dev)
+    tv = tuple(torch.from_numpy(v).to(dev) for v in p['values'])
+    counts = fk.fused_mixed_score_sample_stats.shape_launches
+    before = dict(counts)
+    _reset_graph_stats()
+    _, _, log = runner.run_gibbs(
+        spec, py, sh, tv, torch.Generator().manual_seed(2), 6, block=1024,
+        use_pallas=True, grow_headroom=0.0, sampling='gumbel',
+        sweeps_per_step=2, initial_assignments=torch.from_numpy(
+            p['labels']).to(dev), device=dev)
+    assert set(counts) - set(before) <= {'niw16'}
+    assert counts['niw16'] > before.get('niw16', 0)
+    assert all(counts[k] == before[k] for k in before if k != 'niw16')
+    plan = gibbs.GRAPH_STATS['stat_plan']
+    assert plan['warps'] >= 1 and plan['chunks'] * plan['chunk_slots'] >= 256
+    rows = [r['tile_ms'] for r in log.rows if 'tile_ms' in r]
+    assert rows and all(0 < t['niw_coeffs'] <= t['inputs'] for t in rows)
 
 
 @pytest.mark.parametrize('sampling', ['gumbel', 'argmax', 'cdf'])

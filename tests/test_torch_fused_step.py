@@ -188,7 +188,8 @@ def test_twins_take_the_seed_tensor(kernel, sampling):
 
 @pytest.mark.parametrize('kind,prior', [('nich2', 'py'), ('niw2mix', 'py'),
                                         ('bbddgp', 'py'), ('dpd_nich', 'py'),
-                                        ('nich2', 'le'), ('niw2mix', 'le')])
+                                        ('nich2', 'le'), ('niw2mix', 'le'),
+                                        ('niw5', 'py'), ('niw16', 'py')])
 def test_static_sweep_reads_nothing_back(kind, prior, monkeypatch):
     """`_fused_sweep_into` and the step's score_data, run a second time
     (the first is the capture's warm-up), run no op outside the kernel

@@ -46,6 +46,24 @@ def test_split_shapes_match_the_source():
         assert 'case SHAPE_%s:' % name.upper() in src
 
 
+def test_k2_caps_match_the_source():
+    """fused_kernels' caps of K2's and K3's layouts are fused_v3.cu's
+    MAX_* defines, and the split walk's niw dimension fused_split.cuh's."""
+    with open(os.path.join(fk._CSRC, 'fused_v3.cu')) as f:
+        defines = dict(re.findall(r'^#define (MAX_\w+) (\d+)\b', f.read(),
+                                  re.M))
+    assert {name: int(v) for name, v in defines.items()} == {
+        'MAX_GROUPS': fk.MAX_GROUPS, 'MAX_COLS': fk.MAX_COLS,
+        'MAX_QVALS': fk.MAX_QVALS, 'MAX_D': fk.MAX_D,
+        'MAX_TABLE_COLS': fk.MAX_TABLE_COLS}
+    with open(os.path.join(fk._CSRC, 'fused_split.cuh')) as f:
+        split = dict(re.findall(r'^#define (SPLIT_MAX_\w+) (\d+)\b',
+                                f.read(), re.M))
+    assert int(split['SPLIT_MAX_D']) == fk.MAX_D
+    assert int(split['SPLIT_MAX_QUAD']) == fk.MAX_QVALS
+    assert int(split['SPLIT_MAX_NICH']) == fk.MAX_COLS
+
+
 def test_v1_caps_match_the_source():
     """K4 and K5 take the wrappers' caps of nich and table columns, and
     launch only the split walk."""
